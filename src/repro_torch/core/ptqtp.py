@@ -1,0 +1,171 @@
+"""PTQTP: progressive trit-plane approximation with adaptive ridge regression.
+
+The quantizer of the reference package (paper Sec. 3, Alg. 1/2) in plain
+PyTorch, running on whatever device holds the weight:
+
+    W ≈ Ŵ = diag(α¹)·T¹ + diag(α²)·T²,  Tᵏ ∈ {-1,0,1},  α ∈ R²  per group-row.
+
+Semantics kept from the reference: sign init (0 → +1), α = 1 and λ = λ₀ at
+start; each iteration refits α by the 2×2 ridge solve with the
+condition-number-driven λ growth, then re-picks every trit pair by the
+9-candidate search (first candidate in ``CANDIDATES`` order wins ties, a
+strict ``<``); the loop stops per matrix when ``max_i ||Δα_i|| < eps`` or
+after ``t_max`` iterations, and ends with a final α refit.
+
+The search is 9 compare-selects over preallocated planes, walked in row
+chunks so that a 151936×1536 ``lm_head`` needs a few of its own sizes of
+scratch, never an (R, G, 9) error tensor.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+__all__ = ["CANDIDATES", "PTQTPConfig", "QuantizedTensor", "ptqtp_quantize",
+           "ptqtp_dequantize"]
+
+# The 9 ternary candidate pairs (c1, c2) of Eq. 5, in the reference order.
+CANDIDATES = ((0, 0), (0, 1), (0, -1), (1, 0), (-1, 0),
+              (1, 1), (-1, -1), (1, -1), (-1, 1))
+
+# Group-rows per search chunk: 2^20 rows of G = 128 is 512 MiB of f32.
+_CHUNK_ELEMS = 1 << 27
+
+
+@dataclasses.dataclass(frozen=True)
+class PTQTPConfig:
+    """Hyper-parameters of the PTQTP quantizer (paper Sec. 4.1 defaults)."""
+
+    group_size: int = 128
+    t_max: int = 50
+    eps: float = 1e-4
+    lambda_init: float = 1e-8
+    lambda_max: float = 1.0
+    cond_bound: float = 1e12
+
+    def __post_init__(self):
+        if self.group_size < 2 or self.t_max < 1:
+            raise ValueError("group_size must be >= 2 and t_max >= 1")
+
+
+@dataclasses.dataclass
+class QuantizedTensor:
+    """t1, t2: int8 planes (n, d); alpha: f32 (n, d // G, 2); iters: int."""
+
+    t1: torch.Tensor
+    t2: torch.Tensor
+    alpha: torch.Tensor
+    group_size: int
+    iters: int
+
+
+def _ridge_sums(t1, t2, w):
+    """The five per-row sums of the 2×2 normal equations."""
+    return ((t1 * t1).sum(-1), (t1 * t2).sum(-1), (t2 * t2).sum(-1),
+            (t1 * w).sum(-1), (t2 * w).sum(-1))
+
+
+def _ridge_solve(sums, lam):
+    """Closed-form 2×2 ridge solve per group-row (Eq. 1/6 + adjugate Eq. 7).
+
+    Returns alpha (R, 2) and kappa (R,), κ = ||A||_F² / |det A| (Eq. 2).
+    """
+    s11, s12, s22, b1, b2 = sums
+    a11 = s11 + lam
+    a22 = s22 + lam
+    det = a11 * a22 - s12 * s12
+    fro2 = a11 * a11 + a22 * a22 + 2.0 * s12 * s12
+    kappa = fro2 / torch.clamp(det.abs(), min=1e-30)
+    inv_det = 1.0 / torch.where(det.abs() < 1e-30,
+                                torch.full_like(det, 1e-30), det)
+    alpha1 = (a22 * b1 - s12 * b2) * inv_det
+    alpha2 = (-s12 * b1 + a11 * b2) * inv_det
+    return torch.stack([alpha1, alpha2], dim=-1), kappa
+
+
+def _trit_search(w, alpha, t1, t2):
+    """Per-element search over the 9 pairs, written into ``t1``/``t2``.
+
+    w (R, G) f32; alpha (R, 2) f32; t1, t2 (R, G) f32 outputs. Candidate
+    values are α¹·c¹ + α²·c² (exact products, one rounding), errors are
+    (w − v)², and a candidate replaces the best so far only if strictly
+    smaller, so the first in ``CANDIDATES`` order wins ties.
+    """
+    rows = max(1, _CHUNK_ELEMS // max(w.shape[1], 1))
+    for r0 in range(0, w.shape[0], rows):
+        wc = w[r0:r0 + rows]
+        a1 = alpha[r0:r0 + rows, 0:1]
+        a2 = alpha[r0:r0 + rows, 1:2]
+        o1 = t1[r0:r0 + rows]
+        o2 = t2[r0:r0 + rows]
+        best = wc * wc                                   # candidate (0, 0)
+        o1.zero_()
+        o2.zero_()
+        for c1, c2 in CANDIDATES[1:]:
+            diff = wc - (a1 * c1 + a2 * c2)
+            err = diff * diff
+            better = err < best
+            best = torch.where(better, err, best)
+            o1.masked_fill_(better, float(c1))
+            o2.masked_fill_(better, float(c2))
+
+
+def _quantize_grouped(wg: torch.Tensor, cfg: PTQTPConfig):
+    """Alg. 1/2 on group-rows wg (R, G) of one matrix.
+
+    Returns (t1, t2, alpha, iters)."""
+    wg = wg.to(torch.float32)
+    R = wg.shape[0]
+    t1 = torch.where(wg >= 0.0, 1.0, -1.0)
+    t2 = t1.clone()
+    alpha = torch.ones((R, 2), dtype=torch.float32, device=wg.device)
+    lam = torch.full((R,), cfg.lambda_init, dtype=torch.float32,
+                     device=wg.device)
+    iters = 0
+    while iters < cfg.t_max:
+        sums = _ridge_sums(t1, t2, wg)
+        _, kappa = _ridge_solve(sums, lam)
+        lam = torch.where(
+            kappa >= cfg.cond_bound,
+            torch.clamp(lam * torch.sqrt(kappa / cfg.cond_bound),
+                        max=cfg.lambda_max),
+            lam)
+        alpha_new, _ = _ridge_solve(sums, lam)
+        _trit_search(wg, alpha_new, t1, t2)
+        delta = torch.sqrt(((alpha_new - alpha) ** 2).sum(-1)).max()
+        alpha = alpha_new
+        iters += 1
+        if bool(delta < cfg.eps):
+            break
+    alpha, _ = _ridge_solve(_ridge_sums(t1, t2, wg), lam)
+    return t1.to(torch.int8), t2.to(torch.int8), alpha, iters
+
+
+def ptqtp_quantize(w: torch.Tensor,
+                   cfg: Optional[PTQTPConfig] = None) -> QuantizedTensor:
+    """Quantize a 2-D weight (n, d) to two trit-planes + group scales."""
+    cfg = cfg or PTQTPConfig()
+    if w.dim() != 2:
+        raise ValueError(f"ptqtp_quantize expects a 2-D matrix, got "
+                         f"{tuple(w.shape)}")
+    n, d = w.shape
+    g = cfg.group_size
+    if d % g:
+        raise ValueError(f"last dim {d} not divisible by group size {g}")
+    t1, t2, alpha, iters = _quantize_grouped(w.reshape(n * (d // g), g), cfg)
+    return QuantizedTensor(t1.reshape(n, d), t2.reshape(n, d),
+                           alpha.reshape(n, d // g, 2), g, iters)
+
+
+def ptqtp_dequantize(q: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
+    """Ŵ = diag(α¹)T¹ + diag(α²)T² with group-wise α."""
+    n, d = q.t1.shape
+    g = q.group_size
+    t1 = q.t1.reshape(n, d // g, g).to(torch.float32)
+    t2 = q.t2.reshape(n, d // g, g).to(torch.float32)
+    a = q.alpha.to(torch.float32)
+    return (t1 * a[..., 0:1] + t2 * a[..., 1:2]).reshape(n, d).to(dtype)
+

@@ -1,0 +1,4 @@
+from repro_torch.kernels.chunk_attention.ops import (chunk_attention,
+                                                     chunk_attention_cuda)
+
+__all__ = ["chunk_attention", "chunk_attention_cuda"]

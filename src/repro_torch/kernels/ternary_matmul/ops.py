@@ -1,0 +1,123 @@
+"""Public wrapper of the PTQTP ternary matmul: y = x @ Ŵᵀ.
+
+On a CUDA tensor it launches one of the two hand-written Hopper kernels of
+``csrc/ternary_matmul.cu``, split at ``SMALL_M_THRESHOLD`` as the reference
+splits its Pallas kernels:
+
+  * m < 128  -> ``ternary_matvec`` (decode: every linear layer of a step);
+  * m >= 128 -> ``ternary_matmul_tiled`` (prefill chunks).
+
+Both give bit-identical rows for the same x rows (see the source note), so
+where a row lands never changes its result. On a CPU tensor the wrapper
+runs the plain grouped formula of ``ref.py``; it never falls back from a
+CUDA tensor to it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ternary_matmul import ref as _ref
+
+SMALL_M_THRESHOLD = 128
+MATVEC_GROUP_SIZES = (32, 64, 128)
+
+_SOURCE = Path(__file__).parent / "csrc" / "ternary_matmul.cu"
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIG = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_SIGNATURES = {"ternary_matvec_launch": _SIG, "ternary_matmul_launch": _SIG}
+
+
+def _check(x, t1p, t2p, alpha, group_size):
+    if x.dim() != 2:
+        raise ValueError(f"x must be (m, d), got {tuple(x.shape)}")
+    m, d = x.shape
+    n = t1p.shape[0]
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    for name, t in (("t1p", t1p), ("t2p", t2p)):
+        if t.dtype != torch.uint8 or tuple(t.shape) != (n, d // 4):
+            raise ValueError(f"{name} must be uint8 ({n}, {d // 4}), got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if alpha.dtype != torch.float32 or tuple(alpha.shape) != (
+            n, d // group_size, 2):
+        raise ValueError(f"alpha must be float32 ({n}, {d // group_size}, 2)")
+    if d % group_size or d % 64:
+        raise ValueError(f"d={d} must be a multiple of the group size "
+                         f"{group_size} and of 64")
+    # the kernels read x and the planes in 16-byte vectors and α as float2
+    for name, t, align in (("x", x, 16), ("t1p", t1p, 16), ("t2p", t2p, 16),
+                           ("alpha", alpha, 8)):
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned")
+    return m, n, d
+
+
+def _launch(fn_name, counter, x, t1p, t2p, alpha, group_size, out_dtype):
+    m, n, d = _check(x, t1p, t2p, alpha, group_size)
+    if out_dtype not in (torch.float32, x.dtype):
+        raise TypeError(f"out_dtype must be float32 or x's dtype {x.dtype}, "
+                        f"got {out_dtype}")
+    y = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0 or n == 0:
+        return y
+    lib = _build.load(_SOURCE, _SIGNATURES)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    status = getattr(lib, fn_name)(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), t1p.data_ptr(),
+        t2p.data_ptr(), alpha.data_ptr(), y.data_ptr(),
+        int(out_dtype == torch.bfloat16), m, n, d, group_size, stream)
+    _build.check(status, fn_name)
+    _build.LAUNCHES[counter] += 1
+    return y
+
+
+def ternary_matvec(x, t1p, t2p, alpha, group_size: int = 128,
+                   out_dtype=torch.float32):
+    """Decode kernel (replaces ``ternary_matvec_pallas``): x (m, d) on the
+    card, any m (meant for m < 128). Returns (m, n) in ``out_dtype``: f32,
+    or x's dtype (the f32 result rounded as ``.to`` would round it)."""
+    if group_size not in MATVEC_GROUP_SIZES:
+        raise ValueError(f"group size {group_size} not in {MATVEC_GROUP_SIZES}")
+    return _launch("ternary_matvec_launch", "ternary_matvec", x, t1p, t2p,
+                   alpha, group_size, out_dtype)
+
+
+def ternary_matmul_tiled(x, t1p, t2p, alpha, group_size: int = 128,
+                         out_dtype=torch.float32):
+    """Prefill kernel (replaces ``ternary_matmul_pallas``): x (m, d) on the
+    card, any m (meant for m >= 128). Returns (m, n) in ``out_dtype`` (f32
+    or x's dtype)."""
+    if group_size % 32:
+        raise ValueError(f"group size {group_size} must be a multiple of 32")
+    return _launch("ternary_matmul_launch", "ternary_matmul", x, t1p, t2p,
+                   alpha, group_size, out_dtype)
+
+
+def ternary_matmul(x, t1p, t2p, alpha, *, group_size: int = 128,
+                   out_dtype=None):
+    """y = x @ Ŵᵀ. x (..., d); packed planes (n, d//4) uint8; alpha
+    (n, d//G, 2) f32. Returns (..., n) in ``out_dtype`` (f32 if None)."""
+    out_dtype = out_dtype or torch.float32
+    if x.device.type == "cpu":
+        y = _ref.ternary_matmul_grouped(x, t1p, t2p, alpha, group_size)
+        return y.to(out_dtype)
+    *lead, d = x.shape
+    x2 = x.reshape(-1, d).contiguous()
+    kern = (ternary_matvec if x2.shape[0] < SMALL_M_THRESHOLD
+            else ternary_matmul_tiled)
+    # the kernels write f32 or x's own dtype; any other goes through f32
+    direct = out_dtype in (torch.float32, x.dtype)
+    y = kern(x2, t1p, t2p, alpha, group_size,
+             out_dtype if direct else torch.float32)
+    y = y.reshape(*lead, t1p.shape[0])
+    return y if direct else y.to(out_dtype)

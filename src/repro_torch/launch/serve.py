@@ -1,0 +1,112 @@
+"""Serving launcher: init weights, PTQTP-quantize every linear layer, then
+serve a batch of requests through the v1 request API.
+
+``python -m repro_torch.launch.serve --device cuda``
+``python -m repro_torch.launch.serve --device cpu --requests 2 --max-new 4``
+
+The batch path of ``repro.launch.serve`` with the same defaults: the smoke
+configuration of ``--arch``, group size min(128, d_model), ``--t-max``
+iterations, one request per built-in prompt, each seeded ``seed + i``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch import configs
+from repro_torch.core.ptqtp import PTQTPConfig
+from repro_torch.core.quantize_model import quantize_tree
+from repro_torch.data.tokenizer import ByteTokenizer
+from repro_torch.device import resolve_device
+from repro_torch.models import init_params
+from repro_torch.serving import EngineConfig, SamplingParams, ServingEngine
+
+PROMPTS = [
+    "the model computes two trit planes",
+    "count 5 6 7",
+    "slot 42 holds 7 ;",
+    "12 plus 30 equals",
+]
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", choices=configs.ARCH_IDS, default="qwen2-1.5b")
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="per-request sampling temperature (0 = greedy)")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--capacity", type=int, default=128)
+    ap.add_argument("--prefill-chunk", type=int, default=32,
+                    help="prompt tokens consumed per slot per engine step")
+    ap.add_argument("--no-quantize", action="store_true",
+                    help="serve FP weights (baseline)")
+    ap.add_argument("--t-max", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="weight-init seed; request i samples from its own "
+                         "stream seeded seed+i")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (cuda, or cpu for the "
+                         "plain PyTorch versions of the kernels)")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = configs.get_smoke_config(args.arch)
+    t_boot = time.time()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    model = init_params(cfg, gen, device=dev)
+    if not args.no_quantize:
+        t0 = time.time()
+        gs = min(128, cfg.d_model)
+        model, report = quantize_tree(
+            model, PTQTPConfig(group_size=gs, t_max=args.t_max))
+        _sync(dev)
+        tot = report["__total__"]
+        print(f"[serve] PTQTP: {tot['n_quantized']} kernels, "
+              f"{tot['compression']:.2f}x compression, "
+              f"{time.time() - t0:.1f}s")
+
+    tok = ByteTokenizer()
+    engine = ServingEngine(model, cfg, EngineConfig(
+        max_slots=args.slots, capacity=args.capacity,
+        prefill_chunk=args.prefill_chunk))
+    print(f"[serve] boot {time.time() - t_boot:.2f}s on {dev}", flush=True)
+
+    handles = []
+    for i in range(args.requests):
+        prompt = tok.encode(PROMPTS[i % len(PROMPTS)], eos=False)
+        h = engine.submit(prompt, SamplingParams(
+            max_new_tokens=args.max_new, temperature=args.temperature,
+            seed=args.seed + i))
+        if h.truncated:
+            print(f"[serve] WARNING: request {h.uid} prompt ({len(prompt)} "
+                  f"tokens) exceeds --capacity {args.capacity}; only the "
+                  f"last {args.capacity} tokens will be served")
+        handles.append(h)
+
+    t0 = time.time()
+    engine.run()
+    _sync(dev)
+    dt = time.time() - t0
+    results = [h.result() for h in handles]
+    n_tok = sum(len(r.tokens) for r in results)
+    print(f"[serve] {len(results)} requests, {n_tok} tokens in {dt:.2f}s "
+          f"({n_tok / max(dt, 1e-9):.1f} tok/s, {engine.steps} decode steps, "
+          f"{engine.prefill_steps} prefill steps)")
+    for r in sorted(results, key=lambda r: r.uid)[:4]:
+        print(f"  [{r.uid}] ({r.finish_reason}, ttft {1e3 * r.ttft:.1f}ms) -> "
+              f"{tok.decode(list(r.tokens))!r}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

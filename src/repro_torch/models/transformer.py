@@ -1,0 +1,173 @@
+"""Decoder LM of ``attn+mlp`` blocks (dense GQA: llama/qwen-style).
+
+The reference stacks layers for ``lax.scan``; here they are a
+``ModuleList`` and a Python loop. Other block kinds raise
+``NotImplementedError``.
+
+Model API:
+  init_params(cfg, generator=None, device="cuda")  -> Transformer
+  forward(model, cfg, tokens)                      -> logits (B, S, V)
+  init_decode_state(cfg, batch, capacity, device)  -> state
+  prefill_chunk(model, cfg, state, tokens, lengths) -> (logits (B, V), state)
+  decode_step(model, cfg, state, tokens, active)   -> (logits (B, V), state)
+
+The serving functions update ``state`` in place and return it.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.device import dtype_of, resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.common import Dense, RMSNorm, rope_tables
+from repro_torch.models.mlp import MLP
+
+SUPPORTED_KINDS = ("attn+mlp",)
+
+
+def _check_kinds(cfg) -> None:
+    for kind in cfg.layer_kinds:
+        if kind not in SUPPORTED_KINDS:
+            raise NotImplementedError(
+                f"block kind {kind!r} ({cfg.name}) is not ported yet; the "
+                f"port runs {SUPPORTED_KINDS}")
+
+
+def _window(kind: str, cfg) -> Optional[int]:
+    return cfg.window if kind.startswith("local") else None
+
+
+class Block(nn.Module):
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        self.attn_norm = RMSNorm(d, dtype=dtype, device=device)
+        self.attn = attn_mod.Attention(cfg, dtype=dtype, device=device)
+        self.mlp_norm = RMSNorm(d, dtype=dtype, device=device)
+        self.mlp = MLP(d, cfg.d_ff, cfg.mlp_type, dtype=dtype, device=device)
+
+
+class Transformer(nn.Module):
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        _check_kinds(cfg)
+        self.embed = nn.Parameter(
+            torch.empty((cfg.vocab_size, cfg.d_model), dtype=dtype,
+                        device=device), requires_grad=False)
+        self.layers = nn.ModuleList(
+            Block(cfg, dtype=dtype, device=device)
+            for _ in range(cfg.n_layers))
+        self.final_norm = RMSNorm(cfg.d_model, dtype=dtype, device=device)
+        self.lm_head = Dense(cfg.d_model, cfg.vocab_size, dtype=dtype,
+                             device=device)
+
+
+@torch.no_grad()
+def init_params(cfg, generator: Optional[torch.Generator] = None,
+                device="cuda") -> Transformer:
+    """Random init from ``generator`` (seeded by the caller), directly on
+    ``device``: embedding N(0, 0.02²), dense weights N(0, 1/d_in), biases 0,
+    norm scales 1 — the reference's initializer, not its random bits."""
+    dev = resolve_device(device)
+    dtype = dtype_of(cfg.param_dtype)
+    model = Transformer(cfg, dtype=dtype, device=dev)
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=generator, device=dev,
+                            dtype=torch.float32) * std).to(dtype)
+
+    model.embed.copy_(normal(model.embed.shape, 0.02))
+    for module in model.modules():
+        if isinstance(module, Dense):
+            module.weight.copy_(normal(module.weight.shape,
+                                       1.0 / module.d_in ** 0.5))
+    return model
+
+
+def _embed(model: Transformer, cfg, tokens):
+    return model.embed[tokens.long()].to(dtype_of(cfg.activation_dtype))
+
+
+def _mlp_residual(block: Block, cfg, x):
+    return x + block.mlp(block.mlp_norm(x, cfg.norm_eps))
+
+
+@torch.no_grad()
+def forward(model: Transformer, cfg, tokens) -> torch.Tensor:
+    """Full-sequence forward. tokens (B, S) -> logits (B, S, V)."""
+    x = _embed(model, cfg, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    rope = rope_tables(positions[None, :], cfg.head_dim, cfg.rope_theta)
+    for kind, block in zip(cfg.layer_kinds, model.layers):
+        x = x + attn_mod.attention_forward(
+            block.attn, cfg, block.attn_norm(x, cfg.norm_eps), positions,
+            rope, window=_window(kind, cfg))
+        x = _mlp_residual(block, cfg, x)
+    return model.lm_head(model.final_norm(x, cfg.norm_eps))
+
+
+def init_decode_state(cfg, batch: int, capacity: int,
+                      device="cuda") -> Dict[str, Any]:
+    """Zeroed decode state: per-row positions and one ring per layer."""
+    _check_kinds(cfg)
+    dev = resolve_device(device)
+    adt = dtype_of(cfg.activation_dtype)
+    return {
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+        "layers": [attn_mod.cache_init(cfg, batch, capacity, _window(k, cfg),
+                                       adt, dev)
+                   for k in cfg.layer_kinds],
+    }
+
+
+@torch.no_grad()
+def prefill_chunk(model: Transformer, cfg, state, tokens, lengths
+                  ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Padded-batch / chunked prefill.
+
+    tokens (B, L) right-padded; lengths (B,) int32 — row r consumes
+    positions ``state['pos'][r] .. + lengths[r] - 1`` (0 = no-op row).
+    Returns (logits at each row's last valid token (B, V), state)."""
+    x = _embed(model, cfg, tokens)
+    b, L, _ = x.shape
+    lengths = lengths.to(torch.int32)
+    pos0 = state["pos"]
+    positions = (pos0[:, None]
+                 + torch.arange(L, dtype=torch.int32, device=x.device)[None])
+    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    for kind, block, cache in zip(cfg.layer_kinds, model.layers,
+                                  state["layers"]):
+        y, _ = attn_mod.attention_prefill_chunk(
+            block.attn, cfg, cache, block.attn_norm(x, cfg.norm_eps),
+            positions, lengths, rope, window=_window(kind, cfg))
+        x = _mlp_residual(block, cfg, x + y)
+    x = model.final_norm(x, cfg.norm_eps)
+    idx = torch.clamp(lengths - 1, min=0).long()
+    x_last = x[torch.arange(b, device=x.device), idx]
+    state["pos"] = pos0 + lengths
+    return model.lm_head(x_last), state
+
+
+@torch.no_grad()
+def decode_step(model: Transformer, cfg, state, tokens,
+                active: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decode step. tokens (B,) int; rows with active=False are frozen:
+    their position and cache pass through unchanged."""
+    x = _embed(model, cfg, tokens)
+    pos = state["pos"]
+    rope = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+    for kind, block, cache in zip(cfg.layer_kinds, model.layers,
+                                  state["layers"]):
+        y, _ = attn_mod.attention_decode(
+            block.attn, cfg, cache, block.attn_norm(x, cfg.norm_eps), pos,
+            rope, window=_window(kind, cfg), active=active)
+        x = _mlp_residual(block, cfg, x + y)
+    x = model.final_norm(x, cfg.norm_eps)
+    step = active.to(torch.int32) if active is not None else 1
+    state["pos"] = pos + step
+    return model.lm_head(x), state
