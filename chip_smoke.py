@@ -15,8 +15,10 @@ Run from the root of a checkout. Phases (any failure exits non-zero):
      generator, PTQTP-quantized on the card (G = 128, t_max = 20), served by
      ``ServingEngine`` (8 slots, capacity 1024, prefill chunk 64, decode
      chunk 8): 8 greedy requests with 64-600 prompt tokens and 32 new tokens
-     each. Every request must finish, every kernel must have launched, and a
-     request served alone must give the same tokens as in the fleet;
+     each. Every request must finish, every kernel must have launched, and
+     two requests served alone must give the same tokens as in the fleet:
+     the longest, and one whose prompt ends in a one-token prefill bucket
+     alone but in a wider bucket in the fleet;
   4. time each kernel at the main path's shapes beside its plain version,
      one PyTorch library call computing the same function, and its bound.
 
@@ -37,14 +39,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data-sheet peaks (dense): HBM bytes/s and bf16 tensor-core FLOP/s
+# H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s
+# and f32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 
 # stated tolerances of kernel vs plain version (both sum in f32, in another
-# order): ternary matmul relative to the output's scale, attention absolute
+# order): ternary matmul relative to the output's scale, attention absolute;
+# RMSNorm elementwise relative, f32 outputs, and one bf16 step (2^-7 of the
+# value) where the f32 result sits on a bf16 rounding boundary
 MM_RTOL = 1e-4
 ATTN_TOL = 1e-4
+NORM_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 
 GROUP = 128
 SLOTS, CAPACITY, PREFILL_CHUNK, DECODE_CHUNK = 8, 1024, 64, 8
@@ -66,12 +73,12 @@ def device_ms(fn, reps: int) -> float:
     """Device milliseconds per call of ``fn``: the CUDA kernels' own time,
     summed by ``torch.profiler`` over ``reps`` calls after one warm-up call.
     A loop of small launches is bound by the host, so CUDA events around it
-    would time the host; the profiler times the kernels. If the profiler
-    records no device time, CUDA events around the loop are used."""
+    would time the host; the profiler times the kernels. Raises if the
+    profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.launch.profile_decode import device_us
+    from repro_torch.kernels._build import device_us
 
     fn()
     torch.cuda.synchronize()
@@ -81,16 +88,9 @@ def device_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
     us = sum(device_us(e) for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us > 0:
-        return us / 1e3 / reps
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    if not us > 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return us / 1e3 / reps
 
 
 # ----------------------------------------------------------------- shapes
@@ -116,9 +116,9 @@ def matmul_cost(n, d, m, group=GROUP):
     return nbytes, 2 * m * n * d
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, peak_flops=BF16_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -260,6 +260,51 @@ def check_attention(cfg, dev):
     return worst
 
 
+def check_rms_norm(cfg, dev):
+    """The norm kernel against its plain version at the main path's shapes
+    (8 rows of one token at decode, 8 x 64 at prefill), and its rows in an
+    (8, 1, d) call against the same rows inside an (8, 64, d) call: they
+    must be bit-identical. The plain version's differing elements there are
+    counted and logged (``torch.mean`` picks its order from the shape)."""
+    import torch
+
+    from repro_torch.kernels.rms_norm import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    d = cfg.d_model
+    scale = (1 + 0.1 * torch.randn((d,), generator=gen, device=dev)).to(
+        torch.bfloat16)
+    worst = 0.0
+    gaps = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((SLOTS, PREFILL_CHUNK, d), generator=gen,
+                        device=dev).to(dtype)
+        one = x[:, :1].contiguous()
+        for name, xs in (("decode", one), ("prefill", x)):
+            got = ops.rms_norm(scale, xs, cfg.norm_eps)
+            want = ref.rms_norm_plain(scale, xs, cfg.norm_eps)
+            torch.cuda.synchronize()
+            err = float(((got.float() - want.float()).abs()
+                         / want.float().abs().clamp_min(1e-30)).max())
+            tol = NORM_RTOL[str(dtype).split(".")[-1]]
+            if not err <= tol:
+                raise AssertionError(f"rms_norm {name} {dtype}: max relative "
+                                     f"err {err:.3e} > {tol}")
+            worst = max(worst, float((got.float() - want.float()).abs().max()))
+        if not torch.equal(ops.rms_norm(scale, one, cfg.norm_eps),
+                           ops.rms_norm(scale, x, cfg.norm_eps)[:, :1]):
+            raise AssertionError(f"rms_norm {dtype}: rows of an (8, 1, d) call "
+                                 "differ from the same rows in (8, 64, d)")
+        gaps[str(dtype)] = int((ref.rms_norm_plain(scale, one, cfg.norm_eps)
+                                != ref.rms_norm_plain(scale, x, cfg.norm_eps)
+                                [:, :1]).sum())
+    log(f"rms_norm == plain (max abs err {worst:.2e}; relative tolerances "
+        f"{NORM_RTOL}); kernel rows bit-identical across (8, 1, d) and "
+        f"(8, 64, d) calls; the plain version's rows differ there in "
+        f"{gaps} of {SLOTS * d} elements")
+    return worst
+
+
 # ------------------------------------------------------- phase 3: main path
 def build_model(cfg, dev):
     import torch
@@ -281,28 +326,54 @@ def build_model(cfg, dev):
 
 
 def make_prompts(cfg):
+    """Prompts of 64-600 random token ids; the first has 2·64 + 1 tokens, so
+    its last prefill chunk holds one token (bucket 1 when served alone)."""
     import numpy as np
 
     rng = np.random.default_rng(SEED)
     lens = rng.integers(64, 601, N_REQUESTS)
+    lens[0] = 2 * PREFILL_CHUNK + 1
     return [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
+
+
+def final_buckets(lens):
+    """The prefill bucket (padded chunk length) in which each prompt's last
+    chunk runs, when all are admitted at once: every dispatch advances each
+    mid-prompt row by min(rest, PREFILL_CHUNK) and pads to the next power of
+    two of the longest take (``ServingEngine._prefill_step``)."""
+    rest, out = list(lens), {}
+    while any(rest):
+        take = [min(r, PREFILL_CHUNK) for r in rest]
+        bucket = 1 << (max(take) - 1).bit_length()
+        for i, (r, t) in enumerate(zip(rest, take)):
+            if r and r == t:
+                out[i] = bucket
+        rest = [r - t for r, t in zip(rest, take)]
+    return out
 
 
 def serve(model, cfg, prompts):
     """Serve ``prompts`` greedily; returns (results, decode seconds, decode
-    tokens, engine)."""
+    tokens, kernel launches per decode step, engine). The launches per step
+    are those of the engine's own decode loops in this run, over its decode
+    steps."""
+    from repro_torch.kernels import launch_counts
     from repro_torch.serving import EngineConfig, SamplingParams, ServingEngine
 
     eng = ServingEngine(model, cfg, EngineConfig(
         max_slots=SLOTS, capacity=CAPACITY, prefill_chunk=PREFILL_CHUNK,
         decode_chunk=DECODE_CHUNK))
     decode_s = [0.0]
+    in_decode = dict.fromkeys(launch_counts(), 0)
     inner = eng._decode_loop
 
     def timed(n_steps):  # the loop ends in a host sync, so wall time is device time
+        before = launch_counts()
         t0 = time.perf_counter()
         out = inner(n_steps)
         decode_s[0] += time.perf_counter() - t0
+        for k, n in launch_counts().items():
+            in_decode[k] += n - before[k]
         return out
 
     eng._decode_loop = timed
@@ -310,7 +381,9 @@ def serve(model, cfg, prompts):
                for p in prompts]
     eng.run()
     results = [h.result() for h in handles]
-    return results, decode_s[0], eng.tokens_generated - len(prompts), eng
+    per_step = {k: n / eng.steps for k, n in in_decode.items()}
+    return (results, decode_s[0], eng.tokens_generated - len(prompts),
+            per_step, eng)
 
 
 def main_path(cfg, dev):
@@ -320,38 +393,36 @@ def main_path(cfg, dev):
     prompts = make_prompts(cfg)
     reset_launch_counts()
     t0 = time.perf_counter()
-    results, decode_s, decode_tok, eng = serve(model, cfg, prompts)
+    results, decode_s, decode_tok, per_step, eng = serve(model, cfg, prompts)
     wall = time.perf_counter() - t0
     counts = launch_counts()
     bad = [r.uid for r in results
            if r.finish_reason not in ("length", "stop") or not r.tokens]
     if bad:
         raise AssertionError(f"requests {bad} did not finish")
-    solo_i = max(range(len(prompts)), key=lambda i: len(prompts[i]))
-    solo, _, _, _ = serve(model, cfg, [prompts[solo_i]])
-    if solo[0].tokens != results[solo_i].tokens:
-        raise AssertionError(f"request {solo_i} alone gave {solo[0].tokens}, "
-                             f"in the fleet {results[solo_i].tokens}")
+    # the longest prompt, and the one whose last chunk runs in bucket 1 alone
+    # but in a wider bucket in the fleet (the case a shape-dependent norm
+    # reduction would break)
+    fleet_buckets = final_buckets([len(p) for p in prompts])
+    one = [i for i in range(len(prompts))
+           if final_buckets([len(prompts[i])])[0] == 1 < fleet_buckets[i]]
+    if not one:
+        raise AssertionError(f"no prompt ends in bucket 1 alone and a wider "
+                             f"bucket in the fleet ({fleet_buckets})")
+    longest = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+    for i in (longest, one[0]):
+        solo = serve(model, cfg, [prompts[i]])[0]
+        if solo[0].tokens != results[i].tokens:
+            raise AssertionError(f"request {i} alone gave {solo[0].tokens}, "
+                                 f"in the fleet {results[i].tokens}")
     ttft = sorted(r.ttft for r in results)
     return dict(model=model, report=report, quant_s=quant_s, counts=counts,
                 wall=wall, decode_s=decode_s, decode_tok=decode_tok,
                 ttft=ttft, engine=eng, prompts=prompts, results=results,
-                per_step=launches_per_decode_step(model, cfg, eng))
-
-
-def launches_per_decode_step(model, cfg, eng):
-    """Kernel launches of one ``decode_step`` of the full fleet."""
-    import torch
-
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models import decode_step
-
-    tok = torch.zeros((SLOTS,), dtype=torch.int32, device=eng.device)
-    active = torch.ones((SLOTS,), dtype=torch.bool, device=eng.device)
-    reset_launch_counts()
-    decode_step(model, cfg, eng.state, tok, active)
-    torch.cuda.synchronize()
-    return launch_counts()
+                per_step=per_step,
+                solo=dict(longest=(longest, len(prompts[longest])),
+                          bucket_1=(one[0], len(prompts[one[0]]),
+                                    fleet_buckets[one[0]])))
 
 
 # -------------------------------------------------------- phase 4: timings
@@ -463,6 +534,31 @@ def time_attention(cfg, dev, fill):
     return out
 
 
+def time_rms_norm(model, cfg, dev):
+    """Kernel, plain and library times of the norms of one decode step
+    (2 per layer and the final one, 8 rows of one token each, bf16), each
+    with its own layer's scale as on the main path."""
+    import torch
+
+    from repro_torch.kernels.rms_norm import ops, ref
+    from repro_torch.models.common import RMSNorm
+
+    norms = [m.scale for m in model.modules() if isinstance(m, RMSNorm)]
+    d, eps = cfg.d_model, cfg.norm_eps
+    x = torch.randn((SLOTS, 1, d), device=dev).to(torch.bfloat16)
+    lib = getattr(torch.nn.functional, "rms_norm", None)
+    nbytes = len(norms) * (2 * x.numel() * 2 + d * 2)
+    flops = len(norms) * 4 * x.numel()  # x² accumulated, two products
+    bound, by = bound_ms(nbytes, flops, F32_FLOPS)
+    return dict(
+        ms=device_ms(lambda: [ops.rms_norm(w, x, eps) for w in norms], 10),
+        plain_ms=device_ms(
+            lambda: [ref.rms_norm_plain(w, x, eps) for w in norms], 10),
+        library_ms=None if lib is None else device_ms(
+            lambda: [lib(x, (d,), w, eps) for w in norms], 10),
+        bound_ms=bound, bound_by=by, calls=len(norms))
+
+
 def _sdpa_operands(a, cap):
     """The same attention for ``scaled_dot_product_attention``: keys are the
     ring followed by the chunk, the visibility rule as a boolean mask."""
@@ -515,6 +611,7 @@ def main() -> int:
     cfg = configs.get_config("qwen2-1.5b")
     mm_err = check_ternary(cfg, dev)
     attn_err = check_attention(cfg, dev)
+    norm_err = check_rms_norm(cfg, dev)
 
     mp = main_path(cfg, dev)
     counts = mp["counts"]
@@ -533,20 +630,27 @@ def main() -> int:
         f"{mp['decode_s']:.3f}s = {mp['decode_tok'] / mp['decode_s']:.1f} tok/s "
         f"({decode_steps} decode steps, {mp['engine'].prefill_steps} prefill "
         f"dispatches)")
-    log(f"{gpu} | launches on the main path: {counts}; per decode step: "
-        f"{mp['per_step']}; solo == fleet tokens")
+    log(f"{gpu} | launches on the main path: {counts}; per decode step of "
+        f"its decode loops: {mp['per_step']}")
+    (li, ll), (oi, ol, ob) = mp["solo"]["longest"], mp["solo"]["bucket_1"]
+    log(f"solo == fleet tokens for request {li} (longest prompt, {ll} "
+        f"tokens) and request {oi} ({ol} tokens: last prefill chunk in "
+        f"bucket 1 alone, {ob} in the fleet)")
 
     fill = [len(p) + MAX_NEW // 2 for p in mp["prompts"]]
     model = mp.pop("model")
     mp.pop("engine")
     tern = time_ternary(model, cfg, dev)
+    norm = time_rms_norm(model, cfg, dev)
     del model
     torch.cuda.empty_cache()
     attn = time_attention(cfg, dev, fill)
     for name, t in list(tern.items()) + [("chunk_attention/" + k, v)
-                                         for k, v in attn.items()]:
+                                         for k, v in attn.items()] + [
+            ("rms_norm", norm)]:
+        lib_ms = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.3f}"
         log(f"{gpu} | {name}: kernel {t['ms']:.3f} ms, plain "
-            f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms, bound "
+            f"{t['plain_ms']:.3f} ms, library {lib_ms} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}) -> "
             f"{t['bound_ms'] / t['ms']:.1%} of bound")
         if "us_per_call" in t:
@@ -580,6 +684,17 @@ def main() -> int:
              max_abs_err=attn_err,
              work="28 attention reads of one decode step, L=1, bf16 ring",
              **{k: attn["decode"][k] for k in
+                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+        dict(name="rms_norm", route="cuda",
+             source="src/repro_torch/kernels/rms_norm/csrc/rms_norm.cu",
+             replaces="src/repro/models/common.py:78",
+             launches=counts["rms_norm"],
+             launches_per_decode_step=mp["per_step"]["rms_norm"],
+             max_abs_err=norm_err,
+             work=f"{norm['calls']} norms of one decode step, 8 rows "
+                  "of d=1536, bf16; "
+                  "replaces an XLA-fused function, not a Pallas kernel",
+             **{k: norm[k] for k in
                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
     ]
     log(f"total {time.perf_counter() - t_start:.1f}s")

@@ -15,7 +15,7 @@ here runs at import time, so the package imports on machines without
 
 Every wrapper counts the launches of its kernel in ``LAUNCHES`` (one per
 launch, nowhere else), so a run can show which kernels the path went
-through.
+through; ``device_us`` reads a kernel's device time from ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: kernel name -> launches since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {"ternary_matvec": 0, "ternary_matmul": 0,
-                            "chunk_attention": 0}
+                            "chunk_attention": 0, "rms_norm": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -48,6 +48,15 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def device_us(evt) -> float:
+    """Self device time (µs) of a ``torch.profiler`` ``key_averages()`` row,
+    across PyTorch versions."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
 
 
 def _nvcc() -> str:

@@ -1,12 +1,12 @@
 """Where a decode step's time goes on the card.
 
-    python -m repro_torch.launch.profile_decode [--steps 8] [--context 512]
+    python -m repro_torch.launch.profile_decode
 
-Builds the full-size configuration of ``--arch`` with random weights from
-``--seed``, PTQTP-quantizes it on the card (G = 128, t_max = 20), fills
-``--slots`` rows with ``--context`` random tokens through ``prefill_chunk``,
-then runs ``--steps`` decode steps of the whole fleet under
-``torch.profiler``. It prints, beside the card's name and power limit:
+Builds the full-size qwen2-1.5b with random weights from seed 0,
+PTQTP-quantizes it on the card (G = 128, t_max = 20), fills 8 rows with
+512 random tokens through ``prefill_chunk``, then runs 8 decode steps of
+the whole fleet under ``torch.profiler``. It prints, beside the card's name
+and power limit:
 
   * host milliseconds per step (synchronized wall clock, profiler off);
   * device-busy milliseconds per step (sum of kernel times; one stream, so
@@ -18,7 +18,6 @@ It needs a CUDA device; it does not fall back to the CPU.
 
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
 import time
@@ -30,48 +29,36 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch import configs
 from repro_torch.core.ptqtp import PTQTPConfig
 from repro_torch.core.quantize_model import quantize_tree
+from repro_torch.kernels._build import device_us
 from repro_torch.models import (decode_step, init_decode_state, init_params,
                                 prefill_chunk)
 
-
-def device_us(evt) -> float:
-    """Self device time of a profiler row, across PyTorch versions."""
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
+ARCH = "qwen2-1.5b"
+SLOTS, CONTEXT, STEPS, SEED = 8, 512, 8, 0
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", choices=configs.ARCH_IDS, default="qwen2-1.5b")
-    ap.add_argument("--slots", type=int, default=8)
-    ap.add_argument("--context", type=int, default=512)
-    ap.add_argument("--steps", type=int, default=8)
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode needs a CUDA device")
     dev = torch.device("cuda")
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    cfg = configs.get_config(args.arch)
-    model = init_params(cfg, torch.Generator(device=dev).manual_seed(
-        args.seed), device=dev)
+    cfg = configs.get_config(ARCH)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
     model, _ = quantize_tree(model, PTQTPConfig(group_size=128, t_max=20))
-    state = init_decode_state(cfg, args.slots, args.context + 4 * args.steps,
-                              device=dev)
-    rng = np.random.default_rng(args.seed)
-    for c0 in range(0, args.context, 64):
-        n = min(64, args.context - c0)
+    state = init_decode_state(cfg, SLOTS, CONTEXT + 4 * STEPS, device=dev)
+    rng = np.random.default_rng(SEED)
+    for c0 in range(0, CONTEXT, 64):
+        n = min(64, CONTEXT - c0)
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                             (args.slots, n)).astype(np.int32))
+                                             (SLOTS, n)).astype(np.int32))
         _, state = prefill_chunk(model, cfg, state, toks.to(dev),
-                                 torch.full((args.slots,), n, dtype=torch.int32,
+                                 torch.full((SLOTS,), n, dtype=torch.int32,
                                             device=dev))
-    tok = torch.zeros((args.slots,), dtype=torch.int32, device=dev)
-    active = torch.ones((args.slots,), dtype=torch.bool, device=dev)
+    tok = torch.zeros((SLOTS,), dtype=torch.int32, device=dev)
+    active = torch.ones((SLOTS,), dtype=torch.bool, device=dev)
 
     def steps(n):
         for _ in range(n):
@@ -80,22 +67,21 @@ def main(argv=None):
 
     steps(2)  # warm-up
     t0 = time.perf_counter()
-    steps(args.steps)
-    host_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+    steps(STEPS)
+    host_ms = (time.perf_counter() - t0) * 1e3 / STEPS
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        steps(args.steps)
-    rows = [(e.key, device_us(e) / 1e3 / args.steps, e.count / args.steps)
+        steps(STEPS)
+    rows = [(e.key, device_us(e) / 1e3 / STEPS, e.count / STEPS)
             for e in prof.key_averages() if device_us(e) > 0
             and e.device_type == torch.autograd.DeviceType.CUDA]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     launches = sum(r[2] for r in rows)
-    print(f"{gpu} | {args.arch}, {args.slots} rows at context "
-          f"{args.context}: host {host_ms:.3f} ms/step, device busy "
-          f"{busy_ms:.3f} ms/step, idle share {1 - busy_ms / host_ms:.1%}, "
-          f"{launches:.0f} launches/step")
+    print(f"{gpu} | {ARCH}, {SLOTS} rows at context {CONTEXT}: host "
+          f"{host_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step, idle "
+          f"share {1 - busy_ms / host_ms:.1%}, {launches:.0f} launches/step")
     for name, ms, count in rows[:15]:
         print(f"  {ms:9.4f} ms/step  {count:6.1f}x  {name[:90]}")
     print(json.dumps({"gpu": gpu, "host_ms_per_step": host_ms,

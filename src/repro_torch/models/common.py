@@ -1,5 +1,8 @@
 """Shared building blocks: dense layer (with PTQTP dispatch), RMSNorm, RoPE.
 
+``rms_norm`` is the kernel package's (fixed-order on the card, so rows are
+batch-invariant).
+
 A ``Dense`` layer holds either a floating-point ``weight`` (d_out, d_in), as
 ``torch.nn.Linear`` does, or — after ``quantize_tree`` — the two packed
 trit-planes and group scales of a ``QuantizedKernel``; ``dense`` dispatches
@@ -15,6 +18,7 @@ from torch import nn
 
 from repro_torch.core.quantize_model import QuantizedKernel
 from repro_torch.device import dtype_of  # noqa: F401  (re-exported)
+from repro_torch.kernels.rms_norm.ops import rms_norm
 from repro_torch.kernels.ternary_matmul.ops import ternary_matmul
 
 
@@ -73,14 +77,6 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
         return rms_norm(self.scale, x, eps)
-
-
-def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5):
-    dt = x.dtype
-    xf = x.to(torch.float32)
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * scale.to(torch.float32)).to(dt)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -8,9 +8,11 @@ reference package, so it runs on a machine that has only PyTorch:
 
 Tolerances: the kernels sum in another order than the plain versions, in
 f32: ternary matmul rtol = atol = 1e-4 (|y| ~ 10), attention 1e-4 (outputs
-are convex mixes of values ~ 1). The decode and prefill matmul kernels must
-give bit-identical rows, and the engine's greedy streams must not depend on
-the fleet.
+are convex mixes of values ~ 1), RMSNorm rtol 1e-5 in f32 and one bf16 step
+(2^-7 of the value) in bf16. The decode and prefill matmul kernels must
+give bit-identical rows, the norm kernel's rows must not depend on how many
+rows share the call, and the engine's greedy streams must not depend on the
+fleet.
 """
 
 import numpy as np
@@ -24,6 +26,8 @@ from repro_torch.core.quantize_model import quantize_tree
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.chunk_attention import ops as ca_ops
 from repro_torch.kernels.chunk_attention import ref as ca_ref
+from repro_torch.kernels.rms_norm import ops as norm_ops
+from repro_torch.kernels.rms_norm import ref as norm_ref
 from repro_torch.kernels.ternary_matmul import ops as tm_ops
 from repro_torch.kernels.ternary_matmul import ref as tm_ref
 from repro_torch.models import init_params
@@ -111,14 +115,37 @@ def test_chunk_attention_matches_plain(cuda, L, window, ring):
     torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_matches_plain_and_is_batch_invariant(cuda, dtype,
+                                                       scale_dtype):
+    rng = np.random.default_rng(3)
+    d = 1536
+    x = torch.from_numpy(rng.standard_normal((8, 64, d)).astype(
+        np.float32)).to(cuda, dtype)
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, (d,)).astype(
+        np.float32)).to(cuda, scale_dtype)
+    got = norm_ops.rms_norm(scale, x, 1e-6)
+    want = norm_ref.rms_norm_plain(scale, x, 1e-6)
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    # a row gives the same bits whatever call it sits in
+    for b, l in ((slice(None), slice(0, 1)), (slice(0, 1), slice(0, 5)),
+                 (slice(3, 4), slice(7, 8))):
+        assert torch.equal(norm_ops.rms_norm(scale, x[b, l].contiguous(),
+                                             1e-6), got[b, l])
+
+
 def test_engine_runs_kernels_and_is_fleet_invariant(cuda):
     cfg = configs.get_smoke_config("qwen2-1.5b")
     model = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
                         device=cuda)
     model, _ = quantize_tree(model, PTQTPConfig(group_size=64, t_max=5))
     rng = np.random.default_rng(0)
+    # 129 tokens: the last prefill chunk holds one token (bucket 1) alone,
+    # and shares a wider bucket with the 140-token prompt in the fleet
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
-               for n in (5, 40, 140, 17)]
+               for n in (5, 40, 140, 129)]
 
     def serve(ps, slots):
         eng = ServingEngine(model, cfg, EngineConfig(
@@ -131,4 +158,5 @@ def test_engine_runs_kernels_and_is_fleet_invariant(cuda):
     fleet = serve(prompts, 4)
     counts = launch_counts()
     assert all(counts[k] > 0 for k in counts), counts
-    assert serve(prompts[2:3], 1)[0] == fleet[2]
+    for i in (2, 3):
+        assert serve(prompts[i:i + 1], 1)[0] == fleet[i]

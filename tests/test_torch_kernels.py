@@ -8,8 +8,9 @@ by ``test_torch_cuda.py``.
 
 Tolerances: float32 throughout; the sums run in another order in each
 implementation, so outputs agree to rtol = atol = 1e-4 (ternary matmul,
-|y| ~ 10) and 2e-5 (attention outputs are convex mixes of values ~ 1).
-Packing is integer and must match exactly.
+|y| ~ 10), 2e-5 (attention outputs are convex mixes of values ~ 1) and
+rtol = atol = 1e-5 (RMSNorm in f32; bf16 outputs within one bf16 step,
+2^-7 of the value). Packing is integer and must match exactly.
 """
 
 import jax.numpy as jnp
@@ -21,15 +22,17 @@ from repro.core import packing as jpack
 from repro.kernels.chunk_attention.ops import chunk_attention as jax_chunk_attention
 from repro.kernels.ternary_matmul import ops as jtm_ops
 from repro.kernels.ternary_matmul import ref as jtm_ref
+from repro.models.common import rms_norm as jrms_norm
 from repro_torch.core import packing as tpack
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.chunk_attention import ops as tca_ops
 from repro_torch.kernels.chunk_attention import ref as tca_ref
+from repro_torch.kernels.rms_norm import ops as tnorm_ops
 from repro_torch.kernels.ternary_matmul import ops as ttm_ops
 
-# The suite runs one xdist worker per core: keep torch's intra-op thread
-# pool from oversubscribing the CPU that the other workers share.
-torch.set_num_threads(2)
+# The suite runs one xdist worker per core: keep torch to one intra-op
+# thread so it does not oversubscribe the CPU that the other workers share.
+torch.set_num_threads(1)
 
 MM_TOL = dict(rtol=1e-4, atol=1e-4)
 ATTN_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -116,6 +119,35 @@ class TestTernaryMatmul:
         for fn in (ttm_ops.ternary_matvec, ttm_ops.ternary_matmul_tiled):
             with pytest.raises(ValueError, match="CUDA"):
                 fn(x, _t(t1p), _t(t2p), _t(alpha), 32)
+
+
+# ----------------------------------------------------------------- rms norm
+class TestRMSNorm:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("shape", [(3, 64), (2, 5, 1536)])
+    def test_plain_matches_reference(self, shape, dtype):
+        rng = np.random.default_rng(len(shape))
+        x = rng.standard_normal(shape).astype(np.float32)
+        scale = rng.uniform(0.5, 1.5, shape[-1:]).astype(np.float32)
+        jdt = getattr(jnp, dtype)
+        want = np.asarray(jrms_norm({"scale": jnp.asarray(scale, jdt)},
+                                    jnp.asarray(x, jdt), 1e-6)
+                          .astype(jnp.float32))
+        tdt = getattr(torch, dtype)
+        got = tnorm_ops.rms_norm(_t(scale).to(tdt), _t(x).to(tdt), 1e-6)
+        assert got.dtype == tdt and tuple(got.shape) == shape
+        tol = 2.0 ** -7 if dtype == "bfloat16" else 1e-5
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
+                                   atol=tol)
+
+    def test_cpu_path_launches_nothing(self):
+        reset_launch_counts()
+        tnorm_ops.rms_norm(torch.ones(64), torch.randn(4, 64))
+        assert launch_counts()["rms_norm"] == 0
+
+    def test_kernel_wrapper_refuses_cpu_tensors(self):
+        with pytest.raises(ValueError, match="CUDA"):
+            tnorm_ops.rms_norm_cuda(torch.ones(64), torch.randn(4, 64))
 
 
 # ---------------------------------------------------------- chunk attention

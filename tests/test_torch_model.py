@@ -35,9 +35,9 @@ from repro_torch.convert import from_jax_params
 from repro_torch.models import (decode_step, forward, init_decode_state,
                                 init_params, prefill_chunk)
 
-# The suite runs one xdist worker per core: keep torch's intra-op thread
-# pool from oversubscribing the CPU that the other workers share.
-torch.set_num_threads(2)
+# The suite runs one xdist worker per core: keep torch to one intra-op
+# thread so it does not oversubscribe the CPU that the other workers share.
+torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, CAP = 3, 16

@@ -23,9 +23,9 @@ from repro_torch.core.packing import unpack_trits
 from repro_torch.core.quantize_model import quantize_tree
 from repro_torch.models.common import Dense
 
-# The suite runs one xdist worker per core: keep torch's intra-op thread
-# pool from oversubscribing the CPU that the other workers share.
-torch.set_num_threads(2)
+# The suite runs one xdist worker per core: keep torch to one intra-op
+# thread so it does not oversubscribe the CPU that the other workers share.
+torch.set_num_threads(1)
 
 ALPHA_RTOL = 1e-5
 

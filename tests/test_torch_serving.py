@@ -36,17 +36,18 @@ from repro_torch.convert import from_jax_params
 from repro_torch.serving import (EngineConfig, SamplingParams, ServingEngine,
                                  sampling)
 
-# The suite runs one xdist worker per core: keep torch's intra-op thread
-# pool from oversubscribing the CPU that the other workers share.
-torch.set_num_threads(2)
+# The suite runs one xdist worker per core: keep torch to one intra-op
+# thread so it does not oversubscribe the CPU that the other workers share.
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 
 # prompt lengths span one and several prefill chunks; with capacity 48 the
-# 40-token prompt plus its budget wraps the ring
+# 40-token prompt plus its budget wraps the ring; four requests on three
+# slots, so one waits and is admitted into a freed slot
 PROMPTS = [np.random.default_rng(i).integers(0, 512, n).tolist()
-           for i, n in enumerate((5, 23, 40, 9, 17))]
-BUDGETS = (6, 9, 12, 3, 8)
+           for i, n in enumerate((5, 23, 40, 9))]
+BUDGETS = (6, 9, 12, 3)
 ENGINE = dict(max_slots=3, capacity=48, prefill_chunk=16, decode_chunk=4)
 
 
