@@ -8,19 +8,39 @@ Run from the root of a checkout. Phases (any failure exits non-zero):
   1. print the card's name and power limit; build every CUDA kernel from
      ``src/repro_torch/kernels/*/csrc/*.cu`` (one nvcc each, in parallel);
   2. hold each kernel against its plain PyTorch version on the card at the
-     main path's full-width shapes (tolerances below), and check that the
-     decode and prefill ternary-matmul kernels give bit-identical rows;
-  3. drive the port's main path: qwen2-1.5b at full width (28 layers, d 1536,
-     12/2 heads, d_ff 8960, vocab 151936, bf16), random weights from a seeded
-     generator, PTQTP-quantized on the card (G = 128, t_max = 20), served by
-     ``ServingEngine`` (8 slots, capacity 1024, prefill chunk 64, decode
-     chunk 8): 8 greedy requests with 64-600 prompt tokens and 32 new tokens
-     each. Every request must finish, every kernel must have launched, and
+     main paths' full-width shapes (tolerances below): the ternary matmuls
+     (decode and prefill rows bit-identical), chunk attention on the ring
+     (B2) and on a paged pool under a shuffled table with null pages (B4,
+     also bit for bit against B2 on the gathered ring), the norm, decode
+     attention over an int8 ring with a row masked everywhere (B5), and the
+     trit search on an 8960x1536 matrix and the 151936x1536 lm_head with
+     α from one real ridge step (B6, planes exactly equal);
+  3. the quantize path: qwen2-1.5b at full width (28 layers, d 1536, 12/2
+     heads, d_ff 8960, vocab 151936, bf16), random weights from a seeded
+     generator, PTQTP-quantized on the card (G = 128, t_max = 20), its trit
+     step on B6;
+  4. the ring serving path: that model served by ``ServingEngine`` (8
+     slots, capacity 1024, prefill chunk 64, decode chunk 8): 8 greedy
+     requests with 64-600 prompt tokens and 32 new tokens each. Every
+     request must finish, every kernel of the path must have launched, and
      two requests served alone must give the same tokens as in the fleet:
      the longest, and one whose prompt ends in a one-token prefill bucket
      alone but in a wider bucket in the fleet;
-  4. time each kernel at the main path's shapes beside its plain version,
-     one PyTorch library call computing the same function, and its bound.
+  5. the paged serving path (``kv_layout="paged"``, page size 16, prefix
+     cache on): (a) the same fleet, tokens equal to the ring's; (b) 8
+     requests sharing a 512-token prefix with tails of 16-200 tokens, cold
+     and then warm (after one request has published the prefix), tokens
+     equal to the ring's and prefix-cache hits > 0; (c) one request with
+     that prefix that wraps the 1024-token ring (990 prompt tokens, 64
+     new): tokens equal to the ring's, at least one copy-on-write fork, and
+     a later request with the prefix still gives its cold tokens; (d) after
+     the drain the allocator's invariants hold and every page the prefix
+     cache does not hold is free;
+  6. decode attention through its op, the only entry point of B5, for the
+     28 layers of one decode step;
+  7. time each kernel at its path's shapes beside its plain version, one
+     PyTorch library call computing the same function where one exists,
+     and its bound; and the threefry sampling draw per decode step.
 
 Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the
 ``nvidia-smi`` name/power-limit line, and last
@@ -52,10 +72,15 @@ F32_FLOPS = 67e12
 MM_RTOL = 1e-4
 ATTN_TOL = 1e-4
 NORM_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+DECODE_TOL = 1e-4  # B5, absolute: outputs are convex mixes of values ~ 1
 
 GROUP = 128
 SLOTS, CAPACITY, PREFILL_CHUNK, DECODE_CHUNK = 8, 1024, 64, 8
 N_REQUESTS, MAX_NEW, SEED = 8, 32, 0
+PAGE = 16                   # tokens per KV page on the paged path
+SHARED_PREFIX = 512         # a multiple of PAGE and PREFILL_CHUNK
+TAILS = (16, 200)           # distinct tails after the shared prefix
+WRAP_PROMPT, WRAP_NEW = 990, 64
 
 
 def log(msg: str) -> None:
@@ -91,6 +116,20 @@ def device_ms(fn, reps: int) -> float:
     if not us > 0:
         raise RuntimeError("torch.profiler recorded no device time")
     return us / 1e3 / reps
+
+
+# kernels each serving path must launch
+RING_PATH = ("ternary_matvec", "ternary_matmul", "chunk_attention", "rms_norm")
+PAGED_PATH = ("ternary_matvec", "ternary_matmul", "chunk_attention_paged",
+              "rms_norm")
+
+
+def need(counts, kernels, path):
+    """Fail unless every kernel of ``kernels`` launched on ``path``."""
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on {path}: {missing} "
+                             f"({counts})")
 
 
 # ----------------------------------------------------------------- shapes
@@ -305,24 +344,208 @@ def check_rms_norm(cfg, dev):
     return worst
 
 
+def paged_operands(a, ps, rng):
+    """The ring operands ``a`` (``attention_inputs``) scattered into a pool
+    of ps-slot pages under a shuffled table, about one logical page in ten
+    left on the null page 0 (pos -1). Returns (paged args, the gathered
+    virtual ring's args for B2)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.chunk_attention import ref
+
+    q, kn, vn, kc, ks, vc, vs, pos_buf, positions, lengths = a
+    b, cap = pos_buf.shape
+    n = cap // ps
+    table = (1 + rng.permutation(b * n)).reshape(b, n)
+    table[rng.random((b, n)) < 0.1] = 0
+    table = torch.from_numpy(table.astype(np.int32)).to(pos_buf.device)
+    ids = table.reshape(-1).long()
+    mapped = ids != 0
+
+    def pool(ring, fill):
+        if ring is None:
+            return None
+        out = torch.full((b * n + 1, ps) + tuple(ring.shape[2:]), fill,
+                         dtype=ring.dtype, device=ring.device)
+        out[ids[mapped]] = ring.reshape((b * n, ps) + tuple(ring.shape[2:]))[
+            mapped]
+        return out
+
+    pools = [pool(kc, 0), pool(ks, 0), pool(vc, 0), pool(vs, 0),
+             pool(pos_buf, -1)]
+    gathered = [None if p is None else ref.gather_pages(p, table)
+                for p in pools]
+    return ([q, kn, vn, *pools, table, positions, lengths],
+            [q, kn, vn, *gathered, positions, lengths])
+
+
+def check_paged_attention(cfg, dev):
+    """B4 against its plain version, and bit for bit against B2 on the
+    gathered virtual ring, at L = 1 and 64, bf16 and int8 pools."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.chunk_attention import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rng = np.random.default_rng(5)
+    kv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    fill = [0, 300, 1023, 1024, 1500, 2900, 64, 700]
+    worst = 0.0
+    for L in (1, 64):
+        for ring in ("bfloat16", "int8"):
+            args = attention_inputs(SLOTS, L, CAPACITY, kv, g, hd, ring, fill,
+                                    gen, dev)
+            paged, gathered = paged_operands(args, PAGE, rng)
+            got = ops.chunk_attention_paged_cuda(*paged)
+            b2 = ops.chunk_attention_cuda(*gathered)
+            want = ref.chunk_attention_paged_stream(*paged)
+            torch.cuda.synchronize()
+            if not torch.equal(got, b2):
+                raise AssertionError(f"paged attention L={L} {ring}: B4 "
+                                     "differs from B2 on the gathered ring")
+            err = float((got - want).abs().max())
+            if not err <= ATTN_TOL:
+                raise AssertionError(f"paged attention L={L} {ring}: max err "
+                                     f"{err:.3e} > {ATTN_TOL}")
+            worst = max(worst, err)
+    log(f"chunk_attention_paged == plain (max abs err {worst:.2e} <= "
+        f"{ATTN_TOL}) and == B2 on the gathered ring bit for bit, for L in "
+        f"(1, 64), bf16 and int8 pools of {PAGE}-slot pages, shuffled table "
+        "with null pages")
+    return worst
+
+
+def decode_inputs(b, s, kv, g, hd, fill, gen, dev):
+    """Decode-attention operands: row r's int8 ring holds positions up to
+    ``fill[r]`` (the token just written), row 1 holds nothing (every slot
+    masked)."""
+    import torch
+
+    q = torch.randn((b, kv, g, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k8 = torch.randint(-127, 128, (b, s, kv, hd), generator=gen, device=dev,
+                       dtype=torch.int8)
+    v8 = torch.randint(-127, 128, (b, s, kv, hd), generator=gen, device=dev,
+                       dtype=torch.int8)
+    ks = torch.rand((b, s, kv), generator=gen, device=dev) * 0.02
+    vs = torch.rand((b, s, kv), generator=gen, device=dev) * 0.02
+    pos_buf = torch.full((b, s), -1, dtype=torch.int32, device=dev)
+    for r, n in enumerate(fill):
+        if r == 1:
+            continue
+        p = torch.arange(max(0, n - s + 1), n + 1, device=dev,
+                         dtype=torch.int32)
+        pos_buf[r, p % s] = p
+    pos = torch.tensor(fill, dtype=torch.int32, device=dev)
+    return [q, k8, ks, v8, vs, pos_buf, pos]
+
+
+def check_decode_attention(cfg, dev):
+    """B5 against its plain version at (8, 1024, 2, 6, 128), window None
+    and 256; the row masked everywhere returns the uniform mean of v."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    kv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    fill = [0, 300, 1023, 1024, 1500, 2900, 64, 700]
+    worst = 0.0
+    for window in (None, 256):
+        args = decode_inputs(SLOTS, CAPACITY, kv, g, hd, fill, gen, dev)
+        got = ops.decode_attention_cuda(*args, window=window)
+        want = ref.decode_attention_plain(*args, window=window)
+        mean_v = (args[3][1].float() * args[4][1][..., None]).mean(0)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        err_mean = float((got[1] - mean_v[:, None]).abs().max())
+        if not max(err, err_mean) <= DECODE_TOL:
+            raise AssertionError(f"decode attention window={window}: max err "
+                                 f"{err:.3e}, masked row vs mean of v "
+                                 f"{err_mean:.3e} > {DECODE_TOL}")
+        worst = max(worst, err)
+    log(f"decode_attention == plain (max abs err {worst:.2e} <= {DECODE_TOL})"
+        " for window None and 256; the row masked everywhere gives the "
+        "uniform mean of v")
+    return worst
+
+
+def ridge_alpha(w):
+    """α of one real ridge step of the quantizer from its sign init (t¹ =
+    t² = sign(w), λ grown by the condition-number rule), for group-rows w."""
+    import torch
+
+    from repro_torch.core import ptqtp
+
+    cfg = ptqtp.PTQTPConfig()
+    t = torch.where(w >= 0.0, 1.0, -1.0)
+    lam = torch.full((w.shape[0],), cfg.lambda_init, device=w.device)
+    sums = ptqtp._ridge_sums(t, t, w)
+    _, kappa = ptqtp._ridge_solve(sums, lam)
+    lam = torch.where(kappa >= cfg.cond_bound, torch.clamp(
+        lam * torch.sqrt(kappa / cfg.cond_bound), max=cfg.lambda_max), lam)
+    return ptqtp._ridge_solve(sums, lam)[0]
+
+
+def search_inputs(cfg, dev, n, seed):
+    """An (n, d_model) weight as the model's init draws it, as (R, 128)
+    group-rows, with α from one ridge step."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn((n * cfg.d_model // GROUP, GROUP), generator=gen,
+                    device=dev) / cfg.d_model ** 0.5
+    return w, ridge_alpha(w)
+
+
+def check_trit_search(cfg, dev):
+    """B6's planes against the plain version's, exactly, on an 8960x1536
+    matrix and the 151936x1536 lm_head."""
+    import torch
+
+    from repro_torch.kernels.ptqtp_search import ops, ref
+
+    rows = 0
+    for n, seed in ((cfg.d_ff, 7), (cfg.vocab_size, 8)):
+        w, alpha = search_inputs(cfg, dev, n, seed)
+        t1, t2 = ops.ptqtp_search_cuda(w, alpha)
+        p1, p2 = torch.empty_like(w), torch.empty_like(w)
+        ref.ptqtp_search_plain(w, alpha, p1, p2)
+        torch.cuda.synchronize()
+        bad = int((t1 != p1).sum()) + int((t2 != p2).sum())
+        if bad:
+            raise AssertionError(f"trit search {n}x{cfg.d_model}: {bad} plane "
+                                 "entries differ from the plain version")
+        rows += w.shape[0]
+        del w, alpha, t1, t2, p1, p2
+    log(f"ptqtp_search == plain exactly on {cfg.d_ff}x{cfg.d_model} and "
+        f"{cfg.vocab_size}x{cfg.d_model} ({rows} group-rows of {GROUP})")
+    return 0.0
+
+
 # ------------------------------------------------------- phase 3: main path
-def build_model(cfg, dev):
+def quantize_path(cfg, dev):
+    """Quantize the served model (its trit step on B6), the launch counts
+    reset just before and read just after. Returns (model, report, seconds,
+    launches)."""
     import torch
 
     from repro_torch.core.ptqtp import PTQTPConfig
     from repro_torch.core.quantize_model import quantize_tree
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import init_params
 
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                         device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    reset_launch_counts()
     t0 = time.perf_counter()
     model, report = quantize_tree(model, PTQTPConfig(group_size=GROUP,
                                                      t_max=20))
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    return model, report, time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return model, report, time.perf_counter() - t0, launch_counts()
 
 
 def make_prompts(cfg):
@@ -352,44 +575,60 @@ def final_buckets(lens):
     return out
 
 
-def serve(model, cfg, prompts):
-    """Serve ``prompts`` greedily; returns (results, decode seconds, decode
-    tokens, kernel launches per decode step, engine). The launches per step
-    are those of the engine's own decode loops in this run, over its decode
-    steps."""
+def make_engine(model, cfg, **ecfg):
+    """A ``ServingEngine`` whose decode loops are timed and whose kernel
+    launches inside them are counted (``eng.smoke``)."""
     from repro_torch.kernels import launch_counts
-    from repro_torch.serving import EngineConfig, SamplingParams, ServingEngine
+    from repro_torch.serving import EngineConfig, ServingEngine
 
     eng = ServingEngine(model, cfg, EngineConfig(
         max_slots=SLOTS, capacity=CAPACITY, prefill_chunk=PREFILL_CHUNK,
-        decode_chunk=DECODE_CHUNK))
-    decode_s = [0.0]
-    in_decode = dict.fromkeys(launch_counts(), 0)
+        decode_chunk=DECODE_CHUNK, **ecfg))
+    eng.smoke = dict(decode_s=0.0, in_decode=dict.fromkeys(launch_counts(),
+                                                           0))
     inner = eng._decode_loop
 
     def timed(n_steps):  # the loop ends in a host sync, so wall time is device time
         before = launch_counts()
         t0 = time.perf_counter()
         out = inner(n_steps)
-        decode_s[0] += time.perf_counter() - t0
+        eng.smoke["decode_s"] += time.perf_counter() - t0
         for k, n in launch_counts().items():
-            in_decode[k] += n - before[k]
+            eng.smoke["in_decode"][k] += n - before[k]
         return out
 
     eng._decode_loop = timed
-    handles = [eng.submit(p, SamplingParams(max_new_tokens=MAX_NEW))
+    return eng
+
+
+def serve_on(eng, prompts, max_new=MAX_NEW):
+    """Serve ``prompts`` greedily on ``eng``; returns their results."""
+    from repro_torch.serving import SamplingParams
+
+    handles = [eng.submit(p, SamplingParams(max_new_tokens=max_new))
                for p in prompts]
     eng.run()
-    results = [h.result() for h in handles]
-    per_step = {k: n / eng.steps for k, n in in_decode.items()}
-    return (results, decode_s[0], eng.tokens_generated - len(prompts),
-            per_step, eng)
+    return [h.result() for h in handles]
 
 
-def main_path(cfg, dev):
+def per_step(eng):
+    """Kernel launches per decode step of the engine's own decode loops."""
+    return {k: n / max(eng.steps, 1) for k, n in eng.smoke["in_decode"].items()}
+
+
+def serve(model, cfg, prompts, max_new=MAX_NEW, **ecfg):
+    """Serve ``prompts`` greedily on a fresh engine; returns (results,
+    decode seconds, decode tokens, kernel launches per decode step,
+    engine)."""
+    eng = make_engine(model, cfg, **ecfg)
+    results = serve_on(eng, prompts, max_new)
+    return (results, eng.smoke["decode_s"],
+            eng.tokens_generated - len(prompts), per_step(eng), eng)
+
+
+def main_path(cfg, dev, model):
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
-    model, report, quant_s = build_model(cfg, dev)
     prompts = make_prompts(cfg)
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -416,13 +655,105 @@ def main_path(cfg, dev):
             raise AssertionError(f"request {i} alone gave {solo[0].tokens}, "
                                  f"in the fleet {results[i].tokens}")
     ttft = sorted(r.ttft for r in results)
-    return dict(model=model, report=report, quant_s=quant_s, counts=counts,
+    return dict(counts=counts,
                 wall=wall, decode_s=decode_s, decode_tok=decode_tok,
                 ttft=ttft, engine=eng, prompts=prompts, results=results,
                 per_step=per_step,
                 solo=dict(longest=(longest, len(prompts[longest])),
                           bucket_1=(one[0], len(prompts[one[0]]),
                                     fleet_buckets[one[0]])))
+
+
+def paged_path(cfg, dev, model, mp):
+    """The paged serving path, (a)-(d) of the module docstring. The ring
+    references of (b) and (c) run first; then the launch counts are reset
+    and only paged engines run until they are read."""
+    import numpy as np
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    rng = np.random.default_rng(SEED + 1)
+    prefix = rng.integers(0, cfg.vocab_size, SHARED_PREFIX).tolist()
+    fleet = [prefix + rng.integers(0, cfg.vocab_size, int(n)).tolist()
+             for n in rng.integers(TAILS[0], TAILS[1] + 1, N_REQUESTS)]
+    wrap = prefix + rng.integers(0, cfg.vocab_size,
+                                 WRAP_PROMPT - SHARED_PREFIX).tolist()
+    ring_b = serve(model, cfg, fleet)[0]
+    ring_c = serve(model, cfg, [wrap], WRAP_NEW)[0][0]
+    paged = dict(kv_layout="paged", page_size=PAGE, prefix_cache=True)
+
+    def same(got, want, what):
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g.tokens != w.tokens:
+                raise AssertionError(f"{what}: request {i} gave {g.tokens} "
+                                     f"paged, {w.tokens} on the ring")
+
+    reset_launch_counts()
+    # (a) the ring path's fleet
+    res_a, dec_s, dec_tok, steps_a, eng_a = serve(model, cfg, mp["prompts"],
+                                                  **paged)
+    same(res_a, mp["results"], "(a) main fleet")
+    # (b) the shared-prefix fleet, cold (all admitted at once: nothing is
+    # cached yet), then warm on an engine where one request has published
+    # the prefix
+    cold_eng = make_engine(model, cfg, **paged)
+    cold = serve_on(cold_eng, fleet)
+    same(cold, ring_b, "(b) cold shared-prefix fleet")
+    eng = make_engine(model, cfg, **paged)
+    serve_on(eng, [prefix + [1]], 1)
+    pf0 = eng.prefill_tokens
+    warm = serve_on(eng, fleet)
+    same(warm, ring_b, "(b) warm shared-prefix fleet")
+    hits = eng.alloc.hits
+    if not hits > 0:
+        raise AssertionError("(b) the warm fleet found no prefix page cached")
+    saved = cold_eng.prefill_tokens - (eng.prefill_tokens - pf0)
+    # (c) a request with the prefix that wraps the ring, then the prefix again
+    forks0 = eng.alloc.forks
+    got_c = serve_on(eng, [wrap], WRAP_NEW)[0]
+    same([got_c], [ring_c], "(c) wrapping request")
+    forks = eng.alloc.forks - forks0
+    if not forks > 0:
+        raise AssertionError("(c) the wrapping request forked no page")
+    same(serve_on(eng, fleet[:1]), ring_b[:1], "(c) prefix after the wrap")
+    counts = launch_counts()
+    # (d) drained: invariants hold, only the prefix cache holds pages
+    for e in (eng_a, cold_eng, eng):
+        e.alloc.check()
+        if e.alloc.used_pages() != e.alloc.cached_pages():
+            raise AssertionError(f"{e.alloc.used_pages()} pages in use after "
+                                 f"the drain, {e.alloc.cached_pages()} cached")
+    return dict(counts=counts, per_step=steps_a, decode_s=dec_s,
+                decode_tok=dec_tok, ttft=sorted(r.ttft for r in res_a),
+                ttft_cold=sorted(r.ttft for r in cold),
+                ttft_warm=sorted(r.ttft for r in warm), hits=hits,
+                misses=eng.alloc.misses, forks=forks, saved=saved,
+                cold_prefill=cold_eng.prefill_tokens,
+                prompt_tokens=sum(len(p) for p in fleet),
+                pages=eng.alloc.n_pages, peak=eng.alloc.peak_used)
+
+
+def decode_attention_path(cfg, dev):
+    """Decode attention through its op (``decode_attention``, B5's only
+    entry point) for the 28 layers of one decode step at full width, the
+    launch counts reset just before and read just after."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.decode_attention import decode_attention
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    kv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    fill = [600, 300, 1023, 1024, 1500, 2900, 64, 700]
+    layers = [decode_inputs(SLOTS, CAPACITY, kv, g, hd, fill, gen, dev)
+              for _ in range(cfg.n_layers)]
+    reset_launch_counts()
+    outs = [decode_attention(*a) for a in layers]
+    counts = launch_counts()
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(o).all()) for o in outs):
+        raise AssertionError("decode attention gave non-finite outputs")
+    return counts, layers
 
 
 # -------------------------------------------------------- phase 4: timings
@@ -559,6 +890,144 @@ def time_rms_norm(model, cfg, dev):
         bound_ms=bound, bound_by=by, calls=len(norms))
 
 
+def time_paged_attention(cfg, dev, fill):
+    """Kernel, plain and SDPA times of the 28 paged attention reads of one
+    decode step (L = 1), over 28 distinct bf16 pools of 16-slot pages
+    under shuffled tables (one per layer, as on the paged path); SDPA runs
+    with a boolean mask on each gathered ring."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.chunk_attention import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    rng = np.random.default_rng(10)
+    kv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    layers, sdpa_args = [], []
+    for _ in range(cfg.n_layers):
+        a = attention_inputs(SLOTS, 1, CAPACITY, kv, g, hd, "bfloat16", fill,
+                             gen, dev)
+        a[9].fill_(1)
+        paged, gathered = paged_operands(a, PAGE, rng)
+        layers.append(paged)
+        sdpa_args.append(_sdpa_operands(gathered, CAPACITY))
+    # bytes this run's data needs: the visible slots' k and v in the pool,
+    # every logical slot's position, the table, q, the chunk, the output
+    a = layers[0]
+    pos_ring = ref.gather_pages(a[7], a[8])
+    visible = int(ref.history_mask(pos_ring, a[9], CAPACITY).any(1).sum())
+    per_layer = (visible * kv * hd * 2 * 2 + pos_ring.numel() * 4
+                 + a[8].numel() * 4
+                 + (a[0].numel() + a[1].numel() + a[2].numel()) * 2
+                 + a[0].numel() * 4)
+    flops = 4 * SLOTS * kv * g * (visible // SLOTS + 1) * hd
+    bound, by = bound_ms(per_layer * cfg.n_layers, flops * cfg.n_layers)
+    return dict(
+        ms=device_ms(lambda: [ops.chunk_attention_paged_cuda(*p)
+                              for p in layers], 10),
+        plain_ms=device_ms(lambda: [ref.chunk_attention_paged_stream(*p)
+                                    for p in layers], 5),
+        library_ms=device_ms(lambda: [
+            torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=m, enable_gqa=True)
+            for q, k, v, m in sdpa_args], 10),
+        bound_ms=bound, bound_by=by, bytes=per_layer * cfg.n_layers)
+
+
+def time_decode_attention(cfg, dev, layers):
+    """Kernel, plain and SDPA times of B5 over the 28 int8 rings of the
+    decode-attention path; SDPA runs on rings dequantized beforehand (the
+    dequantization is not timed) with a boolean mask."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    sdpa_args = []
+    nbytes = flops = 0
+    slot_bytes = kv * (hd + 4)  # one slot's int8 rows and f32 scales
+    for q, k8, ks, v8, vs, pos_buf, pos in layers:
+        k = (k8.float() * ks[..., None]).to(torch.bfloat16).transpose(1, 2)
+        v = (v8.float() * vs[..., None]).to(torch.bfloat16).transpose(1, 2)
+        vis = ref.visible(pos_buf, pos, None)
+        sdpa_args.append((q.reshape(SLOTS, -1, 1, hd), k, v,
+                          vis[:, None, None, :]))
+        # what this run's data needs: k and v of the visible slots, v of
+        # every slot of a row that sees nothing (its output is the mean of
+        # v), every position, q, pos and the f32 output; a masked slot adds
+        # exactly 0 to a row that sees something
+        n_vis = int(vis.sum())
+        blind = int((~vis.any(1)).sum())
+        nbytes += ((2 * n_vis + blind * CAPACITY) * slot_bytes
+                   + pos_buf.numel() * 4 + q.numel() * (2 + 4)
+                   + pos.numel() * 4)
+        flops += 2 * cfg.n_heads * hd * (2 * n_vis + blind * CAPACITY)
+    bound, by = bound_ms(nbytes, flops)
+    return dict(
+        ms=device_ms(lambda: [ops.decode_attention_cuda(*a)
+                              for a in layers], 10),
+        plain_ms=device_ms(lambda: [ref.decode_attention_plain(*a)
+                                    for a in layers], 5),
+        library_ms=device_ms(lambda: [
+            torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=m, enable_gqa=True)
+            for q, k, v, m in sdpa_args], 10),
+        bound_ms=bound, bound_by=by, bytes=nbytes)
+
+
+def time_trit_search(cfg, dev):
+    """Kernel and plain times of one trit step over the lm_head
+    (151936x1536 as group-rows of 128). No single PyTorch call computes
+    the 9-candidate argmin with its tie rule, so there is no library
+    time."""
+    import torch
+
+    from repro_torch.kernels.ptqtp_search import ops, ref
+
+    w, alpha = search_inputs(cfg, dev, cfg.vocab_size, 8)
+    t1, t2 = torch.empty_like(w), torch.empty_like(w)
+    nbytes = w.numel() * (4 + 4 + 4) + alpha.numel() * 4
+    bound, by = bound_ms(nbytes, 45 * w.numel(), F32_FLOPS)
+    out = dict(ms=device_ms(lambda: ops.ptqtp_search_cuda(w, alpha,
+                                                          (t1, t2)), 5),
+               plain_ms=device_ms(lambda: ref.ptqtp_search_plain(
+                   w, alpha, t1, t2), 2),
+               library_ms=None, bound_ms=bound, bound_by=by, bytes=nbytes)
+    del w, alpha, t1, t2
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_sampling(cfg, dev):
+    """Device and host milliseconds of one decode step's sampling call for
+    8 rows over the vocabulary: greedy only (the draw skipped), and with
+    the threefry draw (rows at temperature 0.8)."""
+    import torch
+
+    from repro_torch.serving.sampling import sample_tokens_per_request
+
+    logits = torch.randn((SLOTS, cfg.vocab_size), device=dev)
+    seeds = torch.arange(SLOTS, dtype=torch.int64, device=dev)
+    idx = torch.zeros((SLOTS,), dtype=torch.int32, device=dev)
+    out = {}
+    for name, t, draw in (("greedy", 0.0, False), ("threefry", 0.8, True)):
+        temps = torch.full((SLOTS,), t, device=dev)
+
+        def call():
+            return sample_tokens_per_request(logits, seeds, idx, temps,
+                                             draw=draw)
+
+        dev_ms = device_ms(call, 10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+        out[name] = dict(device_ms=dev_ms,
+                         host_ms=(time.perf_counter() - t0) * 1e3 / 10)
+    return out
+
+
 def _sdpa_operands(a, cap):
     """The same attention for ``scaled_dot_product_attention``: keys are the
     ring followed by the chunk, the visibility rule as a boolean mask."""
@@ -612,17 +1081,21 @@ def main() -> int:
     mm_err = check_ternary(cfg, dev)
     attn_err = check_attention(cfg, dev)
     norm_err = check_rms_norm(cfg, dev)
+    paged_err = check_paged_attention(cfg, dev)
+    decode_err = check_decode_attention(cfg, dev)
+    search_err = check_trit_search(cfg, dev)
 
-    mp = main_path(cfg, dev)
+    model, report, quant_s, qcounts = quantize_path(cfg, dev)
+    need(qcounts, ("ptqtp_search",), "the quantize path")
+    tot = report["__total__"]
+    log(f"{gpu} | quantize {quant_s:.2f}s, the trit step on B6 "
+        f"({qcounts['ptqtp_search']} launches; {tot['n_quantized']} kernels, "
+        f"{tot['compression']:.2f}x)")
+
+    mp = main_path(cfg, dev, model)
     counts = mp["counts"]
-    missing = [k for k, n in counts.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing} ({counts})")
-    tot = mp["report"]["__total__"]
+    need(counts, RING_PATH, "the ring serving path")
     decode_steps = mp["engine"].steps
-    log(f"{gpu} | quantize {mp['quant_s']:.2f}s "
-        f"({tot['n_quantized']} kernels, {tot['compression']:.2f}x)")
     log(f"{gpu} | served {len(mp['results'])} requests "
         f"({sum(len(p) for p in mp['prompts'])} prompt tokens) in "
         f"{mp['wall']:.2f}s; TTFT median {mp['ttft'][len(mp['ttft']) // 2]:.3f}s "
@@ -630,24 +1103,56 @@ def main() -> int:
         f"{mp['decode_s']:.3f}s = {mp['decode_tok'] / mp['decode_s']:.1f} tok/s "
         f"({decode_steps} decode steps, {mp['engine'].prefill_steps} prefill "
         f"dispatches)")
-    log(f"{gpu} | launches on the main path: {counts}; per decode step of "
+    log(f"{gpu} | launches on the ring path: {counts}; per decode step of "
         f"its decode loops: {mp['per_step']}")
     (li, ll), (oi, ol, ob) = mp["solo"]["longest"], mp["solo"]["bucket_1"]
     log(f"solo == fleet tokens for request {li} (longest prompt, {ll} "
         f"tokens) and request {oi} ({ol} tokens: last prefill chunk in "
         f"bucket 1 alone, {ob} in the fleet)")
+    mp.pop("engine")
+
+    pp = paged_path(cfg, dev, model, mp)
+    need(pp["counts"], PAGED_PATH, "the paged serving path")
+    if pp["counts"]["chunk_attention"]:
+        raise AssertionError("the paged path launched the ring kernel")
+    med = lambda xs: xs[len(xs) // 2]  # noqa: E731
+    log(f"{gpu} | paged (a): the ring path's fleet gives the ring's tokens; "
+        f"TTFT median {med(pp['ttft']):.3f}s max {pp['ttft'][-1]:.3f}s; "
+        f"decode {pp['decode_tok']} tokens in {pp['decode_s']:.3f}s = "
+        f"{pp['decode_tok'] / pp['decode_s']:.1f} tok/s")
+    log(f"{gpu} | paged (b): {N_REQUESTS} requests sharing a {SHARED_PREFIX}"
+        f"-token prefix ({pp['prompt_tokens']} prompt tokens) give the "
+        f"ring's tokens cold and warm; warm: {pp['hits']} prefix pages hit, "
+        f"{pp['saved']} of {pp['cold_prefill']} prefill tokens saved; TTFT "
+        f"median cold {med(pp['ttft_cold']):.3f}s warm "
+        f"{med(pp['ttft_warm']):.3f}s, max cold {pp['ttft_cold'][-1]:.3f}s "
+        f"warm {pp['ttft_warm'][-1]:.3f}s")
+    log(f"{gpu} | paged (c): a {WRAP_PROMPT}-token request with the prefix "
+        f"wraps the {CAPACITY}-token ring with the ring's tokens, forking "
+        f"{pp['forks']} pages; the prefix afterwards gives its cold tokens; "
+        f"(d) pool of {pp['pages']} pages, peak {pp['peak']} in use, back to "
+        f"the prefix cache's pages after the drain")
+    log(f"{gpu} | launches on the paged path: {pp['counts']}; per decode "
+        f"step of (a)'s decode loops: {pp['per_step']}")
+
+    dcounts, dlayers = decode_attention_path(cfg, dev)
+    need(dcounts, ("decode_attention",), "the decode-attention op")
 
     fill = [len(p) + MAX_NEW // 2 for p in mp["prompts"]]
-    model = mp.pop("model")
-    mp.pop("engine")
     tern = time_ternary(model, cfg, dev)
     norm = time_rms_norm(model, cfg, dev)
     del model
     torch.cuda.empty_cache()
     attn = time_attention(cfg, dev, fill)
+    pattn = time_paged_attention(cfg, dev, fill)
+    dattn = time_decode_attention(cfg, dev, dlayers)
+    del dlayers
+    search = time_trit_search(cfg, dev)
+    draw = time_sampling(cfg, dev)
     for name, t in list(tern.items()) + [("chunk_attention/" + k, v)
                                          for k, v in attn.items()] + [
-            ("rms_norm", norm)]:
+            ("rms_norm", norm), ("chunk_attention_paged", pattn),
+            ("decode_attention", dattn), ("ptqtp_search", search)]:
         lib_ms = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.3f}"
         log(f"{gpu} | {name}: kernel {t['ms']:.3f} ms, plain "
             f"{t['plain_ms']:.3f} ms, library {lib_ms} ms, bound "
@@ -656,7 +1161,11 @@ def main() -> int:
         if "us_per_call" in t:
             log(f"{gpu} | {name} device us per call, by n x d (m = {t['m']}): "
                 + ", ".join(f"{k} {v:.1f}" for k, v in t["us_per_call"].items()))
+    log(f"{gpu} | sampling per decode step (8 rows x {cfg.vocab_size}): "
+        + "; ".join(f"{k} device {v['device_ms']:.3f} ms, host "
+                    f"{v['host_ms']:.3f} ms" for k, v in draw.items()))
 
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         dict(name="ternary_matvec", route="cuda",
              source="src/repro_torch/kernels/ternary_matmul/csrc/ternary_matmul.cu",
@@ -665,8 +1174,7 @@ def main() -> int:
              launches_per_decode_step=mp["per_step"]["ternary_matvec"],
              max_abs_err=mm_err,
              work="all 197 linear layers of one decode step, m=8",
-             **{k: tern["ternary_matvec"][k] for k in
-                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+             **{k: tern["ternary_matvec"][k] for k in timed}),
         dict(name="ternary_matmul", route="cuda",
              source="src/repro_torch/kernels/ternary_matmul/csrc/ternary_matmul.cu",
              replaces="src/repro/kernels/ternary_matmul/kernel.py:91",
@@ -674,8 +1182,7 @@ def main() -> int:
              launches_per_decode_step=mp["per_step"]["ternary_matmul"],
              max_abs_err=mm_err,
              work="the 196 block linear layers of one prefill dispatch, m=512",
-             **{k: tern["ternary_matmul"][k] for k in
-                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+             **{k: tern["ternary_matmul"][k] for k in timed}),
         dict(name="chunk_attention", route="cuda",
              source="src/repro_torch/kernels/chunk_attention/csrc/chunk_attention.cu",
              replaces="src/repro/kernels/chunk_attention/kernel.py:197",
@@ -683,8 +1190,7 @@ def main() -> int:
              launches_per_decode_step=mp["per_step"]["chunk_attention"],
              max_abs_err=attn_err,
              work="28 attention reads of one decode step, L=1, bf16 ring",
-             **{k: attn["decode"][k] for k in
-                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+             **{k: attn["decode"][k] for k in timed}),
         dict(name="rms_norm", route="cuda",
              source="src/repro_torch/kernels/rms_norm/csrc/rms_norm.cu",
              replaces="src/repro/models/common.py:78",
@@ -694,8 +1200,38 @@ def main() -> int:
              work=f"{norm['calls']} norms of one decode step, 8 rows "
                   "of d=1536, bf16; "
                   "replaces an XLA-fused function, not a Pallas kernel",
-             **{k: norm[k] for k in
-                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+             **{k: norm[k] for k in timed}),
+        dict(name="chunk_attention_paged", route="cuda",
+             source="src/repro_torch/kernels/chunk_attention/csrc/chunk_attention.cu",
+             replaces="src/repro/kernels/chunk_attention/kernel.py:149",
+             launches=pp["counts"]["chunk_attention_paged"],
+             launches_per_decode_step=pp["per_step"]["chunk_attention_paged"],
+             max_abs_err=paged_err,
+             work="28 paged attention reads of one decode step, L=1, bf16 "
+                  "pool of 16-slot pages; launches are the paged path's; "
+                  "library: SDPA with a boolean mask on the gathered ring",
+             **{k: pattn[k] for k in timed}),
+        dict(name="decode_attention", route="cuda",
+             source="src/repro_torch/kernels/chunk_attention/csrc/chunk_attention.cu",
+             replaces="src/repro/kernels/decode_attention/kernel.py:63",
+             launches=dcounts["decode_attention"],
+             launches_per_decode_step=mp["per_step"]["decode_attention"],
+             max_abs_err=decode_err,
+             work="28 reads of (8, 1024, 2, 6, 128) int8 rings through its "
+                  "op (no serving path uses it, as in the reference); "
+                  "library: SDPA on the rings dequantized beforehand",
+             **{k: dattn[k] for k in timed}),
+        dict(name="ptqtp_search", route="cuda",
+             source="src/repro_torch/kernels/ptqtp_search/csrc/ptqtp_search.cu",
+             replaces="src/repro/kernels/ptqtp_search/kernel.py:53",
+             launches=qcounts["ptqtp_search"],
+             launches_per_decode_step=mp["per_step"]["ptqtp_search"],
+             max_abs_err=search_err,
+             work="one trit step over the 151936x1536 lm_head as 128-wide "
+                  "group-rows; launches are the quantize path's; no single "
+                  "PyTorch call computes the 9-candidate argmin with its "
+                  "first-wins tie rule, so library_ms is null",
+             **{k: search[k] for k in timed}),
     ]
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)

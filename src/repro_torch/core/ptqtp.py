@@ -12,9 +12,13 @@ condition-number-driven λ growth, then re-picks every trit pair by the
 strict ``<``); the loop stops per matrix when ``max_i ||Δα_i|| < eps`` or
 after ``t_max`` iterations, and ends with a final α refit.
 
-The search is 9 compare-selects over preallocated planes, walked in row
-chunks so that a 151936×1536 ``lm_head`` needs a few of its own sizes of
-scratch, never an (R, G, 9) error tensor.
+The search (``kernels/ptqtp_search``) is 9 compare-selects over
+preallocated planes, walked in row chunks so that a 151936×1536
+``lm_head`` needs a few of its own sizes of scratch, never an (R, G, 9)
+error tensor. Each chunk goes through the search op, which launches the
+Hopper kernel (B6) on CUDA tensors and runs the plain walk on CPU ones;
+both give the same planes. (The reference's ``use_search_kernel`` picks
+its Pallas kernel or XLA; here the device of the weight decides.)
 """
 
 from __future__ import annotations
@@ -24,12 +28,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.ptqtp_search import ops as search_ops
+from repro_torch.kernels.ptqtp_search.ref import CANDIDATES
+
 __all__ = ["CANDIDATES", "PTQTPConfig", "QuantizedTensor", "ptqtp_quantize",
            "ptqtp_dequantize"]
-
-# The 9 ternary candidate pairs (c1, c2) of Eq. 5, in the reference order.
-CANDIDATES = ((0, 0), (0, 1), (0, -1), (1, 0), (-1, 0),
-              (1, 1), (-1, -1), (1, -1), (-1, 1))
 
 # Group-rows per search chunk: 2^20 rows of G = 128 is 512 MiB of f32.
 _CHUNK_ELEMS = 1 << 27
@@ -87,37 +90,20 @@ def _ridge_solve(sums, lam):
 
 
 def _trit_search(w, alpha, t1, t2):
-    """Per-element search over the 9 pairs, written into ``t1``/``t2``.
-
-    w (R, G) f32; alpha (R, 2) f32; t1, t2 (R, G) f32 outputs. Candidate
-    values are α¹·c¹ + α²·c² (exact products, one rounding), errors are
-    (w − v)², and a candidate replaces the best so far only if strictly
-    smaller, so the first in ``CANDIDATES`` order wins ties.
-    """
+    """Per-element search over the 9 pairs (Eq. 5), written into
+    ``t1``/``t2``, in row chunks through the search op. w (R, G) f32;
+    alpha (R, 2) f32; t1, t2 (R, G) f32 outputs."""
     rows = max(1, _CHUNK_ELEMS // max(w.shape[1], 1))
     for r0 in range(0, w.shape[0], rows):
-        wc = w[r0:r0 + rows]
-        a1 = alpha[r0:r0 + rows, 0:1]
-        a2 = alpha[r0:r0 + rows, 1:2]
-        o1 = t1[r0:r0 + rows]
-        o2 = t2[r0:r0 + rows]
-        best = wc * wc                                   # candidate (0, 0)
-        o1.zero_()
-        o2.zero_()
-        for c1, c2 in CANDIDATES[1:]:
-            diff = wc - (a1 * c1 + a2 * c2)
-            err = diff * diff
-            better = err < best
-            best = torch.where(better, err, best)
-            o1.masked_fill_(better, float(c1))
-            o2.masked_fill_(better, float(c2))
+        sl = slice(r0, r0 + rows)
+        search_ops.ptqtp_search(w[sl], alpha[sl], out=(t1[sl], t2[sl]))
 
 
 def _quantize_grouped(wg: torch.Tensor, cfg: PTQTPConfig):
     """Alg. 1/2 on group-rows wg (R, G) of one matrix.
 
     Returns (t1, t2, alpha, iters)."""
-    wg = wg.to(torch.float32)
+    wg = wg.to(torch.float32).contiguous()
     R = wg.shape[0]
     t1 = torch.where(wg >= 0.0, 1.0, -1.0)
     t2 = t1.clone()

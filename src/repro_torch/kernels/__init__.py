@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
 ``ternary_matmul`` (decode matvec + prefill tiled kernel),
-``chunk_attention`` and ``rms_norm``. CUDA sources live under each
-package's ``csrc/`` and build at first use (``_build``); ``launch_counts``
-reads the per-kernel launch counters.
+``chunk_attention`` (ring and paged), ``rms_norm``, ``ptqtp_search`` (the
+quantizer's trit step) and ``decode_attention`` (its op only). CUDA
+sources live under each package's ``csrc/`` and build at first use
+(``_build``); ``launch_counts`` reads the per-kernel launch counters.
 """
 
 from repro_torch.kernels._build import launch_counts, reset_launch_counts

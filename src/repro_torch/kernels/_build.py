@@ -36,9 +36,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: kernel name -> launches since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {"ternary_matvec": 0, "ternary_matmul": 0,
-                            "chunk_attention": 0, "rms_norm": 0}
+                            "chunk_attention": 0, "rms_norm": 0,
+                            "chunk_attention_paged": 0, "decode_attention": 0,
+                            "ptqtp_search": 0}
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[tuple, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
@@ -109,8 +111,9 @@ def build(sources: Iterable[Path]) -> List[Path]:
 def load(source: Path, signatures: Dict[str, list]) -> ctypes.CDLL:
     """Build (if needed) and load the library of ``source``; declare each
     exported function's argument types (every function returns the CUDA
-    error code as an int)."""
-    key = str(source)
+    error code as an int). Two wrappers may load one source with their own
+    functions: each gets a handle of its own."""
+    key = (str(source), tuple(signatures))
     lib = _LIBS.get(key)
     if lib is None:
         (target,) = build([source])

@@ -1,12 +1,18 @@
-"""Public wrapper of chunk attention over the ring cache.
+"""Public wrappers of chunk attention over the ring cache and the paged
+pool.
 
 ``chunk_attention(q, k_new, v_new, k_cache, k_scale, v_cache, v_scale,
 pos_buf, positions, lengths, *, window=None) -> (B, L, KV, G, hd) f32``,
-the reference's op contract (see ``ref.py`` for shapes and the mask rule).
+the reference's op contract (see ``ref.py`` for shapes and the mask rule);
+``chunk_attention_paged(q, k_new, v_new, k_pool, k_scale, v_pool, v_scale,
+pos_pool, table, positions, lengths, *, window=None)`` is the same op over
+the virtual ring ``ring[b, p·ps + o] = pool[table[b, p], o]``.
 
-On CUDA tensors it launches the hand-written Hopper kernel of
-``csrc/chunk_attention.cu`` (replacing ``chunk_attention_pallas``); on CPU
-tensors it runs the plain online-softmax walk of ``ref.py``.
+On CUDA tensors they launch the hand-written Hopper kernel of
+``csrc/chunk_attention.cu`` (B2 replacing ``chunk_attention_pallas``, B4
+replacing ``chunk_attention_paged_pallas``); on CPU tensors they run the
+plain online-softmax walk of ``ref.py`` (the paged one over the gathered
+ring).
 """
 
 from __future__ import annotations
@@ -23,9 +29,13 @@ from repro_torch.kernels.chunk_attention import ref as _ref
 _SOURCE = Path(__file__).parent / "csrc" / "chunk_attention.cu"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {"chunk_attention_launch": [
-    _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-    _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]}
+_SIGNATURES = {
+    "chunk_attention_launch": [
+        _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    "chunk_attention_paged_launch": [
+        _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]}
 
 MAX_HEAD_DIM = 128
 
@@ -42,43 +52,53 @@ def _require(t, name, dtype, shape, device):
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def chunk_attention_cuda(q, k_new, v_new, k_cache, k_scale, v_cache, v_scale,
-                         pos_buf, positions, lengths, *,
-                         window: Optional[int] = None):
-    """The Hopper kernel; every tensor on one CUDA device."""
+def _check_common(q, k_new, v_new, k_store, k_scale, v_store, v_scale,
+                  positions, lengths, store_rows):
+    """Validate the operands both kernels share; ``store_rows`` is the
+    leading shape of the k/v storage (ring (B, cap) or pool (P, ps)).
+    Returns whether the storage is int8."""
     b, L, kv, g, hd = q.shape
-    cap = k_cache.shape[1]
     dev = q.device
     if not q.is_cuda:
-        raise ValueError("chunk_attention_cuda needs CUDA tensors")
+        raise ValueError("the chunk-attention kernels need CUDA tensors")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if hd > MAX_HEAD_DIM or hd % 16:
         raise ValueError(f"head dim {hd} must be <= {MAX_HEAD_DIM} and a "
                          "multiple of 16")
-    ring_int8 = k_cache.dtype == torch.int8
-    if not ring_int8 and k_cache.dtype != q.dtype:
+    int8 = k_store.dtype == torch.int8
+    if not int8 and k_store.dtype != q.dtype:
         raise TypeError(f"a float ring must have q's dtype {q.dtype}, got "
-                        f"{k_cache.dtype}")
+                        f"{k_store.dtype}")
     _require(q, "q", q.dtype, (b, L, kv, g, hd), dev)
     _require(k_new, "k_new", q.dtype, (b, L, kv, hd), dev)
     _require(v_new, "v_new", q.dtype, (b, L, kv, hd), dev)
-    _require(k_cache, "k_cache", k_cache.dtype, (b, cap, kv, hd), dev)
-    _require(v_cache, "v_cache", k_cache.dtype, (b, cap, kv, hd), dev)
-    if ring_int8 != (k_scale is not None and v_scale is not None):
+    _require(k_store, "k cache", k_store.dtype, (*store_rows, kv, hd), dev)
+    _require(v_store, "v cache", k_store.dtype, (*store_rows, kv, hd), dev)
+    if int8 != (k_scale is not None and v_scale is not None):
         raise ValueError("an int8 ring needs k_scale and v_scale; a float "
                          "ring takes none")
-    if ring_int8:
-        _require(k_scale, "k_scale", torch.float32, (b, cap, kv), dev)
-        _require(v_scale, "v_scale", torch.float32, (b, cap, kv), dev)
-    _require(pos_buf, "pos_buf", torch.int32, (b, cap), dev)
+    if int8:
+        _require(k_scale, "k_scale", torch.float32, (*store_rows, kv), dev)
+        _require(v_scale, "v_scale", torch.float32, (*store_rows, kv), dev)
     _require(positions, "positions", torch.int32, (b, L), dev)
     _require(lengths, "lengths", torch.int32, (b,), dev)
-    out = torch.empty((b, L, kv, g, hd), dtype=torch.float32, device=dev)
+    return int8
+
+
+def chunk_attention_cuda(q, k_new, v_new, k_cache, k_scale, v_cache, v_scale,
+                         pos_buf, positions, lengths, *,
+                         window: Optional[int] = None):
+    """The Hopper kernel (B2); every tensor on one CUDA device."""
+    b, L, kv, g, hd = q.shape
+    cap = k_cache.shape[1]
+    ring_int8 = _check_common(q, k_new, v_new, k_cache, k_scale, v_cache,
+                              v_scale, positions, lengths, (b, cap))
+    _require(pos_buf, "pos_buf", torch.int32, (b, cap), q.device)
+    out = torch.empty((b, L, kv, g, hd), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
     lib = _build.load(_SOURCE, _SIGNATURES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     status = lib.chunk_attention_launch(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         int(q.dtype == torch.bfloat16), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -86,9 +106,41 @@ def chunk_attention_cuda(q, k_new, v_new, k_cache, k_scale, v_cache, v_scale,
         v_scale.data_ptr() if ring_int8 else None, pos_buf.data_ptr(),
         positions.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         b, L, kv, g, hd, cap, _ref.reach_of(cap, window), float(hd ** -0.5),
-        stream)
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "chunk_attention_launch")
     _build.LAUNCHES["chunk_attention"] += 1
+    return out
+
+
+def chunk_attention_paged_cuda(q, k_new, v_new, k_pool, k_scale, v_pool,
+                               v_scale, pos_pool, table, positions, lengths,
+                               *, window: Optional[int] = None):
+    """The Hopper kernel (B4); every tensor on one CUDA device. Table
+    entries must be physical page ids in [0, P) (not checked: that would
+    need a device sync)."""
+    b, L, kv, g, hd = q.shape
+    n_phys, ps = k_pool.shape[:2]
+    n_pages = table.shape[1] if table.dim() == 2 else -1
+    pool_int8 = _check_common(q, k_new, v_new, k_pool, k_scale, v_pool,
+                              v_scale, positions, lengths, (n_phys, ps))
+    _require(pos_pool, "pos_pool", torch.int32, (n_phys, ps), q.device)
+    _require(table, "table", torch.int32, (b, n_pages), q.device)
+    cap = n_pages * ps
+    out = torch.empty((b, L, kv, g, hd), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load(_SOURCE, _SIGNATURES)
+    status = lib.chunk_attention_paged_launch(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        int(q.dtype == torch.bfloat16), k_pool.data_ptr(), v_pool.data_ptr(),
+        int(pool_int8), k_scale.data_ptr() if pool_int8 else None,
+        v_scale.data_ptr() if pool_int8 else None, pos_pool.data_ptr(),
+        table.data_ptr(), positions.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), b, L, kv, g, hd, ps, n_pages,
+        _ref.reach_of(cap, window), float(hd ** -0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(status, "chunk_attention_paged_launch")
+    _build.LAUNCHES["chunk_attention_paged"] += 1
     return out
 
 
@@ -105,3 +157,19 @@ def chunk_attention(q, k_new, v_new, k_cache, k_scale, v_cache, v_scale,
     return chunk_attention_cuda(q, k_new, v_new, k_cache, k_scale, v_cache,
                                 v_scale, pos_buf, positions, lengths,
                                 window=window)
+
+
+def chunk_attention_paged(q, k_new, v_new, k_pool, k_scale, v_pool, v_scale,
+                          pos_pool, table, positions, lengths, *,
+                          window: Optional[int] = None):
+    """Chunk attention over a paged ring: pools (P, ps, KV, hd) (int8 with
+    (P, ps, KV) f32 scales, or float with scales None), pos_pool (P, ps)
+    int32, table (B, n_pages) int32; page 0 is the null page (pos ≡ -1).
+    Returns (B, L, KV, G, hd) float32."""
+    if q.device.type == "cpu":
+        return _ref.chunk_attention_paged_stream(
+            q, k_new, v_new, k_pool, k_scale, v_pool, v_scale, pos_pool,
+            table, positions, lengths, window=window)
+    return chunk_attention_paged_cuda(q, k_new, v_new, k_pool, k_scale,
+                                      v_pool, v_scale, pos_pool, table,
+                                      positions, lengths, window=window)

@@ -8,6 +8,10 @@ tile. A query at absolute position p sees a key at position s iff
 ``0 <= p - s < reach``, ``reach = min(window or cap, cap)``; ring slots also
 need ``pos >= 0`` and chunk keys ``j < length``. Rows that see nothing
 output zeros.
+
+The paged form gathers the virtual ring ``ring[b, p·ps + o] =
+pool[table[b, p], o]`` (``gather_pages``, the reference's definition of
+paged semantics) and runs the same walk over it.
 """
 
 from __future__ import annotations
@@ -112,3 +116,27 @@ def chunk_attention_stream(q, k_new, v_new, k_cache, k_scale, v_cache,
                                chunk_mask(positions, lengths, reach))
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).contiguous()
+
+
+def gather_pages(pool, table):
+    """The logical (B, n_pages·ps, ...) ring of a paged cache:
+    ``ring[b, p·ps + o] = pool[table[b, p], o]``. Page 0 is the null page
+    (pos ≡ -1), so unmapped entries gather as empty slots."""
+    b, n = table.shape
+    flat = pool[table.reshape(-1).long()]
+    return flat.reshape((b, n * pool.shape[1]) + tuple(pool.shape[2:]))
+
+
+def chunk_attention_paged_stream(q, k_new, v_new, k_pool, k_scale, v_pool,
+                                 v_scale, pos_pool, table, positions, lengths,
+                                 *, window: Optional[int] = None,
+                                 tile: Optional[int] = None):
+    """``chunk_attention_stream`` over the gathered virtual ring: pools
+    (P, ps, KV, hd), scales (P, ps, KV) or None, pos_pool (P, ps), table
+    (B, n_pages). Returns (B, L, KV, G, hd) float32."""
+    def g(x):
+        return None if x is None else gather_pages(x, table)
+
+    return chunk_attention_stream(
+        q, k_new, v_new, g(k_pool), g(k_scale), g(v_pool), g(v_scale),
+        g(pos_pool), positions, lengths, window=window, tile=tile)

@@ -1,12 +1,14 @@
 """Where a decode step's time goes on the card.
 
-    python -m repro_torch.launch.profile_decode
+    python -m repro_torch.launch.profile_decode [--kv-layout paged]
 
 Builds the full-size qwen2-1.5b with random weights from seed 0,
 PTQTP-quantizes it on the card (G = 128, t_max = 20), fills 8 rows with
 512 random tokens through ``prefill_chunk``, then runs 8 decode steps of
-the whole fleet under ``torch.profiler``. It prints, beside the card's name
-and power limit:
+the whole fleet under ``torch.profiler``. With ``--kv-layout paged`` the
+cache is the paged pool (``--page-size`` tokens a page), each row's
+logical pages on distinct physical pages. It prints, beside the card's
+name and power limit:
 
   * host milliseconds per step (synchronized wall clock, profiler off);
   * device-busy milliseconds per step (sum of kernel times; one stream, so
@@ -18,6 +20,7 @@ It needs a CUDA device; it does not fall back to the CPU.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
@@ -37,7 +40,11 @@ ARCH = "qwen2-1.5b"
 SLOTS, CONTEXT, STEPS, SEED = 8, 512, 8, 0
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--kv-layout", choices=("ring", "paged"), default="ring")
+    ap.add_argument("--page-size", type=int, default=16)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode needs a CUDA device")
     dev = torch.device("cuda")
@@ -48,7 +55,15 @@ def main():
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                         device=dev)
     model, _ = quantize_tree(model, PTQTPConfig(group_size=128, t_max=20))
-    state = init_decode_state(cfg, SLOTS, CONTEXT + 4 * STEPS, device=dev)
+    cap = CONTEXT + 4 * STEPS
+    kv_spec = None
+    if args.kv_layout == "paged":
+        n = cap // args.page_size
+        kv_spec = {"page_size": args.page_size, "max_pages": SLOTS * n}
+    state = init_decode_state(cfg, SLOTS, cap, device=dev, kv_spec=kv_spec)
+    if kv_spec is not None:
+        state["table"].copy_(torch.arange(1, SLOTS * n + 1, dtype=torch.int32,
+                                          device=dev).reshape(SLOTS, n))
     rng = np.random.default_rng(SEED)
     for c0 in range(0, CONTEXT, 64):
         n = min(64, CONTEXT - c0)
@@ -79,12 +94,14 @@ def main():
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     launches = sum(r[2] for r in rows)
-    print(f"{gpu} | {ARCH}, {SLOTS} rows at context {CONTEXT}: host "
+    print(f"{gpu} | {ARCH}, {args.kv_layout} KV, {SLOTS} rows at context "
+          f"{CONTEXT}: host "
           f"{host_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step, idle "
           f"share {1 - busy_ms / host_ms:.1%}, {launches:.0f} launches/step")
     for name, ms, count in rows[:15]:
         print(f"  {ms:9.4f} ms/step  {count:6.1f}x  {name[:90]}")
-    print(json.dumps({"gpu": gpu, "host_ms_per_step": host_ms,
+    print(json.dumps({"gpu": gpu, "kv_layout": args.kv_layout,
+                      "host_ms_per_step": host_ms,
                       "device_busy_ms_per_step": busy_ms,
                       "launches_per_step": launches,
                       "kernels": [{"name": n[:120], "ms_per_step": ms,

@@ -3,6 +3,7 @@ serve a batch of requests through the v1 request API.
 
 ``python -m repro_torch.launch.serve --device cuda``
 ``python -m repro_torch.launch.serve --device cpu --requests 2 --max-new 4``
+``python -m repro_torch.launch.serve --kv-layout paged --page-size 16``
 
 The batch path of ``repro.launch.serve`` with the same defaults: the smoke
 configuration of ``--arch``, group size min(128, d_model), ``--t-max``
@@ -48,6 +49,22 @@ def main(argv=None):
     ap.add_argument("--capacity", type=int, default=128)
     ap.add_argument("--prefill-chunk", type=int, default=32,
                     help="prompt tokens consumed per slot per engine step")
+    ap.add_argument("--kv-layout", choices=("ring", "paged"), default="ring",
+                    help="KV-cache storage: 'ring' = contiguous per slot; "
+                         "'paged' = fixed-size pages from a shared pool "
+                         "with copy-on-write prefix reuse")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per physical KV page (paged layout); must "
+                         "divide --capacity")
+    ap.add_argument("--max-pages", type=int, default=None, metavar="N",
+                    help="physical page pool size (paged layout; default "
+                         "slots*capacity/page_size = the ring footprint; "
+                         "lower overcommits against prefix sharing)")
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="copy-on-write prefix-page reuse across requests "
+                         "(paged layout; cache-hit prompt pages skip "
+                         "prefill)")
     ap.add_argument("--no-quantize", action="store_true",
                     help="serve FP weights (baseline)")
     ap.add_argument("--t-max", type=int, default=20)
@@ -58,6 +75,9 @@ def main(argv=None):
                     help="torch device to serve on (cuda, or cpu for the "
                          "plain PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
+    if args.kv_layout == "paged" and args.capacity % args.page_size:
+        ap.error(f"--capacity {args.capacity} must be a whole number of "
+                 f"pages (--page-size {args.page_size})")
 
     dev = resolve_device(args.device)
     cfg = configs.get_smoke_config(args.arch)
@@ -78,7 +98,9 @@ def main(argv=None):
     tok = ByteTokenizer()
     engine = ServingEngine(model, cfg, EngineConfig(
         max_slots=args.slots, capacity=args.capacity,
-        prefill_chunk=args.prefill_chunk))
+        prefill_chunk=args.prefill_chunk, kv_layout=args.kv_layout,
+        page_size=args.page_size, max_pages=args.max_pages,
+        prefix_cache=args.prefix_cache))
     print(f"[serve] boot {time.time() - t_boot:.2f}s on {dev}", flush=True)
 
     handles = []
@@ -102,6 +124,11 @@ def main(argv=None):
     print(f"[serve] {len(results)} requests, {n_tok} tokens in {dt:.2f}s "
           f"({n_tok / max(dt, 1e-9):.1f} tok/s, {engine.steps} decode steps, "
           f"{engine.prefill_steps} prefill steps)")
+    if engine.paged:
+        a = engine.alloc
+        print(f"[serve] paged KV: {a.n_pages} pages of {a.page_size} tokens; "
+              f"prefix cache hits {a.hits}, misses {a.misses}, forks "
+              f"{a.forks}, evictions {a.evictions}, peak used {a.peak_used}")
     for r in sorted(results, key=lambda r: r.uid)[:4]:
         print(f"  [{r.uid}] ({r.finish_reason}, ttft {1e3 * r.ttft:.1f}ms) -> "
               f"{tok.decode(list(r.tokens))!r}")

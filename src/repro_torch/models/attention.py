@@ -1,18 +1,32 @@
-"""GQA attention with the ring KV cache (the reference's ring layout).
+"""GQA attention with the ring or the paged KV cache (the reference's two
+layouts).
 
-The decode cache is a ring buffer per layer with per-slot absolute
+The ring cache is a ring buffer per layer with per-slot absolute
 positions (``pos`` = -1 for empty): ``k``/``v`` (B, cap, KV, hd) in the
 activation dtype, or int8 with per-(slot, kv-head) absmax scales when
-``kv_cache_dtype == "int8"``. Every serving-time attention read — chunk
-prefill and single-token decode (its L = 1 case) — goes through
-``repro_torch.kernels.chunk_attention`` against (pre-write ring ∪ in-chunk
-keys) under one mask rule, then the chunk's keys are written.
+``kv_cache_dtype == "int8"``. The paged cache virtualizes each row's ring
+into ``page_size``-slot pages of one pool shared by every row: leaves
+``pages_k``/``pages_v`` (P, ps, KV, hd) (int8 with ``pages_ks``/
+``pages_vs`` (P, ps, KV) scales), ``pages_pos`` (P, ps) and a per-row
+``table`` (B, n_pages) of physical page ids; logical slot s of row b is
+``pool[table[b, s // ps], s % ps]``. Page 0 is the null page (pos ≡ -1,
+never written), so unmapped logical pages read as empty; the host-side
+``serving.paging.PageAllocator`` owns the ids.
 
-Unlike the reference, the cache is updated in place: a serving step would
-otherwise copy every layer's ring. A write that the reference drops (the
-cap-sentinel slot: right padding, rows with ``active=False``, and entries a
-row's own chunk tail overwrites) rewrites the slot's old value instead,
-which leaves the ring exactly as the reference's drop does.
+Every serving-time attention read — chunk prefill and single-token decode
+(its L = 1 case) — goes through ``repro_torch.kernels.chunk_attention``
+(``chunk_attention_paged`` for the paged layout) against (pre-write ring ∪
+in-chunk keys) under one mask rule, then the chunk's keys are written.
+
+Unlike the reference, caches are updated in place: a serving step would
+otherwise copy every layer's cache. A ring write that the reference drops
+(the cap-sentinel slot: right padding, rows with ``active=False``, and
+entries a row's own chunk tail overwrites) rewrites the slot's old value
+instead, which leaves the ring exactly as the reference's drop does. A
+paged write that the reference drops (those, and writes through an
+unmapped page) lands on one scratch page past the allocatable pages that
+nothing reads, so no index that is read is written twice in one scatter
+and neither the null page nor a live page is touched.
 """
 
 from __future__ import annotations
@@ -22,7 +36,8 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.kernels.chunk_attention.ops import chunk_attention
+from repro_torch.kernels.chunk_attention.ops import (chunk_attention,
+                                                     chunk_attention_paged)
 from repro_torch.models.common import Dense, apply_rope
 
 NEG_INF = -1e30
@@ -95,10 +110,65 @@ def cache_init(cfg, batch: int, capacity: int, window: Optional[int], dtype,
     return cache
 
 
+# f32(1/127): the reference's ``max|x| / 127.0`` runs under ``jax.jit``,
+# where XLA rewrites division by a constant as a multiply by its f32
+# reciprocal; multiplying here gives the reference engine's scales bit for
+# bit (a true division differs in ~1 % of them)
+_INV127 = float(torch.tensor(1.0 / 127.0, dtype=torch.float32))
+
+
+def paged_pool(cfg, n_layers: int, capacity: int, window: Optional[int],
+               dtype, device, *, page_size: int, max_pages: int
+               ) -> Dict[str, torch.Tensor]:
+    """The paged pool of ``n_layers`` layers, each leaf one tensor
+    (n_layers, P, ps, ...) so a copy-on-write page copy or a page clear is
+    one indexed copy per leaf. P = max_pages + 2: the null page 0, the
+    allocatable pages 1..max_pages, and the scratch page P - 1 that dropped
+    writes land on (never in a table, never read).
+
+    Sliding-window layers are rejected, as in the reference: paging
+    virtualizes one uniform logical capacity per row."""
+    if window is not None and window < capacity:
+        raise ValueError(
+            f"paged KV layout requires full-capacity attention layers "
+            f"(window {window} < capacity {capacity}); use the ring layout "
+            "for sliding-window models")
+    if capacity % page_size:
+        raise ValueError(f"page_size {page_size} must divide "
+                         f"capacity {capacity}")
+    shape = (n_layers, max_pages + 2, page_size, cfg.n_kv_heads,
+             cfg.head_dim)
+    pool = {"pages_pos": torch.full(shape[:3], -1, dtype=torch.int32,
+                                    device=device)}
+    kv_dtype = torch.int8 if cfg.kv_cache_dtype == "int8" else dtype
+    pool["pages_k"] = torch.zeros(shape, dtype=kv_dtype, device=device)
+    pool["pages_v"] = torch.zeros(shape, dtype=kv_dtype, device=device)
+    if cfg.kv_cache_dtype == "int8":
+        pool["pages_ks"] = torch.zeros(shape[:4], dtype=torch.float32,
+                                       device=device)
+        pool["pages_vs"] = torch.zeros(shape[:4], dtype=torch.float32,
+                                       device=device)
+    return pool
+
+
+def paged_cache_init(cfg, batch: int, capacity: int, window: Optional[int],
+                     dtype, device, *, page_size: int, max_pages: int
+                     ) -> Dict[str, torch.Tensor]:
+    """One layer's paged cache: its ``pages_*`` pool leaves (P, ps, ...)
+    (see ``paged_pool``) and a zeroed ``table`` (B, capacity / page_size)
+    int32 — every logical page on the null page."""
+    pool = paged_pool(cfg, 1, capacity, window, dtype, device,
+                      page_size=page_size, max_pages=max_pages)
+    cache = {name: leaf[0] for name, leaf in pool.items()}
+    cache["table"] = torch.zeros((batch, capacity // page_size),
+                                 dtype=torch.int32, device=device)
+    return cache
+
+
 def _q8(x):
     """absmax int8 quantization over the trailing (head) dim."""
     xf = x.to(torch.float32)
-    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-10)
+    scale = torch.clamp(xf.abs().amax(dim=-1) * _INV127, min=1e-10)
     q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
     return q.to(torch.int8), scale
 
@@ -118,27 +188,81 @@ def _scatter_slots(buf, idx, vals, keep):
     buf[idx] = torch.where(k, vals, buf[idx])
 
 
+def _page_rows(cache, slots, keep):
+    """Flat pool rows (B·S,) of logical ring ``slots`` (B, S) through the
+    cache's table, for the entries where ``keep``. Entries not kept, or
+    whose logical page is unmapped (table entry 0, the null page), get a row
+    of the scratch page P - 1 instead. Kept rows are distinct: a row's kept
+    slots are distinct (as in the ring), and distinct rows never map a
+    written page to the same physical page (the engine forks shared pages
+    before any dispatch that writes them)."""
+    n_phys, ps = cache["pages_pos"].shape
+    slots = slots.long()
+    phys = torch.gather(cache["table"], 1,
+                        torch.div(slots, ps, rounding_mode="floor")).long()
+    flat = torch.where(keep & (phys != 0), phys * ps + slots % ps,
+                       (n_phys - 1) * ps)
+    return flat.reshape(-1)
+
+
+def _scatter_pages(pool, rows, vals):
+    """Paged analogue of ``_scatter_slots``: pool (P, ps, ...) <- vals
+    (B, S, ...) at the flat pool ``rows`` (B·S,) of ``_page_rows``."""
+    n_phys, ps = pool.shape[0], pool.shape[1]
+    pool.view((n_phys * ps,) + tuple(pool.shape[2:]))[rows] = vals.reshape(
+        (-1,) + tuple(vals.shape[2:])).to(pool.dtype)
+
+
 def _write(cache, slots, keep, k, v, positions):
-    b, s = slots.shape
-    idx = (torch.arange(b, device=slots.device)[:, None].expand(b, s),
-           slots.long())
-    _scatter_slots(cache["pos"], idx, positions.to(torch.int32), keep)
-    if "k_scale" in cache:
+    if "table" in cache:
+        rows = _page_rows(cache, slots, keep)
+        scatter = lambda name, vals: _scatter_pages(  # noqa: E731
+            cache[name], rows, vals)
+        names = ("pages_pos", "pages_k", "pages_v", "pages_ks", "pages_vs")
+    else:
+        b, s = slots.shape
+        idx = (torch.arange(b, device=slots.device)[:, None].expand(b, s),
+               slots.long())
+        scatter = lambda name, vals: _scatter_slots(  # noqa: E731
+            cache[name], idx, vals, keep)
+        names = ("pos", "k", "v", "k_scale", "v_scale")
+    scatter(names[0], positions.to(torch.int32))
+    if names[3] in cache:
         kq, ks = _q8(k)
         vq, vs = _q8(v)
-        _scatter_slots(cache["k"], idx, kq, keep)
-        _scatter_slots(cache["v"], idx, vq, keep)
-        _scatter_slots(cache["k_scale"], idx, ks, keep)
-        _scatter_slots(cache["v_scale"], idx, vs, keep)
+        scatter(names[1], kq)
+        scatter(names[2], vq)
+        scatter(names[3], ks)
+        scatter(names[4], vs)
     else:
-        _scatter_slots(cache["k"], idx, k, keep)
-        _scatter_slots(cache["v"], idx, v, keep)
+        scatter(names[1], k)
+        scatter(names[2], v)
+
+
+def _attend(cache, q, k, v, positions, lengths, window):
+    """Chunk attention of q against (``cache`` before the write ∪ k/v),
+    through the ring or the paged kernel."""
+    if "table" in cache:
+        return chunk_attention_paged(
+            q, k, v, cache["pages_k"], cache.get("pages_ks"),
+            cache["pages_v"], cache.get("pages_vs"), cache["pages_pos"],
+            cache["table"], positions, lengths, window=window)
+    return chunk_attention(
+        q, k, v, cache["k"], cache.get("k_scale"), cache["v"],
+        cache.get("v_scale"), cache["pos"], positions, lengths,
+        window=window)
+
+
+def _capacity(cache) -> int:
+    if "table" in cache:
+        return cache["table"].shape[1] * cache["pages_k"].shape[1]
+    return cache["k"].shape[1]
 
 
 def attention_prefill_chunk(attn: Attention, cfg, cache, x, positions,
                             lengths, rope, *, window: Optional[int] = None
                             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Padded-batch chunk prefill: attend to (ring ∪ chunk), then write.
+    """Padded-batch chunk prefill: attend to (cache ∪ chunk), then write.
 
     x: (B, L, D) right-padded chunk; positions: (B, L) int32 absolute
     positions, ``rope`` their ``rope_tables``; lengths: (B,) int32 valid
@@ -148,13 +272,10 @@ def attention_prefill_chunk(attn: Attention, cfg, cache, x, positions,
     b, L, _ = x.shape
     hd = cfg.head_dim
     kv, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    cap = cache["k"].shape[1]
+    cap = _capacity(cache)
     q, k, v = _qkv(attn, cfg, x, rope)
-    y = chunk_attention(
-        q.reshape(b, L, kv, g, hd).contiguous(), k.contiguous(),
-        v.contiguous(), cache["k"], cache.get("k_scale"), cache["v"],
-        cache.get("v_scale"), cache["pos"], positions, lengths,
-        window=window)
+    y = _attend(cache, q.reshape(b, L, kv, g, hd).contiguous(),
+                k.contiguous(), v.contiguous(), positions, lengths, window)
     y = attn.wo(y.reshape(b, L, cfg.n_heads * hd).to(x.dtype))
 
     valid = torch.arange(L, device=x.device)[None, :] < lengths[:, None]
@@ -170,12 +291,12 @@ def attention_decode(attn: Attention, cfg, cache, x_t, pos, rope, *,
     """One-token decode. x_t: (B, D); pos: (B,) int32 absolute position,
     ``rope`` its ``rope_tables``.
 
-    Rows with active=False attend with length 0 and leave the ring
+    Rows with active=False attend with length 0 and leave the cache
     untouched. Returns (y, cache) with the cache updated in place."""
     b, _ = x_t.shape
     hd = cfg.head_dim
     kv, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    cap = cache["k"].shape[1]
+    cap = _capacity(cache)
     q = attn.wq(x_t).reshape(b, cfg.n_heads, hd)
     k_t = attn.wk(x_t).reshape(b, kv, hd)
     v_t = attn.wv(x_t).reshape(b, kv, hd)
@@ -183,11 +304,9 @@ def attention_decode(attn: Attention, cfg, cache, x_t, pos, rope, *,
     k_t = apply_rope(k_t, rope)
     lengths = (active.to(torch.int32) if active is not None
                else torch.ones((b,), dtype=torch.int32, device=x_t.device))
-    y = chunk_attention(
-        q.reshape(b, 1, kv, g, hd).contiguous(), k_t[:, None].contiguous(),
-        v_t[:, None].contiguous(), cache["k"], cache.get("k_scale"),
-        cache["v"], cache.get("v_scale"), cache["pos"],
-        pos[:, None].to(torch.int32).contiguous(), lengths, window=window)
+    y = _attend(cache, q.reshape(b, 1, kv, g, hd).contiguous(),
+                k_t[:, None].contiguous(), v_t[:, None].contiguous(),
+                pos[:, None].to(torch.int32).contiguous(), lengths, window)
     y = attn.wo(y.reshape(b, cfg.n_heads * hd).to(x_t.dtype))
     keep = (lengths > 0)[:, None]
     _write(cache, (pos % cap)[:, None], keep, k_t[:, None], v_t[:, None],

@@ -7,7 +7,7 @@ The reference stacks layers for ``lax.scan``; here they are a
 Model API:
   init_params(cfg, generator=None, device="cuda")  -> Transformer
   forward(model, cfg, tokens)                      -> logits (B, S, V)
-  init_decode_state(cfg, batch, capacity, device)  -> state
+  init_decode_state(cfg, batch, capacity, device, kv_spec=None) -> state
   prefill_chunk(model, cfg, state, tokens, lengths) -> (logits (B, V), state)
   decode_step(model, cfg, state, tokens, active)   -> (logits (B, V), state)
 
@@ -110,18 +110,42 @@ def forward(model: Transformer, cfg, tokens) -> torch.Tensor:
     return model.lm_head(model.final_norm(x, cfg.norm_eps))
 
 
-def init_decode_state(cfg, batch: int, capacity: int,
-                      device="cuda") -> Dict[str, Any]:
-    """Zeroed decode state: per-row positions and one ring per layer."""
+def init_decode_state(cfg, batch: int, capacity: int, device="cuda",
+                      kv_spec: Optional[Dict[str, int]] = None
+                      ) -> Dict[str, Any]:
+    """Zeroed decode state: per-row positions and one cache per layer.
+
+    ``kv_spec = {"page_size": ps, "max_pages": n}`` selects the paged
+    layout for every layer: the state then also holds ``pool`` (each
+    ``pages_*`` leaf stacked (n_layers, P, ps, ...), as the reference
+    stacks its layers) and one ``table`` (B, n_pages) int32 that every
+    layer reads; each layer's cache holds views of them. None keeps a ring
+    per layer."""
     _check_kinds(cfg)
     dev = resolve_device(device)
     adt = dtype_of(cfg.activation_dtype)
-    return {
-        "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-        "layers": [attn_mod.cache_init(cfg, batch, capacity, _window(k, cfg),
-                                       adt, dev)
-                   for k in cfg.layer_kinds],
-    }
+    state: Dict[str, Any] = {
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    if kv_spec is None:
+        state["layers"] = [
+            attn_mod.cache_init(cfg, batch, capacity, _window(k, cfg), adt,
+                                dev)
+            for k in cfg.layer_kinds]
+        return state
+    ps, max_pages = kv_spec["page_size"], kv_spec["max_pages"]
+    windows = [_window(k, cfg) for k in cfg.layer_kinds]
+    narrow = [w for w in windows if w is not None and w < capacity]
+    pool = attn_mod.paged_pool(cfg, cfg.n_layers, capacity,
+                               narrow[0] if narrow else None, adt, dev,
+                               page_size=ps, max_pages=max_pages)
+    table = torch.zeros((batch, capacity // ps), dtype=torch.int32,
+                        device=dev)
+    state["pool"] = pool
+    state["table"] = table
+    state["layers"] = [
+        dict({name: leaf[i] for name, leaf in pool.items()}, table=table)
+        for i in range(cfg.n_layers)]
+    return state
 
 
 @torch.no_grad()

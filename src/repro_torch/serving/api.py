@@ -22,7 +22,7 @@ FINISH_STOP = "stop"          # hit a stop-token id (incl. EngineConfig.eos_id)
 FINISH_LENGTH = "length"      # produced max_new_tokens
 FINISH_CANCELLED = "cancelled"
 FINISH_TIMEOUT = "timeout"    # deadline expired (not implemented by the port yet)
-FINISH_REJECTED = "rejected"  # shed at submit (not implemented by the port yet)
+FINISH_REJECTED = "rejected"  # shed at submit (paged: the pool can never hold it)
 FINISH_ERROR = "error"        # fault contained to this request
 
 FINISH_REASONS = (FINISH_STOP, FINISH_LENGTH, FINISH_CANCELLED,

@@ -1,5 +1,6 @@
-"""Continuous-batching serving engine, ring KV layout (the reference's
-``repro.serving.engine.ServingEngine``, same scheduling and field names).
+"""Continuous-batching serving engine (the reference's
+``repro.serving.engine.ServingEngine``, same scheduling and field names),
+over the ring or the paged KV layout.
 
   * ``submit(prompt, SamplingParams(...)) -> RequestHandle`` enqueues;
   * ``step()`` advances the whole fleet one engine step: admission into all
@@ -17,14 +18,25 @@ stop-freezing and ``active`` kept on the device, and one host sync per
 K-step dispatch (no CUDA graph yet).
 
 Per-request sampling draws token i of a request from (seed, i) alone
-(``serving.sampling``), so output is invariant to fleet composition and
-chunk boundaries; on the card this also needs the batch-invariant kernels
-(every kernel of the path computes a row the same way whatever shares its
-batch).
+(``serving.sampling``, ``jax.random``'s threefry stream), so output is
+invariant to fleet composition and chunk boundaries; on the card this also
+needs the batch-invariant kernels (every kernel of the path computes a row
+the same way whatever shares its batch).
 
-Not ported yet, and rejected when set away from their defaults: the paged
-KV layout, admission caps, deadlines, quarantine, fault injection,
-observability, pre-unpacked planes and an attention-backend override.
+``kv_layout="paged"`` serves from one pool of ``page_size``-token pages
+shared by every slot (``serving.paging.PageAllocator`` on the host, the
+reference's semantics): admission reserves a request's worst-case pages up
+front (the queue head waits for them, FIFO; a request that could never fit
+is shed at submit), fully written prompt pages are published to a prefix
+cache under their exact token keys, a later request with the same prefix
+adopts them and skips their prefill (trimmed to a multiple of
+``prefill_chunk`` so chunk boundaries, and hence logits, stay as in a cold
+run), and a page shared by more than one holder is copied before any
+dispatch writes it (copy-on-write). Streams equal the ring layout's.
+
+Not ported yet, and rejected when set away from their defaults: admission
+caps, deadlines, quarantine, fault injection, observability, pre-unpacked
+planes and an attention-backend override.
 """
 
 from __future__ import annotations
@@ -39,8 +51,10 @@ import torch
 
 from repro_torch.models import decode_step, init_decode_state, prefill_chunk
 from repro_torch.serving.api import (FINISH_CANCELLED, FINISH_LENGTH,
-                                     FINISH_STOP, RequestHandle,
-                                     SamplingParams, make_handle)
+                                     FINISH_REJECTED, FINISH_STOP,
+                                     RequestHandle, SamplingParams,
+                                     make_handle)
+from repro_torch.serving.paging import PageAllocator
 from repro_torch.serving.sampling import sample_tokens_per_request
 
 __all__ = ["EngineConfig", "ServingEngine", "SamplingParams", "RequestHandle"]
@@ -62,19 +76,19 @@ class EngineConfig:
     quarantine_steps: Optional[int] = 2
     decode_chunk_prefilling: int = 2
     preunpack_decode: Optional[bool] = None
-    kv_layout: str = "ring"
-    page_size: int = 16
+    kv_layout: str = "ring"      # "ring" | "paged"
+    page_size: int = 16          # tokens per physical page (paged)
+    # pool size in pages (None → max_slots · capacity / page_size, the ring
+    # footprint; lower overcommits against prefix sharing)
     max_pages: Optional[int] = None
-    prefix_cache: bool = True
+    prefix_cache: bool = True    # copy-on-write prefix reuse (paged)
 
     # fields of the reference this port does not implement yet, with the
     # only values it accepts
     _UNPORTED = {"attn_backend": (None, "auto"), "max_queue": (None,),
                  "max_resident_tokens": (None,),
                  "admission_policy": ("reject",), "quarantine_steps": (2,),
-                 "preunpack_decode": (None, False), "kv_layout": ("ring",),
-                 "page_size": (16,), "max_pages": (None,),
-                 "prefix_cache": (True,)}
+                 "preunpack_decode": (None, False)}
 
     def __post_init__(self):
         if self.max_slots < 1 or self.capacity < 1:
@@ -82,6 +96,16 @@ class EngineConfig:
         if min(self.decode_chunk, self.prefill_chunk,
                self.decode_chunk_prefilling) < 1:
             raise ValueError("chunk sizes must be >= 1")
+        if self.kv_layout not in ("ring", "paged"):
+            raise ValueError(f"kv_layout must be 'ring' or 'paged', got "
+                             f"{self.kv_layout!r}")
+        if self.kv_layout == "paged":
+            if self.page_size < 1 or self.capacity % self.page_size:
+                raise ValueError(f"capacity {self.capacity} must be a whole "
+                                 f"number of pages (page_size "
+                                 f"{self.page_size})")
+            if self.max_pages is not None and self.max_pages < 1:
+                raise ValueError("max_pages must be >= 1")
         for name, allowed in self._UNPORTED.items():
             if getattr(self, name) not in allowed:
                 raise NotImplementedError(
@@ -108,8 +132,36 @@ class ServingEngine:
         nb = engine_cfg.max_slots
         self.queue: deque[RequestHandle] = deque()
         self.slots: List[Optional[RequestHandle]] = [None] * nb
+        # ---- paged KV layout (see _plan_pages for the admission story)
+        self.paged = engine_cfg.kv_layout == "paged"
+        kv_spec = None
+        if self.paged:
+            ps = engine_cfg.page_size
+            self._per_slot = engine_cfg.capacity // ps
+            total = engine_cfg.max_pages
+            if total is None:
+                total = nb * self._per_slot
+            # every block of the port is attention + MLP, so prefix reuse
+            # is always sound (the reference turns it off for recurrent
+            # mixers, whose state cannot skip the shared prefix)
+            self._prefix_reuse = engine_cfg.prefix_cache
+            self.alloc = PageAllocator(total, ps,
+                                       prefix_cache=self._prefix_reuse)
+            # host-authoritative logical→physical page map per slot; pushed
+            # to the device table by _page_maintenance
+            self._tables = np.zeros((nb, self._per_slot), np.int32)
+            self._tables_dirty = False
+            self._registered = [0] * nb
+            self._cacheable = [False] * nb
+            # COW fork targets reserved at admission (so a wrap-time fork
+            # can never fail mid-request)
+            self._reserve: List[List[int]] = [[] for _ in range(nb)]
+            kv_spec = {"page_size": ps, "max_pages": total}
+        else:
+            self.alloc = None
+            self._prefix_reuse = False
         self.state = init_decode_state(model_cfg, nb, engine_cfg.capacity,
-                                       device=self.device)
+                                       device=self.device, kv_spec=kv_spec)
         self.last_tokens = np.zeros((nb,), np.int32)
         self._prompts: List[Optional[List[int]]] = [None] * nb
         self._cursor: List[int] = [0] * nb
@@ -121,6 +173,7 @@ class ServingEngine:
         self.engine_steps = 0
         self.completed = 0
         self.cancelled = 0
+        self.sheds = 0            # rejected at submit
         self.submitted = 0
         self.tokens_generated = 0
         self.prefill_tokens = 0
@@ -142,8 +195,133 @@ class ServingEngine:
             stop |= {self.ecfg.eos_id}
         h._stop_ids = stop
         h.truncated = len(h.prompt) > self.ecfg.capacity
+        if self.paged and self._worst_pages(h) > self.alloc.n_pages:
+            # an empty pool could not hold its worst case: shed now rather
+            # than let the queue head wait for pages that can never free
+            h.error = (f"page budget ({self._worst_pages(h)} worst-case "
+                       f"pages > pool of {self.alloc.n_pages})")
+            self._finish(h, FINISH_REJECTED)
+            return h
         self.queue.append(h)
         return h
+
+    def _committed_tokens(self, h: RequestHandle) -> int:
+        """Token footprint a request commits the engine to: its clipped
+        prompt plus its full generation budget."""
+        return min(len(h.prompt), self.ecfg.capacity) + h.params.max_new_tokens
+
+    # -------------------------------------------------- paged KV internals
+    def _worst_pages(self, h: RequestHandle) -> int:
+        """Worst-case physical pages a request can hold at once: its
+        committed tokens in pages, clipped to the slot's logical ring (a
+        wrapping request reuses its own pages). Admission reserves exactly
+        this: shared prefix pages cut fresh demand, but a wrap-bound
+        request reserves one fork target per shared page."""
+        ps = self.ecfg.page_size
+        return min(-(-self._committed_tokens(h) // ps), self._per_slot)
+
+    def _plan_pages(self, h: RequestHandle):
+        """Reserve the whole worst-case page budget of ``h`` now, or return
+        None if the pool cannot cover it yet (the queue head then waits).
+
+        Returns (prompt, shared, fresh, reserve, cacheable): ``shared`` are
+        prefix-cache pages adopted read-only (logical pages 0..n-1, whose
+        tokens skip prefill); ``fresh`` private pages for the rest of the
+        ring; ``reserve`` unmapped fork targets, one per shared page, taken
+        only when generation will wrap the ring (every shared page is then
+        overwritten and must fork); ``cacheable`` whether the row's own
+        prompt pages may be published (never for truncated or wrap-bound
+        prompts). The skipped prefix is trimmed to a multiple of
+        ``prefill_chunk``, so a warm run replays the cold run's prefill
+        dispatches from the skip point and its logits stay the same."""
+        ps, cap = self.ecfg.page_size, self.ecfg.capacity
+        prompt = list(h.prompt[-cap:])
+        plen = len(prompt)
+        will_wrap = plen + h.params.max_new_tokens > cap
+        n_req = self._worst_pages(h)
+        shared: List[int] = []
+        n_keys = 0
+        if self._prefix_reuse and not h.truncated:
+            # page j is lookup-able iff fully prompt-filled; at least one
+            # token always prefills (its logits give the first token)
+            n_keys = (plen - 1) // ps
+            shared = self.alloc.cache_lookup(
+                [tuple(prompt[:(j + 1) * ps]) for j in range(n_keys)])
+            chunk = self.ecfg.prefill_chunk
+            while shared and (len(shared) * ps) % chunk:
+                self.alloc.release(shared.pop())  # determinism trim
+        need = n_req - len(shared) + (len(shared) if will_wrap else 0)
+        if self.alloc.available() < need:
+            for pid in shared:
+                self.alloc.release(pid)
+            return None
+        fresh = self.alloc.alloc(need)
+        reserve = fresh[n_req - len(shared):]
+        fresh = fresh[:n_req - len(shared)]
+        self.alloc.hits += len(shared)
+        self.alloc.misses += 1 if n_keys > len(shared) else 0
+        cacheable = self._prefix_reuse and not h.truncated and not will_wrap
+        return prompt, shared, fresh, reserve, cacheable
+
+    def _page_maintenance(self, copies=(), clear=()):
+        """Apply the step's device-side page bookkeeping: COW copies
+        (``pool[dst] = pool[src]``, one indexed copy per pool leaf across
+        all layers), invalidation of freshly allocated pages (their
+        ``pages_pos`` to -1: a recycled page's stale positions would
+        otherwise pass the mask), and the push of the host page tables."""
+        pool = self.state["pool"]
+        if copies:
+            dev = self.device
+            src = torch.tensor([a for a, _ in copies], device=dev)
+            dst = torch.tensor([b for _, b in copies], device=dev)
+            for leaf in pool.values():
+                leaf[:, dst] = leaf[:, src]
+        if clear:
+            pool["pages_pos"][:, torch.tensor(list(clear),
+                                              device=self.device)] = -1
+        self.state["table"].copy_(torch.from_numpy(self._tables))
+        self._tables_dirty = False
+
+    def _fork_writes(self, spans):
+        """Copy-on-write, before the dispatch that writes: for each write
+        span (slot, first position, token count), a touched logical page
+        whose physical page is shared (ref > 1: held by the prefix cache
+        and/or another slot) forks to this row's reserved target; readers
+        keep the original bit for bit. Spans are worst case (a row may
+        freeze mid-chunk): a wasted fork costs one page copy."""
+        ps = self.ecfg.page_size
+        copies = []
+        for slot, start, n in spans:
+            if n <= 0:
+                continue
+            for p in range(start // ps, (start + n - 1) // ps + 1):
+                j = p % self._per_slot
+                pid = int(self._tables[slot, j])
+                if pid == 0 or self.alloc.ref[pid] <= 1:
+                    continue
+                new = self._reserve[slot].pop()
+                self._tables[slot, j] = new
+                self._tables_dirty = True
+                copies.append((pid, new))
+                self.alloc.release(pid)
+                self.alloc.forks += 1
+        if copies:
+            self._page_maintenance(copies=copies)
+
+    def _register_pages(self, finishers: List[int]):
+        """Publish a finished prompt's fully written pages to the prefix
+        cache, at prefill completion (the step that syncs for the first
+        token anyway)."""
+        ps = self.ecfg.page_size
+        for i in finishers:
+            if not self._cacheable[i]:
+                continue
+            prompt = self._prompts[i]
+            upto = min(self._cursor[i], len(prompt)) // ps
+            for j in range(self._registered[i], upto):
+                self.alloc.cache_insert(tuple(prompt[:(j + 1) * ps]),
+                                        int(self._tables[i, j]))
+            self._registered[i] = upto
 
     def cancel(self, handle: RequestHandle) -> bool:
         """Cancel a queued or resident request; False if already done."""
@@ -185,6 +363,15 @@ class ServingEngine:
         if any(self._prefilling(i) for i in range(len(self.slots))):
             chunk = min(chunk, self.ecfg.decode_chunk_prefilling)
         n_steps = min(chunk, _pow2ceil(remaining))
+        if self.paged:
+            # decode writes positions pos..pos+n_steps-1 (worst case); a
+            # wrapping row is about to overwrite its oldest pages, which
+            # may be cache-shared prefix — fork them first (COW)
+            self._fork_writes(
+                [(i, len(self._prompts[i]) + len(self.slots[i].output) - 1,
+                  n_steps) for i in dec])
+            if self._tables_dirty:
+                self._page_maintenance()
         toks = self._decode_loop(n_steps)
         self.steps += n_steps
         return done_now + self._collect(toks)
@@ -199,6 +386,22 @@ class ServingEngine:
                 and self._cursor[slot] >= len(self._prompts[slot]))
 
     def _free_slot(self, slot: int):
+        if self.paged and self.slots[slot] is not None:
+            # every retirement (finish, cancel) comes through here, so pages
+            # always return: table references drop (cache-held pages stay
+            # at ref 1, evictable; private pages free at once), unused fork
+            # reserves free, and the device table row is pushed stale-but-
+            # harmless (free rows are fully masked) at the next maintenance
+            for pid in self._tables[slot]:
+                if pid:
+                    self.alloc.release(int(pid))
+            for pid in self._reserve[slot]:
+                self.alloc.release(pid)
+            self._reserve[slot] = []
+            self._tables[slot, :] = 0
+            self._registered[slot] = 0
+            self._cacheable[slot] = False
+            self._tables_dirty = True
         self.slots[slot] = None
         self._prompts[slot] = None
         self._cursor[slot] = 0
@@ -211,6 +414,8 @@ class ServingEngine:
             self.completed += 1
         elif reason == FINISH_CANCELLED:
             self.cancelled += 1
+        elif reason == FINISH_REJECTED:
+            self.sheds += 1
 
     def _emit(self, h: RequestHandle, tok: int, now: float) -> bool:
         """Append a generated token; True if it finished the request."""
@@ -226,30 +431,64 @@ class ServingEngine:
             return False
         return True
 
-    def _reset_rows(self, mask: np.ndarray):
-        """Clear the decode state of the rows in ``mask`` (new admissions):
-        ring positions to -1, KV to 0, row position to 0 — in place."""
+    def _reset_rows(self, mask: np.ndarray, pos0: np.ndarray):
+        """Clear the decode state of the rows in ``mask`` (new admissions),
+        in place: row position to ``pos0`` (nonzero when a paged admission
+        skips prefix-cached prompt pages), ring positions to -1 and KV to 0.
+        The paged pool is physical storage owned by the allocator, not per
+        row: ``_page_maintenance`` clears fresh pages and pushes the
+        tables instead."""
         m = torch.as_tensor(mask, device=self.device)
-        self.state["pos"].masked_fill_(m, 0)
+        self.state["pos"] = torch.where(
+            m, torch.as_tensor(pos0, device=self.device), self.state["pos"])
+        if self.paged:
+            return
         for cache in self.state["layers"]:
             for name, buf in cache.items():
                 shaped = m.reshape((-1,) + (1,) * (buf.dim() - 1))
                 buf.masked_fill_(shaped, -1 if name == "pos" else 0)
 
     def _admit(self):
+        """Move queued requests into every free slot. Under the paged
+        layout a slot admits only when the queue head's worst-case page
+        budget is reservable now; otherwise the head waits (strict FIFO:
+        a shorter request behind it never jumps the line) until
+        retirements return pages."""
         fresh = np.zeros((len(self.slots),), bool)
+        pos0 = np.zeros((len(self.slots),), np.int32)
+        clear: List[int] = []
         for slot in range(len(self.slots)):
             if self.slots[slot] is not None or not self.queue:
                 continue
-            h = self.queue.popleft()
+            if self.paged:
+                plan = self._plan_pages(self.queue[0])
+                if plan is None:
+                    break  # the head waits for pages; FIFO holds
+                prompt, shared, fresh_pages, reserve, cacheable = plan
+                h = self.queue.popleft()
+                skip = len(shared) * self.ecfg.page_size
+                ids = shared + fresh_pages
+                self._tables[slot, :] = 0
+                self._tables[slot, :len(ids)] = ids
+                self._tables_dirty = True
+                self._registered[slot] = len(shared)
+                self._cacheable[slot] = cacheable
+                self._reserve[slot] = reserve
+                clear.extend(fresh_pages)
+            else:
+                h = self.queue.popleft()
+                prompt, skip = list(h.prompt[-self.ecfg.capacity:]), 0
             self.slots[slot] = h
-            self._prompts[slot] = list(h.prompt[-self.ecfg.capacity:])
-            self._cursor[slot] = 0
+            self._prompts[slot] = prompt
+            self._cursor[slot] = skip  # cache-hit tokens never prefill
+            pos0[slot] = skip
             h.t_admit = time.monotonic()
             fresh[slot] = True
             self.admits += 1
         if fresh.any():
-            self._reset_rows(fresh)
+            self._reset_rows(fresh, pos0)
+            if self.paged:
+                self._page_maintenance(clear=clear)
             self._slot_arrays = None
 
     def _sample_first(self, logits, rows: List[int]) -> np.ndarray:
@@ -270,7 +509,7 @@ class ServingEngine:
             logits, torch.tensor(seeds, dtype=torch.int64, device=self.device),
             torch.zeros((nb,), dtype=torch.int32, device=self.device),
             torch.tensor(temps, dtype=torch.float32, device=self.device),
-            top_k=tk, top_p=tp)
+            top_k=tk, top_p=tp, draw=any(t > 0.0 for t in temps))
         return toks.cpu().numpy()
 
     def _prefill_step(self) -> List[RequestHandle]:
@@ -289,6 +528,14 @@ class ServingEngine:
             c = self._cursor[i]
             tokens[i, :take[i]] = self._prompts[i][c:c + take[i]]
             lengths[i] = take[i]
+        if self.paged:
+            # prefill writes only this row's private, unregistered pages
+            # (the skip starts past the shared prefix and registration
+            # trails the cursor), so these are no-ops — kept as the single
+            # COW choke point before every write dispatch
+            self._fork_writes([(i, self._cursor[i], take[i]) for i in pf])
+            if self._tables_dirty:
+                self._page_maintenance()
         logits, self.state = prefill_chunk(
             self.model, self.cfg, self.state,
             torch.from_numpy(tokens).to(self.device),
@@ -301,6 +548,8 @@ class ServingEngine:
             self._cursor[i] += take[i]
         if not finishers:
             return []
+        if self.paged:
+            self._register_pages(finishers)
         toks = self._sample_first(logits, finishers)
         now = time.monotonic()
         finished: List[RequestHandle] = []
@@ -316,7 +565,9 @@ class ServingEngine:
 
     def _fleet_arrays(self):
         """Per-slot device tensors for the decode loop, cached until the
-        fleet changes: (temps, active, seeds, top_k, top_p, stops, masked)."""
+        fleet changes: (temps, active, seeds, top_k, top_p, stops) and the
+        host flags (masked, draw): any row with top-k/top-p, any row with
+        temperature > 0."""
         if self._slot_arrays is None:
             nb = len(self.slots)
             temps = np.zeros((nb,), np.float32)
@@ -344,13 +595,13 @@ class ServingEngine:
             self._slot_arrays = tuple(
                 torch.from_numpy(a).to(dev)
                 for a in (temps, active, seeds, top_k, top_p, stops)
-            ) + (masked,)
+            ) + (masked, bool((temps > 0.0).any()))
         return self._slot_arrays
 
     def _decode_loop(self, n_steps: int) -> np.ndarray:
         """K decode steps with on-device sampling and stop-freezing; one
         host sync at the end. Returns (K, B) sampled tokens."""
-        temps, active, seeds, top_k, top_p, stops, masked = \
+        temps, active, seeds, top_k, top_p, stops, masked, draw = \
             self._fleet_arrays()
         nb = len(self.slots)
         gen = torch.tensor([len(self.slots[i].output) if self._decoding(i)
@@ -363,7 +614,7 @@ class ServingEngine:
                                              tok, active)
             nxt = sample_tokens_per_request(
                 logits, seeds, gen, temps, top_k=top_k if masked else None,
-                top_p=top_p if masked else None)
+                top_p=top_p if masked else None, draw=draw)
             nxt = torch.where(active, nxt, tok)  # frozen rows repeat
             gen = gen + active.to(gen.dtype)
             hit = (nxt[:, None] == stops).any(dim=-1)

@@ -7,12 +7,14 @@ reference package, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances: the kernels sum in another order than the plain versions, in
-f32: ternary matmul rtol = atol = 1e-4 (|y| ~ 10), attention 1e-4 (outputs
-are convex mixes of values ~ 1), RMSNorm rtol 1e-5 in f32 and one bf16 step
-(2^-7 of the value) in bf16. The decode and prefill matmul kernels must
-give bit-identical rows, the norm kernel's rows must not depend on how many
-rows share the call, and the engine's greedy streams must not depend on the
-fleet.
+f32: ternary matmul rtol = atol = 1e-4 (|y| ~ 10), attention (ring, paged
+and decode) 1e-4 (outputs are convex mixes of values ~ 1), RMSNorm rtol
+1e-5 in f32 and one bf16 step (2^-7 of the value) in bf16. Exact: the
+decode and prefill matmul kernels give bit-identical rows, the paged
+attention kernel equals the ring kernel on the gathered ring, the trit
+search equals its plain version, the norm kernel's rows do not depend on
+how many rows share the call, and the engine's greedy streams do not
+depend on the fleet, for the ring and the paged layout.
 """
 
 import numpy as np
@@ -26,6 +28,10 @@ from repro_torch.core.quantize_model import quantize_tree
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.chunk_attention import ops as ca_ops
 from repro_torch.kernels.chunk_attention import ref as ca_ref
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention import ref as da_ref
+from repro_torch.kernels.ptqtp_search import ops as ps_ops
+from repro_torch.kernels.ptqtp_search import ref as ps_ref
 from repro_torch.kernels.rms_norm import ops as norm_ops
 from repro_torch.kernels.rms_norm import ref as norm_ref
 from repro_torch.kernels.ternary_matmul import ops as tm_ops
@@ -140,7 +146,9 @@ def test_engine_runs_kernels_and_is_fleet_invariant(cuda):
     cfg = configs.get_smoke_config("qwen2-1.5b")
     model = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
                         device=cuda)
+    reset_launch_counts()
     model, _ = quantize_tree(model, PTQTPConfig(group_size=64, t_max=5))
+    assert launch_counts()["ptqtp_search"] > 0  # the trit step runs on B6
     rng = np.random.default_rng(0)
     # 129 tokens: the last prefill chunk holds one token (bucket 1) alone,
     # and shares a wider bucket with the 140-token prompt in the fleet
@@ -157,6 +165,132 @@ def test_engine_runs_kernels_and_is_fleet_invariant(cuda):
     reset_launch_counts()
     fleet = serve(prompts, 4)
     counts = launch_counts()
-    assert all(counts[k] > 0 for k in counts), counts
+    ring_path = ("ternary_matvec", "ternary_matmul", "chunk_attention",
+                 "rms_norm")
+    assert all(counts[k] > 0 for k in ring_path), counts
     for i in (2, 3):
         assert serve(prompts[i:i + 1], 1)[0] == fleet[i]
+
+
+def _paged_case(rng, args, ps, dev):
+    """Scatter the ring of an attention case into a pool of ps-slot pages
+    under a shuffled table, with some logical pages unmapped (table entry 0,
+    the null page): returns the paged operands and the gathered ring's."""
+    q, kn, vn, kc, ks, vc, vs, pb, positions, lengths = args
+    b, cap = pb.shape
+    n_pages = cap // ps
+    n_phys = b * n_pages + 1
+    table = (1 + rng.permutation(b * n_pages)).reshape(b, n_pages)
+    table[rng.random((b, n_pages)) < 0.2] = 0
+    table_t = torch.from_numpy(table.astype(np.int32)).to(dev)
+
+    def pool(ring, fill):
+        p = torch.full((n_phys, ps) + tuple(ring.shape[2:]), fill,
+                       dtype=ring.dtype, device=dev)
+        for r in range(b):
+            for j in range(n_pages):
+                if table[r, j]:
+                    p[table[r, j]] = ring[r, j * ps:(j + 1) * ps]
+        return p
+
+    pools = [pool(kc, 0), None if ks is None else pool(ks, 0), pool(vc, 0),
+             None if vs is None else pool(vs, 0), pool(pb, -1)]
+    paged = [q, kn, vn, *pools, table_t, positions, lengths]
+    gathered = [q, kn, vn] + [None if x is None else
+                              ca_ref.gather_pages(x, table_t)
+                              for x in pools] + [positions, lengths]
+    return paged, gathered
+
+
+@pytest.mark.parametrize("ring", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("L,window", [(1, None), (40, None), (40, 50)])
+def test_paged_attention_matches_plain_and_ring_kernel(cuda, L, window, ring):
+    rng = np.random.default_rng(L + 7)
+    args = _attention_case(rng, 4, L, 2, 6, 128, 96, ring, cuda)
+    paged, gathered = _paged_case(rng, args, 16, cuda)
+    got = ca_ops.chunk_attention_paged_cuda(*paged, window=window)
+    ring_kernel = ca_ops.chunk_attention_cuda(*gathered, window=window)
+    plain = ca_ref.chunk_attention_paged_stream(*paged, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ring_kernel)
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,window", [(96, None), (100, 40)])
+def test_decode_attention_matches_plain(cuda, s, window, qdtype):
+    rng = np.random.default_rng(s)
+    b, kv, g, hd = 4, 2, 6, 128
+    t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    q = t(rng.standard_normal((b, kv, g, hd)).astype(np.float32)).to(qdtype)
+    k8 = t(rng.integers(-127, 128, (b, s, kv, hd)).astype(np.int8))
+    v8 = t(rng.integers(-127, 128, (b, s, kv, hd)).astype(np.int8))
+    ks = t(rng.uniform(0.005, 0.02, (b, s, kv)).astype(np.float32))
+    vs = t(rng.uniform(0.005, 0.02, (b, s, kv)).astype(np.float32))
+    pos = np.asarray([5, 2 * s, 70, 3], np.int32)
+    pb = np.full((b, s), -1, np.int32)
+    for r in range(b):
+        for p in range(max(0, pos[r] - s + 1), pos[r] + 1):
+            pb[r, p % s] = p
+    pb[3] = -1  # a row that sees nothing: the uniform mean of v
+    args = [q, k8, ks, v8, vs, t(pb), t(pos)]
+    got = da_ops.decode_attention_cuda(*args, window=window)
+    plain = da_ref.decode_attention_plain(*args, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
+    mean_v = (v8[3].float() * vs[3][..., None]).mean(0)        # (KV, hd)
+    torch.testing.assert_close(got[3], mean_v[:, None].expand(kv, g, hd),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("r,g", [(1000, 128), (333, 64), (7, 2000)])
+def test_trit_search_equals_plain(cuda, r, g):
+    rng = np.random.default_rng(r)
+    w = torch.from_numpy(rng.standard_normal((r, g)).astype(np.float32))
+    alpha = torch.from_numpy(rng.uniform(0.1, 1.0, (r, 2)).astype(np.float32))
+    w[0, :8] = 0.0                    # ties: (0, 0) must win
+    alpha[1] = torch.tensor([0.5, 0.5])
+    w[1, :4] = torch.tensor([0.25, -0.25, 0.75, 1.0])  # midpoints tie
+    w, alpha = w.to(cuda), alpha.to(cuda)
+    t1, t2 = ps_ops.ptqtp_search_cuda(w, alpha)
+    p1, p2 = torch.empty_like(w), torch.empty_like(w)
+    ps_ref.ptqtp_search_plain(w, alpha, p1, p2)
+    torch.cuda.synchronize()
+    assert torch.equal(t1, p1) and torch.equal(t2, p2)
+
+
+def test_paged_engine_is_fleet_invariant_and_equals_ring(cuda):
+    """The paged engine on the card: requests sharing a prefix give the
+    same tokens alone, in the fleet (with prefix-cache hits and a wrapping
+    request that forks) and on the ring, through B4."""
+    cfg = configs.get_smoke_config("qwen2-1.5b")
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    model, _ = quantize_tree(model, PTQTPConfig(group_size=64, t_max=5))
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, cfg.vocab_size, 64).tolist()
+    prompts = [prefix + rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (5, 40, 100, 1)]
+    budgets = (6, 6, 120, 6)  # the third wraps its 256-token ring
+
+    def serve(idx, slots, layout):
+        eng = ServingEngine(model, cfg, EngineConfig(
+            max_slots=slots, capacity=256, prefill_chunk=64,
+            kv_layout=layout, page_size=16))
+        hs = [eng.submit(prompts[i], SamplingParams(max_new_tokens=budgets[i]))
+              for i in idx]
+        eng.run()
+        return [h.output for h in hs], eng
+
+    serve([0], 1, "paged")  # warm-up: every kernel built
+    reset_launch_counts()
+    fleet, eng = serve(range(4), 2, "paged")
+    counts = launch_counts()
+    assert counts["chunk_attention_paged"] > 0 and \
+        counts["chunk_attention"] == 0, counts
+    assert eng.alloc.hits > 0 and eng.alloc.forks > 0
+    eng.alloc.check()
+    assert eng.alloc.used_pages() == eng.alloc.cached_pages()
+    assert serve(range(4), 2, "ring")[0] == fleet
+    for i in range(4):
+        assert serve([i], 1, "paged")[0][0] == fleet[i]

@@ -8,9 +8,12 @@ by ``test_torch_cuda.py``.
 
 Tolerances: float32 throughout; the sums run in another order in each
 implementation, so outputs agree to rtol = atol = 1e-4 (ternary matmul,
-|y| ~ 10), 2e-5 (attention outputs are convex mixes of values ~ 1) and
-rtol = atol = 1e-5 (RMSNorm in f32; bf16 outputs within one bf16 step,
-2^-7 of the value). Packing is integer and must match exactly.
+|y| ~ 10), 2e-5 (attention outputs are convex mixes of values ~ 1; the
+paged op and decode attention to 1e-5) and rtol = atol = 1e-5 (RMSNorm in
+f32; bf16 outputs within one bf16 step, 2^-7 of the value). Integer
+outputs must match exactly: packing and the trit-search planes. The paged
+attention's plain version equals the port's plain ring walk on the
+gathered ring bit for bit.
 """
 
 import jax.numpy as jnp
@@ -20,6 +23,12 @@ import torch
 
 from repro.core import packing as jpack
 from repro.kernels.chunk_attention.ops import chunk_attention as jax_chunk_attention
+from repro.kernels.chunk_attention.ops import \
+    chunk_attention_paged as jax_chunk_attention_paged
+from repro.kernels.decode_attention import ops as jda_ops
+from repro.kernels.decode_attention import ref as jda_ref
+from repro.kernels.ptqtp_search import ops as jps_ops
+from repro.kernels.ptqtp_search import ref as jps_ref
 from repro.kernels.ternary_matmul import ops as jtm_ops
 from repro.kernels.ternary_matmul import ref as jtm_ref
 from repro.models.common import rms_norm as jrms_norm
@@ -27,6 +36,8 @@ from repro_torch.core import packing as tpack
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.chunk_attention import ops as tca_ops
 from repro_torch.kernels.chunk_attention import ref as tca_ref
+from repro_torch.kernels.decode_attention import ops as tda_ops
+from repro_torch.kernels.ptqtp_search import ops as tps_ops
 from repro_torch.kernels.rms_norm import ops as tnorm_ops
 from repro_torch.kernels.ternary_matmul import ops as ttm_ops
 
@@ -36,6 +47,7 @@ torch.set_num_threads(1)
 
 MM_TOL = dict(rtol=1e-4, atol=1e-4)
 ATTN_TOL = dict(rtol=2e-5, atol=2e-5)
+PAGED_TOL = DECODE_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 def _t(a, device="cpu"):
@@ -245,3 +257,160 @@ class TestChunkAttention:
                 tca_ref.chunk_mask(_t(pos), _t(ln), reach).numpy(),
                 np.asarray(jref.chunk_mask(jnp.asarray(pos), jnp.asarray(ln),
                                            reach)))
+
+
+# ----------------------------------------------------- paged chunk attention
+def make_paged(rng, case, ps):
+    """The ring of ``case`` scattered into a pool of ps-slot pages under a
+    shuffled table, one logical page of row 1 unmapped (table entry 0, the
+    null page, pos -1). Returns the paged operands (numpy)."""
+    q, kn, vn, kc, ks, vc, vs, pb, positions, lengths = case
+    b, cap = pb.shape
+    n = cap // ps
+    table = (1 + rng.permutation(b * n)).reshape(b, n).astype(np.int32)
+    table[1, 0] = 0
+    n_phys = b * n + 1
+
+    def pool(ring, fill):
+        out = np.full((n_phys, ps) + ring.shape[2:], fill, ring.dtype)
+        for r in range(b):
+            for j in range(n):
+                if table[r, j]:
+                    out[table[r, j]] = ring[r, j * ps:(j + 1) * ps]
+        return out
+
+    return [q, kn, vn, pool(kc, 0), None if ks is None else pool(ks, 0),
+            pool(vc, 0), None if vs is None else pool(vs, 0), pool(pb, -1),
+            table, positions, lengths]
+
+
+class TestPagedChunkAttention:
+    @pytest.mark.parametrize("int8", [False, True])
+    @pytest.mark.parametrize("wrap,window", [(False, None), (True, None),
+                                             (True, 12)])
+    @pytest.mark.parametrize("L", [1, 8])
+    def test_plain_matches_reference_and_ring_walk(self, L, wrap, window,
+                                                   int8):
+        rng = np.random.default_rng(200 * L + 10 * wrap + int8)
+        case = make_case(rng, b=3, L=L, kv=2, g=3, hd=16, cap=32, int8=int8,
+                         wrap=wrap, lengths=[L, 0, max(L - 3, 1)])
+        paged = make_paged(rng, case, ps=8)
+        targs = [None if a is None else _t(a) for a in paged]
+        got = tca_ops.chunk_attention_paged(*targs, window=window)
+        assert got.shape == (3, L, 2, 3, 16) and got.dtype == torch.float32
+        jargs = [None if a is None else jnp.asarray(a) for a in paged]
+        for backend in ("pallas", "stream"):
+            want = np.asarray(jax_chunk_attention_paged(
+                *jargs, window=window, backend=backend, interpret=True))
+            np.testing.assert_allclose(got.numpy(), want, **PAGED_TOL,
+                                       err_msg=backend)
+        # bit for bit the plain ring walk over the gathered virtual ring
+        table = targs[8]
+        gathered = [None if a is None else tca_ref.gather_pages(a, table)
+                    for a in targs[3:8]]
+        ring = tca_ref.chunk_attention_stream(*targs[:3], *gathered,
+                                              *targs[9:], window=window)
+        assert torch.equal(got, ring)
+
+    def test_gather_pages_matches_reference(self):
+        from repro.kernels.chunk_attention import ref as jref
+
+        rng = np.random.default_rng(8)
+        pool = rng.standard_normal((9, 4, 2, 3)).astype(np.float32)
+        table = rng.integers(0, 9, (3, 5)).astype(np.int32)
+        np.testing.assert_array_equal(
+            tca_ref.gather_pages(_t(pool), _t(table)).numpy(),
+            np.asarray(jref.gather_pages(jnp.asarray(pool),
+                                         jnp.asarray(table))))
+
+    def test_cpu_path_launches_nothing_and_wrapper_refuses_cpu(self):
+        rng = np.random.default_rng(9)
+        case = make_case(rng, b=2, L=1, kv=1, g=2, hd=16, cap=16, int8=False,
+                         wrap=False)
+        args = [None if a is None else _t(a) for a in make_paged(rng, case,
+                                                                 ps=4)]
+        reset_launch_counts()
+        tca_ops.chunk_attention_paged(*args)
+        assert launch_counts()["chunk_attention_paged"] == 0
+        with pytest.raises(ValueError, match="CUDA"):
+            tca_ops.chunk_attention_paged_cuda(*args)
+
+
+# --------------------------------------------------------- decode attention
+def make_decode_case(rng, b, s, kv, g, hd):
+    """q, the int8 ring after the token's write at pos, its scales and
+    positions; row b-1 has an empty ring (every slot masked)."""
+    q = rng.standard_normal((b, kv, g, hd)).astype(np.float32)
+    k8 = rng.integers(-127, 128, (b, s, kv, hd)).astype(np.int8)
+    v8 = rng.integers(-127, 128, (b, s, kv, hd)).astype(np.int8)
+    ks = rng.uniform(0.005, 0.02, (b, s, kv)).astype(np.float32)
+    vs = rng.uniform(0.005, 0.02, (b, s, kv)).astype(np.float32)
+    pos = rng.integers(0, 3 * s, (b,)).astype(np.int32)
+    pb = np.full((b, s), -1, np.int32)
+    for r in range(b - 1):
+        for p in range(max(0, pos[r] - s + 1), pos[r] + 1):
+            pb[r, p % s] = p
+    return [q, k8, ks, v8, vs, pb, pos]
+
+
+class TestDecodeAttention:
+    @pytest.mark.parametrize("window", [None, 10])
+    @pytest.mark.parametrize("s", [32, 48])
+    def test_plain_matches_reference_and_pallas(self, s, window):
+        rng = np.random.default_rng(s + (window or 0))
+        case = make_decode_case(rng, b=4, s=s, kv=2, g=3, hd=16)
+        got = tda_ops.decode_attention(*[_t(a) for a in case],
+                                       window=window).numpy()
+        jargs = [jnp.asarray(a) for a in case]
+        oracle = np.asarray(jda_ref.decode_attention_ref(*jargs,
+                                                         window=window))
+        pallas = np.asarray(jda_ops.decode_attention(
+            *jargs, window=window, backend="pallas", interpret=True))
+        assert got.shape == (4, 2, 3, 16) and got.dtype == np.float32
+        np.testing.assert_allclose(got, oracle, **DECODE_TOL)
+        np.testing.assert_allclose(got, pallas, **DECODE_TOL)
+        # the row that sees nothing: the uniform mean of v over the ring
+        v = case[3][3].astype(np.float32) * case[4][3][..., None]
+        np.testing.assert_allclose(
+            got[3], np.broadcast_to(v.mean(0)[:, None], (2, 3, 16)),
+            **DECODE_TOL)
+
+    def test_cpu_path_launches_nothing_and_wrapper_refuses_cpu(self):
+        case = [_t(a) for a in make_decode_case(np.random.default_rng(1),
+                                                b=2, s=16, kv=1, g=2, hd=16)]
+        reset_launch_counts()
+        tda_ops.decode_attention(*case)
+        assert launch_counts()["decode_attention"] == 0
+        with pytest.raises(ValueError, match="CUDA"):
+            tda_ops.decode_attention_cuda(*case)
+
+
+# -------------------------------------------------------------- trit search
+class TestTritSearch:
+    @pytest.mark.parametrize("r,g", [(40, 128), (333, 64), (7, 10)])
+    def test_planes_equal_reference_and_pallas(self, r, g):
+        rng = np.random.default_rng(r * g)
+        w = rng.standard_normal((r, g)).astype(np.float32)
+        alpha = rng.uniform(0.1, 1.0, (r, 2)).astype(np.float32)
+        w[0, :4] = 0.0                       # ties: (0, 0) wins
+        alpha[1] = 0.5
+        w[1, :3] = [0.25, -0.25, 0.75]       # midpoints between candidates
+        t1, t2 = tps_ops.ptqtp_search(_t(w), _t(alpha))
+        for want in (jps_ref.ptqtp_search_ref(jnp.asarray(w),
+                                              jnp.asarray(alpha)),
+                     jps_ops.ptqtp_search(jnp.asarray(w), jnp.asarray(alpha),
+                                          interpret=True)):
+            np.testing.assert_array_equal(t1.numpy(), np.asarray(want[0]))
+            np.testing.assert_array_equal(t2.numpy(), np.asarray(want[1]))
+
+    def test_out_planes_cpu_path_and_wrapper_refuses_cpu(self):
+        rng = np.random.default_rng(2)
+        w = _t(rng.standard_normal((6, 32)).astype(np.float32))
+        alpha = _t(rng.uniform(0.1, 1.0, (6, 2)).astype(np.float32))
+        out = (torch.empty_like(w), torch.empty_like(w))
+        reset_launch_counts()
+        t1, t2 = tps_ops.ptqtp_search(w, alpha, out=out)
+        assert t1 is out[0] and t2 is out[1]
+        assert launch_counts()["ptqtp_search"] == 0
+        with pytest.raises(ValueError, match="CUDA"):
+            tps_ops.ptqtp_search_cuda(w, alpha)

@@ -1,9 +1,14 @@
 """The port's PTQTP quantizer against the reference's, same weights.
 
-Weights are made with numpy from a seed. Trit-planes are integers and must
-match exactly; α is float32 and agrees to rtol 1e-5 (the ridge sums run in
-another order, so α differs in the last bits; measured agreement on these
-inputs: every plane entry equal, max relative α difference ~2e-7).
+Weights are made with numpy from a seed. Trit-planes and iteration counts
+are integers and must match exactly; the port's trit step goes through
+its search op (the plain walk on the CPU), the reference's through XLA
+and, with ``use_search_kernel=True``, through its Pallas kernel in
+interpret mode. α is float32 and
+agrees to rtol 1e-5: s11, s12 and s22 are sums of trit products, integers
+exact in any order, but b1 = Σ t1·w and b2 = Σ t2·w run in another order
+(measured on these inputs: every plane entry equal, max relative α
+difference ~2e-7).
 """
 
 import jax
@@ -44,6 +49,31 @@ def test_quantize_matches_reference(n, d, g, t_max):
     np.testing.assert_array_equal(got.t2.numpy(), np.asarray(ref.t2))
     np.testing.assert_allclose(got.alpha.numpy(), np.asarray(ref.alpha),
                                rtol=ALPHA_RTOL, atol=1e-7)
+
+
+@pytest.mark.parametrize("n,d,g", [(64, 128, 64), (96, 256, 32)])
+def test_search_op_path_matches_reference_kernel_path(n, d, g,
+                                                      monkeypatch):
+    """The port's quantizer, whose every trit step goes through the search
+    op, against the reference with its Pallas search kernel
+    (``use_search_kernel=True``) and with XLA's search."""
+    w = np.random.default_rng(n * d).standard_normal((n, d)).astype(
+        np.float32)
+    calls = []
+    op = ptqtp.search_ops.ptqtp_search
+    monkeypatch.setattr(ptqtp.search_ops, "ptqtp_search",
+                        lambda *a, **k: calls.append(1) or op(*a, **k))
+    got = ptqtp.ptqtp_quantize(torch.from_numpy(w), ptqtp.PTQTPConfig(
+        group_size=g, t_max=10))
+    assert len(calls) == got.iters  # one row chunk per trit step here
+    for use_kernel in (True, False):
+        ref = jptqtp.ptqtp_quantize(jnp.asarray(w), jptqtp.PTQTPConfig(
+            group_size=g, t_max=10, use_search_kernel=use_kernel))
+        assert got.iters == int(ref.iters)
+        np.testing.assert_array_equal(got.t1.numpy(), np.asarray(ref.t1))
+        np.testing.assert_array_equal(got.t2.numpy(), np.asarray(ref.t2))
+        np.testing.assert_allclose(got.alpha.numpy(), np.asarray(ref.alpha),
+                                   rtol=ALPHA_RTOL, atol=1e-7)
 
 
 def test_search_chunks_are_exact(monkeypatch):

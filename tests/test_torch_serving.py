@@ -2,14 +2,15 @@
 
 The reference's smoke qwen2-1.5b (f32, G = 64) is initialised and
 PTQTP-quantized by the reference; the port serves the same bytes
-(``from_jax_params``). Greedy token streams are integers and must be equal
-to the reference engine's, token for token, for the float and the int8
-ring. Inside the port a request's stream must not depend on the fleet it
-shares or on prefill/decode chunk sizes (the reference's determinism
-contract). Sampling at temperature > 0 draws from a counter-based hash, not
-from ``jax.random``, so there only the contract and the distribution are
-checked: greedy rows and the top-k/top-p support mask equal the
-reference's exactly.
+(``from_jax_params``). Token streams are integers and must be equal to the
+reference engine's, token for token: greedy for the float and the int8
+ring and for the paged layout (with the allocator's hits, misses and forks
+equal too), and at temperature 0.8 with top-k/top-p, since the port's draw
+is ``jax.random``'s threefry stream (random bits and uniforms bit for bit;
+``log`` may differ by an ulp, which moves no token on these inputs). Inside
+the port a request's stream must not depend on the fleet it shares, on
+prefill/decode chunk sizes (the reference's determinism contract) or on
+the KV layout.
 """
 
 import dataclasses
@@ -31,6 +32,7 @@ from repro.models import init_params as jinit_params
 from repro.serving import sampling as jsampling
 from repro.serving.engine import EngineConfig as JEngineConfig
 from repro.serving.engine import ServingEngine as JServingEngine
+from repro.serving import SamplingParams as JSamplingParams
 from repro_torch import configs
 from repro_torch.convert import from_jax_params
 from repro_torch.serving import (EngineConfig, SamplingParams, ServingEngine,
@@ -78,8 +80,6 @@ def test_greedy_streams_equal_reference_engine(quantized, kv_dtype):
         kv_cache_dtype=kv_dtype)
     model, cfg = _port(quantized, kv_dtype)
     params = [SamplingParams(max_new_tokens=n) for n in BUDGETS]
-    from repro.serving import SamplingParams as JSamplingParams
-
     jparams = [JSamplingParams(max_new_tokens=n) for n in BUDGETS]
     want = _serve(JServingEngine(quantized, jcfg, JEngineConfig(**ENGINE)),
                   PROMPTS, jparams)
@@ -134,7 +134,7 @@ def test_stop_ids_and_cancel(quantized):
 
 
 def test_unported_options_raise(quantized):
-    for field, value in (("kv_layout", "paged"), ("max_queue", 4),
+    for field, value in (("max_resident_tokens", 64), ("max_queue", 4),
                          ("preunpack_decode", True)):
         with pytest.raises(NotImplementedError, match=field):
             EngineConfig(**{field: value})
@@ -142,6 +142,88 @@ def test_unported_options_raise(quantized):
     eng = ServingEngine(model, cfg, EngineConfig(**ENGINE))
     with pytest.raises(NotImplementedError, match="deadline"):
         eng.submit([1, 2], SamplingParams(deadline_s=1.0))
+
+
+def test_sampled_streams_equal_reference_engine(quantized):
+    """Temperature 0.8, one request also top-k/top-p truncated, one greedy
+    beside them: every stream equals the reference engine's."""
+    model, cfg = _port(quantized)
+    jcfg = jconfigs.get_smoke_config("qwen2-1.5b")
+    kw = [dict(temperature=0.8, seed=7), dict(temperature=0.8, seed=2 ** 31,
+                                              top_k=20, top_p=0.9),
+          dict(), dict(temperature=0.8, seed=2 ** 32 - 1)]
+    want = _serve(JServingEngine(quantized, jcfg, JEngineConfig(**ENGINE)),
+                  PROMPTS, [JSamplingParams(max_new_tokens=n, **k)
+                            for n, k in zip(BUDGETS, kw)])
+    got = _serve(ServingEngine(model, cfg, EngineConfig(**ENGINE)), PROMPTS,
+                 [SamplingParams(max_new_tokens=n, **k)
+                  for n, k in zip(BUDGETS, kw)])
+    assert got == want
+
+
+# ------------------------------------------------------------ paged layout
+# a 32-token shared prefix (a multiple of the page size and prefill_chunk)
+# with distinct tails; the last request wraps its 64-token ring, so it must
+# fork the cached prefix pages it overwrites; two slots, so later requests
+# find the earlier ones' pages in the prefix cache
+_PREFIX = np.random.default_rng(10).integers(0, 512, 32).tolist()
+PAGED_PROMPTS = [_PREFIX + np.random.default_rng(20 + i).integers(
+    0, 512, n).tolist() for i, n in enumerate((3, 9, 1, 20))]
+PAGED_BUDGETS = (6, 5, 4, 20)
+PAGED = dict(max_slots=2, capacity=64, prefill_chunk=16, decode_chunk=4,
+             kv_layout="paged", page_size=8)
+
+
+def test_paged_engine_equals_reference_and_ring(quantized):
+    model, cfg = _port(quantized)
+    jcfg = jconfigs.get_smoke_config("qwen2-1.5b")
+    jeng = JServingEngine(quantized, jcfg, JEngineConfig(**PAGED))
+    want = _serve(jeng, PAGED_PROMPTS, [JSamplingParams(max_new_tokens=n)
+                                        for n in PAGED_BUDGETS])
+    eng = ServingEngine(model, cfg, EngineConfig(**PAGED))
+    params = [SamplingParams(max_new_tokens=n) for n in PAGED_BUDGETS]
+    assert _serve(eng, PAGED_PROMPTS, params) == want
+    counters = ("hits", "misses", "forks", "evictions", "peak_used")
+    assert [getattr(eng.alloc, c) for c in counters] == \
+        [getattr(jeng.alloc, c) for c in counters]
+    assert eng.alloc.hits > 0 and eng.alloc.forks > 0
+    ring = ServingEngine(model, cfg, EngineConfig(**dict(PAGED,
+                                                         kv_layout="ring")))
+    assert _serve(ring, PAGED_PROMPTS, params) == want
+    # drained: every page the prefix cache does not hold is free again
+    eng.alloc.check()
+    assert eng.alloc.used_pages() == eng.alloc.cached_pages()
+
+
+def test_paged_cancel_fifo_and_shed(quantized):
+    """A cancelled request returns its pages at once; the queue head waits
+    for pages and nothing jumps it; a request whose worst case exceeds the
+    whole pool is shed at submit."""
+    model, cfg = _port(quantized)
+    # 7 pages of 8 tokens, below one slot's ring of 8 pages
+    eng = ServingEngine(model, cfg, EngineConfig(**dict(
+        PAGED, max_slots=3, max_pages=7, prefix_cache=False)))
+    never = eng.submit(list(range(50)), SamplingParams(max_new_tokens=40))
+    assert never.done and never.finish_reason == "rejected"
+    assert eng.sheds == 1 and "page budget" in never.error
+    big = eng.submit(PAGED_PROMPTS[0], SamplingParams(max_new_tokens=10))
+    head = eng.submit(PAGED_PROMPTS[1], SamplingParams(max_new_tokens=3))
+    small = eng.submit([5, 6], SamplingParams(max_new_tokens=2))
+    eng.step()
+    # big holds 6 pages of 7; head needs 6, so it waits, and small (1 page)
+    # waits behind it (FIFO)
+    assert eng.slots[0] is big and eng.slots[1] is None
+    assert list(eng.queue) == [head, small]
+    assert eng.alloc.used_pages() == 6
+    assert big.cancel()
+    assert eng.alloc.used_pages() == 0
+    eng.alloc.check()
+    solo = ServingEngine(model, cfg, EngineConfig(**PAGED)).submit(
+        PAGED_PROMPTS[1], SamplingParams(max_new_tokens=3)).result().tokens
+    assert head.result().tokens == solo
+    assert small.result().finish_reason == "length"
+    assert eng.alloc.used_pages() == 0
+    eng.alloc.check()
 
 
 # ----------------------------------------------------------------- sampling
@@ -186,6 +268,51 @@ def test_greedy_rows_equal_reference_and_ignore_the_mask():
     assert got[3] == 2
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2 ** 31, 2 ** 32 - 1])
+def test_threefry_bits_equal_jax(seed):
+    """``random_bits`` of (seed, i) equals ``jax.random.bits(fold_in(
+    PRNGKey(seed), i), (V,))`` and ``uniform`` its uniform, bit for bit."""
+    v = 1000
+    idx = [0, 1, 77, 2 ** 31 + 3]
+    keys = sampling.request_keys(torch.full((4,), seed, dtype=torch.int64),
+                                 torch.tensor(idx, dtype=torch.int64))
+    bits = sampling.random_bits(keys, v).numpy()
+    u = sampling.uniform(keys, v).numpy()
+    tiny = jnp.finfo(jnp.float32).tiny
+    for row, i in enumerate(idx):
+        key = jax.random.fold_in(jax.random.PRNGKey(np.uint32(seed)),
+                                 np.uint32(i))
+        want = np.asarray(jax.random.bits(key, (v,), jnp.uint32))
+        np.testing.assert_array_equal(bits[row], want.astype(np.int64))
+        want_u = np.asarray(jax.random.uniform(key, (v,), jnp.float32,
+                                               minval=tiny, maxval=1.0))
+        np.testing.assert_array_equal(u[row].view(np.int32),
+                                      want_u.view(np.int32))
+
+
+def test_sampled_tokens_equal_reference():
+    """Temperature > 0 rows, some with top-k/top-p, many indices: the
+    port's tokens equal ``sample_tokens_per_request``'s."""
+    b, v = 64, 301
+    logits = _logits(4, b, v)
+    rng = np.random.default_rng(5)
+    seeds = rng.integers(0, 2 ** 32, b).astype(np.uint32)
+    idx = rng.integers(0, 1000, b).astype(np.int32)
+    temps = rng.choice([0.0, 0.5, 1.0, 2.0], b).astype(np.float32)
+    top_k = rng.choice([0, 1, 7, 50], b).astype(np.int32)
+    top_p = rng.choice([1.0, 0.9, 0.3], b).astype(np.float32)
+    want = np.asarray(jsampling.sample_tokens_per_request(
+        jnp.asarray(logits), jsampling.request_keys(jnp.asarray(seeds),
+                                                    jnp.asarray(idx)),
+        jnp.asarray(temps), top_k=jnp.asarray(top_k),
+        top_p=jnp.asarray(top_p)))
+    got = sampling.sample_tokens_per_request(
+        torch.from_numpy(logits), torch.from_numpy(seeds.astype(np.int64)),
+        torch.from_numpy(idx), torch.from_numpy(temps),
+        top_k=torch.from_numpy(top_k), top_p=torch.from_numpy(top_p))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_draws_are_position_addressed_and_follow_softmax():
     """Token i of a request depends only on (seed, i, logits): the same
     pair drawn in another row or batch gives the same token. Over many
@@ -220,6 +347,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
+        "for m in ('serving.paging', 'kernels.ptqtp_search.ops', "
+        "'kernels.decode_attention.ops'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
