@@ -11,45 +11,96 @@
 // j/4); alpha (n, d/G, 2) f32. Output y (m, n) f32, or bf16 when x is bf16
 // (the f32 result rounded to nearest even, as a cast of it would round).
 //
-// Arithmetic order (the batch-invariance contract). For every output (i, j)
-// both kernels compute exactly
+// Two routes, chosen by x's dtype in the launchers at the bottom of this
+// file (``mma_route``): bf16 x (the full-width serving dtype) runs on the
+// tensor cores, f32 x on the FMA kernels.
+//
+// Arithmetic order (the batch-invariance contract). Both routes give, for
+// every output (token i, feature j), a result that depends neither on m nor
+// on which kernel ran the row nor on the row's neighbours: the matvec and
+// the tiled kernel give bit-identical rows, and a request's logits do not
+// depend on what shares its batch or chunk.
+//
+//   bf16 x, tensor cores. Both kernels run the shared tile routine
+//   (``chunk_mma`` and ``group_term`` below) in this order exactly:
+//     acc = 0
+//     for g in 0 .. d/G-1:                            (groups in order)
+//         p1 = p2 = 0                                 (fresh per group, C = 0)
+//         for c in 0 .. G/16-1:                       (k16 chunks in order)
+//             p1 = mma_m16n8k16(T1[j, g*G+16c : +16], x[i, same k], p1)
+//             p2 = mma_m16n8k16(T2[j, ...],           x[i, ...],    p2)
+//         acc = __fadd_rn(acc, __fadd_rn(__fmul_rn(p1, a1[j,g]),
+//                                        __fmul_rn(p2, a2[j,g])))
+//   with mma_m16n8k16 = mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32.
+//   Trits are exact in bf16 and x already is bf16, so every product is
+//   exact; the result then depends only on the instruction and this order.
+//   The weights are the A operand (16 features by 16 k), x the B operand
+//   (16 k by 8 tokens), so one tile shape serves both kernels. Lane
+//   (gid = lane/4, tig = lane%4) builds its A registers straight from the
+//   packed words: trit k of a k16 chunk sits at bits 2k of the chunk's
+//   32-bit word, and the lane's registers a0..a3 are the nibbles at bits
+//   4*tig and 4*tig+16 of rows gid and gid+8 (a0 = row gid low k, a1 = row
+//   gid+8 low k, a2 = row gid k+8, a3 = row gid+8 k+8), each mapped to one
+//   bf16x2 (field 01 -> +1 = 0x3F80, 10 -> -1 = 0xBF80, 00 and 11 -> 0, the
+//   lower k in the low half). ``NIBBLE_BF16X2`` and ``a_fragment`` in
+//   ../ops.py state that table and those offsets in Python, and
+//   ``trit_pairs`` there mirrors the byte permute that computes them here;
+//   tests/test_torch_kernels.py holds them against the reference unpacking.
+//
+//   f32 x, FMA pipes. Both kernels compute exactly
 //     acc = 0
 //     for g in 0 .. d/G-1:                      (groups in order)
 //         s1 = s2 = 0
 //         for k in g*G .. g*G+G-1:              (ascending)
 //             s1 = fmaf(x[i,k], t1[j,k], s1);  s2 = fmaf(x[i,k], t2[j,k], s2)
-//         acc = acc + (s1*α¹[j,g] + s2*α²[j,g])  (round-to-nearest, no FMA)
-// so a row's result depends neither on m nor on which kernel ran it: the
-// matvec and the tiled kernel give bit-identical rows, and a request's
-// logits do not depend on what shares its batch or chunk.
+//         acc = acc + (s1*a1[j,g] + s2*a2[j,g])  (round-to-nearest, no FMA)
 //
 // Bounds on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 FMA outside the tensor
 // cores, 989 TFLOP/s bf16 tensor cores):
-//   * matvec: memory in principle. Per call it must read both planes
-//     (n·d/2 bytes) and α (8·n·d/G bytes); x and y are small. But at 8 rows
-//     of x the two planes cost 16 f32 FMAs per packed weight pair, which at
-//     the FMA pipes' rate takes longer than reading the planes: in practice
-//     it is bound by instruction issue. Design: one lane per output column
-//     j, 32 columns per block, one warp per group g of those columns (up to
-//     16 warps; past 16 groups a warp takes every 16th). A lane reads its
-//     column's group of each plane with 16-byte loads (whole 32-byte
-//     sectors). The warp first stages the group's x (8 rows × G) as f32 in
-//     its own slice of shared memory, so x is converted once per warp and
-//     every lane then reads the same values in 16-byte broadcast loads. The
-//     per-group partials of up to 8 rows of x go to shared memory; one
-//     thread per (row, column) then adds them in group order. No split-K.
-//   * tiled kernel: operations. 2·m·n·d multiply-adds per plane pair on the
-//     f32 FMA pipes, against the 989 TFLOP/s a tensor-core GEMM could reach
-//     on the same product: this kernel keeps the exact order above instead
-//     (wgmma sums in another order and is later work). Design: a 64×64
-//     output tile per block of 128 threads, 8×4 outputs per thread with its
-//     per-group sums s1, s2 and its acc in registers. d is walked in steps
-//     of 32 (a group is G/32 steps). Each step stages x (32×64 f32) and both
-//     plane tiles, unpacked to f32 trits, k-major in shared memory, so a
-//     thread reads its 8 x values and 4+4 trits of one k as four 16-byte
-//     loads for 64 FMAs; the next step's x and planes are fetched into
-//     registers while this step computes. Ragged m and n edges are masked,
-//     never padded.
+//   * matvec: bytes. Per call it must read both planes (n*d/2 bytes) and
+//     alpha (8*n*d/G bytes); x and y are small.
+//     - tensor cores (``ternary_matvec_mma_kernel``): one block owns 16
+//       features (one m16 tile), and its warps split the groups (warp w takes
+//       groups w, w+W, ...; up to 16 warps). A lane loads its two rows' group
+//       words of both planes in 16-byte loads and its token's x pairs from
+//       global memory, runs the group's 2*G/16 MMAs per 8 tokens and writes
+//       the group's terms to shared memory; one thread per (token, feature)
+//       then adds them in group order. m > 8 walks 8-token passes.
+//     - FMA: at 8 rows of x the two planes cost 16 f32 FMAs per packed
+//       weight pair, which takes longer than reading the planes: it is
+//       bound by instruction issue. Design: one lane per output column j, 32
+//       columns per block, one warp per group g of those columns (up to 16
+//       warps; past 16 groups a warp takes every 16th). A lane reads its
+//       column's group of each plane with 16-byte loads (whole 32-byte
+//       sectors). The warp first stages the group's x (8 rows x G) as f32 in
+//       its own slice of shared memory, so x is converted once per warp and
+//       every lane then reads the same values in 16-byte broadcast loads. The
+//       per-group partials of up to 8 rows of x go to shared memory; one
+//       thread per (row, column) then adds them in group order. No split-K.
+//   * tiled kernel: operations, 2*m*n*d multiply-adds per plane.
+//     - tensor cores (``ternary_matmul_mma_kernel``): a 64-feature by
+//       128-token block tile, 8 warps of 16 features by 64 tokens (one m16
+//       tile by eight n8 tiles: p1, p2 and acc are 3 x 32 f32 registers).
+//       d is walked in stages of 64 (four k16 chunks); each stage's x tile
+//       (rows padded to 144 bytes, so ldmatrix is conflict-free) and both
+//       plane tiles go to shared memory with cp.async, double-buffered, the
+//       next stage in flight while this one computes. A warp unpacks its A
+//       registers once per chunk and reuses them across its eight token
+//       tiles; B comes from ldmatrix.x4. alpha is loaded at a group's first
+//       chunk and used at its last. The tensor work is twice the dense
+//       product's, one MMA per plane.
+//     - FMA: the f32 FMA pipes, against the 989 TFLOP/s a tensor-core GEMM
+//       could reach on the same product. Design: a 64x64 output tile per
+//       block of 128 threads, 8x4 outputs per thread with its per-group sums
+//       s1, s2 and its acc in registers. d is walked in steps of 32 (a group
+//       is G/32 steps). Each step stages x (32x64 f32) and both plane tiles,
+//       unpacked to f32 trits, k-major in shared memory, so a thread reads
+//       its 8 x values and 4+4 trits of one k as four 16-byte loads for 64
+//       FMAs; the next step's x and planes are fetched into registers while
+//       this step computes.
+//   Ragged m and n edges are masked (rows past the edge read zeros or a
+//   clamped valid row, and their outputs are dropped), never padded in
+//   memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -351,6 +402,328 @@ __global__ void __launch_bounds__(MM_THREADS)
   }
 }
 
+// ------------------------------------------- tensor-core tile routine (bf16 x)
+// One m16n8k16 MMA with f32 accumulation: d = A·B + d, A 16x16 bf16 (row),
+// B 16x8 bf16 (col).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The two A registers that one row's 32-bit chunk word gives lane tig: the
+// nibbles at bits 4*tig (k = 2tig, 2tig+1) and 4*tig+16 (k + 8), each as a
+// bf16x2 of its two trits, the lower k in the low half. Byte permute of
+// the tables lo = [00 80 80 00] (low byte of a trit's bf16, by field) and
+// hi = [00 3F BF 00] (its high byte): the selector nibbles are f, f+4 for
+// each of the two fields. Mirrored by ``trit_pairs`` in ../ops.py.
+__device__ __forceinline__ void trit_pairs(uint32_t w, int tig, uint32_t& lo,
+                                           uint32_t& hi) {
+  const uint32_t v = (w >> (4 * tig)) & 0x000F000Fu;
+  const uint32_t f = (v * 0x41u) & 0x03030303u;  // fields at bits 0, 8, 16, 24
+  const uint32_t sel = f * 0x11u + 0x40404040u;  // nibbles f, f+4 per field
+  lo = __byte_perm(0x00808000u, 0x00BF3F00u, sel);
+  hi = __byte_perm(0x00808000u, 0x00BF3F00u, sel >> 16);
+}
+
+// One k16 chunk for NT 8-token tiles: A of both planes from the chunk words
+// of rows gid (w*lo) and gid+8 (w*hi), B of each tile in b[t], then per
+// tile one MMA per plane. Every output's chain is p = mma(chunk c, p) in
+// chunk order, whichever kernel calls this.
+template <int NT>
+__device__ __forceinline__ void chunk_mma(uint32_t w1lo, uint32_t w1hi,
+                                          uint32_t w2lo, uint32_t w2hi, int tig,
+                                          const uint32_t (&b)[NT][2],
+                                          float (&p1)[NT][4], float (&p2)[NT][4]) {
+  uint32_t a1[4], a2[4];
+  trit_pairs(w1lo, tig, a1[0], a1[2]);
+  trit_pairs(w1hi, tig, a1[1], a1[3]);
+  trit_pairs(w2lo, tig, a2[0], a2[2]);
+  trit_pairs(w2hi, tig, a2[1], a2[3]);
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    mma_bf16(p1[t], a1, b[t][0], b[t][1]);
+    mma_bf16(p2[t], a2, b[t][0], b[t][1]);
+  }
+}
+
+// A D fragment's element e lies on feature row gid (e < 2) or gid+8, and
+// on token column 2*tig + (e & 1): the group's alpha of that row.
+__device__ __forceinline__ float2 alpha_of(int e, float2 a_lo, float2 a_hi) {
+  return e < 2 ? a_lo : a_hi;
+}
+
+__device__ __forceinline__ uint32_t ldg_u32(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool ok) {  // zero-fills when !ok
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
+// ---------------------------------------------- matvec on the tensor cores
+constexpr int MMV_FEATS = 16;      // features per block: one m16 tile
+constexpr int MMV_MAX_WARPS = 16;  // warps per block, one group each at a time
+constexpr int MMV_TOKENS = 8;      // tokens per pass: one n8 tile
+
+template <typename TY, int G>
+__global__ void __launch_bounds__(32 * MMV_MAX_WARPS)
+    ternary_matvec_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                              const uint8_t* __restrict__ t1p,
+                              const uint8_t* __restrict__ t2p,
+                              const float* __restrict__ alpha,
+                              TY* __restrict__ y, int m, int n, int d) {
+  constexpr int CPG = G / 16;  // k16 chunks of a group = words of a plane row
+  extern __shared__ __align__(16) float terms[];  // [ng][MMV_FEATS][MMV_TOKENS]
+  const int ng = d / G;
+  const int nwarps = blockDim.x / 32;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int j0 = blockIdx.x * MMV_FEATS;
+  // rows past n read row n-1; their outputs are dropped
+  const int jlo = min(j0 + gid, n - 1), jhi = min(j0 + gid + 8, n - 1);
+  const size_t row_bytes = (size_t)d / 4;
+  const uint8_t* p1lo = t1p + (size_t)jlo * row_bytes;
+  const uint8_t* p1hi = t1p + (size_t)jhi * row_bytes;
+  const uint8_t* p2lo = t2p + (size_t)jlo * row_bytes;
+  const uint8_t* p2hi = t2p + (size_t)jhi * row_bytes;
+  const float2* alo = reinterpret_cast<const float2*>(alpha) + (size_t)jlo * ng;
+  const float2* ahi = reinterpret_cast<const float2*>(alpha) + (size_t)jhi * ng;
+
+  for (int m0 = 0; m0 < m; m0 += MMV_TOKENS) {
+    const int mr = min(MMV_TOKENS, m - m0);
+    // this lane's B column is token gid (tokens past m read row m-1; their
+    // outputs are dropped), its k pairs 2*tig and 2*tig+8 of each chunk
+    const __nv_bfloat16* xr = x + (size_t)(m0 + min(gid, mr - 1)) * d + 2 * tig;
+    for (int g = warp; g < ng; g += nwarps) {
+      uint32_t w1lo[CPG], w1hi[CPG], w2lo[CPG], w2hi[CPG];
+      load_words<CPG>(p1lo + (size_t)g * (G / 4), w1lo);
+      load_words<CPG>(p1hi + (size_t)g * (G / 4), w1hi);
+      load_words<CPG>(p2lo + (size_t)g * (G / 4), w2lo);
+      load_words<CPG>(p2hi + (size_t)g * (G / 4), w2hi);
+      const float2 a_lo = __ldg(alo + g), a_hi = __ldg(ahi + g);
+      uint32_t b[CPG][1][2];
+#pragma unroll
+      for (int c = 0; c < CPG; ++c) {
+        b[c][0][0] = ldg_u32(xr + (size_t)g * G + 16 * c);
+        b[c][0][1] = ldg_u32(xr + (size_t)g * G + 16 * c + 8);
+      }
+      float p1[1][4] = {{0.0f, 0.0f, 0.0f, 0.0f}};
+      float p2[1][4] = {{0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+      for (int c = 0; c < CPG; ++c)
+        chunk_mma<1>(w1lo[c], w1hi[c], w2lo[c], w2hi[c], tig, b[c], p1, p2);
+      float t[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = alpha_of(e, a_lo, a_hi);
+        t[e] = group_term(p1[0][e], p2[0][e], a.x, a.y);
+      }
+      float* tg = terms + (size_t)g * MMV_FEATS * MMV_TOKENS;
+      *reinterpret_cast<float2*>(tg + gid * MMV_TOKENS + 2 * tig) =
+          make_float2(t[0], t[1]);
+      *reinterpret_cast<float2*>(tg + (gid + 8) * MMV_TOKENS + 2 * tig) =
+          make_float2(t[2], t[3]);
+    }
+    __syncthreads();
+    // one thread per (token, feature): add the group terms in group order
+    for (int idx = threadIdx.x; idx < mr * MMV_FEATS; idx += blockDim.x) {
+      const int r = idx / MMV_FEATS, f = idx % MMV_FEATS;
+      if (j0 + f >= n) continue;
+      float acc = 0.0f;
+      for (int g = 0; g < ng; ++g)
+        acc = __fadd_rn(acc, terms[((size_t)g * MMV_FEATS + f) * MMV_TOKENS + r]);
+      store_y(y + (size_t)(m0 + r) * n + j0 + f, acc);
+    }
+    __syncthreads();
+  }
+}
+
+// ------------------------------------------ tiled matmul on the tensor cores
+constexpr int TC_WF = 4;                    // warps along features
+constexpr int TC_WT = 2;                    // warps along tokens
+constexpr int TC_NT = 8;                    // n8 token tiles per warp
+constexpr int TC_BN = 16 * TC_WF;           // 64 features per block
+constexpr int TC_BM = 8 * TC_NT * TC_WT;    // 128 tokens per block
+constexpr int TC_BK = 64;                   // k per stage: four k16 chunks
+constexpr int TC_XS = TC_BK + 8;            // x row in shared memory: 144 bytes
+constexpr int TC_THREADS = 32 * TC_WF * TC_WT;
+
+struct TcStage {
+  uint16_t x[TC_BM][TC_XS];  // tokens x k, bf16 bits
+  uint4 p[2][TC_BN];              // plane, feature: the stage's 64 trits
+};
+
+template <typename TY>
+__global__ void __launch_bounds__(TC_THREADS)
+    ternary_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                              const uint8_t* __restrict__ t1p,
+                              const uint8_t* __restrict__ t2p,
+                              const float* __restrict__ alpha,
+                              TY* __restrict__ y, int m, int n, int d, int G) {
+  __shared__ __align__(128) TcStage st[2];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int wf = warp % TC_WF, wt = warp / TC_WF;
+  const int i0 = blockIdx.y * TC_BM, j0 = blockIdx.x * TC_BN;
+  const int ng = d / G, cpg = G / 16, n_steps = d / TC_BK;
+  const size_t row_bytes = (size_t)d / 4;
+
+  auto load_stage = [&](int s, TcStage& S) {
+    const int k0 = s * TC_BK;
+#pragma unroll
+    for (int i = 0; i < TC_BM * (TC_BK / 8) / TC_THREADS; ++i) {
+      const int idx = tid + i * TC_THREADS;
+      const int r = idx / (TC_BK / 8), c = idx % (TC_BK / 8);
+      const bool ok = i0 + r < m;
+      cp_async16(&S.x[r][8 * c], ok ? x + (size_t)(i0 + r) * d + k0 + 8 * c : x,
+                 ok);
+    }
+    if (tid < 2 * TC_BN) {
+      const int pl = tid / TC_BN, r = tid % TC_BN;
+      const bool ok = j0 + r < n;
+      const uint8_t* src = pl ? t2p : t1p;
+      cp_async16(&S.p[pl][r],
+                 ok ? src + (size_t)(j0 + r) * row_bytes + k0 / 4 : src, ok);
+    }
+  };
+
+  float acc[TC_NT][4], p1[TC_NT][4], p2[TC_NT][4];
+#pragma unroll
+  for (int t = 0; t < TC_NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = p1[t][e] = p2[t][e] = 0.0f;
+
+  const int fr = wf * 16 + gid;  // tile row of the lane's features fr, fr+8
+  const float2* al = reinterpret_cast<const float2*>(alpha);
+  const float2* alo = al + (size_t)min(j0 + fr, n - 1) * ng;
+  const float2* ahi = al + (size_t)min(j0 + fr + 8, n - 1) * ng;
+  float2 a_lo = make_float2(0.0f, 0.0f), a_hi = a_lo;
+  // ldmatrix.x4 of tiles t, t+1: lane gives row (lane & 7) of matrix
+  // lane / 8 = (tile t + lane / 16, k half (lane / 8) % 2)
+  const int lrow = wt * 8 * TC_NT + 8 * (lane / 16) + lane % 8;
+  const int lcol = 8 * ((lane / 8) % 2);
+
+  load_stage(0, st[0]);
+  cp_async_commit();
+  for (int s = 0; s < n_steps; ++s) {
+    if (s + 1 < n_steps) load_stage(s + 1, st[(s + 1) % 2]);
+    cp_async_commit();  // (an empty group on the last stage)
+    cp_async_wait_one();
+    __syncthreads();
+    const TcStage& S = st[s % 2];
+    const uint4 q1lo = S.p[0][fr], q1hi = S.p[0][fr + 8];
+    const uint4 q2lo = S.p[1][fr], q2hi = S.p[1][fr + 8];
+    const uint32_t w1lo[4] = {q1lo.x, q1lo.y, q1lo.z, q1lo.w};
+    const uint32_t w1hi[4] = {q1hi.x, q1hi.y, q1hi.z, q1hi.w};
+    const uint32_t w2lo[4] = {q2lo.x, q2lo.y, q2lo.z, q2lo.w};
+    const uint32_t w2hi[4] = {q2hi.x, q2hi.y, q2hi.z, q2hi.w};
+#pragma unroll
+    for (int c = 0; c < TC_BK / 16; ++c) {
+      const int kc = s * (TC_BK / 16) + c;  // chunk index along d
+      if (kc % cpg == 0) {                  // a group starts: fetch its alpha
+        a_lo = __ldg(alo + kc / cpg);
+        a_hi = __ldg(ahi + kc / cpg);
+      }
+      uint32_t b[TC_NT][2];
+#pragma unroll
+      for (int t = 0; t < TC_NT; t += 2) {
+        uint32_t r[4];
+        ldmatrix_x4(r, &S.x[lrow + 8 * t][16 * c + lcol]);
+        b[t][0] = r[0];
+        b[t][1] = r[1];
+        b[t + 1][0] = r[2];
+        b[t + 1][1] = r[3];
+      }
+      chunk_mma<TC_NT>(w1lo[c], w1hi[c], w2lo[c], w2hi[c], tig, b, p1, p2);
+      if ((kc + 1) % cpg == 0) {  // the group ends: fold it, in group order
+#pragma unroll
+        for (int t = 0; t < TC_NT; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 a = alpha_of(e, a_lo, a_hi);
+            acc[t][e] = __fadd_rn(acc[t][e], group_term(p1[t][e], p2[t][e], a.x, a.y));
+            p1[t][e] = p2[t][e] = 0.0f;
+          }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage's buffer
+  }
+#pragma unroll
+  for (int t = 0; t < TC_NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + wt * 8 * TC_NT + 8 * t + 2 * tig + (e & 1);
+      const int j = j0 + fr + 8 * (e / 2);
+      if (i < m && j < n) store_y(y + (size_t)i * n + j, acc[t][e]);
+    }
+}
+
+template <typename TY, int G>
+cudaError_t launch_matvec_mma(const void* x, const void* t1p, const void* t2p,
+                              const void* alpha, void* y, int m, int n, int d,
+                              cudaStream_t stream) {
+  const int ng = d / G;
+  const int nwarps = ng < MMV_MAX_WARPS ? ng : MMV_MAX_WARPS;
+  const size_t smem = sizeof(float) * (size_t)ng * MMV_FEATS * MMV_TOKENS;
+  auto kern = ternary_matvec_mma_kernel<TY, G>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  dim3 grid((n + MMV_FEATS - 1) / MMV_FEATS);
+  kern<<<grid, 32 * nwarps, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(t1p),
+      static_cast<const uint8_t*>(t2p), static_cast<const float*>(alpha),
+      static_cast<TY*>(y), m, n, d);
+  return cudaGetLastError();
+}
+
+template <typename TY>
+cudaError_t launch_matvec_mma_g(int G, const void* x, const void* t1p,
+                                const void* t2p, const void* alpha, void* y,
+                                int m, int n, int d, cudaStream_t s) {
+  switch (G) {
+    case 32: return launch_matvec_mma<TY, 32>(x, t1p, t2p, alpha, y, m, n, d, s);
+    case 64: return launch_matvec_mma<TY, 64>(x, t1p, t2p, alpha, y, m, n, d, s);
+    case 128: return launch_matvec_mma<TY, 128>(x, t1p, t2p, alpha, y, m, n, d, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename TY>
+cudaError_t launch_matmul_mma(const void* x, const void* t1p, const void* t2p,
+                              const void* alpha, void* y, int m, int n, int d,
+                              int G, cudaStream_t s) {
+  if (G % 16 || d % TC_BK) return cudaErrorInvalidValue;
+  dim3 grid((n + TC_BN - 1) / TC_BN, (m + TC_BM - 1) / TC_BM);
+  ternary_matmul_mma_kernel<TY><<<grid, TC_THREADS, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(t1p),
+      static_cast<const uint8_t*>(t2p), static_cast<const float*>(alpha),
+      static_cast<TY*>(y), m, n, d, G);
+  return cudaGetLastError();
+}
+
 template <typename T, typename TY, int G>
 cudaError_t launch_matvec(const void* x, const void* t1p, const void* t2p,
                           const void* alpha, void* y, int m, int n, int d,
@@ -402,6 +775,10 @@ cudaError_t launch_matmul(const void* x, const void* t1p, const void* t2p,
 
 extern "C" {
 
+// 1 when x of this dtype (x_bf16: 0 f32, 1 bf16) runs on the tensor cores
+// (mma.sync), 0 when on the FMA kernels; both launchers below dispatch on it.
+int ternary_mma_route(int x_bf16) { return x_bf16 ? 1 : 0; }
+
 // x_bf16: 0 -> x is f32, 1 -> x is bf16. y_bf16: 0 -> y is f32, 1 -> y is
 // bf16 (only with bf16 x). Group size G in {32, 64, 128}.
 int ternary_matvec_launch(const void* x, int x_bf16, const void* t1p,
@@ -409,32 +786,30 @@ int ternary_matvec_launch(const void* x, int x_bf16, const void* t1p,
                           int y_bf16, int m, int n, int d, int G, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (!x_bf16)
+  if (!ternary_mma_route(x_bf16))
     e = y_bf16 ? cudaErrorInvalidValue
                : launch_matvec_g<float, float>(G, x, t1p, t2p, alpha, y, m, n, d, s);
   else if (y_bf16)
-    e = launch_matvec_g<__nv_bfloat16, __nv_bfloat16>(G, x, t1p, t2p, alpha, y, m,
-                                                      n, d, s);
+    e = launch_matvec_mma_g<__nv_bfloat16>(G, x, t1p, t2p, alpha, y, m, n, d, s);
   else
-    e = launch_matvec_g<__nv_bfloat16, float>(G, x, t1p, t2p, alpha, y, m, n, d, s);
+    e = launch_matvec_mma_g<float>(G, x, t1p, t2p, alpha, y, m, n, d, s);
   return static_cast<int>(e);
 }
 
-// The same arguments; G must be a multiple of 32 (one staged step is 32
-// columns of d).
+// The same arguments; G must be a multiple of 32 (one staged FMA step is 32
+// columns of d; the tensor-core kernel takes any multiple of 16).
 int ternary_matmul_launch(const void* x, int x_bf16, const void* t1p,
                           const void* t2p, const void* alpha, void* y,
                           int y_bf16, int m, int n, int d, int G, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (!x_bf16)
+  if (!ternary_mma_route(x_bf16))
     e = y_bf16 ? cudaErrorInvalidValue
                : launch_matmul<float, float>(x, t1p, t2p, alpha, y, m, n, d, G, s);
   else if (y_bf16)
-    e = launch_matmul<__nv_bfloat16, __nv_bfloat16>(x, t1p, t2p, alpha, y, m, n, d,
-                                                    G, s);
+    e = launch_matmul_mma<__nv_bfloat16>(x, t1p, t2p, alpha, y, m, n, d, G, s);
   else
-    e = launch_matmul<__nv_bfloat16, float>(x, t1p, t2p, alpha, y, m, n, d, G, s);
+    e = launch_matmul_mma<float>(x, t1p, t2p, alpha, y, m, n, d, G, s);
   return static_cast<int>(e);
 }
 

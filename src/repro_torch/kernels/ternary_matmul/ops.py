@@ -7,15 +7,23 @@ splits its Pallas kernels:
   * m < 128  -> ``ternary_matvec`` (decode: every linear layer of a step);
   * m >= 128 -> ``ternary_matmul_tiled`` (prefill chunks).
 
-Both give bit-identical rows for the same x rows (see the source note), so
-where a row lands never changes its result. On a CPU tensor the wrapper
-runs the plain grouped formula of ``ref.py``; it never falls back from a
-CUDA tensor to it.
+bf16 x runs both on the tensor cores (one shared ``mma.sync`` tile
+routine), f32 x on the FMA kernels (``route``). Either way both give
+bit-identical rows for the same x rows (see the source note), so where a
+row lands never changes its result. On a CPU tensor the wrapper runs the
+plain grouped formula of ``ref.py``; it never falls back from a CUDA
+tensor to it.
+
+``NIBBLE_BF16X2``, ``a_fragment`` and ``trit_pairs`` state in Python how
+the tensor-core kernels turn packed trits into the A operand of
+``mma.sync.m16n8k16`` (the part of those kernels that the CPU tests hold
+against the reference's unpacking).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
@@ -30,7 +38,62 @@ _SOURCE = Path(__file__).parent / "csrc" / "ternary_matmul.cu"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIG = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-_SIGNATURES = {"ternary_matvec_launch": _SIG, "ternary_matmul_launch": _SIG}
+_SIGNATURES = {"ternary_matvec_launch": _SIG, "ternary_matmul_launch": _SIG,
+               "ternary_mma_route": [_I]}
+
+# bf16 bits of a trit by its 2-bit field: 0b01 -> +1, 0b10 -> -1, 0b00 and
+# the unused 0b11 -> 0
+_TRIT_BF16 = (0x0000, 0x3F80, 0xBF80, 0x0000)
+#: nibble of a packed word (two trits, the lower k in bits 0-1) -> the
+#: bf16x2 register holding them, the lower k in the low half
+NIBBLE_BF16X2 = tuple(_TRIT_BF16[v & 3] | _TRIT_BF16[v >> 2] << 16
+                      for v in range(16))
+
+
+def a_fragment(word_lo: int, word_hi: int, lane: int):
+    """The four bf16x2 A registers (a0, a1, a2, a3) of ``mma.sync.m16n8k16``
+    that ``lane`` builds from one k16 chunk of a plane, whose tile rows
+    gid = lane // 4 and gid + 8 hold the 32-bit words ``word_lo`` and
+    ``word_hi`` (trit k at bits 2k). With tig = lane % 4: a0 = row gid,
+    k = 2·tig and 2·tig + 1 (the nibble at bit 4·tig); a1 = row gid + 8,
+    same k; a2 = row gid, k + 8 (the nibble at bit 4·tig + 16); a3 = row
+    gid + 8, k + 8."""
+    tig = lane % 4
+
+    def nib(w, shift):
+        return NIBBLE_BF16X2[(w >> shift) & 15]
+
+    return (nib(word_lo, 4 * tig), nib(word_hi, 4 * tig),
+            nib(word_lo, 4 * tig + 16), nib(word_hi, 4 * tig + 16))
+
+
+def _byte_perm(x: int, y: int, s: int) -> int:
+    """CUDA's ``__byte_perm(x, y, s)``: byte i of the result is byte
+    (s >> 4i) & 7 of the 8 bytes y:x."""
+    b = x | y << 32
+    return sum(((b >> 8 * ((s >> 4 * i) & 7)) & 0xFF) << 8 * i
+               for i in range(4))
+
+
+def trit_pairs(word: int, tig: int):
+    """The kernel's ``trit_pairs`` in integer arithmetic: the registers of
+    the nibbles at bits 4·tig and 4·tig + 16 of one row's chunk word. Equal
+    to ``NIBBLE_BF16X2`` of those nibbles."""
+    v = (word >> 4 * tig) & 0x000F000F
+    f = (v * 0x41) & 0x03030303
+    sel = (f * 0x11 + 0x40404040) & 0xFFFFFFFF
+    return (_byte_perm(0x00808000, 0x00BF3F00, sel),
+            _byte_perm(0x00808000, 0x00BF3F00, sel >> 16))
+
+
+@functools.lru_cache(maxsize=None)
+def route(dtype) -> str:
+    """Which kernels x of ``dtype`` runs on, as the built library's
+    launchers decide: "mma" (tensor cores, bf16) or "fma" (f32)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {dtype}")
+    lib = _build.load(_SOURCE, _SIGNATURES)
+    return "mma" if lib.ternary_mma_route(int(dtype == torch.bfloat16)) else "fma"
 
 
 def _check(x, t1p, t2p, alpha, group_size):

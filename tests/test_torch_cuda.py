@@ -7,15 +7,20 @@ reference package, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances: the kernels sum in another order than the plain versions, in
-f32: ternary matmul rtol = atol = 1e-4 (|y| ~ 10), attention (ring, paged
-and decode) 1e-4 (outputs are convex mixes of values ~ 1), RMSNorm rtol
-1e-5 in f32 and one bf16 step (2^-7 of the value) in bf16. Exact: the
-decode and prefill matmul kernels give bit-identical rows, the paged
+f32 (bf16 ternary layers on the tensor cores, whose f32 accumulation is
+not IEEE-sequential): ternary matmul rtol = atol = 1e-4 (|y| ~ 10), and
+1e-4 of each row's own scale for x spanning many binades; attention (ring,
+paged and decode) 1e-4 (outputs are convex mixes of values ~ 1), RMSNorm
+rtol 1e-5 in f32 and one bf16 step (2^-7 of the value) in bf16. Exact: the
+decode and prefill matmul kernels give bit-identical rows, also for
+windows of x off the kernels' 8-token grid and at ragged m and n, the paged
 attention kernel equals the ring kernel on the gathered ring, the trit
 search equals its plain version, the norm kernel's rows do not depend on
 how many rows share the call, and the engine's greedy streams do not
 depend on the fleet, for the ring and the paged layout.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -57,27 +62,59 @@ def _planes(rng, n, d, g, dev):
     return pack_trits(t1).to(dev), pack_trits(t2).to(dev), alpha.to(dev)
 
 
-@pytest.mark.parametrize("n", [200, 198])  # the tiled kernel's two stores
+# matvec windows [a, b) of an m-row x: on the 8-token grid of both kernels'
+# passes, off it, ending at the ragged edge, and single rows
+def _windows(m):
+    return ((0, 9), (3, 12), (m - 11, m), (5, 6), (m - 1, m))
+
+
+@pytest.mark.parametrize("m", [200, 203])       # m a multiple of 8, and not
+@pytest.mark.parametrize("n", [200, 198, 256])  # n off the 16-feature grid, and on it
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("g", [32, 64, 128])
-def test_ternary_kernels_match_plain_and_each_other(cuda, g, dtype, n):
+def test_ternary_kernels_match_plain_and_each_other(cuda, g, dtype, n, m):
     rng = np.random.default_rng(g)
-    d, m = 512, 200
+    d = 512
     t1p, t2p, alpha = _planes(rng, n, d, g, cuda)
     x = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32)).to(
         cuda, dtype)
     plain = tm_ref.ternary_matmul_grouped(x, t1p, t2p, alpha, g)
     tiled = tm_ops.ternary_matmul_tiled(x, t1p, t2p, alpha, g)
-    vec = tm_ops.ternary_matvec(x[:9].contiguous(), t1p, t2p, alpha, g)
     torch.cuda.synchronize()
     torch.testing.assert_close(tiled, plain, rtol=1e-4, atol=1e-4)
-    assert torch.equal(vec, tiled[:9])
-    if dtype == torch.bfloat16:  # bf16 outputs round as a cast would
+    assert tm_ops.route(dtype) == ("mma" if dtype == torch.bfloat16 else "fma")
+    for a, b in _windows(m):
+        vec = tm_ops.ternary_matvec(x[a:b].contiguous(), t1p, t2p, alpha, g)
+        assert torch.equal(vec, tiled[a:b]), (a, b)
+        if dtype == torch.bfloat16:  # bf16 outputs round as a cast would
+            vb = tm_ops.ternary_matvec(x[a:b].contiguous(), t1p, t2p, alpha,
+                                       g, torch.bfloat16)
+            assert torch.equal(vb, vec.to(torch.bfloat16)), (a, b)
+    if dtype == torch.bfloat16:
         yb = tm_ops.ternary_matmul_tiled(x, t1p, t2p, alpha, g, torch.bfloat16)
-        vb = tm_ops.ternary_matvec(x[:9].contiguous(), t1p, t2p, alpha, g,
-                                   torch.bfloat16)
         assert torch.equal(yb, tiled.to(torch.bfloat16))
-        assert torch.equal(vb, vec.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("g", [32, 64, 128])
+def test_ternary_bf16_spanning_binades(cuda, g):
+    """bf16 x whose rows are scaled by 2^-24 .. 2^24 and whose entries span
+    2^-8 .. 2^8 within a row: every row of the tiled kernel within 1e-4 of
+    that row's own scale (max |plain row|), and matvec rows bit-identical
+    to tiled rows."""
+    rng = np.random.default_rng(40 + g)
+    m, n, d = 150, 136, 1024
+    x = (rng.standard_normal((m, d)) * 2.0 ** rng.integers(-8, 9, (m, d))
+         * 2.0 ** rng.integers(-24, 25, (m, 1)))
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda, torch.bfloat16)
+    t1p, t2p, alpha = _planes(rng, n, d, g, cuda)
+    plain = tm_ref.ternary_matmul_grouped(x, t1p, t2p, alpha, g)
+    tiled = tm_ops.ternary_matmul_tiled(x, t1p, t2p, alpha, g)
+    torch.cuda.synchronize()
+    err = (tiled - plain).abs().amax(1) / plain.abs().amax(1)
+    assert float(err.max()) <= 1e-4, float(err.max())
+    for a, b in _windows(m):
+        vec = tm_ops.ternary_matvec(x[a:b].contiguous(), t1p, t2p, alpha, g)
+        assert torch.equal(vec, tiled[a:b]), (a, b)
 
 
 def _attention_case(rng, b, L, kv, g, hd, cap, ring, dev):
@@ -142,8 +179,10 @@ def test_rms_norm_matches_plain_and_is_batch_invariant(cuda, dtype,
                                              1e-6), got[b, l])
 
 
-def test_engine_runs_kernels_and_is_fleet_invariant(cuda):
-    cfg = configs.get_smoke_config("qwen2-1.5b")
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])  # FMA, tensor cores
+def test_engine_runs_kernels_and_is_fleet_invariant(cuda, dtype):
+    cfg = dataclasses.replace(configs.get_smoke_config("qwen2-1.5b"),
+                              param_dtype=dtype, activation_dtype=dtype)
     model = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
                         device=cuda)
     reset_launch_counts()

@@ -16,6 +16,8 @@ attention's plain version equals the port's plain ring walk on the
 gathered ring bit for bit.
 """
 
+import struct
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -52,6 +54,11 @@ PAGED_TOL = DECODE_TOL = dict(rtol=1e-5, atol=1e-5)
 
 def _t(a, device="cpu"):
     return torch.from_numpy(np.array(a)).to(device)
+
+
+def _bf16(bits):
+    """The value of a bf16 bit pattern, as an int (trits only)."""
+    return int(struct.unpack("<f", struct.pack("<I", bits << 16))[0])
 
 
 # ------------------------------------------------------------------ packing
@@ -123,6 +130,56 @@ class TestTernaryMatmul:
         ttm_ops.ternary_matmul(_t(rng.standard_normal((4, 64), np.float32)),
                                _t(t1p), _t(t2p), _t(alpha), group_size=32)
         assert launch_counts()["ternary_matvec"] == 0
+
+    def test_nibble_table_is_the_kernels_byte_permute(self):
+        """All 16 nibbles: the table's register holds the reference's two
+        trits of the nibble (the lower k in the low half), and the kernel's
+        byte permute gives it at both offsets of every tig, whatever the
+        word's other nibbles hold."""
+        rng = np.random.default_rng(12)
+        for v in range(16):
+            want = np.asarray(jpack.unpack_trits(jnp.asarray(
+                np.array([v], np.uint8))))[:2]
+            reg = ttm_ops.NIBBLE_BF16X2[v]
+            assert [_bf16(reg & 0xFFFF), _bf16(reg >> 16)] == want.tolist()
+            for tig in range(4):
+                other = int(rng.integers(16))
+                keep = ~(0xF << 4 * tig | 0xF << 4 * tig + 16) & 0xFFFFFFFF
+                word = (int(rng.integers(1 << 32)) & keep | v << 4 * tig
+                        | other << 4 * tig + 16)
+                assert ttm_ops.trit_pairs(word, tig) == (
+                    reg, ttm_ops.NIBBLE_BF16X2[other])
+
+    @pytest.mark.parametrize("g", [32, 64, 128])
+    def test_a_fragment_matches_reference_unpack(self, g):
+        """Every lane's A registers, over the k16 chunks of each group in the
+        kernels' order, fill each of a 16x16 tile's 256 trits once, equal to
+        the reference's unpacking of the same packed bytes."""
+        rng = np.random.default_rng(g + 11)
+        d = 2 * g
+        trits = rng.integers(-1, 2, (16, d)).astype(np.int8)
+        packed = np.asarray(jpack.pack_trits(jnp.asarray(trits)))
+        ref = np.asarray(jpack.unpack_trits(jnp.asarray(packed)))
+        words = packed.view("<u4")  # word kc of a row: chunk kc, trit k at bits 2k
+        cpg = g // 16
+        for grp in range(d // g):
+            for c in range(cpg):
+                kc = grp * cpg + c
+                tile = np.full((16, 16), 9, np.int8)
+                for lane in range(32):
+                    gid, tig = divmod(lane, 4)
+                    lo, hi = int(words[gid, kc]), int(words[gid + 8, kc])
+                    regs = ttm_ops.a_fragment(lo, hi, lane)
+                    assert (regs[0], regs[2]) == ttm_ops.trit_pairs(lo, tig)
+                    assert (regs[1], regs[3]) == ttm_ops.trit_pairs(hi, tig)
+                    at = ((gid, 2 * tig), (gid + 8, 2 * tig),
+                          (gid, 2 * tig + 8), (gid + 8, 2 * tig + 8))
+                    for reg, (row, k) in zip(regs, at):
+                        for h in (0, 1):
+                            assert tile[row, k + h] == 9
+                            tile[row, k + h] = _bf16(reg >> 16 * h & 0xFFFF)
+                np.testing.assert_array_equal(tile,
+                                              ref[:, 16 * kc:16 * kc + 16])
 
     def test_kernel_wrappers_refuse_cpu_tensors(self):
         rng = np.random.default_rng(7)
