@@ -9,7 +9,9 @@ Run from the root of a checkout. Phases (any failure exits non-zero):
      ``src/repro_torch/kernels/*/csrc/*.cu`` (one nvcc each, in parallel);
   2. hold each kernel against its plain PyTorch version on the card at the
      main paths' full-width shapes (tolerances below): the ternary matmuls
-     (decode and prefill rows bit-identical), chunk attention on the ring
+     (bf16 x on the tensor cores, f32 x on the FMA kernels, the route of
+     each logged; decode and prefill rows bit-identical, also for row
+     windows off the 8-token grid), chunk attention on the ring
      (B2) and on a paged pool under a shuffled table with null pages (B4,
      also bit for bit against B2 on the gathered ring), the norm, decode
      attention over an int8 ring with a row masked everywhere (B5), and the
@@ -66,9 +68,11 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 # stated tolerances of kernel vs plain version (both sum in f32, in another
-# order): ternary matmul relative to the output's scale, attention absolute;
-# RMSNorm elementwise relative, f32 outputs, and one bf16 step (2^-7 of the
-# value) where the f32 result sits on a bf16 rounding boundary
+# order; the bf16 ternary layers on the tensor cores, whose f32 accumulation
+# is not IEEE-sequential): ternary matmul relative to the output's scale,
+# attention absolute; RMSNorm elementwise relative, f32 outputs, and one
+# bf16 step (2^-7 of the value) where the f32 result sits on a bf16
+# rounding boundary
 MM_RTOL = 1e-4
 ATTN_TOL = 1e-4
 NORM_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
@@ -175,43 +179,65 @@ def random_planes(n, d, gen, dev):
     return pack_trits(t1), pack_trits(t2), alpha
 
 
+def matvec_windows(m):
+    """Row windows [a, b) of an m-row x for the matvec-vs-tiled gate: on the
+    kernels' 8-token grid, off it, ending at the ragged edge, one row."""
+    return ((0, 8), (m - 8, m), (3, 12), (m - 11, m), (5, 6))
+
+
 def check_ternary(cfg, dev):
+    """Both ternary kernels against the plain version at every linear
+    layer's shape: bf16 x (the main path's, tensor cores) at m = 1, 8
+    (matvec) and 128, 200, 512 (tiled), f32 x (FMA kernels) at m = 8 and
+    200; matvec rows bit-identical to the tiled kernel's on and off the
+    8-token grid; bf16 outputs equal to the f32 outputs rounded."""
     import torch
 
     from repro_torch.kernels.ternary_matmul import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(1)
     worst = worst_abs = 0.0
+    cases = ((torch.bfloat16, (1, 8), (128, 200, 512)),
+             (torch.float32, (8,), (200,)))
     for name, n, d, _ in linear_shapes(cfg):
         t1p, t2p, alpha = random_planes(n, d, gen, dev)
-        x = torch.randn((512, d), generator=gen, device=dev).to(torch.bfloat16)
-        for m in (1, 8):
-            y = ops.ternary_matvec(x[:m].contiguous(), t1p, t2p, alpha, GROUP)
-            worst, worst_abs = _close(y, ref.ternary_matmul_grouped(
-                x[:m], t1p, t2p, alpha, GROUP), f"matvec {name} m={m}",
-                worst, worst_abs)
-            _same_rounding(ops.ternary_matvec, x[:m], t1p, t2p, alpha, y,
-                           f"matvec {name} m={m}")
-        for m in (128, 200, 512):
-            y = ops.ternary_matmul_tiled(x[:m].contiguous(), t1p, t2p, alpha,
-                                         GROUP)
-            worst, worst_abs = _close(y, ref.ternary_matmul_grouped(
-                x[:m], t1p, t2p, alpha, GROUP), f"matmul {name} m={m}",
-                worst, worst_abs)
-            _same_rounding(ops.ternary_matmul_tiled, x[:m], t1p, t2p, alpha,
-                           y, f"matmul {name} m={m}")
-            for r0 in (0, m - 8):  # first rows, and the ragged last rows
-                rows = ops.ternary_matvec(x[r0:r0 + 8].contiguous(), t1p, t2p,
-                                          alpha, GROUP)
-                if not torch.equal(rows, y[r0:r0 + 8]):
-                    raise AssertionError(
-                        f"{name} m={m}: matvec rows {r0}..{r0 + 7} differ "
-                        "from the tiled kernel's (must be bit-identical)")
-        del t1p, t2p, alpha, x
+        x32 = torch.randn((512, d), generator=gen, device=dev)
+        for dtype, vec_ms, tiled_ms in cases:
+            x = x32.to(dtype)
+            bf16 = dtype == torch.bfloat16
+            for m in vec_ms:
+                what = f"matvec {name} {dtype} m={m}"
+                y = ops.ternary_matvec(x[:m].contiguous(), t1p, t2p, alpha,
+                                       GROUP)
+                worst, worst_abs = _close(y, ref.ternary_matmul_grouped(
+                    x[:m], t1p, t2p, alpha, GROUP), what, worst, worst_abs)
+                if bf16:
+                    _same_rounding(ops.ternary_matvec, x[:m], t1p, t2p, alpha,
+                                   y, what)
+            for m in tiled_ms:
+                what = f"matmul {name} {dtype} m={m}"
+                y = ops.ternary_matmul_tiled(x[:m].contiguous(), t1p, t2p,
+                                             alpha, GROUP)
+                worst, worst_abs = _close(y, ref.ternary_matmul_grouped(
+                    x[:m], t1p, t2p, alpha, GROUP), what, worst, worst_abs)
+                if bf16:
+                    _same_rounding(ops.ternary_matmul_tiled, x[:m], t1p, t2p,
+                                   alpha, y, what)
+                for a, b in matvec_windows(m):
+                    rows = ops.ternary_matvec(x[a:b].contiguous(), t1p, t2p,
+                                              alpha, GROUP)
+                    if not torch.equal(rows, y[a:b]):
+                        raise AssertionError(
+                            f"{what}: matvec rows {a}..{b - 1} differ from the "
+                            "tiled kernel's (must be bit-identical)")
+        del t1p, t2p, alpha, x, x32
+    routes = {str(dt).split(".")[-1]: ops.route(dt)
+              for dt in (torch.bfloat16, torch.float32)}
     log(f"ternary kernels == plain (max abs err {worst_abs:.2e}, max err / "
-        f"scale {worst:.2e} <= "
-        f"{MM_RTOL}); matvec rows bit-identical to tiled rows; bf16 outputs "
-        "equal the f32 outputs rounded")
+        f"scale {worst:.2e} <= {MM_RTOL}); routes by x dtype: {routes}; "
+        "matvec rows bit-identical to tiled rows for windows "
+        f"{list(matvec_windows(512))} (m = 512; likewise at 128 and 200); "
+        "bf16 outputs equal the f32 outputs rounded")
     return worst_abs
 
 
@@ -1173,7 +1199,8 @@ def main() -> int:
              launches=counts["ternary_matvec"],
              launches_per_decode_step=mp["per_step"]["ternary_matvec"],
              max_abs_err=mm_err,
-             work="all 197 linear layers of one decode step, m=8",
+             work="all 197 linear layers of one decode step, m=8, bf16 x "
+                  "on the tensor cores (mma.sync)",
              **{k: tern["ternary_matvec"][k] for k in timed}),
         dict(name="ternary_matmul", route="cuda",
              source="src/repro_torch/kernels/ternary_matmul/csrc/ternary_matmul.cu",
@@ -1181,7 +1208,8 @@ def main() -> int:
              launches=counts["ternary_matmul"],
              launches_per_decode_step=mp["per_step"]["ternary_matmul"],
              max_abs_err=mm_err,
-             work="the 196 block linear layers of one prefill dispatch, m=512",
+             work="the 196 block linear layers of one prefill dispatch, "
+                  "m=512, bf16 x on the tensor cores (mma.sync)",
              **{k: tern["ternary_matmul"][k] for k in timed}),
         dict(name="chunk_attention", route="cuda",
              source="src/repro_torch/kernels/chunk_attention/csrc/chunk_attention.cu",
