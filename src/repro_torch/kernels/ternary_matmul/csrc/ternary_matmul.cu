@@ -83,8 +83,9 @@
 //       tile by eight n8 tiles: p1, p2 and acc are 3 x 32 f32 registers).
 //       d is walked in stages of 64 (four k16 chunks); each stage's x tile
 //       (rows padded to 144 bytes, so ldmatrix is conflict-free) and both
-//       plane tiles go to shared memory with cp.async, double-buffered, the
-//       next stage in flight while this one computes. A warp unpacks its A
+//       plane tiles go to shared memory with cp.async, in a ring of four
+//       stages: three are in flight while one computes (with two, a block
+//       waited on each stage's load, about 1.5 us a stage). A warp unpacks its A
 //       registers once per chunk and reuses them across its eight token
 //       tiles; B comes from ldmatrix.x4. alpha is loaded at a group's first
 //       chunk and used at its last. The tensor work is twice the dense
@@ -469,8 +470,9 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+template <int N>  // wait until at most N of this thread's groups are pending
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -566,6 +568,7 @@ constexpr int TC_BN = 16 * TC_WF;           // 64 features per block
 constexpr int TC_BM = 8 * TC_NT * TC_WT;    // 128 tokens per block
 constexpr int TC_BK = 64;                   // k per stage: four k16 chunks
 constexpr int TC_XS = TC_BK + 8;            // x row in shared memory: 144 bytes
+constexpr int TC_STAGES = 4;                // cp.async ring: 3 stages in flight
 constexpr int TC_THREADS = 32 * TC_WF * TC_WT;
 
 struct TcStage {
@@ -580,7 +583,8 @@ __global__ void __launch_bounds__(TC_THREADS)
                               const uint8_t* __restrict__ t2p,
                               const float* __restrict__ alpha,
                               TY* __restrict__ y, int m, int n, int d, int G) {
-  __shared__ __align__(128) TcStage st[2];
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  TcStage* st = reinterpret_cast<TcStage*>(tc_smem);  // [TC_STAGES]
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int gid = lane / 4, tig = lane % 4;
   const int wf = warp % TC_WF, wt = warp / TC_WF;
@@ -623,14 +627,18 @@ __global__ void __launch_bounds__(TC_THREADS)
   const int lrow = wt * 8 * TC_NT + 8 * (lane / 16) + lane % 8;
   const int lcol = 8 * ((lane / 8) % 2);
 
-  load_stage(0, st[0]);
-  cp_async_commit();
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 1; ++s) {
+    if (s < n_steps) load_stage(s, st[s]);
+    cp_async_commit();  // (empty groups past the last stage keep the count)
+  }
   for (int s = 0; s < n_steps; ++s) {
-    if (s + 1 < n_steps) load_stage(s + 1, st[(s + 1) % 2]);
-    cp_async_commit();  // (an empty group on the last stage)
-    cp_async_wait_one();
-    __syncthreads();
-    const TcStage& S = st[s % 2];
+    cp_async_wait<TC_STAGES - 2>();  // stage s has landed, for this thread
+    __syncthreads();  // ... for all; and all are done with stage s-1's buffer
+    const int nx = s + TC_STAGES - 1;
+    if (nx < n_steps) load_stage(nx, st[nx % TC_STAGES]);
+    cp_async_commit();
+    const TcStage& S = st[s % TC_STAGES];
     const uint4 q1lo = S.p[0][fr], q1hi = S.p[0][fr + 8];
     const uint4 q2lo = S.p[1][fr], q2hi = S.p[1][fr + 8];
     const uint32_t w1lo[4] = {q1lo.x, q1lo.y, q1lo.z, q1lo.w};
@@ -666,7 +674,6 @@ __global__ void __launch_bounds__(TC_THREADS)
           }
       }
     }
-    __syncthreads();  // every warp is done with this stage's buffer
   }
 #pragma unroll
   for (int t = 0; t < TC_NT; ++t)
@@ -716,8 +723,13 @@ cudaError_t launch_matmul_mma(const void* x, const void* t1p, const void* t2p,
                               const void* alpha, void* y, int m, int n, int d,
                               int G, cudaStream_t s) {
   if (G % 16 || d % TC_BK) return cudaErrorInvalidValue;
+  constexpr size_t smem = sizeof(TcStage) * TC_STAGES;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      ternary_matmul_mma_kernel<TY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (attr != cudaSuccess) return attr;
   dim3 grid((n + TC_BN - 1) / TC_BN, (m + TC_BM - 1) / TC_BM);
-  ternary_matmul_mma_kernel<TY><<<grid, TC_THREADS, 0, s>>>(
+  ternary_matmul_mma_kernel<TY><<<grid, TC_THREADS, smem, s>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(t1p),
       static_cast<const uint8_t*>(t2p), static_cast<const float*>(alpha),
       static_cast<TY*>(y), m, n, d, G);
