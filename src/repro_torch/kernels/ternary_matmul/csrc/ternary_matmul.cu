@@ -591,24 +591,26 @@ __global__ void __launch_bounds__(TC_THREADS)
   const int i0 = blockIdx.y * TC_BM, j0 = blockIdx.x * TC_BN;
   const int ng = d / G, cpg = G / 16, n_steps = d / TC_BK;
   const size_t row_bytes = (size_t)d / 4;
-
+  // this thread's cp.async sources: x rows xr0 + 32*i at column piece xc
+  // (rows past m zero-fill), and one plane row (rows past n zero-fill);
+  // each stage adds its k offset. The group walk below keeps counters, so
+  // the chunk loop does no integer division.
+  constexpr int XPIECES = TC_BK / 8;                  // 16-byte pieces of a row
+  constexpr int XROWS = TC_THREADS / XPIECES;         // rows per sweep
+  const int xr0 = tid / XPIECES, xc = 8 * (tid % XPIECES);
+  const __nv_bfloat16* xg = x + (size_t)min(i0 + xr0, m - 1) * d + xc;
+  const int pl = tid / TC_BN, pr = tid % TC_BN;        // tid < 2*TC_BN
+  const uint8_t* pg = (pl ? t2p : t1p) + (size_t)min(j0 + pr, n - 1) * row_bytes;
+  const bool p_ok = j0 + pr < n;
   auto load_stage = [&](int s, TcStage& S) {
     const int k0 = s * TC_BK;
 #pragma unroll
-    for (int i = 0; i < TC_BM * (TC_BK / 8) / TC_THREADS; ++i) {
-      const int idx = tid + i * TC_THREADS;
-      const int r = idx / (TC_BK / 8), c = idx % (TC_BK / 8);
+    for (int i = 0; i < TC_BM / XROWS; ++i) {
+      const int r = xr0 + i * XROWS;
       const bool ok = i0 + r < m;
-      cp_async16(&S.x[r][8 * c], ok ? x + (size_t)(i0 + r) * d + k0 + 8 * c : x,
-                 ok);
+      cp_async16(&S.x[r][xc], ok ? xg + (size_t)i * XROWS * d + k0 : x, ok);
     }
-    if (tid < 2 * TC_BN) {
-      const int pl = tid / TC_BN, r = tid % TC_BN;
-      const bool ok = j0 + r < n;
-      const uint8_t* src = pl ? t2p : t1p;
-      cp_async16(&S.p[pl][r],
-                 ok ? src + (size_t)(j0 + r) * row_bytes + k0 / 4 : src, ok);
-    }
+    if (tid < 2 * TC_BN) cp_async16(&S.p[pl][pr], pg + k0 / 4, p_ok);
   };
 
   float acc[TC_NT][4], p1[TC_NT][4], p2[TC_NT][4];
@@ -622,6 +624,7 @@ __global__ void __launch_bounds__(TC_THREADS)
   const float2* alo = al + (size_t)min(j0 + fr, n - 1) * ng;
   const float2* ahi = al + (size_t)min(j0 + fr + 8, n - 1) * ng;
   float2 a_lo = make_float2(0.0f, 0.0f), a_hi = a_lo;
+  int g = 0, cig = 0;  // the group, and the chunk within it, being walked
   // ldmatrix.x4 of tiles t, t+1: lane gives row (lane & 7) of matrix
   // lane / 8 = (tile t + lane / 16, k half (lane / 8) % 2)
   const int lrow = wt * 8 * TC_NT + 8 * (lane / 16) + lane % 8;
@@ -647,10 +650,9 @@ __global__ void __launch_bounds__(TC_THREADS)
     const uint32_t w2hi[4] = {q2hi.x, q2hi.y, q2hi.z, q2hi.w};
 #pragma unroll
     for (int c = 0; c < TC_BK / 16; ++c) {
-      const int kc = s * (TC_BK / 16) + c;  // chunk index along d
-      if (kc % cpg == 0) {                  // a group starts: fetch its alpha
-        a_lo = __ldg(alo + kc / cpg);
-        a_hi = __ldg(ahi + kc / cpg);
+      if (cig == 0) {  // a group starts: fetch its alpha
+        a_lo = __ldg(alo + g);
+        a_hi = __ldg(ahi + g);
       }
       uint32_t b[TC_NT][2];
 #pragma unroll
@@ -663,7 +665,7 @@ __global__ void __launch_bounds__(TC_THREADS)
         b[t + 1][1] = r[3];
       }
       chunk_mma<TC_NT>(w1lo[c], w1hi[c], w2lo[c], w2hi[c], tig, b, p1, p2);
-      if ((kc + 1) % cpg == 0) {  // the group ends: fold it, in group order
+      if (++cig == cpg) {  // the group ends: fold it, in group order
 #pragma unroll
         for (int t = 0; t < TC_NT; ++t)
 #pragma unroll
@@ -672,6 +674,8 @@ __global__ void __launch_bounds__(TC_THREADS)
             acc[t][e] = __fadd_rn(acc[t][e], group_term(p1[t][e], p2[t][e], a.x, a.y));
             p1[t][e] = p2[t][e] = 0.0f;
           }
+        cig = 0;
+        ++g;
       }
     }
   }
