@@ -22,7 +22,8 @@
 // depend on what shares its batch or chunk.
 //
 //   bf16 x, tensor cores. Both kernels run the shared tile routine
-//   (``chunk_mma`` and ``group_term`` below) in this order exactly:
+//   (``a_fragment``, ``chunk_mma`` and ``group_term`` below) in this order
+//   exactly:
 //     acc = 0
 //     for g in 0 .. d/G-1:                            (groups in order)
 //         p1 = p2 = 0                                 (fresh per group, C = 0)
@@ -87,9 +88,10 @@
 //       stages: three are in flight while one computes (with two, a block
 //       waited on each stage's load, about 1.5 us a stage). A warp unpacks its A
 //       registers once per chunk and reuses them across its eight token
-//       tiles; B comes from ldmatrix.x4. alpha is loaded at a group's first
-//       chunk and used at its last. The tensor work is twice the dense
-//       product's, one MMA per plane.
+//       tiles; B comes from ldmatrix.x4. G is a template parameter, so
+//       where a group ends is known at compile time and the unrolled chunk
+//       loop has no branch; alpha is fetched a whole group before its fold.
+//       The tensor work is twice the dense product's, one MMA per plane.
 //     - FMA: the f32 FMA pipes, against the 989 TFLOP/s a tensor-core GEMM
 //       could reach on the same product. Design: a 64x64 output tile per
 //       block of 128 threads, 8x4 outputs per thread with its per-group sums
@@ -429,20 +431,22 @@ __device__ __forceinline__ void trit_pairs(uint32_t w, int tig, uint32_t& lo,
   hi = __byte_perm(0x00808000u, 0x00BF3F00u, sel >> 16);
 }
 
-// One k16 chunk for NT 8-token tiles: A of both planes from the chunk words
-// of rows gid (w*lo) and gid+8 (w*hi), B of each tile in b[t], then per
-// tile one MMA per plane. Every output's chain is p = mma(chunk c, p) in
-// chunk order, whichever kernel calls this.
+// The A registers of one plane's k16 chunk for this lane, from the chunk
+// words of tile rows gid (wlo) and gid+8 (whi).
+__device__ __forceinline__ void a_fragment(uint32_t wlo, uint32_t whi, int tig,
+                                           uint32_t (&a)[4]) {
+  trit_pairs(wlo, tig, a[0], a[2]);
+  trit_pairs(whi, tig, a[1], a[3]);
+}
+
+// One k16 chunk for NT 8-token tiles: A of each plane (a1, a2), B of each
+// tile in b[t], then per tile one MMA per plane. Every output's chain is
+// p = mma(chunk c, p) in chunk order, whichever kernel calls this.
 template <int NT>
-__device__ __forceinline__ void chunk_mma(uint32_t w1lo, uint32_t w1hi,
-                                          uint32_t w2lo, uint32_t w2hi, int tig,
+__device__ __forceinline__ void chunk_mma(const uint32_t (&a1)[4],
+                                          const uint32_t (&a2)[4],
                                           const uint32_t (&b)[NT][2],
                                           float (&p1)[NT][4], float (&p2)[NT][4]) {
-  uint32_t a1[4], a2[4];
-  trit_pairs(w1lo, tig, a1[0], a1[2]);
-  trit_pairs(w1hi, tig, a1[1], a1[3]);
-  trit_pairs(w2lo, tig, a2[0], a2[2]);
-  trit_pairs(w2hi, tig, a2[1], a2[3]);
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
     mma_bf16(p1[t], a1, b[t][0], b[t][1]);
@@ -532,8 +536,12 @@ __global__ void __launch_bounds__(32 * MMV_MAX_WARPS)
       float p1[1][4] = {{0.0f, 0.0f, 0.0f, 0.0f}};
       float p2[1][4] = {{0.0f, 0.0f, 0.0f, 0.0f}};
 #pragma unroll
-      for (int c = 0; c < CPG; ++c)
-        chunk_mma<1>(w1lo[c], w1hi[c], w2lo[c], w2hi[c], tig, b[c], p1, p2);
+      for (int c = 0; c < CPG; ++c) {
+        uint32_t a1[4], a2[4];
+        a_fragment(w1lo[c], w1hi[c], tig, a1);
+        a_fragment(w2lo[c], w2hi[c], tig, a2);
+        chunk_mma<1>(a1, a2, b[c], p1, p2);
+      }
       float t[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -576,25 +584,27 @@ struct TcStage {
   uint4 p[2][TC_BN];              // plane, feature: the stage's 64 trits
 };
 
-template <typename TY>
+template <typename TY, int G>
 __global__ void __launch_bounds__(TC_THREADS)
     ternary_matmul_mma_kernel(const __nv_bfloat16* __restrict__ x,
                               const uint8_t* __restrict__ t1p,
                               const uint8_t* __restrict__ t2p,
                               const float* __restrict__ alpha,
-                              TY* __restrict__ y, int m, int n, int d, int G) {
+                              TY* __restrict__ y, int m, int n, int d) {
+  constexpr int CPS = TC_BK / 16;  // k16 chunks per stage
+  constexpr int CPG = G / 16;      // k16 chunks per group
+  static_assert(CPS % CPG == 0 || CPG % CPS == 0, "groups and stages nest");
   extern __shared__ __align__(128) unsigned char tc_smem[];
   TcStage* st = reinterpret_cast<TcStage*>(tc_smem);  // [TC_STAGES]
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int gid = lane / 4, tig = lane % 4;
   const int wf = warp % TC_WF, wt = warp / TC_WF;
   const int i0 = blockIdx.y * TC_BM, j0 = blockIdx.x * TC_BN;
-  const int ng = d / G, cpg = G / 16, n_steps = d / TC_BK;
+  const int ng = d / G, n_steps = d / TC_BK;
   const size_t row_bytes = (size_t)d / 4;
   // this thread's cp.async sources: x rows xr0 + 32*i at column piece xc
   // (rows past m zero-fill), and one plane row (rows past n zero-fill);
-  // each stage adds its k offset. The group walk below keeps counters, so
-  // the chunk loop does no integer division.
+  // each stage adds its k offset
   constexpr int XPIECES = TC_BK / 8;                  // 16-byte pieces of a row
   constexpr int XROWS = TC_THREADS / XPIECES;         // rows per sweep
   const int xr0 = tid / XPIECES, xc = 8 * (tid % XPIECES);
@@ -623,8 +633,22 @@ __global__ void __launch_bounds__(TC_THREADS)
   const float2* al = reinterpret_cast<const float2*>(alpha);
   const float2* alo = al + (size_t)min(j0 + fr, n - 1) * ng;
   const float2* ahi = al + (size_t)min(j0 + fr + 8, n - 1) * ng;
-  float2 a_lo = make_float2(0.0f, 0.0f), a_hi = a_lo;
-  int g = 0, cig = 0;  // the group, and the chunk within it, being walked
+  // alpha of the group being walked, fetched a whole group ahead of its use
+  int g = 0;
+  float2 a_lo = __ldg(alo), a_hi = __ldg(ahi);
+  auto fold = [&]() {  // the group ends: fold it into acc, in group order
+#pragma unroll
+    for (int t = 0; t < TC_NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = alpha_of(e, a_lo, a_hi);
+        acc[t][e] = __fadd_rn(acc[t][e], group_term(p1[t][e], p2[t][e], a.x, a.y));
+        p1[t][e] = p2[t][e] = 0.0f;
+      }
+    g = min(g + 1, ng - 1);
+    a_lo = __ldg(alo + g);
+    a_hi = __ldg(ahi + g);
+  };
   // ldmatrix.x4 of tiles t, t+1: lane gives row (lane & 7) of matrix
   // lane / 8 = (tile t + lane / 16, k half (lane / 8) % 2)
   const int lrow = wt * 8 * TC_NT + 8 * (lane / 16) + lane % 8;
@@ -642,18 +666,21 @@ __global__ void __launch_bounds__(TC_THREADS)
     if (nx < n_steps) load_stage(nx, st[nx % TC_STAGES]);
     cp_async_commit();
     const TcStage& S = st[s % TC_STAGES];
+    // the stage's A registers, all four chunks, both planes
     const uint4 q1lo = S.p[0][fr], q1hi = S.p[0][fr + 8];
     const uint4 q2lo = S.p[1][fr], q2hi = S.p[1][fr + 8];
-    const uint32_t w1lo[4] = {q1lo.x, q1lo.y, q1lo.z, q1lo.w};
-    const uint32_t w1hi[4] = {q1hi.x, q1hi.y, q1hi.z, q1hi.w};
-    const uint32_t w2lo[4] = {q2lo.x, q2lo.y, q2lo.z, q2lo.w};
-    const uint32_t w2hi[4] = {q2hi.x, q2hi.y, q2hi.z, q2hi.w};
+    const uint32_t w1lo[CPS] = {q1lo.x, q1lo.y, q1lo.z, q1lo.w};
+    const uint32_t w1hi[CPS] = {q1hi.x, q1hi.y, q1hi.z, q1hi.w};
+    const uint32_t w2lo[CPS] = {q2lo.x, q2lo.y, q2lo.z, q2lo.w};
+    const uint32_t w2hi[CPS] = {q2hi.x, q2hi.y, q2hi.z, q2hi.w};
+    uint32_t a1[CPS][4], a2[CPS][4];
 #pragma unroll
-    for (int c = 0; c < TC_BK / 16; ++c) {
-      if (cig == 0) {  // a group starts: fetch its alpha
-        a_lo = __ldg(alo + g);
-        a_hi = __ldg(ahi + g);
-      }
+    for (int c = 0; c < CPS; ++c) {
+      a_fragment(w1lo[c], w1hi[c], tig, a1[c]);
+      a_fragment(w2lo[c], w2hi[c], tig, a2[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < CPS; ++c) {
       uint32_t b[TC_NT][2];
 #pragma unroll
       for (int t = 0; t < TC_NT; t += 2) {
@@ -664,19 +691,13 @@ __global__ void __launch_bounds__(TC_THREADS)
         b[t + 1][0] = r[2];
         b[t + 1][1] = r[3];
       }
-      chunk_mma<TC_NT>(w1lo[c], w1hi[c], w2lo[c], w2hi[c], tig, b, p1, p2);
-      if (++cig == cpg) {  // the group ends: fold it, in group order
-#pragma unroll
-        for (int t = 0; t < TC_NT; ++t)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 a = alpha_of(e, a_lo, a_hi);
-            acc[t][e] = __fadd_rn(acc[t][e], group_term(p1[t][e], p2[t][e], a.x, a.y));
-            p1[t][e] = p2[t][e] = 0.0f;
-          }
-        cig = 0;
-        ++g;
+      chunk_mma<TC_NT>(a1[c], a2[c], b, p1, p2);
+      if constexpr (CPG <= CPS) {  // groups end inside the stage, known here
+        if ((c + 1) % CPG == 0) fold();
       }
+    }
+    if constexpr (CPG > CPS) {  // a group spans CPG / CPS stages
+      if ((s + 1) % (CPG / CPS) == 0) fold();
     }
   }
 #pragma unroll
@@ -722,69 +743,34 @@ cudaError_t launch_matvec_mma_g(int G, const void* x, const void* t1p,
   }
 }
 
-template <typename TY>
+template <typename TY, int G>
 cudaError_t launch_matmul_mma(const void* x, const void* t1p, const void* t2p,
                               const void* alpha, void* y, int m, int n, int d,
-                              int G, cudaStream_t s) {
-  if (G % 16 || d % TC_BK) return cudaErrorInvalidValue;
+                              cudaStream_t s) {
+  if (d % TC_BK) return cudaErrorInvalidValue;
   constexpr size_t smem = sizeof(TcStage) * TC_STAGES;
+  auto kern = ternary_matmul_mma_kernel<TY, G>;
   const cudaError_t attr = cudaFuncSetAttribute(
-      ternary_matmul_mma_kernel<TY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return attr;
   dim3 grid((n + TC_BN - 1) / TC_BN, (m + TC_BM - 1) / TC_BM);
-  ternary_matmul_mma_kernel<TY><<<grid, TC_THREADS, smem, s>>>(
+  kern<<<grid, TC_THREADS, smem, s>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(t1p),
-      static_cast<const uint8_t*>(t2p), static_cast<const float*>(alpha),
-      static_cast<TY*>(y), m, n, d, G);
-  return cudaGetLastError();
-}
-
-template <typename T, typename TY, int G>
-cudaError_t launch_matvec(const void* x, const void* t1p, const void* t2p,
-                          const void* alpha, void* y, int m, int n, int d,
-                          cudaStream_t stream) {
-  const int ng = d / G;
-  const int nwarps = ng < MV_MAX_WARPS ? ng : MV_MAX_WARPS;
-  const size_t smem =
-      sizeof(float) * MV_ROWS * ((size_t)ng * MV_COLS + (size_t)nwarps * G);
-  auto kern = ternary_matvec_kernel<T, TY, G>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  dim3 grid((n + MV_COLS - 1) / MV_COLS);
-  kern<<<grid, MV_COLS * nwarps, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const uint8_t*>(t1p),
       static_cast<const uint8_t*>(t2p), static_cast<const float*>(alpha),
       static_cast<TY*>(y), m, n, d);
   return cudaGetLastError();
 }
 
-template <typename T, typename TY>
-cudaError_t launch_matvec_g(int G, const void* x, const void* t1p,
-                            const void* t2p, const void* alpha, void* y, int m,
-                            int n, int d, cudaStream_t s) {
+template <typename TY>
+cudaError_t launch_matmul_mma_g(int G, const void* x, const void* t1p,
+                                const void* t2p, const void* alpha, void* y,
+                                int m, int n, int d, cudaStream_t s) {
   switch (G) {
-    case 32: return launch_matvec<T, TY, 32>(x, t1p, t2p, alpha, y, m, n, d, s);
-    case 64: return launch_matvec<T, TY, 64>(x, t1p, t2p, alpha, y, m, n, d, s);
-    case 128: return launch_matvec<T, TY, 128>(x, t1p, t2p, alpha, y, m, n, d, s);
+    case 32: return launch_matmul_mma<TY, 32>(x, t1p, t2p, alpha, y, m, n, d, s);
+    case 64: return launch_matmul_mma<TY, 64>(x, t1p, t2p, alpha, y, m, n, d, s);
+    case 128: return launch_matmul_mma<TY, 128>(x, t1p, t2p, alpha, y, m, n, d, s);
     default: return cudaErrorInvalidValue;
   }
-}
-
-template <typename T, typename TY>
-cudaError_t launch_matmul(const void* x, const void* t1p, const void* t2p,
-                          const void* alpha, void* y, int m, int n, int d,
-                          int G, cudaStream_t s) {
-  if (G % MM_BK) return cudaErrorInvalidValue;
-  dim3 grid((n + MM_BN - 1) / MM_BN, (m + MM_BM - 1) / MM_BM);
-  ternary_matmul_kernel<T, TY><<<grid, MM_THREADS, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const uint8_t*>(t1p),
-      static_cast<const uint8_t*>(t2p), static_cast<const float*>(alpha),
-      static_cast<TY*>(y), m, n, d, G);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -812,8 +798,8 @@ int ternary_matvec_launch(const void* x, int x_bf16, const void* t1p,
   return static_cast<int>(e);
 }
 
-// The same arguments; G must be a multiple of 32 (one staged FMA step is 32
-// columns of d; the tensor-core kernel takes any multiple of 16).
+// The same arguments; G must be a multiple of 32 for f32 x (one staged FMA
+// step is 32 columns of d), and in {32, 64, 128} for bf16 x.
 int ternary_matmul_launch(const void* x, int x_bf16, const void* t1p,
                           const void* t2p, const void* alpha, void* y,
                           int y_bf16, int m, int n, int d, int G, void* stream) {
@@ -823,9 +809,9 @@ int ternary_matmul_launch(const void* x, int x_bf16, const void* t1p,
     e = y_bf16 ? cudaErrorInvalidValue
                : launch_matmul<float, float>(x, t1p, t2p, alpha, y, m, n, d, G, s);
   else if (y_bf16)
-    e = launch_matmul_mma<__nv_bfloat16>(x, t1p, t2p, alpha, y, m, n, d, G, s);
+    e = launch_matmul_mma_g<__nv_bfloat16>(G, x, t1p, t2p, alpha, y, m, n, d, s);
   else
-    e = launch_matmul_mma<float>(x, t1p, t2p, alpha, y, m, n, d, G, s);
+    e = launch_matmul_mma_g<float>(G, x, t1p, t2p, alpha, y, m, n, d, s);
   return static_cast<int>(e);
 }
 

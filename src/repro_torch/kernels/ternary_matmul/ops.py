@@ -159,9 +159,13 @@ def ternary_matmul_tiled(x, t1p, t2p, alpha, group_size: int = 128,
                          out_dtype=torch.float32):
     """Prefill kernel (replaces ``ternary_matmul_pallas``): x (m, d) on the
     card, any m (meant for m >= 128). Returns (m, n) in ``out_dtype`` (f32
-    or x's dtype)."""
+    or x's dtype). G must be a multiple of 32, and for bf16 x (the
+    tensor-core kernel) one of ``MATVEC_GROUP_SIZES``."""
     if group_size % 32:
         raise ValueError(f"group size {group_size} must be a multiple of 32")
+    if x.dtype == torch.bfloat16 and group_size not in MATVEC_GROUP_SIZES:
+        raise ValueError(f"bf16 x: group size {group_size} not in "
+                         f"{MATVEC_GROUP_SIZES}")
     return _launch("ternary_matmul_launch", "ternary_matmul", x, t1p, t2p,
                    alpha, group_size, out_dtype)
 
