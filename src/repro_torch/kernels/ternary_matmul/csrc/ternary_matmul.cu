@@ -773,6 +773,53 @@ cudaError_t launch_matmul_mma_g(int G, const void* x, const void* t1p,
   }
 }
 
+template <typename T, typename TY, int G>
+cudaError_t launch_matvec(const void* x, const void* t1p, const void* t2p,
+                          const void* alpha, void* y, int m, int n, int d,
+                          cudaStream_t stream) {
+  const int ng = d / G;
+  const int nwarps = ng < MV_MAX_WARPS ? ng : MV_MAX_WARPS;
+  const size_t smem =
+      sizeof(float) * MV_ROWS * ((size_t)ng * MV_COLS + (size_t)nwarps * G);
+  auto kern = ternary_matvec_kernel<T, TY, G>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  dim3 grid((n + MV_COLS - 1) / MV_COLS);
+  kern<<<grid, MV_COLS * nwarps, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const uint8_t*>(t1p),
+      static_cast<const uint8_t*>(t2p), static_cast<const float*>(alpha),
+      static_cast<TY*>(y), m, n, d);
+  return cudaGetLastError();
+}
+
+template <typename T, typename TY>
+cudaError_t launch_matvec_g(int G, const void* x, const void* t1p,
+                            const void* t2p, const void* alpha, void* y, int m,
+                            int n, int d, cudaStream_t s) {
+  switch (G) {
+    case 32: return launch_matvec<T, TY, 32>(x, t1p, t2p, alpha, y, m, n, d, s);
+    case 64: return launch_matvec<T, TY, 64>(x, t1p, t2p, alpha, y, m, n, d, s);
+    case 128: return launch_matvec<T, TY, 128>(x, t1p, t2p, alpha, y, m, n, d, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, typename TY>
+cudaError_t launch_matmul(const void* x, const void* t1p, const void* t2p,
+                          const void* alpha, void* y, int m, int n, int d,
+                          int G, cudaStream_t s) {
+  if (G % MM_BK) return cudaErrorInvalidValue;
+  dim3 grid((n + MM_BN - 1) / MM_BN, (m + MM_BM - 1) / MM_BM);
+  ternary_matmul_kernel<T, TY><<<grid, MM_THREADS, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const uint8_t*>(t1p),
+      static_cast<const uint8_t*>(t2p), static_cast<const float*>(alpha),
+      static_cast<TY*>(y), m, n, d, G);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
