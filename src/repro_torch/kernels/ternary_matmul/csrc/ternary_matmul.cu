@@ -85,13 +85,13 @@
 //       d is walked in stages of 64 (four k16 chunks); each stage's x tile
 //       (rows padded to 144 bytes, so ldmatrix is conflict-free) and both
 //       plane tiles go to shared memory with cp.async, in a ring of four
-//       stages: three are in flight while one computes (with two, a block
-//       waited on each stage's load, about 1.5 us a stage). A warp unpacks its A
-//       registers once per chunk and reuses them across its eight token
-//       tiles; B comes from ldmatrix.x4. G is a template parameter, so
-//       where a group ends is known at compile time and the unrolled chunk
-//       loop has no branch; alpha is fetched a whole group before its fold.
-//       The tensor work is twice the dense product's, one MMA per plane.
+//       stages: three are in flight while one computes. A warp unpacks the
+//       A registers of a stage's four chunks once and reuses them across
+//       its eight token tiles; B comes from ldmatrix.x4. G is a template
+//       parameter, so where a group ends is known at compile time and the
+//       unrolled chunk loop has no branch; alpha is fetched a whole group
+//       before its fold. The tensor work is twice the dense product's, one
+//       MMA per plane.
 //     - FMA: the f32 FMA pipes, against the 989 TFLOP/s a tensor-core GEMM
 //       could reach on the same product. Design: a 64x64 output tile per
 //       block of 128 threads, 8x4 outputs per thread with its per-group sums
