@@ -16,7 +16,10 @@ Run from the root of a checkout. Phases (any failure exits non-zero):
      also bit for bit against B2 on the gathered ring), the norm, decode
      attention over an int8 ring with a row masked everywhere (B5), and the
      trit search on an 8960x1536 matrix and the 151936x1536 lm_head with
-     α from one real ridge step (B6, planes exactly equal);
+     α from one real ridge step (B6, planes exactly equal); the split-KV
+     attention kernel (B2, B4, B5) must also give each row the same bits
+     alone as in the batch of 8, and at L = 1 as at l = 0 of L = 64 with
+     length 1;
   3. the quantize path: qwen2-1.5b at full width (28 layers, d 1536, 12/2
      heads, d_ff 8960, vocab 151936, bf16), random weights from a seeded
      generator, PTQTP-quantized on the card (G = 128, t_max = 20), its trit
@@ -299,6 +302,38 @@ def attention_inputs(b, L, cap, kv, g, hd, ring, fill, gen, dev):
     return [q, kn, vn, kc, ks, vc, vs, pos_buf, positions, lengths]
 
 
+def first_token(args, pos_at):
+    """The L = 1 operands of an L = 64 case's l = 0 query: q, k_new, v_new
+    and positions (at index ``pos_at``) cut to their first token."""
+    return [a[:, :1].contiguous() if i in (0, 1, 2, pos_at) else a
+            for i, a in enumerate(args)]
+
+
+def row_of(args, i):
+    """Row i of every operand as a batch of one (fresh, aligned copies)."""
+    return [None if a is None else a[i:i + 1].clone() for a in args]
+
+
+def same_rows(kernel, args64, pos_at, what):
+    """The split-KV walk's batch invariance at the main path's shapes: with
+    lengths 1, the L = 1 call's rows equal l = 0 of the L = 64 call, and
+    every row alone (B = 1) equals its row in the batch of 8, bit for bit.
+    Returns the L = 1 operands."""
+    import torch
+
+    args1 = first_token(args64, pos_at)
+    out1, out64 = kernel(*args1), kernel(*args64)
+    if not torch.equal(out64[:, :1], out1):
+        raise AssertionError(f"{what}: rows at L = 1 differ from l = 0 of "
+                             "L = 64 with length 1")
+    for args, out in ((args1, out1), (args64, out64)):
+        for i in range(out.shape[0]):
+            if not torch.equal(kernel(*row_of(args, i)), out[i:i + 1]):
+                raise AssertionError(f"{what}: row {i} alone differs from "
+                                     f"the batch (L = {out.shape[1]})")
+    return args1
+
+
 def check_attention(cfg, dev):
     import torch
 
@@ -320,8 +355,15 @@ def check_attention(cfg, dev):
                 raise AssertionError(f"chunk_attention L={L} {ring}: max err "
                                      f"{err:.3e} > {ATTN_TOL}")
             worst = max(worst, err)
+    for ring in ("bfloat16", "int8"):
+        args = attention_inputs(SLOTS, PREFILL_CHUNK, CAPACITY, kv, g, hd,
+                                ring, fill, gen, dev)
+        args[9].fill_(1)
+        same_rows(ops.chunk_attention_cuda, args, 8, f"B2 {ring}")
     log(f"chunk_attention == plain (max abs err {worst:.2e} <= {ATTN_TOL}) "
-        "for L in (1, 64), bf16 and int8 rings, wrapped and partly filled")
+        "for L in (1, 64), bf16 and int8 rings, wrapped and partly filled; "
+        "rows bit-identical alone and in the batch of 8, and at L = 1 and "
+        "L = 64 with length 1")
     return worst
 
 
@@ -436,10 +478,23 @@ def check_paged_attention(cfg, dev):
                 raise AssertionError(f"paged attention L={L} {ring}: max err "
                                      f"{err:.3e} > {ATTN_TOL}")
             worst = max(worst, err)
+    for ring in ("bfloat16", "int8"):
+        args = attention_inputs(SLOTS, PREFILL_CHUNK, CAPACITY, kv, g, hd,
+                                ring, fill, gen, dev)
+        args[9].fill_(1)
+        paged, gathered = paged_operands(args, PAGE, rng)
+        paged1 = same_rows(ops.chunk_attention_paged_cuda, paged, 9,
+                           f"B4 {ring}")
+        if not torch.equal(ops.chunk_attention_paged_cuda(*paged1),
+                           ops.chunk_attention_cuda(
+                               *first_token(gathered, 8))):
+            raise AssertionError(f"B4 {ring}: L = 1 differs from B2 on the "
+                                 "gathered ring")
     log(f"chunk_attention_paged == plain (max abs err {worst:.2e} <= "
         f"{ATTN_TOL}) and == B2 on the gathered ring bit for bit, for L in "
         f"(1, 64), bf16 and int8 pools of {PAGE}-slot pages, shuffled table "
-        "with null pages")
+        "with null pages; rows bit-identical alone and in the batch of 8, "
+        "and at L = 1 and L = 64 with length 1")
     return worst
 
 
@@ -492,9 +547,15 @@ def check_decode_attention(cfg, dev):
                                  f"{err:.3e}, masked row vs mean of v "
                                  f"{err_mean:.3e} > {DECODE_TOL}")
         worst = max(worst, err)
+        for i in range(SLOTS):
+            if not torch.equal(ops.decode_attention_cuda(*row_of(args, i),
+                                                         window=window),
+                               got[i:i + 1]):
+                raise AssertionError(f"decode attention window={window}: "
+                                     f"row {i} alone differs from the batch")
     log(f"decode_attention == plain (max abs err {worst:.2e} <= {DECODE_TOL})"
         " for window None and 256; the row masked everywhere gives the "
-        "uniform mean of v")
+        "uniform mean of v; rows bit-identical alone and in the batch of 8")
     return worst
 
 
@@ -780,6 +841,28 @@ def decode_attention_path(cfg, dev):
     if not all(bool(torch.isfinite(o).all()) for o in outs):
         raise AssertionError("decode attention gave non-finite outputs")
     return counts, layers
+
+
+def split_line(cfg, per_step):
+    """The split-KV partition and grid of the attention kernel at the main
+    path's decode (L = 1) and prefill (L = 64) shapes."""
+    from repro_torch.kernels.chunk_attention.ops import (PART_SLOTS,
+                                                         ROW_TILE,
+                                                         split_ranges)
+
+    kv, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    n_ring = len(split_ranges(CAPACITY))
+    grids = {}
+    for L in (1, PREFILL_CHUNK):
+        grid = (n_ring + len(split_ranges(L)), -(-L * g // ROW_TILE),
+                kv * SLOTS)
+        grids[L] = f"{grid} = {grid[0] * grid[1] * grid[2]} blocks"
+    return (f"split-KV attention: cap {CAPACITY} -> n_part {n_ring} ring "
+            f"parts of {PART_SLOTS} slots + 1 chunk part (L <= "
+            f"{PART_SLOTS}), {ROW_TILE} query rows a block; grid at L = 1 "
+            f"{grids[1]}, at L = {PREFILL_CHUNK} {grids[PREFILL_CHUNK]}; one "
+            f"launch per read (combine in the kernel), {per_step:.1f} "
+            "attention launches per decode step")
 
 
 # -------------------------------------------------------- phase 4: timings
@@ -1136,6 +1219,7 @@ def main() -> int:
         f"tokens) and request {oi} ({ol} tokens: last prefill chunk in "
         f"bucket 1 alone, {ob} in the fleet)")
     mp.pop("engine")
+    log(split_line(cfg, mp["per_step"]["chunk_attention"]))
 
     pp = paged_path(cfg, dev, model, mp)
     need(pp["counts"], PAGED_PATH, "the paged serving path")

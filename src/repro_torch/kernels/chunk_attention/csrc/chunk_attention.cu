@@ -3,9 +3,9 @@
 //
 // B2 replaces chunk_attention_pallas (src/repro/kernels/chunk_attention/
 // kernel.py:197): online-softmax GQA of a chunk's queries against the ring
-// *before* this chunk is written, plus the chunk's own keys as the last
-// tile(s). It serves every attention read of the ring serving path:
-// prefill chunks (L = bucket length) and decode (L = 1).
+// *before* this chunk is written, plus the chunk's own keys. It serves
+// every attention read of the ring serving path: prefill chunks (L =
+// bucket length) and decode (L = 1).
 //
 // B4 replaces chunk_attention_paged_pallas (same file, kernel.py:149): the
 // same op over a paged ring, whose logical slot s of row b lives in
@@ -19,9 +19,7 @@
 // S + 1, but it has no chunk keys and, as the reference, no re-mask after
 // exp: a masked logit is -1e30, so a row that sees nothing gets exp(0) = 1
 // for every slot and returns the uniform mean of v over the whole ring
-// (empty slots included). Skipping an all-masked tile is then exact only
-// for rows that see something, so B5 skips none; slots past the ring (a
-// ragged last tile) get -inf and take no part.
+// (empty slots included); slots past the ring get -inf and take no part.
 //
 // Layouts (the reference's public ones):
 //   q        (B, L, KV, G, hd)  f32 or bf16, query head h = kv*G + g
@@ -41,34 +39,65 @@
 //            scales as above, pos (B,) = positions (B, 1), out (B, KV, G,
 //            hd) f32
 //
-// Bound on an H100 SXM: memory. The work is reading the ring once per kv
-// head (2·cap·hd elements per (b, kv)) plus q, the chunk and the output;
-// the score and PV products are ~4·G·L·cap·hd flops, far below the tensor
-// rate at these sizes. In practice the walk is bound by the latency of its
-// serial tiles. Design: one block of 128 threads per (batch, kv-head, tile
-// of 16 query rows of the G·L that share the kv head). The block walks the
-// (logical) ring in tiles of 32 slots. The positions and storage rows of
-// tile t+1 load while tile t is processed; a tile that no row of the block
-// can see is skipped (exact: an all-masked tile leaves m, l and acc
-// unchanged). Otherwise its K and V come in 16-byte loads, all in flight at
-// once, and are dequantized into shared memory in f32. Scores run lane =
-// slot / warp = rows (padding rows skipped), the online-softmax update uses
-// warp shuffles (with the explicit re-mask after exp), and P·V accumulates
-// with one thread per head dim. The chunk's own keys fold in as the final
-// tiles through the same code. Output is acc / max(l, 1e-30). At L = 1 the
-// grid is B·KV blocks (16 at the main path's B = 8, KV = 2: 16 of 132 SMs
-// busy, one block of 4 warps each); split-KV is later work.
+// Bound on an H100 SXM: bytes. The work is reading each visible ring slot's
+// k and v once per kv head, plus q, the chunk and the output; the score and
+// P·V products are ~4·G·L·cap·hd flops, far below the tensor rate at these
+// sizes. So the kernel has to keep many loads in flight across the card.
 //
-// B2, B4 and B5 are one kernel. A template parameter maps a logical slot
-// to its storage row (ring: b*cap + s; paged: table[b, s/ps]*ps + s%ps),
-// resolved per key slot (lane), not per tile, so a 32-slot tile may span
-// two 16-slot pages. Everything else — tile order, loads, arithmetic — is
-// the same code, so B4 over a pool equals B2 over the gathered ring bit for
-// bit. A pool row is KV*hd elements, so every 16-byte vector stays aligned.
-// A second template parameter, kChunk, picks the chunk op's rule (B2, B4:
-// chunk keys as the last tiles, re-mask after exp, all-masked tiles
-// skipped) or the decode op's (B5: ring tiles only, no re-mask, no skip;
-// an empty slot still loads its v, which a row that sees nothing averages).
+// Split-KV (flash-decoding) with one fixed order per row:
+//
+//   Partition. The logical ring [0, cap) is cut into parts of `part` slots
+//   (the wrapper's ``split_ranges``: 128, the last part ragged), the
+//   chunk's keys [0, L) into parts of the same size after them. The
+//   partition depends on cap (and, for the chunk, on L) alone; never on B,
+//   lengths, the fill or the window. The grid is (n_part, ceil(L·G/RT),
+//   KV·B): one block of 4 warps per (part, tile of RT = 32 query rows of
+//   the G·L that share a kv head, kv head, batch row) — 144 blocks at the
+//   main path's decode (8 ring parts + 1 chunk part, 2 kv heads, 8 rows).
+//
+//   A part. One thread per slot resolves the slot's storage row (through
+//   the `Slots` map: ring b*cap + s, paged table[b, s/ps]*ps + s%ps, per
+//   slot, so a part may span pages) and its position, and marks whether
+//   any row of the block sees it. Needed K and V rows arrive by cp.async
+//   (16 B each, in their storage type: int8 stays int8) in two stages, K
+//   with q, then V, so the scores and the softmax run while V is in
+//   flight; slots that no row sees are zero-filled, not read. A part that
+//   no row sees is skipped (B2, B4: an exact no-op). Scores: bf16 q runs
+//   mma.sync.m16n8k16 (f32 accumulate) with K as A (16 slots × 16 hd; int8
+//   codes are exact in bf16) and q as B (16 hd × 8 rows, so L = 1's G = 6
+//   heads pad to 8 rows), then the logit is the f32 sum times the k scale
+//   and hd^-0.5; f32 q runs one f32 FMA chain per (row, slot). Each row's
+//   max and sum over the part use warp shuffles in a fixed pattern; p is
+//   re-masked after exp (B2, B4) or not (B5), and the v scale multiplies p
+//   in f32. P·V is an f32 FMA chain per (row, head dim) in slot order, so
+//   P is never rounded to bf16. The part writes (m, l, acc[hd]) per row to
+//   the wrapper's scratch.
+//
+//   Combine. The last block of a (b, kv, row tile) to arrive (a fence and
+//   an atomicAdd on a counter in a zeroed per-device buffer, which that
+//   block resets) combines the parts in one order: ring parts 0, 1, ...,
+//   then the chunk's parts: m = max m_i; l = Σ l_i·exp(m_i − m) and acc =
+//   Σ acc_i·exp(m_i − m), each summed in that order (a part with l_i = 0
+//   adds exactly 0 and is passed over); out = acc / max(l, 1e-30). One
+//   launch per call, no second pass.
+//
+//   Why a row's bits do not depend on B, L, its neighbours or on which
+//   block combines: every part's inputs are the row's own q and the part's
+//   slots; an mma.sync element depends only on its A row and B column
+//   (the ternary kernels' probe, tests/test_torch_cuda.py), every other sum
+//   has a fixed order, and a slot or part that a row does not see adds
+//   exactly 0 to that row (p = 0, and a skipped sub-tile adds nothing),
+//   whichever other rows share the block. The partition and the combine
+//   order are the same at every L, so a request's last prefill chunk at
+//   bucket 1 alone and in a wider bucket give the same bits.
+//
+// B2, B4 and B5 are this one kernel. `Slots` maps a logical slot to its
+// storage row, so B4 over a pool equals B2 over the gathered ring bit for
+// bit (a pool row is KV*hd elements: every 16-byte vector stays aligned);
+// kChunk picks the chunk op's rule (B2, B4: chunk parts, re-mask after exp,
+// unseen parts skipped) or the decode op's (B5: ring parts only, no
+// re-mask, no skip; an empty slot still loads its v, which a row that sees
+// nothing averages).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,14 +105,19 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int RT = 16;       // query rows per block
-constexpr int TK = 32;       // key slots per tile (one per lane)
+constexpr int RT = 32;          // query rows per block
+constexpr int MAX_PART = 128;   // key slots per part at most: one per thread
 constexpr int NTHREADS = 128;
 constexpr int NWARPS = NTHREADS / 32;
+constexpr int SUB = 32;         // slots per sub-tile: one warp's, the skip unit
+constexpr int NSUB = MAX_PART / SUB;
+constexpr int SC_STRIDE = MAX_PART + 4;  // floats per score row (no bank clash)
 constexpr float NEG_INF = -1e30f;
-constexpr int NO_KEY = INT_MIN;  // slot holds nothing visible to anyone
+constexpr int NO_KEY = INT_MIN;     // slot holds nothing visible to anyone
 constexpr int EMPTY = INT_MIN + 1;  // B5: an empty ring slot (pos < 0), in
                                     // the softmax of a row that sees nothing
 
@@ -91,6 +125,7 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int reach) {
   if (kpos == NO_KEY || kpos == EMPTY || qpos == NO_KEY) return false;
@@ -98,90 +133,47 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int reach) {
   return dd >= 0 && dd < reach;
 }
 
-// the 16 / sizeof(T) elements of a 16-byte vector as f32 (by bit operations,
-// so the vector stays in registers)
-template <typename T>
-__device__ __forceinline__ void to_f32x(const uint4& u, float* out);
-template <>
-__device__ __forceinline__ void to_f32x<float>(const uint4& u, float* out) {
-  out[0] = __uint_as_float(u.x);
-  out[1] = __uint_as_float(u.y);
-  out[2] = __uint_as_float(u.z);
-  out[3] = __uint_as_float(u.w);
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool ok) {  // zero-fills when !ok
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(ok ? 16 : 0)
+               : "memory");
 }
-template <>
-__device__ __forceinline__ void to_f32x<__nv_bfloat16>(const uint4& u,
-                                                       float* out) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {  // bf16 -> f32 is exact: the high 16 bits
-    out[2 * c] = __uint_as_float(w[c] << 16);
-    out[2 * c + 1] = __uint_as_float(w[c] & 0xffff0000u);
-  }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-template <>
-__device__ __forceinline__ void to_f32x<int8_t>(const uint4& u, float* out) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int c = 0; c < 16; ++c)
-    out[c] = (float)(int8_t)((w[c / 4] >> (8 * (c % 4))) & 0xffu);
+template <int N>  // wait until at most N of this thread's groups are pending
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {  // committed or not
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Stage one tile of TK key slots into shared memory as f32: ks [TK][hd+1],
-// vs [TK][hd]. Slot s of the tile is storage row krow_s[s] (its head `kv`
-// sits at element ((row*KV + kv) * hd) of k/v); slots whose kpos is NO_KEY
-// are zeroed, never read, and EMPTY slots read v only. Scales (int8 rings)
-// are per (row, kv). All of a thread's loads are in flight before the
-// first is converted.
-template <typename T>
-__device__ __forceinline__ void stage_tile(const T* __restrict__ k,
-                                           const T* __restrict__ v,
-                                           const float* __restrict__ k_scale,
-                                           const float* __restrict__ v_scale,
-                                           float* ks, float* vs,
-                                           const int* kpos_s,
-                                           const long long* krow_s, int kv,
-                                           int KV, int hd) {
-  constexpr int EPV = 16 / (int)sizeof(T);        // elements per 16-byte vector
-  constexpr int MAXV = TK * 128 / EPV / NTHREADS;  // vectors per thread, hd <= 128
-  const int vpr = hd / EPV;                        // vectors per slot row
-  const int nvec = TK * vpr;
-  uint4 kr[MAXV], vr[MAXV];
-#pragma unroll
-  for (int i = 0; i < MAXV; ++i) {
-    const int e = threadIdx.x + i * NTHREADS;
-    kr[i] = vr[i] = make_uint4(0u, 0u, 0u, 0u);
-    const int kp = e < nvec ? kpos_s[e / vpr] : NO_KEY;
-    if (kp != NO_KEY) {
-      const size_t off = ((size_t)krow_s[e / vpr] * KV + kv) * hd +
-                         (size_t)(e % vpr) * EPV;
-      if (kp != EMPTY) kr[i] = __ldg(reinterpret_cast<const uint4*>(k + off));
-      vr[i] = __ldg(reinterpret_cast<const uint4*>(v + off));
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < MAXV; ++i) {
-    const int e = threadIdx.x + i * NTHREADS;
-    if (e >= nvec) break;
-    const int ss = e / vpr, d0 = (e % vpr) * EPV;
-    float kf[EPV], vf[EPV];
-    to_f32x<T>(kr[i], kf);
-    to_f32x<T>(vr[i], vf);
-    if (k_scale != nullptr && kpos_s[ss] != NO_KEY) {
-      const size_t si = (size_t)krow_s[ss] * KV + kv;
-      const float sk = k_scale[si], sv = v_scale[si];
-#pragma unroll
-      for (int c = 0; c < EPV; ++c) {
-        kf[c] *= sk;
-        vf[c] *= sv;
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < EPV; ++c) {
-      ks[ss * (hd + 1) + d0 + c] = kf[c];
-      vs[ss * hd + d0 + c] = vf[c];
-    }
-  }
+// One m16n8k16 MMA with f32 accumulation: d = A·B + d, A 16x16 bf16 (row),
+// B 16x8 bf16 (col).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t lds_u32(const unsigned char* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Two adjacent elements of a K row in shared memory as one bf16x2 register
+// (the lower index in the low half): bf16 as stored, int8 codes converted
+// (exact: |c| <= 127).
+__device__ __forceinline__ uint32_t pair_bf16x2(const __nv_bfloat16* p) {
+  return lds_u32(reinterpret_cast<const unsigned char*>(p));
+}
+__device__ __forceinline__ uint32_t pair_bf16x2(const int8_t* p) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn((float)p[0], (float)p[1]);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 // Where logical ring slot s of row b is stored: its storage row, whose
@@ -202,235 +194,501 @@ struct PagedSlots {  // B4: (P, ps, ...) pool through a (B, n_pages) table
   }
 };
 
-template <typename TQ, typename TC, typename Slots, bool kChunk>
-__global__ void __launch_bounds__(NTHREADS)
-    chunk_attention_kernel(const TQ* __restrict__ q,
-                           const TQ* __restrict__ k_new,
-                           const TQ* __restrict__ v_new,
-                           const TC* __restrict__ k_ring,
-                           const TC* __restrict__ v_ring,
-                           const float* __restrict__ k_scale,
-                           const float* __restrict__ v_scale, Slots slots,
-                           const int* __restrict__ positions,
-                           const int* __restrict__ lengths,
-                           float* __restrict__ out, int L, int KV, int G,
-                           int hd, int cap, int reach, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  long long* krow_s = reinterpret_cast<long long*>(smem);  // [TK]
-  float* qs = smem + 2 * TK;               // [RT][hd]
-  float* ks = qs + RT * hd;                // [TK][hd + 1]
-  float* vs = ks + TK * (hd + 1);          // [TK][hd]
-  float* ps = vs + TK * hd;                // [RT][TK]
-  float* m_s = ps + RT * TK;               // [RT]
-  float* l_s = m_s + RT;                   // [RT]
-  float* a_s = l_s + RT;                   // [RT]
-  int* qpos_s = reinterpret_cast<int*>(a_s + RT);  // [RT]
-  int* kpos_s = qpos_s + RT;                        // [TK]
+template <typename TQ, typename TC, typename Slots>
+struct Params {
+  const TQ* q;
+  const TQ* k_new;
+  const TQ* v_new;
+  const TC* k_ring;
+  const TC* v_ring;
+  const float* k_scale;  // int8 rings only
+  const float* v_scale;
+  Slots slots;
+  const int* positions;  // (B, L)
+  const int* lengths;    // (B,), chunk op only
+  float* out;
+  float2* part_ml;       // scratch: (m, l) per (b, kv, row tile, part, row)
+  float* part_acc;       // scratch: acc[hd] per (b, kv, row tile, part, row)
+  int* counters;         // arrivals per (b, kv, row tile), zero between calls
+  int L, KV, G, hd, cap, part, reach;
+  float scale;
+};
 
+// Shared memory, byte offsets; every region starts 16-byte aligned.
+struct Layout {
+  int ks, vs, qs, sc, krow, kpos, kmul, vmul, need, qpos, m, l, sub, total;
+};
+// kbytes: the widest K/V element a block of this instantiation stages;
+// qbytes: 2 for bf16 q (MMA operand), 4 for f32 q (pre-scaled f32).
+__host__ __device__ inline Layout layout(int hd, int kbytes, int qbytes) {
+  Layout s;
+  int o = 0;
+  s.ks = o;   o += MAX_PART * (hd * kbytes + 16);  // K rows, padded
+  s.vs = o;   o += MAX_PART * hd * kbytes;         // V rows
+  s.qs = o;   o += RT * (hd * qbytes + 16);        // query rows, padded
+  s.sc = o;   o += RT * SC_STRIDE * 4;             // logits, then p·v_scale
+  s.krow = o; o += MAX_PART * 8;                   // storage row per slot
+  s.kpos = o; o += MAX_PART * 4;                   // position / NO_KEY / EMPTY
+  s.kmul = o; o += MAX_PART * 4;                   // logit multiplier per slot
+  s.vmul = o; o += MAX_PART * 4;                   // v scale per slot
+  s.need = o; o += MAX_PART * 4;                   // bit 0: load k, bit 1: v
+  s.qpos = o; o += RT * 4;
+  s.m = o;    o += RT * 4;
+  s.l = o;    o += RT * 4;
+  s.sub = o;  o += 16 * NSUB;                      // per sub-tile: k, v needed
+  s.total = o;
+  return s;
+}
+
+template <typename TQ, typename TC, bool kChunk>
+__host__ __device__ inline Layout layout_of(int hd) {
+  constexpr int kq = std::is_same<TQ, float>::value ? 4 : 2;
+  constexpr int kc = (int)sizeof(TC);
+  constexpr int kbytes = kChunk && (int)sizeof(TQ) > kc ? (int)sizeof(TQ) : kc;
+  return layout(hd, kbytes, kq);
+}
+
+// The partial (m, l, acc) of one part for the block's rows. TK is the
+// part's K/V storage type (TC for a ring part, TQ for a chunk part).
+template <typename TK, bool kRing, bool kChunk, typename TQ, typename TC,
+          typename Slots>
+__device__ __forceinline__ void part_partial(const Params<TQ, TC, Slots>& P,
+                                             unsigned char* smem,
+                                             const Layout& S, int b, int kv,
+                                             int start, int n_keys,
+                                             int rows_here, size_t slot0) {
+  constexpr bool kMMA = std::is_same<TQ, __nv_bfloat16>::value;
+  constexpr bool kInt8 = kRing && std::is_same<TK, int8_t>::value;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int r0 = blockIdx.x * RT;
-  const int kv = blockIdx.y;
-  const int b = blockIdx.z;
-  const int rows = L * G;
-  const int length = kChunk ? lengths[b] : 0;
-
-  // query rows r = l*G + g of this (b, kv), pre-scaled in f32
-  for (int e = tid; e < RT * hd; e += NTHREADS) {
-    const int rr = e / hd, dd = e % hd, r = r0 + rr;
-    float v = 0.0f;
-    if (r < rows) {
-      const int l = r / G, g = r % G;
-      v = to_f32(q[((((size_t)b * L + l) * KV + kv) * G + g) * hd + dd]) * scale;
-    }
-    qs[e] = v;
+  const int hd = P.hd, KV = P.KV;
+  const TK* kg;
+  const TK* vg;
+  if constexpr (kRing) {
+    kg = reinterpret_cast<const TK*>(P.k_ring);
+    vg = reinterpret_cast<const TK*>(P.v_ring);
+  } else {
+    kg = reinterpret_cast<const TK*>(P.k_new);
+    vg = reinterpret_cast<const TK*>(P.v_new);
   }
-  if (tid < RT) {
-    const int r = r0 + tid;
-    qpos_s[tid] = (r < rows) ? positions[(size_t)b * L + r / G] : NO_KEY;
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.0f;
-  }
-  float acc[RT];
-#pragma unroll
-  for (int i = 0; i < RT; ++i) acc[i] = 0.0f;
+  long long* krow_s = reinterpret_cast<long long*>(smem + S.krow);
+  int* kpos_s = reinterpret_cast<int*>(smem + S.kpos);
+  float* kmul_s = reinterpret_cast<float*>(smem + S.kmul);
+  float* vmul_s = reinterpret_cast<float*>(smem + S.vmul);
+  int* need_s = reinterpret_cast<int*>(smem + S.need);
+  const int* qpos_s = reinterpret_cast<const int*>(smem + S.qpos);
+  float* sc = reinterpret_cast<float*>(smem + S.sc);
+  float* m_s = reinterpret_cast<float*>(smem + S.m);
+  float* l_s = reinterpret_cast<float*>(smem + S.l);
+  int* sub_s = reinterpret_cast<int*>(smem + S.sub);
+  unsigned char* ks = smem + S.ks;
+  unsigned char* vs = smem + S.vs;
+  const int kstride = hd * (int)sizeof(TK) + 16;  // bytes per K row
+  const int vstride = hd * (int)sizeof(TK);       // bytes per V row
 
-  const int rows_here = min(RT, rows - r0);
-  const int n_ring = (cap + TK - 1) / TK;
-  const int n_tiles = n_ring + (kChunk ? (L + TK - 1) / TK : 0);
-  // key position and storage row of slot `tid` of tile t (NO_KEY if
-  // nothing is there): ring rows through `slots` (from_ring set), chunk
-  // rows b*L + j. The position comes back as loaded, so nothing waits for
-  // the load until the next tile is published.
-  auto key_slot = [&](int t, long long& krow, bool& from_ring) {
-    const bool ring = t < n_ring;
-    const int s = (ring ? t : t - n_ring) * TK + tid;
-    krow = 0;
-    from_ring = false;
-    if (s >= (ring ? cap : min(L, length))) return NO_KEY;
-    if (!ring) {
-      krow = (long long)b * L + s;
-      return positions[(size_t)b * L + s];
+  // slot `tid` of the part: storage row, position, scales (loads in flight
+  // together); the caller's barrier has published qpos_s
+  {
+    int kp = NO_KEY;
+    long long row = 0;
+    float ksc = 1.0f, vsc = 1.0f;
+    if (tid < n_keys) {
+      const int s = start + tid;
+      if constexpr (kRing) {
+        row = P.slots.row(b, s);
+        kp = P.slots.pos[row];
+        if constexpr (kInt8) {
+          ksc = P.k_scale[row * KV + kv];
+          vsc = P.v_scale[row * KV + kv];
+        }
+        // an empty ring slot holds nothing (B2, B4) or is EMPTY (B5)
+        if (kp < 0) kp = kChunk ? NO_KEY : EMPTY;
+      } else {
+        row = (long long)b * P.L + s;
+        kp = P.positions[row];
+      }
     }
-    krow = slots.row(b, s);
-    from_ring = true;
-    return slots.pos[krow];
+    bool need_k = false;
+    if (kp != NO_KEY && kp != EMPTY)
+      for (int r = 0; r < rows_here; ++r)
+        need_k |= visible(qpos_s[r], kp, P.reach);
+    // B5 averages every in-ring v for a row that sees nothing
+    const bool need_v = kChunk ? need_k : kp != NO_KEY;
+    kpos_s[tid] = kp;
+    krow_s[tid] = row;
+    kmul_s[tid] = kMMA ? ksc * P.scale : ksc;  // f32 q is pre-scaled
+    vmul_s[tid] = vsc;
+    need_s[tid] = (need_k ? 1 : 0) | (need_v ? 2 : 0);
+    const unsigned bk = __ballot_sync(0xffffffffu, need_k);
+    const unsigned bv = __ballot_sync(0xffffffffu, need_v);
+    if (lane == 0) sub_s[warp] = (bk ? 1 : 0) | (bv ? 2 : 0);
+    if (!__syncthreads_or(need_v)) {  // no row sees the part (B2, B4)
+      if (tid < rows_here)
+        __stcg(&P.part_ml[slot0 + tid], make_float2(NEG_INF, 0.0f));
+      return;
+    }
+  }
+
+  // K (with q, issued by the caller) and V of the part: 16-byte cp.async
+  // in the storage type, zero-filled where no row needs the slot
+  const int kvec = vstride / 16;  // 16-byte vectors per row
+  constexpr int EPV = 16 / (int)sizeof(TK);
+  for (int e = tid; e < MAX_PART * kvec; e += NTHREADS) {
+    const int s = e / kvec, c = e - s * kvec;
+    const bool ok = need_s[s] & 1;
+    const TK* src = ok ? kg + ((size_t)krow_s[s] * KV + kv) * hd + c * EPV : kg;
+    cp_async16(ks + s * kstride + c * 16, src, ok);
+  }
+  cp_async_commit();
+  for (int e = tid; e < MAX_PART * kvec; e += NTHREADS) {
+    const int s = e / kvec, c = e - s * kvec;
+    const bool ok = need_s[s] & 2;
+    const TK* src = ok ? vg + ((size_t)krow_s[s] * KV + kv) * hd + c * EPV : vg;
+    cp_async16(vs + s * vstride + c * 16, src, ok);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();  // q and K have landed (this thread's copies)
+  __syncthreads();
+
+  // scores into sc[row][slot]; a masked logit is -1e30, B5's slots past the
+  // ring -inf (out of max and sum)
+  auto masked = [&](float x, int r, int s) {
+    const int kp = kpos_s[s];
+    if (visible(qpos_s[r], kp, P.reach)) return x;
+    return (kChunk || kp != NO_KEY) ? NEG_INF : -INFINITY;
   };
-  long long kr_next = 0;
-  bool ring_next = false;
-  int kp_next = tid < TK ? key_slot(0, kr_next, ring_next) : NO_KEY;
-  for (int t = 0; t < n_tiles; ++t) {
-    const bool ring = t < n_ring;
-    __syncthreads();  // previous tile fully consumed
-    if (tid < TK) {
-      // an empty ring slot (pos < 0) holds nothing (B2, B4) or is EMPTY (B5)
-      kpos_s[tid] = ring_next && kp_next < 0 ? (kChunk ? NO_KEY : EMPTY)
-                                             : kp_next;
-      krow_s[tid] = kr_next;
-      // the next tile's positions load while this tile is processed
-      if (t + 1 < n_tiles) kp_next = key_slot(t + 1, kr_next, ring_next);
-    }
-    __syncthreads();
-    if constexpr (kChunk) {
-      int any = 0;
+  if constexpr (kMMA) {
+    // warp w: slots 32w .. 32w+31 as two m16 tiles (A = K), rows as up to
+    // four n8 tiles (B = q), hd in k16 chunks in order
+    const int gid = lane / 4, tig = lane % 4;
+    const int n_tiles = (rows_here + 7) / 8;
+    const bool any_k = sub_s[warp] & 1;
+    const unsigned char* qs = smem + S.qs;
+    const int qstride = hd * 2 + 16;
 #pragma unroll
-      for (int i = 0; i < RT / NWARPS; ++i)
-        any |= visible(qpos_s[warp + NWARPS * i], kpos_s[lane], reach);
-      if (!__syncthreads_or(any)) continue;  // all-masked tile: exact no-op
-    }
-
-    // K and V of the tile in 16-byte vectors: every load is issued before
-    // any is used, then dequantized to f32 in shared memory
-    if (ring)
-      stage_tile<TC>(k_ring, v_ring, k_scale, v_scale, ks, vs, kpos_s, krow_s,
-                     kv, KV, hd);
-    else
-      stage_tile<TQ>(k_new, v_new, nullptr, nullptr, ks, vs, kpos_s, krow_s,
-                     kv, KV, hd);
-    __syncthreads();
-
-    // scores: lane = slot, warp w owns rows w, w+4, w+8, w+12
+    for (int mt = 0; mt < 2; ++mt) {
+      const int s0 = warp * SUB + mt * 16;
+      float c[4][4];
 #pragma unroll
-    for (int i = 0; i < RT / NWARPS; ++i) {
-      const int rr = warp + NWARPS * i;
-      if (rr >= rows_here) continue;  // padding rows of the last row tile
-      const int kp = kpos_s[lane];
-      const bool ok = visible(qpos_s[rr], kp, reach);
-      float logit = 0.0f;
-      const float* qr = qs + rr * hd;
-      const float* kr = ks + lane * (hd + 1);
-      for (int dd = 0; dd < hd; ++dd) logit = fmaf(qr[dd], kr[dd], logit);
-      // masked: -1e30; B5's slots past the ring: -inf, out of max and sum
-      logit = ok ? logit : (kChunk || kp != NO_KEY ? NEG_INF : -INFINITY);
-      float mx = logit;
+      for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = m_s[rr];
-      const float m_new = fmaxf(m_old, mx);
-      // B2/B4 re-mask explicitly: while a row has seen nothing, m_new ==
-      // NEG_INF and exp(logit - m_new) would be 1 for masked slots. B5 keeps
-      // that 1 (the reference's rule); once the row has seen a slot, a
-      // masked slot's exp(-1e30 - m_new) is 0.
-      const float p = (ok || !kChunk) ? expf(logit - m_new) : 0.0f;
-      float sum = p;
+        for (int e = 0; e < 4; ++e) c[nt][e] = 0.0f;
+      if (any_k) {
+        const TK* r_lo = reinterpret_cast<const TK*>(ks + (s0 + gid) * kstride);
+        const TK* r_hi =
+            reinterpret_cast<const TK*>(ks + (s0 + gid + 8) * kstride);
+        for (int k0 = 0; k0 < hd; k0 += 16) {
+          uint32_t a[4];
+          a[0] = pair_bf16x2(r_lo + k0 + 2 * tig);
+          a[1] = pair_bf16x2(r_hi + k0 + 2 * tig);
+          a[2] = pair_bf16x2(r_lo + k0 + 2 * tig + 8);
+          a[3] = pair_bf16x2(r_hi + k0 + 2 * tig + 8);
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      ps[rr * TK + lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[rr] = alpha;
-        m_s[rr] = m_new;
-        l_s[rr] = l_s[rr] * alpha + sum;
+          for (int nt = 0; nt < 4; ++nt) {
+            if (nt < n_tiles) {
+              const unsigned char* qr =
+                  qs + (nt * 8 + gid) * qstride + (k0 + 2 * tig) * 2;
+              mma_bf16(c[nt], a, lds_u32(qr), lds_u32(qr + 16));
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        if (nt < n_tiles) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int s = s0 + gid + (e >= 2 ? 8 : 0);
+            const int r = nt * 8 + 2 * tig + (e & 1);
+            if (r < rows_here)
+              sc[r * SC_STRIDE + s] = masked(c[nt][e] * kmul_s[s], r, s);
+          }
+        }
       }
     }
-    __syncthreads();
-
-    // acc = acc * alpha + P · V, one thread per head dim
-    if (tid < hd) {
-#pragma unroll
-      for (int rr = 0; rr < RT; ++rr) {
-        if (rr >= rows_here) break;
-        float pv = 0.0f;
-#pragma unroll 8
-        for (int s = 0; s < TK; ++s) pv = fmaf(ps[rr * TK + s], vs[s * hd + tid], pv);
-        acc[rr] = acc[rr] * a_s[rr] + pv;
+  } else {
+    // f32 q: thread = slot, one FMA chain over hd per row
+    const float* qs = reinterpret_cast<const float*>(smem + S.qs);
+    const int qstride = hd + 4;
+    const TK* kr = reinterpret_cast<const TK*>(ks + tid * kstride);
+    const bool kneed = need_s[tid] & 1;
+    for (int r = 0; r < rows_here; ++r) {
+      float x = 0.0f;
+      if (kneed) {
+        const float* qr = qs + r * qstride;
+        for (int d = 0; d < hd; ++d) x = fmaf(qr[d], to_f32(kr[d]), x);
       }
+      sc[r * SC_STRIDE + tid] = masked(x * kmul_s[tid], r, tid);
     }
   }
   __syncthreads();
-  if (tid < hd) {
+
+  // softmax over the part, warp w owns rows w, w+4, ...: lane l holds slots
+  // l + 32j; p (re-masked after exp for B2/B4) times the v scale replaces
+  // the logit
+  for (int r = warp; r < rows_here; r += NWARPS) {
+    float x[NSUB];
+    float mx = -INFINITY;
 #pragma unroll
-    for (int rr = 0; rr < RT; ++rr) {
-      const int r = r0 + rr;
-      if (r >= rows) continue;
-      const int l = r / G, g = r % G;
-      out[((((size_t)b * L + l) * KV + kv) * G + g) * hd + tid] =
-          acc[rr] / fmaxf(l_s[rr], 1e-30f);
+    for (int j = 0; j < NSUB; ++j) {
+      x[j] = sc[r * SC_STRIDE + lane + SUB * j];
+      mx = fmaxf(mx, x[j]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NSUB; ++j) {
+      const int s = lane + SUB * j;
+      const float p = (!kChunk || visible(qpos_s[r], kpos_s[s], P.reach))
+                          ? expf(x[j] - mx)
+                          : 0.0f;
+      sum += p;
+      sc[r * SC_STRIDE + s] = p * vmul_s[s];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) {
+      m_s[r] = mx;
+      l_s[r] = sum;
     }
   }
+  cp_async_wait<0>();  // V has landed
+  __syncthreads();
+
+  // acc[r] = Σ_s p'[r][s] · v[s][d] in slot order, one thread per head dim;
+  // sub-tiles that no row needs add nothing and are passed over
+  if (tid < hd) {
+    float acc[RT];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) acc[r] = 0.0f;
+    for (int w = 0; w < NSUB; ++w) {
+      if (!(sub_s[w] & 2)) continue;
+      for (int s = w * SUB; s < (w + 1) * SUB; s += 4) {
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          v[j] = to_f32(reinterpret_cast<const TK*>(vs + (s + j) * vstride)[tid]);
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+          if (r >= rows_here) break;
+          const float4 p = *reinterpret_cast<const float4*>(sc + r * SC_STRIDE + s);
+          acc[r] = fmaf(p.x, v[0], acc[r]);
+          acc[r] = fmaf(p.y, v[1], acc[r]);
+          acc[r] = fmaf(p.z, v[2], acc[r]);
+          acc[r] = fmaf(p.w, v[3], acc[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      if (r >= rows_here) break;
+      __stcg(&P.part_acc[(slot0 + r) * hd + tid], acc[r]);
+    }
+  }
+  if (tid < rows_here)
+    __stcg(&P.part_ml[slot0 + tid], make_float2(m_s[tid], l_s[tid]));
 }
 
-size_t smem_bytes(int hd) {
-  return sizeof(long long) * TK + sizeof(float) * ((size_t)RT * hd + (size_t)TK * (hd + 1) + (size_t)TK * hd +
-                          (size_t)RT * TK + 3 * RT) +
-         sizeof(int) * (RT + TK);
+template <typename TQ, typename TC, typename Slots, bool kChunk>
+__global__ void __launch_bounds__(NTHREADS)
+    chunk_attention_kernel(const Params<TQ, TC, Slots> P) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int last_s;
+  constexpr bool kMMA = std::is_same<TQ, __nv_bfloat16>::value;
+  const Layout S = layout_of<TQ, TC, kChunk>(P.hd);
+  const int tid = threadIdx.x;
+  const int p = blockIdx.x, rt = blockIdx.y;
+  const int kv = blockIdx.z % P.KV, b = blockIdx.z / P.KV;
+  const int hd = P.hd, G = P.G, L = P.L;
+  const int rows = L * G, r0 = rt * RT, rows_here = min(RT, rows - r0);
+  const int n_ring = (P.cap + P.part - 1) / P.part;
+  const int n_parts = n_ring + (kChunk ? (L + P.part - 1) / P.part : 0);
+  const int idx = blockIdx.z * gridDim.y + rt;  // (b, kv, row tile)
+  const size_t slot0 = ((size_t)idx * n_parts + p) * RT;
+  int* qpos_s = reinterpret_cast<int*>(smem + S.qpos);
+
+  // the block's query rows r = l*G + g of this (b, kv): bf16 by cp.async
+  // (the MMA's B operand, in the K stage's group), f32 pre-scaled by hd^-0.5
+  auto q_row = [&](int r) {
+    return P.q + ((((size_t)b * L + r / G) * P.KV + kv) * G + r % G) * hd;
+  };
+  if constexpr (kMMA) {
+    const int vpr = hd / 8;
+    for (int e = tid; e < RT * vpr; e += NTHREADS) {
+      const int r = e / vpr, c = e - r * vpr;
+      const bool ok = r < rows_here;
+      cp_async16(smem + S.qs + r * (hd * 2 + 16) + c * 16,
+                 ok ? q_row(r0 + r) + c * 8 : P.q, ok);
+    }
+  } else {
+    float* qs = reinterpret_cast<float*>(smem + S.qs);
+    for (int e = tid; e < RT * hd; e += NTHREADS) {
+      const int r = e / hd, d = e - r * hd;
+      qs[r * (hd + 4) + d] =
+          r < rows_here ? to_f32(q_row(r0 + r)[d]) * P.scale : 0.0f;
+    }
+  }
+  if (tid < RT)
+    qpos_s[tid] = tid < rows_here ? P.positions[(size_t)b * L + (r0 + tid) / G]
+                                  : NO_KEY;
+  __syncthreads();
+
+  if (p < n_ring) {
+    const int start = p * P.part;
+    part_partial<TC, true, kChunk>(P, smem, S, b, kv, start,
+                                   min(P.part, P.cap - start), rows_here,
+                                   slot0);
+  } else if constexpr (kChunk) {
+    const int start = (p - n_ring) * P.part;
+    const int keys = min(L, P.lengths[b]);
+    part_partial<TQ, false, kChunk>(P, smem, S, b, kv, start,
+                                    max(0, min(P.part, keys - start)),
+                                    rows_here, slot0);
+  }
+  cp_async_wait_all();  // a skipped part leaves q's copies uncommitted
+
+  // arrival: the last block of this (b, kv, row tile) combines
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last_s = atomicAdd(&P.counters[idx], 1) == n_parts - 1;
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+
+  const float2* ml = P.part_ml + (size_t)idx * n_parts * RT;
+  const float* pacc = P.part_acc + (size_t)idx * n_parts * RT * hd;
+  float* mg_s = reinterpret_cast<float*>(smem + S.m);
+  float* lg_s = reinterpret_cast<float*>(smem + S.l);
+  if (tid < rows_here) {
+    float mg = -INFINITY;
+    for (int i = 0; i < n_parts; ++i) mg = fmaxf(mg, __ldcg(&ml[i * RT + tid]).x);
+    float l = 0.0f;
+    for (int i = 0; i < n_parts; ++i) {
+      const float2 t = __ldcg(&ml[i * RT + tid]);
+      if (t.y != 0.0f) l = fmaf(t.y, expf(t.x - mg), l);
+    }
+    mg_s[tid] = mg;
+    lg_s[tid] = l;
+  }
+  __syncthreads();
+  if (tid < hd) {
+    for (int r = 0; r < rows_here; ++r) {
+      const float mg = mg_s[r];
+      float a = 0.0f;
+      for (int i = 0; i < n_parts; ++i) {
+        const float2 t = __ldcg(&ml[i * RT + r]);
+        if (t.y != 0.0f)
+          a = fmaf(__ldcg(&pacc[((size_t)i * RT + r) * hd + tid]),
+                   expf(t.x - mg), a);
+      }
+      const int rr = r0 + r;
+      P.out[((((size_t)b * L + rr / G) * P.KV + kv) * G + rr % G) * hd + tid] =
+          a / fmaxf(lg_s[r], 1e-30f);
+    }
+  }
+  if (tid == 0) P.counters[idx] = 0;  // ready for the next launch
 }
 
-template <typename TQ, typename TC, typename Slots, bool kChunk = true>
-cudaError_t launch(const void* q, const void* kn, const void* vn, const void* kr,
-                   const void* vr, const void* ksc, const void* vsc, Slots slots,
-                   const void* positions, const void* lengths, void* out, int B,
-                   int L, int KV, int G, int hd, int cap, int reach, float scale,
+template <typename TQ, typename TC, typename Slots, bool kChunk>
+cudaError_t launch(Params<TQ, TC, Slots> P, int B, float* scratch,
                    cudaStream_t s) {
   auto kern = chunk_attention_kernel<TQ, TC, Slots, kChunk>;
-  const size_t smem = smem_bytes(hd);
+  const size_t smem = layout_of<TQ, TC, kChunk>(P.hd).total;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  dim3 grid((L * G + RT - 1) / RT, KV, B);
-  kern<<<grid, NTHREADS, smem, s>>>(
-      static_cast<const TQ*>(q), static_cast<const TQ*>(kn),
-      static_cast<const TQ*>(vn), static_cast<const TC*>(kr),
-      static_cast<const TC*>(vr), static_cast<const float*>(ksc),
-      static_cast<const float*>(vsc), slots,
-      static_cast<const int*>(positions), static_cast<const int*>(lengths),
-      static_cast<float*>(out), L, KV, G, hd, cap, reach, scale);
+  const int n_rt = (P.L * P.G + RT - 1) / RT;
+  const int n_parts = (P.cap + P.part - 1) / P.part +
+                      (kChunk ? (P.L + P.part - 1) / P.part : 0);
+  const size_t n_ml = (size_t)B * P.KV * n_rt * n_parts * RT;
+  P.part_ml = reinterpret_cast<float2*>(scratch);
+  P.part_acc = scratch + 2 * n_ml;
+  dim3 grid(n_parts, n_rt, P.KV * B);
+  kern<<<grid, NTHREADS, smem, s>>>(P);
   return cudaGetLastError();
+}
+
+template <typename TQ, typename TC, typename Slots>
+Params<TQ, TC, Slots> params(const void* q, const void* kn, const void* vn,
+                             const void* kr, const void* vr, const void* ksc,
+                             const void* vsc, Slots slots,
+                             const void* positions, const void* lengths,
+                             void* out, void* counters, int L, int KV, int G,
+                             int hd, int cap, int part, int reach,
+                             float scale) {
+  Params<TQ, TC, Slots> P;
+  P.q = static_cast<const TQ*>(q);
+  P.k_new = static_cast<const TQ*>(kn);
+  P.v_new = static_cast<const TQ*>(vn);
+  P.k_ring = static_cast<const TC*>(kr);
+  P.v_ring = static_cast<const TC*>(vr);
+  P.k_scale = static_cast<const float*>(ksc);
+  P.v_scale = static_cast<const float*>(vsc);
+  P.slots = slots;
+  P.positions = static_cast<const int*>(positions);
+  P.lengths = static_cast<const int*>(lengths);
+  P.out = static_cast<float*>(out);
+  P.part_ml = nullptr;
+  P.part_acc = nullptr;
+  P.counters = static_cast<int*>(counters);
+  P.L = L;
+  P.KV = KV;
+  P.G = G;
+  P.hd = hd;
+  P.cap = cap;
+  P.part = part;
+  P.reach = reach;
+  P.scale = scale;
+  return P;
+}
+
+bool bad_shape(int hd, int part, int rt) {
+  return hd > 128 || hd % 16 || part < 1 || part > MAX_PART || rt != RT;
 }
 
 template <typename TQ, typename Slots>
 cudaError_t by_ring(int ring_int8, const void* q, const void* kn,
                     const void* vn, const void* kr, const void* vr,
                     const void* ksc, const void* vsc, Slots slots,
-                    const void* pos, const void* len, void* out, int B, int L,
-                    int KV, int G, int hd, int cap, int reach, float scale,
+                    const void* pos, const void* len, void* out,
+                    void* scratch, void* counters, int B, int L, int KV, int G,
+                    int hd, int cap, int part, int reach, float scale,
                     cudaStream_t s) {
-  return ring_int8
-             ? launch<TQ, int8_t>(q, kn, vn, kr, vr, ksc, vsc, slots, pos, len,
-                                  out, B, L, KV, G, hd, cap, reach, scale, s)
-             : launch<TQ, TQ>(q, kn, vn, kr, vr, nullptr, nullptr, slots, pos,
-                              len, out, B, L, KV, G, hd, cap, reach, scale, s);
+  float* w = static_cast<float*>(scratch);
+  if (ring_int8)
+    return launch<TQ, int8_t, Slots, true>(
+        params<TQ, int8_t, Slots>(q, kn, vn, kr, vr, ksc, vsc, slots,
+                                        pos, len, out, counters, L, KV, G, hd,
+                                        cap, part, reach, scale),
+        B, w, s);
+  return launch<TQ, TQ, Slots, true>(
+      params<TQ, TQ, Slots>(q, kn, vn, kr, vr, nullptr, nullptr, slots,
+                                  pos, len, out, counters, L, KV, G, hd, cap,
+                                  part, reach, scale),
+      B, w, s);
 }
 
 template <typename Slots>
 int by_dtype(int q_bf16, int ring_int8, const void* q, const void* kn,
              const void* vn, const void* kr, const void* vr, const void* ksc,
              const void* vsc, Slots slots, const void* pos, const void* len,
-             void* out, int B, int L, int KV, int G, int hd, int cap,
-             int reach, float scale, void* stream) {
-  if (hd > 128 || hd % 16) return static_cast<int>(cudaErrorInvalidValue);
+             void* out, void* scratch, void* counters, int B, int L, int KV,
+             int G, int hd, int cap, int part, int rt, int reach, float scale,
+             void* stream) {
+  if (bad_shape(hd, part, rt)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e =
       q_bf16 ? by_ring<__nv_bfloat16>(ring_int8, q, kn, vn, kr, vr, ksc, vsc,
-                                      slots, pos, len, out, B, L, KV, G, hd,
-                                      cap, reach, scale, s)
+                                      slots, pos, len, out, scratch, counters,
+                                      B, L, KV, G, hd, cap, part, reach, scale,
+                                      s)
              : by_ring<float>(ring_int8, q, kn, vn, kr, vr, ksc, vsc, slots,
-                              pos, len, out, B, L, KV, G, hd, cap, reach,
-                              scale, s);
+                              pos, len, out, scratch, counters, B, L, KV, G,
+                              hd, cap, part, reach, scale, s);
   return static_cast<int>(e);
 }
 
@@ -440,19 +698,23 @@ extern "C" {
 
 // q_bf16: 0 -> q/k_new/v_new are f32, 1 -> bf16.
 // ring_int8: 0 -> the ring has q's dtype, 1 -> int8 ring with scales.
-// hd <= 128 (one thread per head dim) and a multiple of 16 (16-byte rows
-// of an int8 ring).
+// hd <= 128 and a multiple of 16 (16-byte rows of an int8 ring); part: the
+// slots of a part (<= 128); rt: the wrapper's query rows per block, which
+// must equal RT. scratch: B*KV*ceil(L*G/RT)*n_part*RT*(hd + 2) f32, n_part
+// = ceil(cap/part) + ceil(L/part); counters: B*KV*ceil(L*G/RT) int32,
+// zero, and zero again when the kernel ends.
 int chunk_attention_launch(const void* q, const void* k_new, const void* v_new,
                            int q_bf16, const void* k_ring, const void* v_ring,
                            int ring_int8, const void* k_scale,
                            const void* v_scale, const void* pos_buf,
                            const void* positions, const void* lengths, void* out,
-                           int B, int L, int KV, int G, int hd, int cap,
-                           int reach, float scale, void* stream) {
+                           void* scratch, void* counters, int B, int L, int KV,
+                           int G, int hd, int cap, int part, int rt, int reach,
+                           float scale, void* stream) {
   const RingSlots slots{static_cast<const int*>(pos_buf), cap};
   return by_dtype(q_bf16, ring_int8, q, k_new, v_new, k_ring, v_ring, k_scale,
-                  v_scale, slots, positions, lengths, out, B, L, KV, G, hd,
-                  cap, reach, scale, stream);
+                  v_scale, slots, positions, lengths, out, scratch, counters,
+                  B, L, KV, G, hd, cap, part, rt, reach, scale, stream);
 }
 
 // The paged form (B4): pools (P, ps, KV, hd), scales (P, ps, KV), pos_pool
@@ -463,35 +725,47 @@ int chunk_attention_paged_launch(const void* q, const void* k_new,
                                  int ring_int8, const void* k_scale,
                                  const void* v_scale, const void* pos_pool,
                                  const void* table, const void* positions,
-                                 const void* lengths, void* out, int B, int L,
-                                 int KV, int G, int hd, int ps, int n_pages,
+                                 const void* lengths, void* out, void* scratch,
+                                 void* counters, int B, int L, int KV, int G,
+                                 int hd, int ps, int n_pages, int part, int rt,
                                  int reach, float scale, void* stream) {
   const PagedSlots slots{static_cast<const int*>(pos_pool),
                          static_cast<const int*>(table), ps, n_pages};
   return by_dtype(q_bf16, ring_int8, q, k_new, v_new, k_pool, v_pool, k_scale,
-                  v_scale, slots, positions, lengths, out, B, L, KV, G, hd,
-                  ps * n_pages, reach, scale, stream);
+                  v_scale, slots, positions, lengths, out, scratch, counters,
+                  B, L, KV, G, hd, ps * n_pages, part, rt, reach, scale,
+                  stream);
 }
 
 // The decode op (B5): q (B, KV, G, hd) f32 (q_bf16 0) or bf16 (1); int8
 // ring k8/v8 (B, S, KV, hd) with scales (B, S, KV), pos_buf (B, S), pos
 // (B,); out (B, KV, G, hd) f32; w_eff = window, or S + 1 for none.
+// scratch: B*KV*ceil(G/RT)*ceil(S/part)*RT*(hd + 2) f32; counters as above.
 int decode_attention_launch(const void* q, int q_bf16, const void* k8,
                             const void* v8, const void* k_scale,
                             const void* v_scale, const void* pos_buf,
-                            const void* pos, void* out, int B, int S, int KV,
-                            int G, int hd, int w_eff, float scale,
+                            const void* pos, void* out, void* scratch,
+                            void* counters, int B, int S, int KV, int G,
+                            int hd, int part, int rt, int w_eff, float scale,
                             void* stream) {
-  if (hd > 128 || hd % 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(hd, part, rt)) return static_cast<int>(cudaErrorInvalidValue);
   const RingSlots slots{static_cast<const int*>(pos_buf), S};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(scratch);
   cudaError_t e =
-      q_bf16 ? launch<__nv_bfloat16, int8_t, RingSlots, false>(
-                   q, nullptr, nullptr, k8, v8, k_scale, v_scale, slots, pos,
-                   nullptr, out, B, 1, KV, G, hd, S, w_eff, scale, s)
-             : launch<float, int8_t, RingSlots, false>(
-                   q, nullptr, nullptr, k8, v8, k_scale, v_scale, slots, pos,
-                   nullptr, out, B, 1, KV, G, hd, S, w_eff, scale, s);
+      q_bf16
+          ? launch<__nv_bfloat16, int8_t, RingSlots, false>(
+                params<__nv_bfloat16, int8_t, RingSlots>(
+                    q, nullptr, nullptr, k8, v8, k_scale, v_scale, slots, pos,
+                    nullptr, out, counters, 1, KV, G, hd, S, part, w_eff,
+                    scale),
+                B, w, s)
+          : launch<float, int8_t, RingSlots, false>(
+                params<float, int8_t, RingSlots>(
+                    q, nullptr, nullptr, k8, v8, k_scale, v_scale, slots, pos,
+                    nullptr, out, counters, 1, KV, G, hd, S, part, w_eff,
+                    scale),
+                B, w, s);
   return static_cast<int>(e);
 }
 

@@ -10,16 +10,17 @@ the virtual ring ``ring[b, p·ps + o] = pool[table[b, p], o]``.
 
 On CUDA tensors they launch the hand-written Hopper kernel of
 ``csrc/chunk_attention.cu`` (B2 replacing ``chunk_attention_pallas``, B4
-replacing ``chunk_attention_paged_pallas``); on CPU tensors they run the
-plain online-softmax walk of ``ref.py`` (the paged one over the gathered
-ring).
+replacing ``chunk_attention_paged_pallas``): split-KV over the parts of
+``split_ranges`` with one fixed combine order per row; on CPU tensors they
+run the plain online-softmax walk of ``ref.py`` (the paged one over the
+gathered ring).
 """
 
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -31,13 +32,45 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "chunk_attention_launch": [
-        _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+        _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     "chunk_attention_paged_launch": [
-        _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]}
+        _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]}
 
 MAX_HEAD_DIM = 128
+PART_SLOTS = 128  # key slots per part of the split-KV walk (csrc MAX_PART)
+ROW_TILE = 32     # query rows per block (csrc RT)
+
+
+def split_ranges(n: int) -> List[Tuple[int, int]]:
+    """The kernel's parts of ``n`` logical key slots (the ring's cap, or the
+    chunk's L): ranges of ``PART_SLOTS`` in order, the last one ragged. They
+    depend on ``n`` alone, never on the batch, the lengths, the fill or the
+    window; the kernel combines a row's parts in this order, ring parts
+    first."""
+    return [(s, min(s + PART_SLOTS, n)) for s in range(0, n, PART_SLOTS)]
+
+
+_COUNTERS: Dict[tuple, torch.Tensor] = {}
+
+
+def workspace(dev, b: int, kv: int, rows: int, hd: int, n_parts: int):
+    """Scratch for the parts' (m, l, acc) of ``rows`` query rows per (b, kv)
+    (f32, uninitialized) and the arrival counters of the in-kernel combine
+    (int32, zero; each launch leaves them zero). The counters are kept per
+    device and stream, since launches on one stream never overlap."""
+    n_idx = b * kv * -(-rows // ROW_TILE)
+    scratch = torch.empty(n_idx * n_parts * ROW_TILE * (hd + 2),
+                          dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    key = (dev.index, stream)
+    counters = _COUNTERS.get(key)
+    if counters is None or counters.numel() < n_idx:
+        counters = torch.zeros(max(n_idx, 1024), dtype=torch.int32,
+                               device=dev)
+        _COUNTERS[key] = counters
+    return scratch, counters, stream
 
 
 def _require(t, name, dtype, shape, device):
@@ -98,6 +131,9 @@ def chunk_attention_cuda(q, k_new, v_new, k_cache, k_scale, v_cache, v_scale,
     out = torch.empty((b, L, kv, g, hd), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
+    scratch, counters, stream = workspace(
+        q.device, b, kv, L * g, hd, len(split_ranges(cap)) + len(
+            split_ranges(L)))
     lib = _build.load(_SOURCE, _SIGNATURES)
     status = lib.chunk_attention_launch(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
@@ -105,8 +141,9 @@ def chunk_attention_cuda(q, k_new, v_new, k_cache, k_scale, v_cache, v_scale,
         int(ring_int8), k_scale.data_ptr() if ring_int8 else None,
         v_scale.data_ptr() if ring_int8 else None, pos_buf.data_ptr(),
         positions.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, L, kv, g, hd, cap, _ref.reach_of(cap, window), float(hd ** -0.5),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        scratch.data_ptr(), counters.data_ptr(), b, L, kv, g, hd, cap,
+        PART_SLOTS, ROW_TILE, _ref.reach_of(cap, window), float(hd ** -0.5),
+        stream)
     _build.check(status, "chunk_attention_launch")
     _build.LAUNCHES["chunk_attention"] += 1
     return out
@@ -129,6 +166,9 @@ def chunk_attention_paged_cuda(q, k_new, v_new, k_pool, k_scale, v_pool,
     out = torch.empty((b, L, kv, g, hd), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
+    scratch, counters, stream = workspace(
+        q.device, b, kv, L * g, hd, len(split_ranges(cap)) + len(
+            split_ranges(L)))
     lib = _build.load(_SOURCE, _SIGNATURES)
     status = lib.chunk_attention_paged_launch(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
@@ -136,9 +176,9 @@ def chunk_attention_paged_cuda(q, k_new, v_new, k_pool, k_scale, v_pool,
         int(pool_int8), k_scale.data_ptr() if pool_int8 else None,
         v_scale.data_ptr() if pool_int8 else None, pos_pool.data_ptr(),
         table.data_ptr(), positions.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, L, kv, g, hd, ps, n_pages,
-        _ref.reach_of(cap, window), float(hd ** -0.5),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), scratch.data_ptr(), counters.data_ptr(), b, L, kv, g,
+        hd, ps, n_pages, PART_SLOTS, ROW_TILE, _ref.reach_of(cap, window),
+        float(hd ** -0.5), stream)
     _build.check(status, "chunk_attention_paged_launch")
     _build.LAUNCHES["chunk_attention_paged"] += 1
     return out

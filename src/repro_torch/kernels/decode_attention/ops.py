@@ -8,9 +8,11 @@ in the reference); this op is its only entry point.
 
 On CUDA tensors it launches the hand-written Hopper kernel B5
 (``decode_attention_launch``, replacing ``decode_attention_pallas``): the
-chunk-attention kernel of ``kernels/chunk_attention/csrc/chunk_attention.cu``
-under the decode op's mask rule (no chunk keys, no re-mask after exp, no
-tile skip). On CPU tensors it runs the plain version of ``ref.py``.
+split-KV chunk-attention kernel of
+``kernels/chunk_attention/csrc/chunk_attention.cu`` over the same parts
+(``split_ranges``) under the decode op's mask rule (no chunk keys, no
+re-mask after exp, no part skipped). On CPU tensors it runs the plain
+version of ``ref.py``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.chunk_attention.ops import (PART_SLOTS, ROW_TILE,
+                                                     split_ranges, workspace)
 from repro_torch.kernels.decode_attention import ref as _ref
 
 _SOURCE = (Path(__file__).parent.parent / "chunk_attention" / "csrc"
@@ -29,8 +33,8 @@ _SOURCE = (Path(__file__).parent.parent / "chunk_attention" / "csrc"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"decode_attention_launch": [
-    _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-    ctypes.c_float, _P]}
+    _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+    _I, ctypes.c_float, _P]}
 
 MAX_HEAD_DIM = 128
 
@@ -70,13 +74,15 @@ def decode_attention_cuda(q, k8, k_scale, v8, v_scale, pos_buf, pos, *,
     out = torch.empty((b, kv, g, hd), dtype=torch.float32, device=dev)
     if out.numel() == 0 or s == 0:
         return out.zero_()
+    scratch, counters, stream = workspace(dev, b, kv, g, hd,
+                                          len(split_ranges(s)))
     lib = _build.load(_SOURCE, _SIGNATURES)
     status = lib.decode_attention_launch(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k8.data_ptr(),
         v8.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-        pos_buf.data_ptr(), pos.data_ptr(), out.data_ptr(), b, s, kv, g, hd,
-        int(window) if window else s + 1, float(hd ** -0.5),
-        torch.cuda.current_stream(dev).cuda_stream)
+        pos_buf.data_ptr(), pos.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        counters.data_ptr(), b, s, kv, g, hd, PART_SLOTS, ROW_TILE,
+        int(window) if window else s + 1, float(hd ** -0.5), stream)
     _build.check(status, "decode_attention_launch")
     _build.LAUNCHES["decode_attention"] += 1
     return out

@@ -17,7 +17,10 @@ windows of x off the kernels' 8-token grid and at ragged m and n, the paged
 attention kernel equals the ring kernel on the gathered ring, the trit
 search equals its plain version, the norm kernel's rows do not depend on
 how many rows share the call, and the engine's greedy streams do not
-depend on the fleet, for the ring and the paged layout.
+depend on the fleet, for the ring and the paged layout. The split-KV
+attention kernel gives a row the same bits alone and in a batch of 8 with
+other fills, in an L = 1 call and at l = 0 of an L = 64 call with length 1,
+over the ring and over a paged pool (B2, B4), and over B5's int8 ring.
 """
 
 import dataclasses
@@ -280,6 +283,123 @@ def test_decode_attention_matches_plain(cuda, s, window, qdtype):
     mean_v = (v8[3].float() * vs[3][..., None]).mean(0)        # (KV, hd)
     torch.testing.assert_close(got[3], mean_v[:, None].expand(kv, g, hd),
                                rtol=1e-4, atol=1e-4)
+
+
+# the main path's attention shapes: cap 1024, 16-slot pages, 2 kv heads of
+# 6 query heads, hd 128; partly full and wrapped rows
+CAP, PAGE, KV, G, HD = 1024, 16, 2, 6, 128
+FILLS = [0, 300, 1023, 1024, 1500, 2900, 64, 700]
+
+
+def _rows_case(rng, L, ring, qdtype, dev):
+    """Chunk-attention operands for len(FILLS) rows, lengths 1: row r's
+    ring holds the FILLS[r] positions before its chunk. ring: "float" (q's
+    dtype) or "int8"."""
+    b = len(FILLS)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    f = lambda *s: t(rng.standard_normal(s).astype(np.float32)).to(  # noqa
+        qdtype)
+    q, kn, vn = f(b, L, KV, G, HD), f(b, L, KV, HD), f(b, L, KV, HD)
+    ks = vs = None
+    if ring == "int8":
+        kc = t(rng.integers(-127, 128, (b, CAP, KV, HD)).astype(np.int8))
+        vc = t(rng.integers(-127, 128, (b, CAP, KV, HD)).astype(np.int8))
+        ks = t(rng.uniform(0.005, 0.02, (b, CAP, KV)).astype(np.float32))
+        vs = t(rng.uniform(0.005, 0.02, (b, CAP, KV)).astype(np.float32))
+    else:
+        kc, vc = f(b, CAP, KV, HD), f(b, CAP, KV, HD)
+    pb = np.full((b, CAP), -1, np.int32)
+    for r, n in enumerate(FILLS):
+        p = np.arange(max(0, n - CAP), n)
+        pb[r, p % CAP] = p
+    positions = (np.asarray(FILLS)[:, None] + np.arange(L)[None]).astype(
+        np.int32)
+    return [q, kn, vn, kc, ks, vc, vs, t(pb), t(positions),
+            t(np.ones((b,), np.int32))]
+
+
+def _first_token(args):
+    """The L = 1 call of an L = 64 case's l = 0 query (one chunk key)."""
+    return [a[:, :1].contiguous() if i in (0, 1, 2, 8) else a
+            for i, a in enumerate(args)]
+
+
+def _row(args, i):
+    """Row i of every operand as a batch of one (fresh, aligned copies)."""
+    return [None if a is None else a[i:i + 1].clone() for a in args]
+
+
+@pytest.mark.parametrize("qdtype,ring", [(torch.bfloat16, "float"),
+                                         (torch.bfloat16, "int8"),
+                                         (torch.float32, "float"),
+                                         (torch.float32, "int8")])
+def test_attention_rows_are_invariant_across_batch_and_L(cuda, qdtype, ring):
+    """B2 and B4: a row's bits alone (B = 1) and in the batch of 8, at L = 1
+    and at l = 0 of L = 64 with length 1; B4 over a shuffled table with null
+    pages equals B2 on the gathered ring; both equal the plain version."""
+    rng = np.random.default_rng(21)
+    a64 = _rows_case(rng, 64, ring, qdtype, cuda)
+    a1 = _first_token(a64)
+    out1 = ca_ops.chunk_attention_cuda(*a1)
+    out64 = ca_ops.chunk_attention_cuda(*a64)
+    plain = ca_ref.chunk_attention_stream(*a1)
+    torch.cuda.synchronize()
+    assert torch.equal(out64[:, :1], out1)
+    torch.testing.assert_close(out1, plain, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(out64, ca_ref.chunk_attention_stream(*a64),
+                               rtol=1e-4, atol=1e-4)
+    for i in (0, 2, 5):
+        assert torch.equal(ca_ops.chunk_attention_cuda(*_row(a1, i)),
+                           out1[i:i + 1])
+        assert torch.equal(ca_ops.chunk_attention_cuda(*_row(a64, i)),
+                           out64[i:i + 1])
+    paged64, gathered64 = _paged_case(rng, a64, PAGE, cuda)
+    paged1 = [a[:, :1].contiguous() if i in (0, 1, 2, 9) else a
+              for i, a in enumerate(paged64)]
+    p1 = ca_ops.chunk_attention_paged_cuda(*paged1)
+    p64 = ca_ops.chunk_attention_paged_cuda(*paged64)
+    torch.cuda.synchronize()
+    assert torch.equal(p64[:, :1], p1)
+    assert torch.equal(p64, ca_ops.chunk_attention_cuda(*gathered64))
+    assert torch.equal(p1, ca_ops.chunk_attention_cuda(
+        *_first_token(gathered64)))
+    torch.testing.assert_close(
+        p64, ca_ref.chunk_attention_paged_stream(*paged64), rtol=1e-4,
+        atol=1e-4)
+
+
+@pytest.mark.parametrize("window", [None, 256])
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_rows_are_invariant_and_blind_rows(cuda, qdtype,
+                                                            window):
+    """B5 at (8, 1024, 2, 6, 128): rows alone equal rows in the batch bit for
+    bit; the row that sees nothing gives the uniform mean of v over the whole
+    ring (every part's in-ring slots, empty ones included)."""
+    rng = np.random.default_rng(22)
+    b = len(FILLS)
+    t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    q = t(rng.standard_normal((b, KV, G, HD)).astype(np.float32)).to(qdtype)
+    k8 = t(rng.integers(-127, 128, (b, CAP, KV, HD)).astype(np.int8))
+    v8 = t(rng.integers(-127, 128, (b, CAP, KV, HD)).astype(np.int8))
+    ks = t(rng.uniform(0.005, 0.02, (b, CAP, KV)).astype(np.float32))
+    vs = t(rng.uniform(0.005, 0.02, (b, CAP, KV)).astype(np.float32))
+    pb = np.full((b, CAP), -1, np.int32)
+    for r, n in enumerate(FILLS):
+        if r != 1:  # row 1 sees nothing
+            p = np.arange(max(0, n - CAP + 1), n + 1)
+            pb[r, p % CAP] = p
+    args = [q, k8, ks, v8, vs, t(pb), t(np.asarray(FILLS, np.int32))]
+    got = da_ops.decode_attention_cuda(*args, window=window)
+    plain = da_ref.decode_attention_plain(*args, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
+    mean_v = (v8[1].float() * vs[1][..., None]).mean(0)
+    torch.testing.assert_close(got[1], mean_v[:, None].expand(KV, G, HD),
+                               rtol=1e-4, atol=1e-4)
+    for i in (0, 1, 5):
+        assert torch.equal(
+            da_ops.decode_attention_cuda(*_row(args, i), window=window),
+            got[i:i + 1])
 
 
 @pytest.mark.parametrize("r,g", [(1000, 128), (333, 64), (7, 2000)])
