@@ -77,9 +77,10 @@
 //   an atomicAdd on a counter in a zeroed per-device buffer, which that
 //   block resets) combines the parts in one order: ring parts 0, 1, ...,
 //   then the chunk's parts: m = max m_i; l = Σ l_i·exp(m_i − m) and acc =
-//   Σ acc_i·exp(m_i − m), each summed in that order (a part with l_i = 0
-//   adds exactly 0 and is passed over); out = acc / max(l, 1e-30). One
-//   launch per call, no second pass.
+//   Σ acc_i·exp(m_i − m), each summed in that order (a skipped part wrote
+//   (-1e30, 0, 0), which adds exactly 0); out = acc / max(l, 1e-30). The
+//   combine does not branch on the data, so all of a row's loads are in
+//   flight at once. One launch per call, no second pass.
 //
 //   Why a row's bits do not depend on B, L, its neighbours or on which
 //   block combines: every part's inputs are the row's own q and the part's
@@ -214,19 +215,24 @@ struct Params {
   float scale;
 };
 
-// Shared memory, byte offsets; every region starts 16-byte aligned.
+// Shared memory, byte offsets; every region starts 16-byte aligned. The
+// combine's region `cmb` (m, l and the weight of every (part, row)) reuses
+// the part's K, V, q and score rows, which are dead by then.
 struct Layout {
-  int ks, vs, qs, sc, krow, kpos, kmul, vmul, need, qpos, m, l, sub, total;
+  int ks, vs, qs, sc, cmb, krow, kpos, kmul, vmul, need, qpos, m, l, sub, total;
 };
 // kbytes: the widest K/V element a block of this instantiation stages;
 // qbytes: 2 for bf16 q (MMA operand), 4 for f32 q (pre-scaled f32).
-__host__ __device__ inline Layout layout(int hd, int kbytes, int qbytes) {
+__host__ __device__ inline Layout layout(int hd, int kbytes, int qbytes,
+                                         int n_parts) {
   Layout s;
   int o = 0;
   s.ks = o;   o += MAX_PART * (hd * kbytes + 16);  // K rows, padded
   s.vs = o;   o += MAX_PART * hd * kbytes;         // V rows
   s.qs = o;   o += RT * (hd * qbytes + 16);        // query rows, padded
   s.sc = o;   o += RT * SC_STRIDE * 4;             // logits, then p·v_scale
+  s.cmb = 0;
+  o = max(o, (n_parts * RT * 12 + 15) / 16 * 16);
   s.krow = o; o += MAX_PART * 8;                   // storage row per slot
   s.kpos = o; o += MAX_PART * 4;                   // position / NO_KEY / EMPTY
   s.kmul = o; o += MAX_PART * 4;                   // logit multiplier per slot
@@ -241,11 +247,17 @@ __host__ __device__ inline Layout layout(int hd, int kbytes, int qbytes) {
 }
 
 template <typename TQ, typename TC, bool kChunk>
-__host__ __device__ inline Layout layout_of(int hd) {
+__host__ __device__ inline Layout layout_of(int hd, int n_parts) {
   constexpr int kq = std::is_same<TQ, float>::value ? 4 : 2;
   constexpr int kc = (int)sizeof(TC);
   constexpr int kbytes = kChunk && (int)sizeof(TQ) > kc ? (int)sizeof(TQ) : kc;
-  return layout(hd, kbytes, kq);
+  return layout(hd, kbytes, kq, n_parts);
+}
+
+// Parts of a call: ceil(cap/part) ring parts, then ceil(L/part) chunk parts.
+template <bool kChunk>
+__host__ __device__ inline int parts_of(int cap, int L, int part) {
+  return (cap + part - 1) / part + (kChunk ? (L + part - 1) / part : 0);
 }
 
 // The partial (m, l, acc) of one part for the block's rows. TK is the
@@ -286,7 +298,7 @@ __device__ __forceinline__ void part_partial(const Params<TQ, TC, Slots>& P,
   const int vstride = hd * (int)sizeof(TK);       // bytes per V row
 
   // slot `tid` of the part: storage row, position, scales (loads in flight
-  // together); the caller's barrier has published qpos_s
+  // together with the caller's q and qpos loads)
   {
     int kp = NO_KEY;
     long long row = 0;
@@ -307,6 +319,7 @@ __device__ __forceinline__ void part_partial(const Params<TQ, TC, Slots>& P,
         kp = P.positions[row];
       }
     }
+    __syncthreads();  // qpos_s (and f32 q) published
     bool need_k = false;
     if (kp != NO_KEY && kp != EMPTY)
       for (int r = 0; r < rows_here; ++r)
@@ -321,7 +334,10 @@ __device__ __forceinline__ void part_partial(const Params<TQ, TC, Slots>& P,
     const unsigned bk = __ballot_sync(0xffffffffu, need_k);
     const unsigned bv = __ballot_sync(0xffffffffu, need_v);
     if (lane == 0) sub_s[warp] = (bk ? 1 : 0) | (bv ? 2 : 0);
-    if (!__syncthreads_or(need_v)) {  // no row sees the part (B2, B4)
+    if (!__syncthreads_or(need_v)) {  // no row sees the part (B2, B4):
+      if (tid < hd)                     // (-1e30, 0, 0), an exact no-op
+        for (int r = 0; r < rows_here; ++r)
+          __stcg(&P.part_acc[(slot0 + r) * hd + tid], 0.0f);
       if (tid < rows_here)
         __stcg(&P.part_ml[slot0 + tid], make_float2(NEG_INF, 0.0f));
       return;
@@ -329,23 +345,29 @@ __device__ __forceinline__ void part_partial(const Params<TQ, TC, Slots>& P,
   }
 
   // K (with q, issued by the caller) and V of the part: 16-byte cp.async
-  // in the storage type, zero-filled where no row needs the slot
+  // in the storage type, zero-filled where no row needs the slot, in two
+  // groups so the scores and softmax run while V is in flight. Vector e =
+  // s*kvec + c (slot s, 16-byte chunk c) is stepped without a division.
   const int kvec = vstride / 16;  // 16-byte vectors per row
+  const int s_step = NTHREADS / kvec, c_step = NTHREADS - s_step * kvec;
   constexpr int EPV = 16 / (int)sizeof(TK);
-  for (int e = tid; e < MAX_PART * kvec; e += NTHREADS) {
-    const int s = e / kvec, c = e - s * kvec;
-    const bool ok = need_s[s] & 1;
-    const TK* src = ok ? kg + ((size_t)krow_s[s] * KV + kv) * hd + c * EPV : kg;
-    cp_async16(ks + s * kstride + c * 16, src, ok);
-  }
-  cp_async_commit();
-  for (int e = tid; e < MAX_PART * kvec; e += NTHREADS) {
-    const int s = e / kvec, c = e - s * kvec;
-    const bool ok = need_s[s] & 2;
-    const TK* src = ok ? vg + ((size_t)krow_s[s] * KV + kv) * hd + c * EPV : vg;
-    cp_async16(vs + s * vstride + c * 16, src, ok);
-  }
-  cp_async_commit();
+  auto stage = [&](const TK* g, unsigned char* dst, int stride, int bit) {
+    int s = tid / kvec, c = tid - s * kvec;
+    for (int e = tid; e < MAX_PART * kvec; e += NTHREADS) {
+      const bool ok = need_s[s] & bit;
+      const TK* src = ok ? g + ((size_t)krow_s[s] * KV + kv) * hd + c * EPV : g;
+      cp_async16(dst + s * stride + c * 16, src, ok);
+      s += s_step;
+      c += c_step;
+      if (c >= kvec) {
+        c -= kvec;
+        ++s;
+      }
+    }
+    cp_async_commit();
+  };
+  stage(kg, ks, kstride, 1);
+  stage(vg, vs, vstride, 2);
   cp_async_wait<1>();  // q and K have landed (this thread's copies)
   __syncthreads();
 
@@ -364,34 +386,51 @@ __device__ __forceinline__ void part_partial(const Params<TQ, TC, Slots>& P,
     const bool any_k = sub_s[warp] & 1;
     const unsigned char* qs = smem + S.qs;
     const int qstride = hd * 2 + 16;
+    float c[2][4][4];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int s0 = warp * SUB + mt * 16;
-      float c[4][4];
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) c[nt][e] = 0.0f;
-      if (any_k) {
-        const TK* r_lo = reinterpret_cast<const TK*>(ks + (s0 + gid) * kstride);
-        const TK* r_hi =
-            reinterpret_cast<const TK*>(ks + (s0 + gid + 8) * kstride);
-        for (int k0 = 0; k0 < hd; k0 += 16) {
-          uint32_t a[4];
-          a[0] = pair_bf16x2(r_lo + k0 + 2 * tig);
-          a[1] = pair_bf16x2(r_hi + k0 + 2 * tig);
-          a[2] = pair_bf16x2(r_lo + k0 + 2 * tig + 8);
-          a[3] = pair_bf16x2(r_hi + k0 + 2 * tig + 8);
+        for (int e = 0; e < 4; ++e) c[mt][nt][e] = 0.0f;
+    if (any_k) {
+      // per k16 chunk: the A fragments of both m tiles and the B fragments
+      // of all four n tiles (rows past the block's are zero) are loaded
+      // before the MMAs, so the loads of a chunk overlap
+#pragma unroll 2
+      for (int k0 = 0; k0 < hd; k0 += 16) {
+        uint32_t a[2][4], bq[4][2];
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            if (nt < n_tiles) {
-              const unsigned char* qr =
-                  qs + (nt * 8 + gid) * qstride + (k0 + 2 * tig) * 2;
-              mma_bf16(c[nt], a, lds_u32(qr), lds_u32(qr + 16));
-            }
+        for (int mt = 0; mt < 2; ++mt) {
+          const int s0 = warp * SUB + mt * 16;
+          const TK* r_lo =
+              reinterpret_cast<const TK*>(ks + (s0 + gid) * kstride) + k0;
+          const TK* r_hi =
+              reinterpret_cast<const TK*>(ks + (s0 + gid + 8) * kstride) + k0;
+          a[mt][0] = pair_bf16x2(r_lo + 2 * tig);
+          a[mt][1] = pair_bf16x2(r_hi + 2 * tig);
+          a[mt][2] = pair_bf16x2(r_lo + 2 * tig + 8);
+          a[mt][3] = pair_bf16x2(r_hi + 2 * tig + 8);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const unsigned char* qr =
+              qs + (nt * 8 + gid) * qstride + (k0 + 2 * tig) * 2;
+          bq[nt][0] = lds_u32(qr);
+          bq[nt][1] = lds_u32(qr + 16);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          if (nt < n_tiles) {
+            mma_bf16(c[0][nt], a[0], bq[nt][0], bq[nt][1]);
+            mma_bf16(c[1][nt], a[1], bq[nt][0], bq[nt][1]);
           }
         }
       }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int s0 = warp * SUB + mt * 16;
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         if (nt < n_tiles) {
@@ -400,7 +439,7 @@ __device__ __forceinline__ void part_partial(const Params<TQ, TC, Slots>& P,
             const int s = s0 + gid + (e >= 2 ? 8 : 0);
             const int r = nt * 8 + 2 * tig + (e & 1);
             if (r < rows_here)
-              sc[r * SC_STRIDE + s] = masked(c[nt][e] * kmul_s[s], r, s);
+              sc[r * SC_STRIDE + s] = masked(c[mt][nt][e] * kmul_s[s], r, s);
           }
         }
       }
@@ -424,34 +463,54 @@ __device__ __forceinline__ void part_partial(const Params<TQ, TC, Slots>& P,
 
   // softmax over the part, warp w owns rows w, w+4, ...: lane l holds slots
   // l + 32j; p (re-masked after exp for B2/B4) times the v scale replaces
-  // the logit
-  for (int r = warp; r < rows_here; r += NWARPS) {
-    float x[NSUB];
-    float mx = -INFINITY;
+  // the logit. Two rows at a time (the second may repeat the first, whose
+  // results it then does not write), so their chains overlap.
+  for (int r = warp; r < rows_here; r += 2 * NWARPS) {
+    const bool two = r + NWARPS < rows_here;
+    const int rw[2] = {r, two ? r + NWARPS : r};
+    float x[2][NSUB], mx[2], sum[2];
 #pragma unroll
-    for (int j = 0; j < NSUB; ++j) {
-      x[j] = sc[r * SC_STRIDE + lane + SUB * j];
-      mx = fmaxf(mx, x[j]);
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NSUB; ++j) {
+        x[h][j] = sc[rw[h] * SC_STRIDE + lane + SUB * j];
+        mx[h] = fmaxf(mx[h], x[h][j]);
+      }
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    float sum = 0.0f;
 #pragma unroll
-    for (int j = 0; j < NSUB; ++j) {
-      const int s = lane + SUB * j;
-      const float p = (!kChunk || visible(qpos_s[r], kpos_s[s], P.reach))
-                          ? expf(x[j] - mx)
-                          : 0.0f;
-      sum += p;
-      sc[r * SC_STRIDE + s] = p * vmul_s[s];
+      for (int h = 0; h < 2; ++h)
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], off));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NSUB; ++j) {
+        const int s = lane + SUB * j;
+        const float p =
+            (!kChunk || visible(qpos_s[rw[h]], kpos_s[s], P.reach))
+                ? expf(x[h][j] - mx[h])
+                : 0.0f;
+        sum[h] += p;
+        x[h][j] = p * vmul_s[s];
+      }
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) {
-      m_s[r] = mx;
-      l_s[r] = sum;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], off);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h == 1 && !two) break;
+#pragma unroll
+      for (int j = 0; j < NSUB; ++j) sc[rw[h] * SC_STRIDE + lane + SUB * j] = x[h][j];
+      if (lane == 0) {
+        m_s[rw[h]] = mx[h];
+        l_s[rw[h]] = sum[h];
+      }
     }
   }
   cp_async_wait<0>();  // V has landed
@@ -459,32 +518,40 @@ __device__ __forceinline__ void part_partial(const Params<TQ, TC, Slots>& P,
 
   // acc[r] = Σ_s p'[r][s] · v[s][d] in slot order, one thread per head dim;
   // sub-tiles that no row needs add nothing and are passed over
+  // rows go in groups of 8 with no branch inside a group (a short last
+  // group repeats its last row), so a group's loads overlap its FMAs
   if (tid < hd) {
-    float acc[RT];
+    const TK* vcol = reinterpret_cast<const TK*>(vs) + tid;
+    const int vstep = vstride / (int)sizeof(TK);
+    for (int rb = 0; rb < rows_here; rb += 8) {
+      const float* prow[8];
+      float acc[8];
 #pragma unroll
-    for (int r = 0; r < RT; ++r) acc[r] = 0.0f;
-    for (int w = 0; w < NSUB; ++w) {
-      if (!(sub_s[w] & 2)) continue;
-      for (int s = w * SUB; s < (w + 1) * SUB; s += 4) {
-        float v[4];
+      for (int j = 0; j < 8; ++j) {
+        prow[j] = sc + min(rb + j, rows_here - 1) * SC_STRIDE;
+        acc[j] = 0.0f;
+      }
+      for (int w = 0; w < NSUB; ++w) {
+        if (!(sub_s[w] & 2)) continue;
+#pragma unroll 2
+        for (int s = w * SUB; s < (w + 1) * SUB; s += 4) {
+          float v[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          v[j] = to_f32(reinterpret_cast<const TK*>(vs + (s + j) * vstride)[tid]);
+          for (int j = 0; j < 4; ++j) v[j] = to_f32(vcol[(s + j) * vstep]);
 #pragma unroll
-        for (int r = 0; r < RT; ++r) {
-          if (r >= rows_here) break;
-          const float4 p = *reinterpret_cast<const float4*>(sc + r * SC_STRIDE + s);
-          acc[r] = fmaf(p.x, v[0], acc[r]);
-          acc[r] = fmaf(p.y, v[1], acc[r]);
-          acc[r] = fmaf(p.z, v[2], acc[r]);
-          acc[r] = fmaf(p.w, v[3], acc[r]);
+          for (int j = 0; j < 8; ++j) {
+            const float4 p = *reinterpret_cast<const float4*>(prow[j] + s);
+            acc[j] = fmaf(p.x, v[0], acc[j]);
+            acc[j] = fmaf(p.y, v[1], acc[j]);
+            acc[j] = fmaf(p.z, v[2], acc[j]);
+            acc[j] = fmaf(p.w, v[3], acc[j]);
+          }
         }
       }
-    }
 #pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      if (r >= rows_here) break;
-      __stcg(&P.part_acc[(slot0 + r) * hd + tid], acc[r]);
+      for (int j = 0; j < 8; ++j)
+        if (rb + j < rows_here)
+          __stcg(&P.part_acc[(slot0 + rb + j) * hd + tid], acc[j]);
     }
   }
   if (tid < rows_here)
@@ -497,14 +564,14 @@ __global__ void __launch_bounds__(NTHREADS)
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int last_s;
   constexpr bool kMMA = std::is_same<TQ, __nv_bfloat16>::value;
-  const Layout S = layout_of<TQ, TC, kChunk>(P.hd);
+  const int n_parts = parts_of<kChunk>(P.cap, P.L, P.part);
+  const Layout S = layout_of<TQ, TC, kChunk>(P.hd, n_parts);
   const int tid = threadIdx.x;
   const int p = blockIdx.x, rt = blockIdx.y;
   const int kv = blockIdx.z % P.KV, b = blockIdx.z / P.KV;
   const int hd = P.hd, G = P.G, L = P.L;
   const int rows = L * G, r0 = rt * RT, rows_here = min(RT, rows - r0);
   const int n_ring = (P.cap + P.part - 1) / P.part;
-  const int n_parts = n_ring + (kChunk ? (L + P.part - 1) / P.part : 0);
   const int idx = blockIdx.z * gridDim.y + rt;  // (b, kv, row tile)
   const size_t slot0 = ((size_t)idx * n_parts + p) * RT;
   int* qpos_s = reinterpret_cast<int*>(smem + S.qpos);
@@ -533,7 +600,6 @@ __global__ void __launch_bounds__(NTHREADS)
   if (tid < RT)
     qpos_s[tid] = tid < rows_here ? P.positions[(size_t)b * L + (r0 + tid) / G]
                                   : NO_KEY;
-  __syncthreads();
 
   if (p < n_ring) {
     const int start = p * P.part;
@@ -559,33 +625,72 @@ __global__ void __launch_bounds__(NTHREADS)
 
   const float2* ml = P.part_ml + (size_t)idx * n_parts * RT;
   const float* pacc = P.part_acc + (size_t)idx * n_parts * RT * hd;
-  float* mg_s = reinterpret_cast<float*>(smem + S.m);
+  float* m_c = reinterpret_cast<float*>(smem + S.cmb);  // [part][RT]
+  float* l_c = m_c + n_parts * RT;
+  float* w_c = l_c + n_parts * RT;
   float* lg_s = reinterpret_cast<float*>(smem + S.l);
+  // one round trip brings every (part, row)'s (m, l) to shared memory; the
+  // sums below still run over parts 0, 1, ... in order for each row
+  for (int e = tid; e < n_parts * RT; e += NTHREADS) {
+    const float2 t = e % RT < rows_here ? __ldcg(&ml[e]) : make_float2(0.f, 0.f);
+    m_c[e] = t.x;
+    l_c[e] = t.y;
+  }
+  __syncthreads();
   if (tid < rows_here) {
     float mg = -INFINITY;
-    for (int i = 0; i < n_parts; ++i) mg = fmaxf(mg, __ldcg(&ml[i * RT + tid]).x);
+    for (int i = 0; i < n_parts; ++i) mg = fmaxf(mg, m_c[i * RT + tid]);
     float l = 0.0f;
     for (int i = 0; i < n_parts; ++i) {
-      const float2 t = __ldcg(&ml[i * RT + tid]);
-      if (t.y != 0.0f) l = fmaf(t.y, expf(t.x - mg), l);
+      const float w = expf(m_c[i * RT + tid] - mg);
+      w_c[i * RT + tid] = w;
+      l = fmaf(l_c[i * RT + tid], w, l);
     }
-    mg_s[tid] = mg;
     lg_s[tid] = l;
   }
   __syncthreads();
+  // acc = Σ_i acc_i·w_i in part order, one thread per head dim: rows in
+  // groups of 8 (a short last group repeats its last row) and parts 8 at a
+  // time, so up to 64 of a thread's loads are in flight together; no
+  // branch on the data
   if (tid < hd) {
-    for (int r = 0; r < rows_here; ++r) {
-      const float mg = mg_s[r];
-      float a = 0.0f;
-      for (int i = 0; i < n_parts; ++i) {
-        const float2 t = __ldcg(&ml[i * RT + r]);
-        if (t.y != 0.0f)
-          a = fmaf(__ldcg(&pacc[((size_t)i * RT + r) * hd + tid]),
-                   expf(t.x - mg), a);
+    for (int rb = 0; rb < rows_here; rb += 8) {
+      int rr[8];
+      float a[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        rr[j] = min(rb + j, rows_here - 1);
+        a[j] = 0.0f;
       }
-      const int rr = r0 + r;
-      P.out[((((size_t)b * L + rr / G) * P.KV + kv) * G + rr % G) * hd + tid] =
-          a / fmaxf(lg_s[r], 1e-30f);
+      int i = 0;
+      for (; i + 8 <= n_parts; i += 8) {
+        float x[8][8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            x[u][j] = __ldcg(&pacc[((size_t)(i + u) * RT + rr[j]) * hd + tid]);
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            a[j] = fmaf(x[u][j], w_c[(i + u) * RT + rr[j]], a[j]);
+      }
+      for (; i < n_parts; ++i) {
+        float x[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          x[j] = __ldcg(&pacc[((size_t)i * RT + rr[j]) * hd + tid]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) a[j] = fmaf(x[j], w_c[i * RT + rr[j]], a[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int r = r0 + rb + j;
+        if (rb + j < rows_here)
+          P.out[((((size_t)b * L + r / G) * P.KV + kv) * G + r % G) * hd +
+                tid] = a[j] / fmaxf(lg_s[rb + j], 1e-30f);
+      }
     }
   }
   if (tid == 0) P.counters[idx] = 0;  // ready for the next launch
@@ -595,15 +700,14 @@ template <typename TQ, typename TC, typename Slots, bool kChunk>
 cudaError_t launch(Params<TQ, TC, Slots> P, int B, float* scratch,
                    cudaStream_t s) {
   auto kern = chunk_attention_kernel<TQ, TC, Slots, kChunk>;
-  const size_t smem = layout_of<TQ, TC, kChunk>(P.hd).total;
+  const int n_parts = parts_of<kChunk>(P.cap, P.L, P.part);
+  const size_t smem = layout_of<TQ, TC, kChunk>(P.hd, n_parts).total;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const int n_rt = (P.L * P.G + RT - 1) / RT;
-  const int n_parts = (P.cap + P.part - 1) / P.part +
-                      (kChunk ? (P.L + P.part - 1) / P.part : 0);
   const size_t n_ml = (size_t)B * P.KV * n_rt * n_parts * RT;
   P.part_ml = reinterpret_cast<float2*>(scratch);
   P.part_acc = scratch + 2 * n_ml;
