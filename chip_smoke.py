@@ -309,12 +309,15 @@ def first_token(args, pos_at):
             for i, a in enumerate(args)]
 
 
-def row_of(args, i):
-    """Row i of every operand as a batch of one (fresh, aligned copies)."""
-    return [None if a is None else a[i:i + 1].clone() for a in args]
+def row_of(args, i, shared=()):
+    """Row i of every per-row operand as a batch of one (fresh, aligned
+    copies); the operands at the indices in ``shared`` (a paged pool) are
+    passed whole."""
+    return [a if a is None or j in shared else a[i:i + 1].clone()
+            for j, a in enumerate(args)]
 
 
-def same_rows(kernel, args64, pos_at, what):
+def same_rows(kernel, args64, pos_at, what, shared=()):
     """The split-KV walk's batch invariance at the main path's shapes: with
     lengths 1, the L = 1 call's rows equal l = 0 of the L = 64 call, and
     every row alone (B = 1) equals its row in the batch of 8, bit for bit.
@@ -328,7 +331,8 @@ def same_rows(kernel, args64, pos_at, what):
                              "L = 64 with length 1")
     for args, out in ((args1, out1), (args64, out64)):
         for i in range(out.shape[0]):
-            if not torch.equal(kernel(*row_of(args, i)), out[i:i + 1]):
+            if not torch.equal(kernel(*row_of(args, i, shared)),
+                               out[i:i + 1]):
                 raise AssertionError(f"{what}: row {i} alone differs from "
                                      f"the batch (L = {out.shape[1]})")
     return args1
@@ -484,7 +488,7 @@ def check_paged_attention(cfg, dev):
         args[9].fill_(1)
         paged, gathered = paged_operands(args, PAGE, rng)
         paged1 = same_rows(ops.chunk_attention_paged_cuda, paged, 9,
-                           f"B4 {ring}")
+                           f"B4 {ring}", shared=(3, 4, 5, 6, 7))
         if not torch.equal(ops.chunk_attention_paged_cuda(*paged1),
                            ops.chunk_attention_cuda(
                                *first_token(gathered, 8))):

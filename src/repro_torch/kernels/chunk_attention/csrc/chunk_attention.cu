@@ -42,7 +42,13 @@
 // Bound on an H100 SXM: bytes. The work is reading each visible ring slot's
 // k and v once per kv head, plus q, the chunk and the output; the score and
 // P·V products are ~4·G·L·cap·hd flops, far below the tensor rate at these
-// sizes. So the kernel has to keep many loads in flight across the card.
+// sizes. At the main path's decode that is a few MB a read, ~1 µs at the
+// HBM rate, so a read is in practice bound by the latency of its chain of
+// dependent steps (a slot's position, the copies, scores, softmax, P·V, the
+// arrival atomic, the last block's combine): the design spreads the ring
+// over the card and keeps each step's loads in flight together.
+// ``launch/attention_stages.py`` stamps the steps (build with
+// CHUNK_ATTENTION_STAGES defined; the stamps compile out otherwise).
 //
 // Split-KV (flash-decoding) with one fixed order per row:
 //
@@ -67,11 +73,13 @@
 //   codes are exact in bf16) and q as B (16 hd × 8 rows, so L = 1's G = 6
 //   heads pad to 8 rows), then the logit is the f32 sum times the k scale
 //   and hd^-0.5; f32 q runs one f32 FMA chain per (row, slot). Each row's
-//   max and sum over the part use warp shuffles in a fixed pattern; p is
-//   re-masked after exp (B2, B4) or not (B5), and the v scale multiplies p
-//   in f32. P·V is an f32 FMA chain per (row, head dim) in slot order, so
-//   P is never rounded to bf16. The part writes (m, l, acc[hd]) per row to
-//   the wrapper's scratch.
+//   max and sum over the part use warp shuffles in a fixed pattern (a warp
+//   takes two rows at a time); p is re-masked after exp (B2, B4) or not
+//   (B5), and the v scale multiplies p in f32. P·V is an f32 FMA chain per
+//   (row, head dim) over the slots in order, so P is never rounded to
+//   bf16; lane l owns dims 4l .. 4l+3 and warp w rows w, w+4, ..., so each
+//   p is read from shared memory by one warp. The part writes (m, l,
+//   acc[hd]) per row to the wrapper's scratch.
 //
 //   Combine. The last block of a (b, kv, row tile) to arrive (a fence and
 //   an atomicAdd on a counter in a zeroed per-device buffer, which that
@@ -79,8 +87,9 @@
 //   then the chunk's parts: m = max m_i; l = Σ l_i·exp(m_i − m) and acc =
 //   Σ acc_i·exp(m_i − m), each summed in that order (a skipped part wrote
 //   (-1e30, 0, 0), which adds exactly 0); out = acc / max(l, 1e-30). The
-//   combine does not branch on the data, so all of a row's loads are in
-//   flight at once. One launch per call, no second pass.
+//   (m, l) of every (part, row) come to shared memory in one round trip,
+//   and the acc loads go out 8 parts × 8 rows at a time: nothing branches
+//   on the data. One launch per call, no second pass.
 //
 //   Why a row's bits do not depend on B, L, its neighbours or on which
 //   block combines: every part's inputs are the row's own q and the part's
@@ -121,6 +130,28 @@ constexpr float NEG_INF = -1e30f;
 constexpr int NO_KEY = INT_MIN;     // slot holds nothing visible to anyone
 constexpr int EMPTY = INT_MIN + 1;  // B5: an empty ring slot (pos < 0), in
                                     // the softmax of a row that sees nothing
+
+#ifdef CHUNK_ATTENTION_STAGES
+// Thread 0 of block i writes clock64() at stage k to g_stages[i][k] (k <
+// 11) and %globaltimer at stages 0, 7 and 10 to g_stages[i][11..13].
+constexpr int STAGE_BLOCKS = 65536, STAGE_SLOTS = 16;
+__device__ unsigned long long g_stages[STAGE_BLOCKS * STAGE_SLOTS];
+__device__ __forceinline__ void stage_stamp(int k) {
+  const unsigned i =
+      blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  if (threadIdx.x != 0 || i >= STAGE_BLOCKS) return;
+  unsigned long long* p = g_stages + (size_t)i * STAGE_SLOTS;
+  p[k] = clock64();
+  if (k == 0 || k == 7 || k == 10) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    p[k == 0 ? 11 : k == 7 ? 12 : 13] = t;
+  }
+}
+#define STAGE(k) stage_stamp(k)
+#else
+#define STAGE(k)
+#endif
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -175,6 +206,27 @@ __device__ __forceinline__ uint32_t pair_bf16x2(const __nv_bfloat16* p) {
 __device__ __forceinline__ uint32_t pair_bf16x2(const int8_t* p) {
   const __nv_bfloat162 h = __floats2bfloat162_rn((float)p[0], (float)p[1]);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Four adjacent elements of a V row in shared memory as f32.
+__device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  o[0] = u.x;
+  o[1] = u.y;
+  o[2] = u.z;
+  o[3] = u.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&o)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);  // bf16 -> f32: exact
+  o[0] = __uint_as_float(u.x << 16);
+  o[1] = __uint_as_float(u.x & 0xffff0000u);
+  o[2] = __uint_as_float(u.y << 16);
+  o[3] = __uint_as_float(u.y & 0xffff0000u);
+}
+__device__ __forceinline__ void load4(const int8_t* p, float (&o)[4]) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) o[c] = (float)(int8_t)((u >> (8 * c)) & 0xffu);
 }
 
 // Where logical ring slot s of row b is stored: its storage row, whose
@@ -260,6 +312,48 @@ __host__ __device__ inline int parts_of(int cap, int L, int part) {
   return (cap + part - 1) / part + (kChunk ? (L + part - 1) / part : 0);
 }
 
+// One P·V pass over R rows of a warp (rows row0, row0 + NWARPS, ...): lane
+// l owns head dims 4l .. 4l+3, and each (row, dim) is one f32 FMA chain
+// over the part's slots in ascending order. Sub-tiles that no row needs
+// add nothing and are passed over.
+template <int R, typename TK>
+__device__ __forceinline__ void pv_pass(const float* sc, const unsigned char* vs,
+                                        int vstride, const int* sub_s,
+                                        int row0, float* acc_out, int hd) {
+  const int d0 = 4 * (threadIdx.x % 32);
+  float acc[R][4];
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][c] = 0.0f;
+  for (int w = 0; w < NSUB; ++w) {
+    if (!(sub_s[w] & 2)) continue;
+#pragma unroll 2
+    for (int s = w * SUB; s < (w + 1) * SUB; s += 4) {
+      float v[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        load4(reinterpret_cast<const TK*>(vs + (s + i) * vstride) + d0, v[i]);
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const float4 p = *reinterpret_cast<const float4*>(
+            sc + (row0 + NWARPS * j) * SC_STRIDE + s);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc[j][c] = fmaf(p.x, v[0][c], acc[j][c]);
+          acc[j][c] = fmaf(p.y, v[1][c], acc[j][c]);
+          acc[j][c] = fmaf(p.z, v[2][c], acc[j][c]);
+          acc[j][c] = fmaf(p.w, v[3][c], acc[j][c]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+    __stcg(reinterpret_cast<float4*>(acc_out + (size_t)(row0 + NWARPS * j) * hd + d0),
+           make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]));
+}
+
 // The partial (m, l, acc) of one part for the block's rows. TK is the
 // part's K/V storage type (TC for a ring part, TQ for a chunk part).
 template <typename TK, bool kRing, bool kChunk, typename TQ, typename TC,
@@ -320,6 +414,7 @@ __device__ __forceinline__ void part_partial(const Params<TQ, TC, Slots>& P,
       }
     }
     __syncthreads();  // qpos_s (and f32 q) published
+    STAGE(1);
     bool need_k = false;
     if (kp != NO_KEY && kp != EMPTY)
       for (int r = 0; r < rows_here; ++r)
@@ -351,7 +446,7 @@ __device__ __forceinline__ void part_partial(const Params<TQ, TC, Slots>& P,
   const int kvec = vstride / 16;  // 16-byte vectors per row
   const int s_step = NTHREADS / kvec, c_step = NTHREADS - s_step * kvec;
   constexpr int EPV = 16 / (int)sizeof(TK);
-  auto stage = [&](const TK* g, unsigned char* dst, int stride, int bit) {
+  auto copy_rows = [&](const TK* g, unsigned char* dst, int stride, int bit) {
     int s = tid / kvec, c = tid - s * kvec;
     for (int e = tid; e < MAX_PART * kvec; e += NTHREADS) {
       const bool ok = need_s[s] & bit;
@@ -366,10 +461,12 @@ __device__ __forceinline__ void part_partial(const Params<TQ, TC, Slots>& P,
     }
     cp_async_commit();
   };
-  stage(kg, ks, kstride, 1);
-  stage(vg, vs, vstride, 2);
+  copy_rows(kg, ks, kstride, 1);
+  copy_rows(vg, vs, vstride, 2);
+  STAGE(2);
   cp_async_wait<1>();  // q and K have landed (this thread's copies)
   __syncthreads();
+  STAGE(3);
 
   // scores into sc[row][slot]; a masked logit is -1e30, B5's slots past the
   // ring -inf (out of max and sum)
@@ -460,6 +557,7 @@ __device__ __forceinline__ void part_partial(const Params<TQ, TC, Slots>& P,
     }
   }
   __syncthreads();
+  STAGE(4);
 
   // softmax over the part, warp w owns rows w, w+4, ...: lane l holds slots
   // l + 32j; p (re-masked after exp for B2/B4) times the v scale replaces
@@ -515,47 +613,26 @@ __device__ __forceinline__ void part_partial(const Params<TQ, TC, Slots>& P,
   }
   cp_async_wait<0>();  // V has landed
   __syncthreads();
+  STAGE(5);
 
-  // acc[r] = Σ_s p'[r][s] · v[s][d] in slot order, one thread per head dim;
-  // sub-tiles that no row needs add nothing and are passed over
-  // rows go in groups of 8 with no branch inside a group (a short last
-  // group repeats its last row), so a group's loads overlap its FMAs
-  if (tid < hd) {
-    const TK* vcol = reinterpret_cast<const TK*>(vs) + tid;
-    const int vstep = vstride / (int)sizeof(TK);
-    for (int rb = 0; rb < rows_here; rb += 8) {
-      const float* prow[8];
-      float acc[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        prow[j] = sc + min(rb + j, rows_here - 1) * SC_STRIDE;
-        acc[j] = 0.0f;
+  // acc[r][d] = Σ_s p'[r][s] · v[s][d]: warp w owns rows w, w+4, ... in
+  // passes of up to 4 rows, so each p is read by one warp only
+  if (4 * lane < hd) {
+    float* acc_out = P.part_acc + slot0 * hd;
+    const int nr = (rows_here - warp + NWARPS - 1) / NWARPS;  // this warp's
+    for (int j0 = 0; j0 < nr; j0 += 4) {
+      const int row0 = warp + NWARPS * j0;
+      switch (min(4, nr - j0)) {
+        case 1: pv_pass<1, TK>(sc, vs, vstride, sub_s, row0, acc_out, hd); break;
+        case 2: pv_pass<2, TK>(sc, vs, vstride, sub_s, row0, acc_out, hd); break;
+        case 3: pv_pass<3, TK>(sc, vs, vstride, sub_s, row0, acc_out, hd); break;
+        default: pv_pass<4, TK>(sc, vs, vstride, sub_s, row0, acc_out, hd);
       }
-      for (int w = 0; w < NSUB; ++w) {
-        if (!(sub_s[w] & 2)) continue;
-#pragma unroll 2
-        for (int s = w * SUB; s < (w + 1) * SUB; s += 4) {
-          float v[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) v[j] = to_f32(vcol[(s + j) * vstep]);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float4 p = *reinterpret_cast<const float4*>(prow[j] + s);
-            acc[j] = fmaf(p.x, v[0], acc[j]);
-            acc[j] = fmaf(p.y, v[1], acc[j]);
-            acc[j] = fmaf(p.z, v[2], acc[j]);
-            acc[j] = fmaf(p.w, v[3], acc[j]);
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        if (rb + j < rows_here)
-          __stcg(&P.part_acc[(slot0 + rb + j) * hd + tid], acc[j]);
     }
   }
   if (tid < rows_here)
     __stcg(&P.part_ml[slot0 + tid], make_float2(m_s[tid], l_s[tid]));
+  STAGE(6);
 }
 
 template <typename TQ, typename TC, typename Slots, bool kChunk>
@@ -575,6 +652,7 @@ __global__ void __launch_bounds__(NTHREADS)
   const int idx = blockIdx.z * gridDim.y + rt;  // (b, kv, row tile)
   const size_t slot0 = ((size_t)idx * n_parts + p) * RT;
   int* qpos_s = reinterpret_cast<int*>(smem + S.qpos);
+  STAGE(0);
 
   // the block's query rows r = l*G + g of this (b, kv): bf16 by cp.async
   // (the MMA's B operand, in the K stage's group), f32 pre-scaled by hd^-0.5
@@ -620,6 +698,7 @@ __global__ void __launch_bounds__(NTHREADS)
   __syncthreads();
   if (tid == 0) last_s = atomicAdd(&P.counters[idx], 1) == n_parts - 1;
   __syncthreads();
+  STAGE(7);
   if (!last_s) return;
   __threadfence();
 
@@ -637,6 +716,7 @@ __global__ void __launch_bounds__(NTHREADS)
     l_c[e] = t.y;
   }
   __syncthreads();
+  STAGE(8);
   if (tid < rows_here) {
     float mg = -INFINITY;
     for (int i = 0; i < n_parts; ++i) mg = fmaxf(mg, m_c[i * RT + tid]);
@@ -649,6 +729,7 @@ __global__ void __launch_bounds__(NTHREADS)
     lg_s[tid] = l;
   }
   __syncthreads();
+  STAGE(9);
   // acc = Σ_i acc_i·w_i in part order, one thread per head dim: rows in
   // groups of 8 (a short last group repeats its last row) and parts 8 at a
   // time, so up to 64 of a thread's loads are in flight together; no
@@ -694,6 +775,7 @@ __global__ void __launch_bounds__(NTHREADS)
     }
   }
   if (tid == 0) P.counters[idx] = 0;  // ready for the next launch
+  STAGE(10);
 }
 
 template <typename TQ, typename TC, typename Slots, bool kChunk>
@@ -799,6 +881,18 @@ int by_dtype(int q_bf16, int ring_int8, const void* q, const void* kn,
 }  // namespace
 
 extern "C" {
+
+#ifdef CHUNK_ATTENTION_STAGES
+// Copy the stage stamps (STAGE_BLOCKS x STAGE_SLOTS u64) to host memory
+// `dst`, then zero them.
+int chunk_attention_stages(void* dst) {
+  cudaError_t e = cudaMemcpyFromSymbol(dst, g_stages, sizeof(g_stages));
+  void* p = nullptr;
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&p, g_stages);
+  if (e == cudaSuccess) e = cudaMemset(p, 0, sizeof(g_stages));
+  return static_cast<int>(e);
+}
+#endif
 
 // q_bf16: 0 -> q/k_new/v_new are f32, 1 -> bf16.
 // ring_int8: 0 -> the ring has q's dtype, 1 -> int8 ring with scales.
