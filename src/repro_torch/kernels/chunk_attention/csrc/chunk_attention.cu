@@ -87,9 +87,10 @@
 //   then the chunk's parts: m = max m_i; l = Σ l_i·exp(m_i − m) and acc =
 //   Σ acc_i·exp(m_i − m), each summed in that order (a skipped part wrote
 //   (-1e30, 0, 0), which adds exactly 0); out = acc / max(l, 1e-30). The
-//   (m, l) of every (part, row) come to shared memory in one round trip,
-//   and the acc loads go out 8 parts × 8 rows at a time: nothing branches
-//   on the data. One launch per call, no second pass.
+//   partials come to shared memory by cp.async, the (m, l) of every (part,
+//   row) with the first acc chunk (8 rows by as many parts as a buffer
+//   holds), later chunks double-buffered: nothing branches on the data.
+//   One launch per call, no second pass.
 //
 //   Why a row's bits do not depend on B, L, its neighbours or on which
 //   block combines: every part's inputs are the row's own q and the part's
@@ -273,6 +274,11 @@ struct Params {
 struct Layout {
   int ks, vs, qs, sc, cmb, krow, kpos, kmul, vmul, need, qpos, m, l, sub, total;
 };
+// Where the combine's two acc buffers start in its region: after the (m, l)
+// float2 and the weight of every (part, row).
+__host__ __device__ inline int combine_acc_offset(int n_parts) {
+  return (n_parts * RT * 12 + 15) / 16 * 16;
+}
 // kbytes: the widest K/V element a block of this instantiation stages;
 // qbytes: 2 for bf16 q (MMA operand), 4 for f32 q (pre-scaled f32).
 __host__ __device__ inline Layout layout(int hd, int kbytes, int qbytes,
@@ -283,8 +289,8 @@ __host__ __device__ inline Layout layout(int hd, int kbytes, int qbytes,
   s.vs = o;   o += MAX_PART * hd * kbytes;         // V rows
   s.qs = o;   o += RT * (hd * qbytes + 16);        // query rows, padded
   s.sc = o;   o += RT * SC_STRIDE * 4;             // logits, then p·v_scale
-  s.cmb = 0;
-  o = max(o, (n_parts * RT * 12 + 15) / 16 * 16);
+  s.cmb = 0;  // (m, l) and weight per (part, row), then two acc buffers
+  o = max(o, combine_acc_offset(n_parts) + 2 * 8 * hd * 4);
   s.krow = o; o += MAX_PART * 8;                   // storage row per slot
   s.kpos = o; o += MAX_PART * 4;                   // position / NO_KEY / EMPTY
   s.kmul = o; o += MAX_PART * 4;                   // logit multiplier per slot
@@ -702,76 +708,99 @@ __global__ void __launch_bounds__(NTHREADS)
   if (!last_s) return;
   __threadfence();
 
-  const float2* ml = P.part_ml + (size_t)idx * n_parts * RT;
+  // The partials come to shared memory by cp.async: first every (part,
+  // row)'s (m, l) with the first acc chunk, then acc in chunks of 8 rows by
+  // as many parts as a buffer holds, double-buffered so the next chunk is
+  // in flight while this one is summed. Each row's sums run over parts 0,
+  // 1, ... in order; nothing branches on the data.
   const float* pacc = P.part_acc + (size_t)idx * n_parts * RT * hd;
-  float* m_c = reinterpret_cast<float*>(smem + S.cmb);  // [part][RT]
-  float* l_c = m_c + n_parts * RT;
-  float* w_c = l_c + n_parts * RT;
+  float2* ml_c = reinterpret_cast<float2*>(smem + S.cmb);  // [part][RT]
+  float* w_c = reinterpret_cast<float*>(ml_c + n_parts * RT);
   float* lg_s = reinterpret_cast<float*>(smem + S.l);
-  // one round trip brings every (part, row)'s (m, l) to shared memory; the
-  // sums below still run over parts 0, 1, ... in order for each row
-  for (int e = tid; e < n_parts * RT; e += NTHREADS) {
-    const float2 t = e % RT < rows_here ? __ldcg(&ml[e]) : make_float2(0.f, 0.f);
-    m_c[e] = t.x;
-    l_c[e] = t.y;
+  float* abuf = reinterpret_cast<float*>(smem + S.cmb +
+                                         combine_acc_offset(n_parts));
+  const int slab = 8 * hd;  // floats of one part's 8 rows
+  const int per_buf = (S.krow - S.cmb - combine_acc_offset(n_parts)) /
+                      (2 * slab * 4);  // parts a buffer holds (>= 1)
+  const int n_groups = (rows_here + 7) / 8;
+  const int n_chunks_g = (n_parts + per_buf - 1) / per_buf;  // a row group's
+  const int vec = hd / 4;  // 16-byte vectors of a row
+  auto issue = [&](int k) {  // chunk k into buffer k % 2
+    const int rb = (k / n_chunks_g) * 8, i0 = (k % n_chunks_g) * per_buf;
+    const int np = min(per_buf, n_parts - i0);
+    float* dst = abuf + (k % 2) * per_buf * slab;
+    const int q_step = NTHREADS / vec, c_step = NTHREADS - q_step * vec;
+    int q = tid / vec, c = tid - q * vec;  // q = u*8 + j: part i0+u, row rb+j
+    for (int e = tid; e < np * 8 * vec; e += NTHREADS) {
+      const int u = q >> 3, j = q & 7;
+      const bool ok = rb + j < rows_here;
+      cp_async16(dst + q * hd + c * 4,
+                 ok ? pacc + ((size_t)(i0 + u) * RT + rb + j) * hd + c * 4
+                    : pacc,
+                 ok);
+      q += q_step;
+      c += c_step;
+      if (c >= vec) {
+        c -= vec;
+        ++q;
+      }
+    }
+    cp_async_commit();
+  };
+  {
+    const float* src = reinterpret_cast<const float*>(P.part_ml) +
+                       (size_t)idx * n_parts * RT * 2;
+    for (int e = tid; e < n_parts * RT / 2; e += NTHREADS)  // 2 rows a vector
+      cp_async16(reinterpret_cast<float*>(ml_c) + e * 4, src + e * 4, true);
   }
+  issue(0);
+  cp_async_wait<0>();
   __syncthreads();
   STAGE(8);
   if (tid < rows_here) {
     float mg = -INFINITY;
-    for (int i = 0; i < n_parts; ++i) mg = fmaxf(mg, m_c[i * RT + tid]);
+    for (int i = 0; i < n_parts; ++i) mg = fmaxf(mg, ml_c[i * RT + tid].x);
     float l = 0.0f;
     for (int i = 0; i < n_parts; ++i) {
-      const float w = expf(m_c[i * RT + tid] - mg);
+      const float w = expf(ml_c[i * RT + tid].x - mg);
       w_c[i * RT + tid] = w;
-      l = fmaf(l_c[i * RT + tid], w, l);
+      l = fmaf(ml_c[i * RT + tid].y, w, l);
     }
     lg_s[tid] = l;
   }
   __syncthreads();
   STAGE(9);
-  // acc = Σ_i acc_i·w_i in part order, one thread per head dim: rows in
-  // groups of 8 (a short last group repeats its last row) and parts 8 at a
-  // time, so up to 64 of a thread's loads are in flight together; no
-  // branch on the data
-  if (tid < hd) {
-    for (int rb = 0; rb < rows_here; rb += 8) {
-      int rr[8];
-      float a[8];
+  const int n_chunks = n_groups * n_chunks_g;
+  float a[8];
+  for (int k = 0; k < n_chunks; ++k) {
+    if (k + 1 < n_chunks) issue(k + 1);
+    const int rb = (k / n_chunks_g) * 8, i0 = (k % n_chunks_g) * per_buf;
+    const int np = min(per_buf, n_parts - i0);
+    if (i0 == 0)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        rr[j] = min(rb + j, rows_here - 1);
-        a[j] = 0.0f;
-      }
-      int i = 0;
-      for (; i + 8 <= n_parts; i += 8) {
-        float x[8][8];
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            x[u][j] = __ldcg(&pacc[((size_t)(i + u) * RT + rr[j]) * hd + tid]);
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            a[j] = fmaf(x[u][j], w_c[(i + u) * RT + rr[j]], a[j]);
-      }
-      for (; i < n_parts; ++i) {
-        float x[8];
+      for (int j = 0; j < 8; ++j) a[j] = 0.0f;
+    if (tid < hd) {
+      const float* buf = abuf + (k % 2) * per_buf * slab + tid;
+      for (int u = 0; u < np; ++u) {
+        const float* wu = w_c + (i0 + u) * RT + rb;
 #pragma unroll
         for (int j = 0; j < 8; ++j)
-          x[j] = __ldcg(&pacc[((size_t)i * RT + rr[j]) * hd + tid]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) a[j] = fmaf(x[j], w_c[i * RT + rr[j]], a[j]);
+          a[j] = fmaf(buf[(u * 8 + j) * hd], wu[min(j, rows_here - 1 - rb)],
+                      a[j]);
       }
+      if (i0 + np == n_parts) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int r = r0 + rb + j;
-        if (rb + j < rows_here)
-          P.out[((((size_t)b * L + r / G) * P.KV + kv) * G + r % G) * hd +
-                tid] = a[j] / fmaxf(lg_s[rb + j], 1e-30f);
+        for (int j = 0; j < 8; ++j) {
+          const int r = r0 + rb + j;
+          if (rb + j < rows_here)
+            P.out[((((size_t)b * L + r / G) * P.KV + kv) * G + r % G) * hd +
+                  tid] = a[j] / fmaxf(lg_s[rb + j], 1e-30f);
+        }
       }
+    }
+    if (k + 1 < n_chunks) {
+      cp_async_wait<0>();  // chunk k+1 has landed (this thread's copies)
+      __syncthreads();     // ... everyone's, and buffer k % 2 is free
     }
   }
   if (tid == 0) P.counters[idx] = 0;  // ready for the next launch
