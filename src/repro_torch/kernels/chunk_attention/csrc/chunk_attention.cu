@@ -759,14 +759,18 @@ __global__ void __launch_bounds__(NTHREADS)
   STAGE(8);
   if (tid < rows_here) {
     float mg = -INFINITY;
+#pragma unroll 4
     for (int i = 0; i < n_parts; ++i) mg = fmaxf(mg, ml_c[i * RT + tid].x);
     float l = 0.0f;
+#pragma unroll 4
     for (int i = 0; i < n_parts; ++i) {
       const float w = expf(ml_c[i * RT + tid].x - mg);
       w_c[i * RT + tid] = w;
       l = fmaf(ml_c[i * RT + tid].y, w, l);
     }
     lg_s[tid] = l;
+  } else if (tid < RT) {  // rows past the block's weigh 0 (their acc is 0)
+    for (int i = 0; i < n_parts; ++i) w_c[i * RT + tid] = 0.0f;
   }
   __syncthreads();
   STAGE(9);
@@ -781,12 +785,15 @@ __global__ void __launch_bounds__(NTHREADS)
       for (int j = 0; j < 8; ++j) a[j] = 0.0f;
     if (tid < hd) {
       const float* buf = abuf + (k % 2) * per_buf * slab + tid;
+#pragma unroll 4
       for (int u = 0; u < np; ++u) {
-        const float* wu = w_c + (i0 + u) * RT + rb;
+        const float4* wu =
+            reinterpret_cast<const float4*>(w_c + (i0 + u) * RT + rb);
+        const float4 w0 = wu[0], w1 = wu[1];
+        const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
 #pragma unroll
         for (int j = 0; j < 8; ++j)
-          a[j] = fmaf(buf[(u * 8 + j) * hd], wu[min(j, rows_here - 1 - rb)],
-                      a[j]);
+          a[j] = fmaf(buf[(u * 8 + j) * hd], w[j], a[j]);
       }
       if (i0 + np == n_parts) {
 #pragma unroll
