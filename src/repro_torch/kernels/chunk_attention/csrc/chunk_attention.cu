@@ -155,9 +155,6 @@ __device__ __forceinline__ void stage_stamp(int k) {
 #endif
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int reach) {
