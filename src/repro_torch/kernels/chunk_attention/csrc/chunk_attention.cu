@@ -816,11 +816,19 @@ cudaError_t launch(Params<TQ, TC, Slots> P, int B, float* scratch,
                    cudaStream_t s) {
   auto kern = chunk_attention_kernel<TQ, TC, Slots, kChunk>;
   const int n_parts = parts_of<kChunk>(P.cap, P.L, P.part);
-  const size_t smem = layout_of<TQ, TC, kChunk>(P.hd, n_parts).total;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int smem = layout_of<TQ, TC, kChunk>(P.hd, n_parts).total;
+  // Raising the shared-memory limit is a driver call that costs the host
+  // more than the launch: make it only when this kernel needs more on this
+  // device than it was given (a benign race at worst repeats it).
+  static int allowed[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (smem > 48 * 1024 && (dev >= 64 || allowed[dev] < smem)) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
     if (e != cudaSuccess) return e;
+    if (dev < 64) allowed[dev] = smem;
   }
   const int n_rt = (P.L * P.G + RT - 1) / RT;
   const size_t n_ml = (size_t)B * P.KV * n_rt * n_parts * RT;

@@ -19,8 +19,9 @@ gathered ring).
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -43,34 +44,38 @@ PART_SLOTS = 128  # key slots per part of the split-KV walk (csrc MAX_PART)
 ROW_TILE = 32     # query rows per block (csrc RT)
 
 
-def split_ranges(n: int) -> List[Tuple[int, int]]:
+@functools.lru_cache(maxsize=None)
+def split_ranges(n: int) -> Tuple[Tuple[int, int], ...]:
     """The kernel's parts of ``n`` logical key slots (the ring's cap, or the
     chunk's L): ranges of ``PART_SLOTS`` in order, the last one ragged. They
     depend on ``n`` alone, never on the batch, the lengths, the fill or the
     window; the kernel combines a row's parts in this order, ring parts
     first."""
-    return [(s, min(s + PART_SLOTS, n)) for s in range(0, n, PART_SLOTS)]
+    return tuple((s, min(s + PART_SLOTS, n)) for s in range(0, n, PART_SLOTS))
 
 
-_COUNTERS: Dict[tuple, torch.Tensor] = {}
+_WORKSPACES: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def workspace(dev, b: int, kv: int, rows: int, hd: int, n_parts: int):
     """Scratch for the parts' (m, l, acc) of ``rows`` query rows per (b, kv)
     (f32, uninitialized) and the arrival counters of the in-kernel combine
-    (int32, zero; each launch leaves them zero). The counters are kept per
-    device and stream, since launches on one stream never overlap."""
+    (int32, zero; each launch leaves them zero). Both are kept per device
+    and stream and grown when a call needs more: launches on one stream
+    never overlap, and an allocation per call costs the host-bound decode
+    step more than the launch."""
     n_idx = b * kv * -(-rows // ROW_TILE)
-    scratch = torch.empty(n_idx * n_parts * ROW_TILE * (hd + 2),
-                          dtype=torch.float32, device=dev)
+    need = n_idx * n_parts * ROW_TILE * (hd + 2)
     stream = torch.cuda.current_stream(dev).cuda_stream
     key = (dev.index, stream)
-    counters = _COUNTERS.get(key)
-    if counters is None or counters.numel() < n_idx:
-        counters = torch.zeros(max(n_idx, 1024), dtype=torch.int32,
-                               device=dev)
-        _COUNTERS[key] = counters
-    return scratch, counters, stream
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws[0].numel() < need or ws[1].numel() < n_idx:
+        have = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        ws = (torch.empty(max(need, have[0]), dtype=torch.float32, device=dev),
+              torch.zeros(max(n_idx, have[1], 1024), dtype=torch.int32,
+                          device=dev))
+        _WORKSPACES[key] = ws
+    return ws[0], ws[1], stream
 
 
 def _require(t, name, dtype, shape, device):
