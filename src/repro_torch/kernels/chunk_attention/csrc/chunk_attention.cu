@@ -817,9 +817,9 @@ cudaError_t launch(Params<TQ, TC, Slots> P, int B, float* scratch,
   auto kern = chunk_attention_kernel<TQ, TC, Slots, kChunk>;
   const int n_parts = parts_of<kChunk>(P.cap, P.L, P.part);
   const int smem = layout_of<TQ, TC, kChunk>(P.hd, n_parts).total;
-  // Raising the shared-memory limit is a driver call that costs the host
-  // more than the launch: make it only when this kernel needs more on this
-  // device than it was given (a benign race at worst repeats it).
+  // cudaFuncSetAttribute costs the host more than the launch: raise the
+  // shared-memory limit only when this kernel needs more on this device
+  // than it was given (a benign race at worst repeats it).
   static int allowed[64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
