@@ -41,9 +41,29 @@ Run from the root of a checkout. Phases (any failure exits non-zero):
      a later request with the prefix still gives its cold tokens; (d) after
      the drain the allocator's invariants hold and every page the prefix
      cache does not hold is free;
-  6. decode attention through its op, the only entry point of B5, for the
+  6. (e) the artifact round trip at full width: the quantized model written
+     by ``ArtifactWriter`` (its bytes unchanged) to a temporary directory,
+     loaded onto the card with every crc32 checked, every tensor equal byte
+     for byte, the ring fleet and the paged fleet (a) served from it with
+     the ring phase's tokens; a small second artifact torn (refused by
+     ``verify="sizes"``) and bit-flipped (passed by "sizes", refused by
+     "full"); its size and the seconds of the write, fsync and each boot
+     phase;
+  7. (f) the artifact the JAX package wrote (``tests/torch_fixtures/``,
+     smoke qwen2, f32 activations: the FMA kernels) served on the ring and
+     paged layouts with the JAX engine's committed greedy streams, and the
+     bucket-1 request alone;
+  8. (g) containment at full width: the ring fleet with one request's
+     logits NaN'd inside a K-step dispatch and another's at its prefill
+     finisher; both retire "error" with the clean run's tokens so far,
+     every other stream is unchanged, both slots sit out the quarantine and
+     come back; the same plan on the paged layout with the shared-prefix
+     fleet, where the prefill victim's own prompt pages never enter the
+     prefix cache; the host syncs per decode dispatch equal those of a
+     production engine (e);
+  9. decode attention through its op, the only entry point of B5, for the
      28 layers of one decode step;
-  7. time each kernel at its path's shapes beside its plain version, one
+ 10. time each kernel at its path's shapes beside its plain version, one
      PyTorch library call computing the same function where one exists,
      and its bound; and the threefry sampling draw per decode step.
 
@@ -88,6 +108,7 @@ PAGE = 16                   # tokens per KV page on the paged path
 SHARED_PREFIX = 512         # a multiple of PAGE and PREFILL_CHUNK
 TAILS = (16, 200)           # distinct tails after the shared prefix
 WRAP_PROMPT, WRAP_NEW = 990, 64
+FIXTURES = ROOT / "tests" / "torch_fixtures"
 
 
 def log(msg: str) -> None:
@@ -666,7 +687,7 @@ def final_buckets(lens):
     return out
 
 
-def make_engine(model, cfg, **ecfg):
+def make_engine(model, cfg, injector=None, **ecfg):
     """A ``ServingEngine`` whose decode loops are timed and whose kernel
     launches inside them are counted (``eng.smoke``)."""
     from repro_torch.kernels import launch_counts
@@ -674,15 +695,15 @@ def make_engine(model, cfg, **ecfg):
 
     eng = ServingEngine(model, cfg, EngineConfig(
         max_slots=SLOTS, capacity=CAPACITY, prefill_chunk=PREFILL_CHUNK,
-        decode_chunk=DECODE_CHUNK, **ecfg))
+        decode_chunk=DECODE_CHUNK, **ecfg), injector=injector)
     eng.smoke = dict(decode_s=0.0, in_decode=dict.fromkeys(launch_counts(),
                                                            0))
     inner = eng._decode_loop
 
-    def timed(n_steps):  # the loop ends in a host sync, so wall time is device time
+    def timed(n_steps, poison=None):  # ends in a host sync: wall = device
         before = launch_counts()
         t0 = time.perf_counter()
-        out = inner(n_steps)
+        out = inner(n_steps, poison)
         eng.smoke["decode_s"] += time.perf_counter() - t0
         for k, n in launch_counts().items():
             eng.smoke["in_decode"][k] += n - before[k]
@@ -821,7 +842,296 @@ def paged_path(cfg, dev, model, mp):
                 misses=eng.alloc.misses, forks=forks, saved=saved,
                 cold_prefill=cold_eng.prefill_tokens,
                 prompt_tokens=sum(len(p) for p in fleet),
-                pages=eng.alloc.n_pages, peak=eng.alloc.peak_used)
+                pages=eng.alloc.n_pages, peak=eng.alloc.peak_used,
+                fleet=fleet, ring_b=ring_b,
+                cold_cached=cold_eng.alloc.cached_pages())
+
+
+# ------------------------------------------------- phases 8-10: slice 6
+def count_syncs(eng):
+    """Count the host syncs of each of ``eng``'s decode dispatches
+    (``torch.cuda``'s sync-debug warnings; a blocking copy to the device
+    counts as one too). Returns the list that fills, one (fleet arrays
+    rebuilt, syncs) pair a dispatch: a dispatch after the fleet changed
+    also copies the per-slot arrays to the device."""
+    import warnings
+
+    import torch
+
+    inner, per_dispatch = eng._decode_loop, []
+
+    def counted(n_steps, poison=None):
+        rebuilt = eng._slot_arrays is None
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = inner(n_steps, poison)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        per_dispatch.append((rebuilt, sum(
+            "called a synchronizing" in str(w.message) for w in seen)))
+        return out
+
+    eng._decode_loop = counted
+    return per_dispatch
+
+
+def write_model_artifact(out, model, cfg, **writer_kw):
+    """Write an already quantized model through ``ArtifactWriter``
+    (``add_quantized`` / ``add_fp`` over ``to_reference_tree``): its bytes
+    go to disk unchanged. One group commit at the end, so the append and
+    the fsync time apart. Returns (path, append s, fsync + publish s)."""
+    from repro_torch.artifacts import ArtifactWriter
+    from repro_torch.artifacts import format as afmt
+    from repro_torch.convert import to_reference_tree
+    from repro_torch.core.ptqtp import PTQTPConfig
+    from repro_torch.core.quantize_model import QuantizedKernel
+
+    t0 = time.perf_counter()
+    w = ArtifactWriter(out, arch=cfg.name, commit_every=1 << 30,
+                       model_config=afmt.model_config_to_json(cfg),
+                       ptqtp_config=afmt.ptqtp_config_to_json(
+                           PTQTPConfig(group_size=GROUP, t_max=20)),
+                       **writer_kw)
+    for path, leaf in afmt.iter_tree_leaves(to_reference_tree(model, cfg)):
+        if isinstance(leaf, QuantizedKernel):
+            w.add_quantized(path, leaf, source_shape=tuple(
+                leaf.t1p.shape[:-2]) + (leaf.d_in, leaf.d_out),
+                source_dtype=cfg.param_dtype)
+        else:
+            w.add_fp(path, leaf)
+    t1 = time.perf_counter()
+    final = w.finalize()
+    return final, t1 - t0, time.perf_counter() - t1
+
+
+def damaged_copies(model, cfg, dev, tmp):
+    """A second, small artifact (layer 0's attention and the norms), damaged
+    two ways: a torn shard must fail ``verify="sizes"``, a flipped byte
+    must pass it and fail ``verify="full"``."""
+    import shutil
+
+    from repro_torch.artifacts import ArtifactError, ArtifactWriter
+    from repro_torch.artifacts import format as afmt
+    from repro_torch.artifacts import load_artifact
+    from repro_torch.convert import to_reference_tree
+    from repro_torch.core.ptqtp import PTQTPConfig
+    from repro_torch.serving.faults import (corrupt_artifact_shard,
+                                            truncate_artifact_shard)
+
+    tree = to_reference_tree(model, cfg)
+    b0 = tree["blocks"]["b0"]
+    w = ArtifactWriter(tmp / "small", arch=cfg.name,
+                       model_config=afmt.model_config_to_json(cfg),
+                       ptqtp_config=afmt.ptqtp_config_to_json(
+                           PTQTPConfig(group_size=GROUP, t_max=20)))
+    for name in ("wq", "wk", "wv", "wo"):
+        qk = b0["attn"][name]["kernel"]
+        w.add_quantized(f"/layer0/attn/{name}/kernel", type(qk)(
+            qk.t1p[:1], qk.t2p[:1], qk.alpha[:1], qk.d_in, qk.d_out,
+            qk.group_size), source_shape=(1, qk.d_in, qk.d_out),
+            source_dtype=cfg.param_dtype)
+    w.add_fp("/layer0/attn_norm/scale", b0["attn_norm"]["scale"][:1])
+    w.add_fp("/final_norm/scale", tree["final_norm"]["scale"])
+    small = w.finalize()
+    load_artifact(small, verify="full", device=dev)
+    torn, flipped = tmp / "torn", tmp / "flipped"
+    shutil.copytree(small, torn)
+    shutil.copytree(small, flipped)
+    cut = truncate_artifact_shard(torn, seed=0, drop_bytes=7)
+    flip = corrupt_artifact_shard(flipped, seed=3)
+    load_artifact(flipped, verify="sizes", device=dev)  # sizes are intact
+    caught = []
+    for where, mode in ((torn, "sizes"), (flipped, "full")):
+        try:
+            load_artifact(where, verify=mode, device=dev)
+        except ArtifactError as e:
+            caught.append(str(e))
+        else:
+            raise AssertionError(f"verify={mode!r} accepted the damaged "
+                                 f"copy {where.name}")
+    if flip["tensor"] not in caught[1] or "truncated" not in caught[0]:
+        raise AssertionError(f"damage reports name the wrong place: "
+                             f"{caught} for {cut}, {flip}")
+    return cut, flip
+
+
+def bytes_equal(a, b) -> bool:
+    import torch
+
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8),
+        b.contiguous().reshape(-1).view(torch.uint8))
+
+
+def artifact_path(cfg, dev, model, mp):
+    """(e) the full-width artifact round trip: write the quantized model,
+    load it onto the card with every crc32 checked, require byte-identical
+    tensors, serve the ring fleet and the paged fleet (a) from it with the
+    ring phase's tokens, and refuse damaged copies of a small artifact."""
+    import shutil
+    import tempfile
+
+    from repro_torch.artifacts import load_model
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_artifact_"))
+    try:
+        art, write_s, fsync_s = write_model_artifact(tmp / "full", model,
+                                                     cfg)
+        nbytes = sum(f.stat().st_size for f in art.iterdir())
+        boot = {}
+        t0 = time.perf_counter()
+        loaded, lcfg, manifest = load_model(art, verify="full", device=dev,
+                                            timings=boot)
+        boot_s = time.perf_counter() - t0
+        if lcfg != cfg:
+            raise AssertionError(f"the manifest's config {lcfg} is not {cfg}")
+        a, b = model.state_dict(), loaded.state_dict()
+        if list(a) != list(b):
+            raise AssertionError("the loaded model has other tensors")
+        diff = [k for k in a if not (b[k].device.type == dev.type
+                                     and bytes_equal(a[k], b[k]))]
+        if diff:
+            raise AssertionError(f"tensors differ after the round trip: "
+                                 f"{diff[:5]}")
+        want = [r.tokens for r in mp["results"]]
+        runs = {}
+        for layout in ("ring", "paged"):
+            kw = {} if layout == "ring" else dict(kv_layout="paged",
+                                                  page_size=PAGE)
+            eng = make_engine(loaded, cfg, **kw)
+            syncs = count_syncs(eng)
+            reset_launch_counts()
+            got = [r.tokens for r in serve_on(eng, mp["prompts"])]
+            runs[layout] = (launch_counts(), syncs)
+            if got != want:
+                bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+                raise AssertionError(f"(e) {layout} fleet from the artifact: "
+                                     f"requests {bad} differ from the ring "
+                                     f"phase's tokens")
+        cut, flip = damaged_copies(model, cfg, dev, tmp)
+        del loaded
+        return dict(nbytes=nbytes, write_s=write_s, fsync_s=fsync_s,
+                    boot=boot, boot_s=boot_s, runs=runs, cut=cut, flip=flip,
+                    tensors=len(manifest["tensors"]),
+                    stats=manifest["stats"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def fixture_path(dev):
+    """(f) the artifact written by the JAX package
+    (``tests/torch_fixtures/make_artifact_fixture.py``), served on the card
+    through the kernels (f32 activations: the FMA routes) with the JAX
+    engine's committed greedy streams, the fleet and the bucket-1 request
+    alone. A mismatch fails the run as it is."""
+    from repro_torch.artifacts import load_model
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import EngineConfig, SamplingParams, ServingEngine
+
+    spec = json.loads((FIXTURES / "qwen2_smoke_streams.json").read_text())
+    model, cfg, _ = load_model(FIXTURES / "qwen2_smoke_artifact",
+                               verify="full", device=dev)
+    reqs = [(r["prompt"], r["max_new_tokens"]) for r in spec["requests"]]
+
+    def run(rs, layout):
+        eng = ServingEngine(model, cfg, EngineConfig(
+            **spec["engine"], kv_layout=layout, page_size=8))
+        hs = [eng.submit(p, SamplingParams(max_new_tokens=n)) for p, n in rs]
+        eng.run()
+        return [h.output for h in hs]
+
+    reset_launch_counts()
+    got = {layout: run(reqs, layout) for layout in ("ring", "paged")}
+    solo = run([reqs[spec["solo"]["index"]]], "ring")[0]
+    counts = launch_counts()
+    for layout, streams in got.items():
+        if streams != spec["streams"]:
+            raise AssertionError(f"(f) {layout}: the port served {streams}, "
+                                 f"the JAX engine {spec['streams']}")
+    if solo != spec["solo"]["tokens"]:
+        raise AssertionError(f"(f) the bucket-1 request alone: {solo}, the "
+                             f"JAX engine {spec['solo']['tokens']}")
+    return dict(counts=counts, n=len(reqs),
+                tokens=sum(len(t) for t in spec["streams"]))
+
+
+NAN_DECODE = (2, 6)   # (request, generated-token index) NaN'd mid-dispatch
+NAN_PREFILL = 5       # request whose prefill-finisher logits are NaN'd
+
+
+def contained(model, cfg, prompts, clean, what, **ecfg):
+    """Serve ``prompts`` under the NaN plan step by step; require the two
+    victims retired "error" with the clean run's tokens so far, every
+    other stream equal to ``clean``, and each victim's slot quarantined
+    for ``quarantine_steps`` steps, then restored. Returns (engine, syncs
+    per decode dispatch, launch counts)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import SamplingParams
+    from repro_torch.serving.faults import FaultInjector, FaultPlan
+
+    (dv, dk), pv = NAN_DECODE, NAN_PREFILL
+    plan = FaultPlan().nan_logits(dv, dk).nan_logits(pv, 0)
+    eng = make_engine(model, cfg, injector=FaultInjector(plan), **ecfg)
+    syncs = count_syncs(eng)
+    reset_launch_counts()
+    hs = [eng.submit(p, SamplingParams(max_new_tokens=MAX_NEW))
+          for p in prompts]
+    history = []
+    while eng.queue or any(s is not None for s in eng.slots)             or eng.quarantined:  # idle steps let the quarantine lapse
+        eng.step()
+        history.append((eng.engine_steps, dict(eng.quarantined)))
+    counts = launch_counts()
+    for i, h in enumerate(hs):
+        want = list(clean[i])
+        if i in (dv, pv):
+            cut = dk if i == dv else 0
+            if h.finish_reason != "error" or h.output != want[:cut]:
+                raise AssertionError(f"(g) {what}: victim {i} ended "
+                                     f"{h.finish_reason!r} with "
+                                     f"{len(h.output)} tokens ({h.error})")
+        elif h.output != want:
+            raise AssertionError(f"(g) {what}: request {i} differs from the "
+                                 f"clean run")
+    cool = eng.ecfg.quarantine_steps
+    for slot in {s for _, q in history for s in q}:
+        steps = [(t, q[slot]) for t, q in history if slot in q]
+        first, until = steps[0]
+        if until != first + cool or [t for t, _ in steps] != list(
+                range(first, until)):
+            raise AssertionError(f"(g) {what}: slot {slot} quarantined at "
+                                 f"steps {[t for t, _ in steps]} until "
+                                 f"{until}, not {cool} steps")
+    if len({s for _, q in history for s in q}) != 2:
+        raise AssertionError(f"(g) {what}: quarantine history {history}")
+    return eng, syncs, counts
+
+
+def containment_path(cfg, dev, model, mp, pp):
+    """(g) containment at full width: the ring fleet with one request NaN'd
+    inside a K-step dispatch and one at its prefill finisher; then the same
+    plan on the paged layout with the shared-prefix fleet, where the
+    prefill victim's own prompt pages must stay out of the prefix cache."""
+    ring, ring_syncs, ring_counts = contained(
+        model, cfg, mp["prompts"], [r.tokens for r in mp["results"]],
+        "ring")
+    need(ring_counts, RING_PATH, "the ring containment path")
+    paged, paged_syncs, paged_counts = contained(
+        model, cfg, pp["fleet"], [r.tokens for r in pp["ring_b"]], "paged",
+        kv_layout="paged", page_size=PAGE, prefix_cache=True)
+    need(paged_counts, PAGED_PATH, "the paged containment path")
+    own = len(pp["fleet"][NAN_PREFILL]) // PAGE - SHARED_PREFIX // PAGE
+    cached = paged.alloc.cached_pages()
+    if cached != pp["cold_cached"] - own or paged.alloc.evictions:
+        raise AssertionError(f"(g) paged: {cached} pages cached, the clean "
+                             f"cold run {pp['cold_cached']}; the victim "
+                             f"owns {own}")
+    paged.alloc.check()
+    return dict(ring_syncs=ring_syncs, paged_syncs=paged_syncs,
+                errors=(ring.errors, paged.errors), own=own, cached=cached,
+                counts=(ring_counts, paged_counts))
 
 
 def decode_attention_path(cfg, dev):
@@ -1248,6 +1558,50 @@ def main() -> int:
         f"the prefix cache's pages after the drain")
     log(f"{gpu} | launches on the paged path: {pp['counts']}; per decode "
         f"step of (a)'s decode loops: {pp['per_step']}")
+
+    ar = artifact_path(cfg, dev, model, mp)
+    for layout, path in (("ring", RING_PATH), ("paged", PAGED_PATH)):
+        need(ar["runs"][layout][0], path, f"the {layout} fleet from the "
+             f"artifact")
+    b = ar["boot"]
+    log(f"{gpu} | (e) artifact: {ar['nbytes']} bytes in {ar['tensors']} "
+        f"tensors ({ar['stats']['bytes_per_weight']:.4f} B/weight); write "
+        f"{ar['write_s']:.3f}s, fsync and publish {ar['fsync_s']:.3f}s; boot "
+        f"{ar['boot_s']:.3f}s = manifest {b['manifest_read']:.4f}s, sizes "
+        f"{b['shard_size_check']:.4f}s, mmap {b['mmap']:.4f}s, verify (crc32) "
+        f"{b['checksum']:.3f}s, assemble {b['tensor_assemble']:.4f}s, copy to "
+        f"the device {b['device_copy']:.3f}s, model build "
+        f"{b['model_build']:.3f}s")
+    log(f"(e) every tensor byte-identical after the round trip; the ring and "
+        f"paged fleets from the artifact give the ring phase's tokens; a torn "
+        f"shard ({ar['cut']['shard']}, -7 bytes) fails verify='sizes', a "
+        f"flipped byte in {ar['flip']['tensor']}:{ar['flip']['buffer']} "
+        f"passes it and fails verify='full'")
+    fx = fixture_path(dev)
+    need(fx["counts"], ("ternary_matvec", "chunk_attention",
+                        "chunk_attention_paged", "rms_norm"),
+         "the JAX package's artifact")
+    log(f"(f) the JAX package's artifact: {fx['n']} requests, "
+        f"{fx['tokens']} tokens equal to the JAX engine's on the ring and "
+        f"paged layouts, and the bucket-1 request alone; launches "
+        f"{fx['counts']}")
+    cp = containment_path(cfg, dev, model, mp, pp)
+    prod = ar["runs"]["ring"][1] + ar["runs"]["paged"][1]
+    syncs = dict(prod)
+    for rebuilt, n in prod + cp["ring_syncs"] + cp["paged_syncs"]:
+        if syncs.setdefault(rebuilt, n) != n:
+            raise AssertionError(
+                f"host syncs per decode dispatch differ: production {prod}, "
+                f"with the NaN plan ring {cp['ring_syncs']} paged "
+                f"{cp['paged_syncs']} ((fleet arrays rebuilt, syncs) each)")
+    log(f"(g) containment at full width: both victims retired 'error' with "
+        f"the clean tokens so far, every other stream unchanged, both slots "
+        f"quarantined 2 steps and restored, on the ring and paged layouts; "
+        f"the paged prefill victim's {cp['own']} own prompt pages never "
+        f"entered the prefix cache ({cp['cached']} cached); host syncs per "
+        f"decode dispatch {syncs.get(False)} ({syncs.get(True)} after the "
+        f"fleet changed) with and without the injector ({len(prod)}, "
+        f"{len(cp['ring_syncs']) + len(cp['paged_syncs'])} dispatches)")
 
     dcounts, dlayers = decode_attention_path(cfg, dev)
     need(dcounts, ("decode_attention",), "the decode-attention op")

@@ -1,28 +1,34 @@
-"""Serving launcher: init weights, PTQTP-quantize every linear layer, then
-serve a batch of requests through the v1 request API.
+"""Serving launcher: boot a PTQTP model (from an artifact, or by init and
+quantization), then serve a batch of requests through the v1 request API.
 
+``python -m repro_torch.launch.serve --artifact DIR [--verify-artifact sizes]``
 ``python -m repro_torch.launch.serve --device cuda``
 ``python -m repro_torch.launch.serve --device cpu --requests 2 --max-new 4``
 ``python -m repro_torch.launch.serve --kv-layout paged --page-size 16``
 
-The batch path of ``repro.launch.serve`` with the same defaults: the smoke
-configuration of ``--arch``, group size min(128, d_model), ``--t-max``
-iterations, one request per built-in prompt, each seeded ``seed + i``.
+The batch path of ``repro.launch.serve`` with the same defaults. With
+``--artifact`` the model and its config come from the artifact's manifest
+and shards (written by either package): no floating-point weights are
+built and nothing is quantized; the boot time is printed by phase.
+Without it: the smoke configuration of ``--arch``, group size min(128,
+d_model), ``--t-max`` iterations. One request per built-in prompt, each
+seeded ``seed + i``.
 """
 
 from __future__ import annotations
 
 import argparse
-import time
 
 import torch
 
 from repro_torch import configs
+from repro_torch.artifacts import load_model
 from repro_torch.core.ptqtp import PTQTPConfig
 from repro_torch.core.quantize_model import quantize_tree
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
+from repro_torch.runtime import clock as rtclock
 from repro_torch.serving import EngineConfig, SamplingParams, ServingEngine
 
 PROMPTS = [
@@ -41,6 +47,17 @@ def _sync(dev):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", choices=configs.ARCH_IDS, default="qwen2-1.5b")
+    ap.add_argument("--artifact", default=None, metavar="PATH",
+                    help="boot from a trit-plane artifact (written by "
+                         "repro_torch.launch.quantize or repro's) instead of "
+                         "init+quantize; --arch and the quantize flags are "
+                         "ignored")
+    ap.add_argument("--verify-artifact", nargs="?", const="full",
+                    choices=("off", "sizes", "full"), default="off",
+                    help="artifact integrity check at boot: 'sizes' "
+                         "stat-checks shard lengths without reading tensor "
+                         "bytes; 'full' (also the value when the flag is "
+                         "given bare) re-checksums every buffer")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0,
@@ -80,20 +97,33 @@ def main(argv=None):
                  f"pages (--page-size {args.page_size})")
 
     dev = resolve_device(args.device)
-    cfg = configs.get_smoke_config(args.arch)
-    t_boot = time.time()
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    model = init_params(cfg, gen, device=dev)
-    if not args.no_quantize:
-        t0 = time.time()
-        gs = min(128, cfg.d_model)
-        model, report = quantize_tree(
-            model, PTQTPConfig(group_size=gs, t_max=args.t_max))
-        _sync(dev)
-        tot = report["__total__"]
-        print(f"[serve] PTQTP: {tot['n_quantized']} kernels, "
-              f"{tot['compression']:.2f}x compression, "
-              f"{time.time() - t0:.1f}s")
+    t_boot = rtclock.now()
+    if args.artifact:
+        boot = {}
+        model, cfg, manifest = load_model(
+            args.artifact, verify=args.verify_artifact, device=dev,
+            timings=boot)
+        stats = manifest.get("stats", {})
+        print(f"[serve] artifact: {manifest['arch']} "
+              f"({stats.get('n_quantized', '?')} quantized kernels, "
+              f"{stats.get('total_bytes', 0) / 1e6:.2f} MB; verify "
+              f"{args.verify_artifact})")
+        print("[serve] boot by phase: " + ", ".join(
+            f"{k} {1e3 * v:.1f}ms" for k, v in boot.items()))
+    else:
+        cfg = configs.get_smoke_config(args.arch)
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        model = init_params(cfg, gen, device=dev)
+        if not args.no_quantize:
+            t0 = rtclock.now()
+            gs = min(128, cfg.d_model)
+            model, report = quantize_tree(
+                model, PTQTPConfig(group_size=gs, t_max=args.t_max))
+            _sync(dev)
+            tot = report["__total__"]
+            print(f"[serve] PTQTP: {tot['n_quantized']} kernels, "
+                  f"{tot['compression']:.2f}x compression, "
+                  f"{rtclock.now() - t0:.1f}s")
 
     tok = ByteTokenizer()
     engine = ServingEngine(model, cfg, EngineConfig(
@@ -101,7 +131,7 @@ def main(argv=None):
         prefill_chunk=args.prefill_chunk, kv_layout=args.kv_layout,
         page_size=args.page_size, max_pages=args.max_pages,
         prefix_cache=args.prefix_cache))
-    print(f"[serve] boot {time.time() - t_boot:.2f}s on {dev}", flush=True)
+    print(f"[serve] boot {rtclock.now() - t_boot:.2f}s on {dev}", flush=True)
 
     handles = []
     for i in range(args.requests):
@@ -115,10 +145,10 @@ def main(argv=None):
                   f"last {args.capacity} tokens will be served")
         handles.append(h)
 
-    t0 = time.time()
+    t0 = rtclock.now()
     engine.run()
     _sync(dev)
-    dt = time.time() - t0
+    dt = rtclock.now() - t0
     results = [h.result() for h in handles]
     n_tok = sum(len(r.tokens) for r in results)
     print(f"[serve] {len(results)} requests, {n_tok} tokens in {dt:.2f}s "

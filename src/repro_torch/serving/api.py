@@ -15,15 +15,16 @@ prefill/decode chunk sizes.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, FrozenSet, Iterable, Iterator, List, Optional
+
+from repro_torch.runtime import clock as rtclock
 
 FINISH_STOP = "stop"          # hit a stop-token id (incl. EngineConfig.eos_id)
 FINISH_LENGTH = "length"      # produced max_new_tokens
 FINISH_CANCELLED = "cancelled"
-FINISH_TIMEOUT = "timeout"    # deadline expired (not implemented by the port yet)
-FINISH_REJECTED = "rejected"  # shed at submit (paged: the pool can never hold it)
-FINISH_ERROR = "error"        # fault contained to this request
+FINISH_TIMEOUT = "timeout"    # deadline_s / ttft_deadline_s expired
+FINISH_REJECTED = "rejected"  # shed at submit by admission control
+FINISH_ERROR = "error"        # fault contained to this request (see .error)
 
 FINISH_REASONS = (FINISH_STOP, FINISH_LENGTH, FINISH_CANCELLED,
                   FINISH_TIMEOUT, FINISH_REJECTED, FINISH_ERROR)
@@ -32,8 +33,11 @@ FINISH_REASONS = (FINISH_STOP, FINISH_LENGTH, FINISH_CANCELLED,
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
     """Frozen per-request generation parameters (see the reference for the
-    full field documentation). ``deadline_s``/``ttft_deadline_s`` exist for
-    API compatibility; the port's engine rejects requests that set them."""
+    full field documentation). ``deadline_s`` is an end-to-end budget from
+    submit and ``ttft_deadline_s`` a budget for the first token; the engine
+    sweeps them at the start of every step and retires an expired request
+    with reason ``"timeout"``, keeping the tokens it produced (``None``
+    disables either)."""
 
     max_new_tokens: int = 16
     temperature: float = 0.0
@@ -155,5 +159,6 @@ def make_handle(engine: Any, prompt: Any, params: Optional[SamplingParams],
                       params if params is not None else SamplingParams())
     if not h.prompt:
         raise ValueError("empty prompt")
-    h.t_submit = time.monotonic()
+    # provisional stamp; the engine's own clock overwrites it at submit()
+    h.t_submit = rtclock.now()
     return h

@@ -21,15 +21,24 @@ depend on the fleet, for the ring and the paged layout. The split-KV
 attention kernel gives a row the same bits alone and in a batch of 8 with
 other fills, in an L = 1 call and at l = 0 of an L = 64 call with length 1,
 over the ring and over a paged pool (B2, B4), and over B5's int8 ring.
+A quantized model written to an artifact and loaded onto the card holds
+byte-identical tensors and serves the same tokens; an engine with a fault
+injector contains a NaN row with one host sync per decode dispatch, as
+one without does, and only the injector's engine runs the poison.
 """
 
 import dataclasses
+import warnings
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import configs
+from repro_torch.artifacts import (ArtifactWriter, format as afmt,
+                                   load_model)
+from repro_torch.convert import to_reference_tree
+from repro_torch.core.quantize_model import QuantizedKernel
 from repro_torch.core.packing import pack_trits
 from repro_torch.core.ptqtp import PTQTPConfig
 from repro_torch.core.quantize_model import quantize_tree
@@ -46,6 +55,7 @@ from repro_torch.kernels.ternary_matmul import ops as tm_ops
 from repro_torch.kernels.ternary_matmul import ref as tm_ref
 from repro_torch.models import init_params
 from repro_torch.serving import EngineConfig, SamplingParams, ServingEngine
+from repro_torch.serving.faults import FaultInjector, FaultPlan
 
 pytestmark = pytest.mark.cuda
 
@@ -453,3 +463,116 @@ def test_paged_engine_is_fleet_invariant_and_equals_ring(cuda):
     assert serve(range(4), 2, "ring")[0] == fleet
     for i in range(4):
         assert serve([i], 1, "paged")[0][0] == fleet[i]
+
+
+def _quantized_smoke(dev):
+    cfg = configs.get_smoke_config("qwen2-1.5b")
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    model, _ = quantize_tree(model, PTQTPConfig(group_size=64, t_max=5))
+    return model, cfg
+
+
+def test_artifact_round_trip_on_the_card(cuda, tmp_path):
+    """A model quantized on the card, written through ArtifactWriter and
+    loaded back onto the card (crc32 checked): every tensor equal byte for
+    byte, and the same greedy tokens."""
+    model, cfg = _quantized_smoke(cuda)
+    w = ArtifactWriter(tmp_path / "a", arch="qwen2-1.5b",
+                       model_config=afmt.model_config_to_json(cfg),
+                       ptqtp_config=afmt.ptqtp_config_to_json(
+                           PTQTPConfig(group_size=64, t_max=5)))
+    for path, leaf in afmt.iter_tree_leaves(to_reference_tree(model, cfg)):
+        if isinstance(leaf, QuantizedKernel):
+            w.add_quantized(path, leaf, source_shape=tuple(
+                leaf.t1p.shape[:-2]) + (leaf.d_in, leaf.d_out),
+                source_dtype=cfg.param_dtype)
+        else:
+            w.add_fp(path, leaf)
+    timings = {}
+    loaded, lcfg, _ = load_model(w.finalize(), verify="full", device=cuda,
+                                 timings=timings)
+    assert lcfg == cfg and "device_copy" in timings
+    a, b = model.state_dict(), loaded.state_dict()
+    assert list(a) == list(b)
+    for k in a:
+        assert b[k].is_cuda and torch.equal(a[k], b[k]), k
+    prompts = [[5, 9, 17, 2], list(range(1, 70)), [7]]
+
+    def serve(m):
+        eng = ServingEngine(m, cfg, EngineConfig(max_slots=3, capacity=128))
+        hs = [eng.submit(p, SamplingParams(max_new_tokens=6)) for p in prompts]
+        eng.run()
+        return [h.output for h in hs]
+
+    assert serve(loaded) == serve(model)
+
+
+def _decode_profile(eng):
+    """Wrap the engine's decode loop: per call, whether the fleet's arrays
+    were rebuilt (copied to the device anew), the host syncs it made
+    (``torch.cuda`` sync-debug warnings) and the kernels the device ran
+    (``torch.profiler`` events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    inner, calls = eng._decode_loop, []
+
+    def traced(n_steps, poison=None):
+        rebuilt = eng._slot_arrays is None
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen, \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = inner(n_steps, poison)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        kernels = sum(e.count for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        syncs = sum("called a synchronizing" in str(m.message)
+                    for m in seen)
+        calls.append((n_steps, (rebuilt, syncs), kernels))
+        return out
+
+    eng._decode_loop = traced
+    return calls
+
+
+def test_nan_containment_on_the_card(cuda):
+    """A NaN row poisoned inside a 4-step dispatch retires "error" with the
+    clean run's tokens so far; its neighbour is unchanged; a decode
+    dispatch syncs the host twice (its inputs in, tokens and flags out;
+    more after the fleet changed, the per-slot arrays), with or without
+    an injector; the injector's engine runs more device kernels (the
+    poison), the production engine none of them."""
+    model, cfg = _quantized_smoke(cuda)
+    prompts = [[5, 9, 17, 2], [1, 2, 3]]
+    out = {}
+    for plan in (None, FaultPlan(), FaultPlan().nan_logits(1, 2)):
+        eng = ServingEngine(
+            model, cfg, EngineConfig(max_slots=2, capacity=64,
+                                     decode_chunk=4),
+            injector=None if plan is None else FaultInjector(plan))
+        calls = _decode_profile(eng)
+        hs = [eng.submit(p, SamplingParams(max_new_tokens=9))
+              for p in prompts]
+        eng.run()
+        out["none" if plan is None else len(plan.nans)] = (
+            [(h.output, h.finish_reason) for h in hs], calls,
+            dict(eng.quarantined))
+    clean, calls_clean, _ = out["none"]
+    empty, calls_inj, _ = out[0]
+    (keep, victim), calls_nan, quarantined = out[1]
+    assert empty == clean
+    assert keep == clean[0]
+    assert victim == (clean[1][0][:2], "error")
+    assert quarantined == {1: 1 + 2}  # step 1 + quarantine_steps
+    syncs = {}
+    for calls in (calls_clean, calls_inj, calls_nan):
+        for _, (rebuilt, n), _ in calls:
+            assert syncs.setdefault(rebuilt, n) == n, (calls_clean, calls_nan)
+    assert syncs[False] == 2, syncs
+    assert [c[0] for c in calls_clean] == [c[0] for c in calls_inj]
+    assert all(k_inj > k for (_, _, k), (_, _, k_inj)
+               in zip(calls_clean, calls_inj))

@@ -133,15 +133,20 @@ def test_stop_ids_and_cancel(quantized):
     assert h.result().tokens == first[:first.index(first[2]) + 1]
 
 
-def test_unported_options_raise(quantized):
-    for field, value in (("max_resident_tokens", 64), ("max_queue", 4),
-                         ("preunpack_decode", True)):
-        with pytest.raises(NotImplementedError, match=field):
-            EngineConfig(**{field: value})
-    model, cfg = _port(quantized)
-    eng = ServingEngine(model, cfg, EngineConfig(**ENGINE))
-    with pytest.raises(NotImplementedError, match="deadline"):
-        eng.submit([1, 2], SamplingParams(deadline_s=1.0))
+@pytest.mark.parametrize("option", ["observability", "attn_backend",
+                                    "preunpack_decode"])
+def test_unported_options_raise(quantized, option):
+    """What the port still lacks raises where it is asked for (admission
+    caps, deadlines and quarantine are ported: tests/test_torch_faults.py)."""
+    if option == "observability":
+        model, cfg = _port(quantized)
+        with pytest.raises(NotImplementedError, match="observability"):
+            ServingEngine(model, cfg, EngineConfig(**ENGINE),
+                          observability=object())
+        return
+    value = {"attn_backend": "pallas", "preunpack_decode": True}[option]
+    with pytest.raises(NotImplementedError, match=option):
+        EngineConfig(**{option: value})
 
 
 def test_sampled_streams_equal_reference_engine(quantized):
@@ -337,7 +342,8 @@ def test_draws_are_position_addressed_and_follow_softmax():
 # ---------------------------------------------------------------- isolation
 def test_port_imports_neither_jax_nor_the_reference():
     """Importing every module of the port (and chip_smoke.py) loads no
-    ``jax`` and no ``repro`` module."""
+    ``jax`` and no ``repro`` module; the artifact store, the clock, the
+    fault harness and both launchers among them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -348,7 +354,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "for m in ('serving.paging', 'kernels.ptqtp_search.ops', "
-        "'kernels.decode_attention.ops'):\n"
+        "'kernels.decode_attention.ops', 'artifacts.format', "
+        "'artifacts.reader', 'artifacts.writer', 'runtime.clock', "
+        "'serving.faults', 'launch.quantize', 'launch.serve'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
