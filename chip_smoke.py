@@ -67,6 +67,26 @@ Run from the root of a checkout. Phases (any failure exits non-zero):
      PyTorch library call computing the same function where one exists,
      and its bound; and the threefry sampling draw per decode step.
 
+Every serving phase runs through the engine's CUDA graphs (one per
+dispatch key, captured at first use or by ``warmup()``; the timed fleets
+are warmed first, and the main fleet must capture nothing more). Since
+slice 7 also:
+
+ 11. the host syncs of every replayed decode dispatch of phases 4, (e) and
+     (g): exactly one, also right after the fleet changed;
+ 12. graph against eager (the same bodies, capture off): the main fleet
+     on the ring and paged layouts, greedy and sampled (temperature 0.8,
+     top-k/top-p on some rows), equal streams, decode tok/s and ms a step
+     of both;
+ 13. the main fleet traced and untraced: equal streams, tok/s of both;
+ 14. ``SerialAdmitEngine`` (one graph per prompt length): the bucketed
+     engine's streams;
+ 15. C.2: the unquantized bf16 model served in the main fleet and alone
+     for the longest and the bucket-1 request: equal streams.
+
+Each phase's engines and graph pools are freed before the next; the run's
+total seconds are printed.
+
 Output: progress lines, then a ``{"kernels": [...]}`` JSON line, the
 ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -687,17 +707,25 @@ def final_buckets(lens):
     return out
 
 
-def make_engine(model, cfg, injector=None, **ecfg):
-    """A ``ServingEngine`` whose decode loops are timed and whose kernel
-    launches inside them are counted (``eng.smoke``)."""
+def make_engine(model, cfg, injector=None, *, warm=False, capture=True,
+                observability=None, cls=None, **ecfg):
+    """A ``ServingEngine`` (or ``cls``) whose decode dispatches are timed
+    and whose kernel launches inside them are counted (``eng.smoke``).
+    ``warm`` captures every dispatch first (``warmup()``), so a timed
+    fleet replays graphs only; ``capture=False`` runs the same bodies
+    eagerly (the eager-vs-graph comparison)."""
     from repro_torch.kernels import launch_counts
     from repro_torch.serving import EngineConfig, ServingEngine
 
-    eng = ServingEngine(model, cfg, EngineConfig(
+    eng = (cls or ServingEngine)(model, cfg, EngineConfig(
         max_slots=SLOTS, capacity=CAPACITY, prefill_chunk=PREFILL_CHUNK,
-        decode_chunk=DECODE_CHUNK, **ecfg), injector=injector)
+        decode_chunk=DECODE_CHUNK, **ecfg), injector=injector,
+        observability=observability)
+    eng._capture = capture
     eng.smoke = dict(decode_s=0.0, in_decode=dict.fromkeys(launch_counts(),
                                                            0))
+    if warm:
+        warmup(eng)
     inner = eng._decode_loop
 
     def timed(n_steps, poison=None):  # ends in a host sync: wall = device
@@ -713,12 +741,52 @@ def make_engine(model, cfg, injector=None, **ecfg):
     return eng
 
 
-def serve_on(eng, prompts, max_new=MAX_NEW):
-    """Serve ``prompts`` greedily on ``eng``; returns their results."""
+def warmup(eng):
+    """``eng.warmup()`` with the card's reserved bytes read around it after
+    emptying the allocator's cache: what the graphs' pool keeps (plus the
+    few static input buffers). Stored in ``eng.smoke``."""
+    import torch
+
+    gc_free()
+    r0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    eng.smoke["warmup_s"] = time.perf_counter() - t0
+    gc_free()
+    eng.smoke["pool_bytes"] = torch.cuda.memory_reserved() - r0
+    eng.smoke["compiled"] = eng.compile_stats()
+
+
+def gc_free():
+    """Free what dead engines hold (graphs and their pools included)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def sampled_params(n, max_new=MAX_NEW):
+    """Temperature 0.8 for every request, top-k and/or top-p on some."""
     from repro_torch.serving import SamplingParams
 
-    handles = [eng.submit(p, SamplingParams(max_new_tokens=max_new))
-               for p in prompts]
+    return [SamplingParams(max_new_tokens=max_new, temperature=0.8, seed=i,
+                           top_k=50 if i % 2 else 0,
+                           top_p=0.9 if i % 3 == 0 else 1.0)
+            for i in range(n)]
+
+
+def serve_on(eng, prompts, max_new=MAX_NEW, params=None):
+    """Serve ``prompts`` on ``eng``, greedily unless ``params`` are given;
+    returns their results."""
+    from repro_torch.serving import SamplingParams
+
+    params = params or [SamplingParams(max_new_tokens=max_new)
+                        for _ in prompts]
+    handles = [eng.submit(p, sp) for p, sp in zip(prompts, params)]
     eng.run()
     return [h.result() for h in handles]
 
@@ -728,12 +796,12 @@ def per_step(eng):
     return {k: n / max(eng.steps, 1) for k, n in eng.smoke["in_decode"].items()}
 
 
-def serve(model, cfg, prompts, max_new=MAX_NEW, **ecfg):
-    """Serve ``prompts`` greedily on a fresh engine; returns (results,
-    decode seconds, decode tokens, kernel launches per decode step,
-    engine)."""
+def serve(model, cfg, prompts, max_new=MAX_NEW, params=None, **ecfg):
+    """Serve ``prompts`` (greedy unless ``params``) on a fresh engine;
+    returns (results, decode seconds, decode tokens, kernel launches per
+    decode step, engine)."""
     eng = make_engine(model, cfg, **ecfg)
-    results = serve_on(eng, prompts, max_new)
+    results = serve_on(eng, prompts, max_new, params)
     return (results, eng.smoke["decode_s"],
             eng.tokens_generated - len(prompts), per_step(eng), eng)
 
@@ -743,10 +811,20 @@ def main_path(cfg, dev, model):
 
     prompts = make_prompts(cfg)
     reset_launch_counts()
+    eng = make_engine(model, cfg, warm=True)
+    syncs = count_syncs(eng)
     t0 = time.perf_counter()
-    results, decode_s, decode_tok, per_step, eng = serve(model, cfg, prompts)
+    results = serve_on(eng, prompts)
     wall = time.perf_counter() - t0
     counts = launch_counts()
+    decode_s, decode_tok = eng.smoke["decode_s"], eng.tokens_generated - len(
+        prompts)
+    # warmup() left nothing for the fleet to capture
+    compiled = {k: v for k, v in eng.compile_stats().items()
+                if k not in ("admits", "prefill_steps")}
+    if any(eng.smoke["compiled"][k] != v for k, v in compiled.items()):
+        raise AssertionError(f"the fleet compiled more after warmup(): "
+                             f"{eng.smoke['compiled']} -> {compiled}")
     bad = [r.uid for r in results
            if r.finish_reason not in ("length", "stop") or not r.tokens]
     if bad:
@@ -770,7 +848,11 @@ def main_path(cfg, dev, model):
     return dict(counts=counts,
                 wall=wall, decode_s=decode_s, decode_tok=decode_tok,
                 ttft=ttft, engine=eng, prompts=prompts, results=results,
-                per_step=per_step,
+                per_step=per_step(eng), graphs=eng.graph_stats(),
+                steps=eng.steps, syncs=syncs,
+                warmup_s=eng.smoke["warmup_s"],
+                pool_bytes=eng.smoke["pool_bytes"],
+                compiled=eng.smoke["compiled"],
                 solo=dict(longest=(longest, len(prompts[longest])),
                           bucket_1=(one[0], len(prompts[one[0]]),
                                     fleet_buckets[one[0]])))
@@ -803,15 +885,15 @@ def paged_path(cfg, dev, model, mp):
     reset_launch_counts()
     # (a) the ring path's fleet
     res_a, dec_s, dec_tok, steps_a, eng_a = serve(model, cfg, mp["prompts"],
-                                                  **paged)
+                                                  warm=True, **paged)
     same(res_a, mp["results"], "(a) main fleet")
     # (b) the shared-prefix fleet, cold (all admitted at once: nothing is
     # cached yet), then warm on an engine where one request has published
     # the prefix
-    cold_eng = make_engine(model, cfg, **paged)
+    cold_eng = make_engine(model, cfg, warm=True, **paged)
     cold = serve_on(cold_eng, fleet)
     same(cold, ring_b, "(b) cold shared-prefix fleet")
-    eng = make_engine(model, cfg, **paged)
+    eng = make_engine(model, cfg, warm=True, **paged)
     serve_on(eng, [prefix + [1]], 1)
     pf0 = eng.prefill_tokens
     warm = serve_on(eng, fleet)
@@ -836,6 +918,9 @@ def paged_path(cfg, dev, model, mp):
             raise AssertionError(f"{e.alloc.used_pages()} pages in use after "
                                  f"the drain, {e.alloc.cached_pages()} cached")
     return dict(counts=counts, per_step=steps_a, decode_s=dec_s,
+                tokens_a=[r.tokens for r in res_a], steps=eng_a.steps,
+                warmup_s=eng_a.smoke["warmup_s"],
+                pool_bytes=eng_a.smoke["pool_bytes"],
                 decode_tok=dec_tok, ttft=sorted(r.ttft for r in res_a),
                 ttft_cold=sorted(r.ttft for r in cold),
                 ttft_warm=sorted(r.ttft for r in warm), hits=hits,
@@ -849,11 +934,12 @@ def paged_path(cfg, dev, model, mp):
 
 # ------------------------------------------------- phases 8-10: slice 6
 def count_syncs(eng):
-    """Count the host syncs of each of ``eng``'s decode dispatches
-    (``torch.cuda``'s sync-debug warnings; a blocking copy to the device
+    """Count the host syncs of each of ``eng``'s decode dispatches replayed
+    from a graph (``torch.cuda``'s sync-debug warnings; a blocking copy
     counts as one too). Returns the list that fills, one (fleet arrays
-    rebuilt, syncs) pair a dispatch: a dispatch after the fleet changed
-    also copies the per-slot arrays to the device."""
+    rebuilt, syncs) pair a replay: a dispatch after the fleet changed also
+    sends the per-slot arrays. A dispatch whose graph was captured in the
+    call (which synchronizes for the capture) is left out."""
     import warnings
 
     import torch
@@ -862,6 +948,7 @@ def count_syncs(eng):
 
     def counted(n_steps, poison=None):
         rebuilt = eng._slot_arrays is None
+        graphs = len(eng._loop_cache)
         with warnings.catch_warnings(record=True) as seen:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
@@ -869,8 +956,9 @@ def count_syncs(eng):
                 out = inner(n_steps, poison)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
-        per_dispatch.append((rebuilt, sum(
-            "called a synchronizing" in str(w.message) for w in seen)))
+        if len(eng._loop_cache) == graphs:
+            per_dispatch.append((rebuilt, sum(
+                "called a synchronizing" in str(w.message) for w in seen)))
         return out
 
     eng._decode_loop = counted
@@ -1132,6 +1220,150 @@ def containment_path(cfg, dev, model, mp, pp):
     return dict(ring_syncs=ring_syncs, paged_syncs=paged_syncs,
                 errors=(ring.errors, paged.errors), own=own, cached=cached,
                 counts=(ring_counts, paged_counts))
+
+
+# ---------------------------------------------- phases 11-16: slice 7
+def graphs_path(cfg, dev, model, mp, pp):
+    """Graph against eager, in this run: the main fleet and the paged fleet
+    (a), greedy and sampled (temperature 0.8, top-k/top-p on some rows),
+    each served by an engine whose dispatches are CUDA graphs and by one
+    that runs the same bodies eagerly; the streams must be equal. The
+    greedy graph runs are those of phases 4 and 5; the sampled graph
+    engines are warmed first too. Returns the decode seconds and tokens
+    and the TTFTs of each run."""
+    out = {}
+    for layout in ("ring", "paged"):
+        kw = {} if layout == "ring" else dict(kv_layout="paged",
+                                              page_size=PAGE)
+        graph_greedy = mp if layout == "ring" else pp
+        for mode in ("greedy", "sampled"):
+            params = None if mode == "greedy" else sampled_params(
+                len(mp["prompts"]))
+            runs = {}
+            for capture in ((False,) if mode == "greedy" else (True, False)):
+                res, dec_s, dec_tok, _, eng = serve(
+                    model, cfg, mp["prompts"], params=params, warm=capture,
+                    capture=capture, **kw)
+                runs[capture] = dict(
+                    tokens=[r.tokens for r in res], decode_s=dec_s,
+                    decode_tok=dec_tok, ttft=sorted(r.ttft for r in res),
+                    steps=eng.steps)
+                del eng
+                gc_free()
+            if mode == "greedy":
+                runs[True] = dict(
+                    tokens=[r.tokens for r in mp["results"]]
+                    if layout == "ring" else pp["tokens_a"],
+                    decode_s=graph_greedy["decode_s"],
+                    decode_tok=graph_greedy["decode_tok"],
+                    ttft=graph_greedy["ttft"], steps=graph_greedy["steps"])
+            if runs[True]["tokens"] != runs[False]["tokens"]:
+                bad = [i for i, (g, e) in enumerate(zip(
+                    runs[True]["tokens"], runs[False]["tokens"])) if g != e]
+                raise AssertionError(f"{layout} {mode}: graph and eager "
+                                     f"streams differ for requests {bad}")
+            out[(layout, mode)] = runs
+    return out
+
+
+def traced_path(cfg, dev, model, mp):
+    """The main fleet on warmed engines with tracing on, then with the
+    default (registry-only) bundle: streams equal to phase 4's, the
+    trace's events, and each run's decode tok/s (phase 4's run is the
+    first untraced one)."""
+    from repro_torch.serving import Observability
+
+    want = [r.tokens for r in mp["results"]]
+    rates = {True: [], False: []}
+    events = 0
+    for trace in (True, False):
+        eng = make_engine(model, cfg, warm=True,
+                          observability=Observability(trace=trace))
+        got = [r.tokens for r in serve_on(eng, mp["prompts"])]
+        if got != want:
+            raise AssertionError(f"trace={trace}: the fleet gave other "
+                                 f"tokens")
+        rates[trace].append((eng.tokens_generated - len(want))
+                            / eng.smoke["decode_s"])
+        if trace:
+            events = len(eng.obs.trace)
+            health = eng.health().summary()
+        del eng
+        gc_free()
+    return dict(rates=rates, events=events, health=health)
+
+
+def serial_path(cfg, dev, model, mp):
+    """``SerialAdmitEngine`` (one graph per prompt length, each request
+    prefilled alone) on the main fleet: the bucketed engine's streams."""
+    from repro_torch.serving import SerialAdmitEngine
+
+    eng = make_engine(model, cfg, cls=SerialAdmitEngine)
+    t0 = time.perf_counter()
+    res = serve_on(eng, mp["prompts"])
+    wall = time.perf_counter() - t0
+    got = [r.tokens for r in res]
+    want = [r.tokens for r in mp["results"]]
+    if got != want:
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        raise AssertionError(f"serial admission: requests {bad} differ from "
+                             f"the bucketed engine's tokens")
+    stats = eng.compile_stats()
+    if stats["n_prefill_compiles"] != len({len(p) for p in mp["prompts"]}):
+        raise AssertionError(f"serial prefill dispatches: {stats}")
+    return dict(wall=wall, ttft=sorted(r.ttft for r in res), stats=stats,
+                capture_s=eng.graph_stats()["capture_s"],
+                decode_s=eng.smoke["decode_s"],
+                decode_tok=eng.tokens_generated - len(res))
+
+
+def dense_path(cfg, dev, mp):
+    """C.2: the unquantized bf16 model (``--no-quantize``'s path, dense
+    layers on ``models.common.dense``) served in the main fleet and alone
+    for the longest request and the one whose last prefill chunk is bucket
+    1 alone (a wider bucket, so another GEMM m, in the fleet): equal
+    streams. Returns the fleet's decode time and TTFTs."""
+    import torch
+
+    from repro_torch.models import common, init_params
+
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    # why the fixed-shape blocks: for each linear layer of a block and the
+    # lm_head, rows 0-7 of a 512-row product (a prefill bucket of 64 in the
+    # fleet) against the same rows alone (bucket 1), through one F.linear
+    # and through the row blocks
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    block = model.layers[0]
+    plain = {}
+    for name, layer in (("wq", block.attn.wq), ("wk", block.attn.wk),
+                        ("wo", block.attn.wo), ("wi", block.mlp.wi),
+                        ("mlp.wo", block.mlp.wo), ("lm_head", model.lm_head)):
+        x = torch.randn((512, layer.d_in), generator=gen, device=dev).to(
+            torch.bfloat16)
+        w = layer.weight
+        plain[name] = int((torch.nn.functional.linear(x[:8], w)
+                           != torch.nn.functional.linear(x, w)[:8]).sum())
+        fixed = int((common.dense(layer, x[:8])
+                     != common.dense(layer, x)[:8]).sum())
+        if fixed:
+            raise AssertionError(f"C.2: the fixed-row dense route's {name} "
+                                 f"rows differ alone and in a 512-row call "
+                                 f"({fixed} elements)")
+    prompts = mp["prompts"]
+    res, dec_s, dec_tok, _, eng = serve(model, cfg, prompts, warm=True)
+    del eng
+    longest, one = mp["solo"]["longest"][0], mp["solo"]["bucket_1"][0]
+    for i in (longest, one):
+        solo = serve(model, cfg, [prompts[i]])[0][0].tokens
+        if solo != res[i].tokens:
+            raise AssertionError(f"C.2: dense request {i} alone gave "
+                                 f"{solo}, in the fleet {res[i].tokens}")
+    del model
+    gc_free()
+    return dict(decode_s=dec_s, decode_tok=dec_tok,
+                ttft=sorted(r.ttft for r in res), longest=longest, one=one,
+                plain_diff=plain)
 
 
 def decode_attention_path(cfg, dev):
@@ -1528,6 +1760,16 @@ def main() -> int:
         f"dispatches)")
     log(f"{gpu} | launches on the ring path: {counts}; per decode step of "
         f"its decode loops: {mp['per_step']}")
+    log(f"{gpu} | warmup() captured {mp['compiled']['n_prefill_compiles']} "
+        f"prefill + {mp['compiled']['n_decode_compiles']} decode graphs in "
+        f"{mp['warmup_s']:.2f}s ({mp['graphs']['capture_s']:.2f}s of "
+        f"capture), graph pool {mp['pool_bytes']} bytes reserved; the fleet "
+        f"captured nothing more; host ms per decode step "
+        f"{1e3 * mp['decode_s'] / decode_steps:.3f}")
+    log("capture seconds (kind, key, s, replays, launches a replay): "
+        + "; ".join(f"{d['kind']} {d['key']} {d['capture_s']:.3f} "
+                    f"{d['replays']} {d['launches']}"
+                    for d in mp["graphs"]["dispatches"]))
     (li, ll), (oi, ol, ob) = mp["solo"]["longest"], mp["solo"]["bucket_1"]
     log(f"solo == fleet tokens for request {li} (longest prompt, {ll} "
         f"tokens) and request {oi} ({ol} tokens: last prefill chunk in "
@@ -1535,6 +1777,7 @@ def main() -> int:
     mp.pop("engine")
     log(split_line(cfg, mp["per_step"]["chunk_attention"]))
 
+    gc_free()
     pp = paged_path(cfg, dev, model, mp)
     need(pp["counts"], PAGED_PATH, "the paged serving path")
     if pp["counts"]["chunk_attention"]:
@@ -1559,6 +1802,7 @@ def main() -> int:
     log(f"{gpu} | launches on the paged path: {pp['counts']}; per decode "
         f"step of (a)'s decode loops: {pp['per_step']}")
 
+    gc_free()
     ar = artifact_path(cfg, dev, model, mp)
     for layout, path in (("ring", RING_PATH), ("paged", PAGED_PATH)):
         need(ar["runs"][layout][0], path, f"the {layout} fleet from the "
@@ -1577,6 +1821,7 @@ def main() -> int:
         f"shard ({ar['cut']['shard']}, -7 bytes) fails verify='sizes', a "
         f"flipped byte in {ar['flip']['tensor']}:{ar['flip']['buffer']} "
         f"passes it and fails verify='full'")
+    gc_free()
     fx = fixture_path(dev)
     need(fx["counts"], ("ternary_matvec", "chunk_attention",
                         "chunk_attention_paged", "rms_norm"),
@@ -1585,8 +1830,10 @@ def main() -> int:
         f"{fx['tokens']} tokens equal to the JAX engine's on the ring and "
         f"paged layouts, and the bucket-1 request alone; launches "
         f"{fx['counts']}")
+    gc_free()
     cp = containment_path(cfg, dev, model, mp, pp)
     prod = ar["runs"]["ring"][1] + ar["runs"]["paged"][1]
+    prod = prod + mp["syncs"]
     syncs = dict(prod)
     for rebuilt, n in prod + cp["ring_syncs"] + cp["paged_syncs"]:
         if syncs.setdefault(rebuilt, n) != n:
@@ -1594,6 +1841,9 @@ def main() -> int:
                 f"host syncs per decode dispatch differ: production {prod}, "
                 f"with the NaN plan ring {cp['ring_syncs']} paged "
                 f"{cp['paged_syncs']} ((fleet arrays rebuilt, syncs) each)")
+    if syncs != {False: 1, True: 1}:
+        raise AssertionError(f"host syncs per replayed decode dispatch "
+                             f"(fleet arrays rebuilt: syncs) {syncs}, not 1")
     log(f"(g) containment at full width: both victims retired 'error' with "
         f"the clean tokens so far, every other stream unchanged, both slots "
         f"quarantined 2 steps and restored, on the ring and paged layouts; "
@@ -1603,6 +1853,43 @@ def main() -> int:
         f"fleet changed) with and without the injector ({len(prod)}, "
         f"{len(cp['ring_syncs']) + len(cp['paged_syncs'])} dispatches)")
 
+    gc_free()
+    gp = graphs_path(cfg, dev, model, mp, pp)
+    for (layout, mode), runs in gp.items():
+        g, e = runs[True], runs[False]
+        log(f"{gpu} | graph vs eager, {layout} {mode}: equal streams; decode "
+            f"{g['decode_tok'] / g['decode_s']:.1f} vs "
+            f"{e['decode_tok'] / e['decode_s']:.1f} tok/s, "
+            f"{1e3 * g['decode_s'] / g['steps']:.3f} vs "
+            f"{1e3 * e['decode_s'] / e['steps']:.3f} ms a decode step; TTFT "
+            f"median {med(g['ttft']):.3f} vs {med(e['ttft']):.3f}s, max "
+            f"{g['ttft'][-1]:.3f} vs {e['ttft'][-1]:.3f}s")
+    gc_free()
+    tp = traced_path(cfg, dev, model, mp)
+    log(f"{gpu} | traced vs untraced: equal streams; decode tok/s traced "
+        f"{tp['rates'][True][0]:.1f}, untraced {tp['rates'][False][0]:.1f} "
+        f"(phase 4: {mp['decode_tok'] / mp['decode_s']:.1f}); "
+        f"{tp['events']} trace events; health: {tp['health']}")
+    gc_free()
+    sp = serial_path(cfg, dev, model, mp)
+    log(f"{gpu} | SerialAdmitEngine: the bucketed engine's streams; "
+        f"{sp['stats']['n_prefill_compiles']} prefill graphs (one per prompt "
+        f"length, {sp['capture_s']:.2f}s of capture in all); fleet "
+        f"{sp['wall']:.2f}s, TTFT median {med(sp['ttft']):.3f}s max "
+        f"{sp['ttft'][-1]:.3f}s; decode {sp['decode_tok'] / sp['decode_s']:.1f}"
+        f" tok/s")
+    gc_free()
+    dp = dense_path(cfg, dev, mp)
+    from repro_torch.models.common import DENSE_ROW_BLOCK
+    log(f"{gpu} | C.2 dense bf16 (F.linear in {DENSE_ROW_BLOCK}-row blocks): "
+        f"requests {dp['longest']} (longest) and {dp['one']} (bucket 1 "
+        f"alone) give their fleet tokens alone; fleet decode "
+        f"{dp['decode_tok'] / dp['decode_s']:.1f} tok/s, TTFT median "
+        f"{med(dp['ttft']):.3f}s; elements of rows 0-7 that one F.linear "
+        f"gives other bits alone than in a 512-row call, by layer: "
+        f"{dp['plain_diff']} (the row blocks: none)")
+
+    gc_free()
     dcounts, dlayers = decode_attention_path(cfg, dev)
     need(dcounts, ("decode_attention",), "the decode-attention op")
 

@@ -16,6 +16,11 @@ here runs at import time, so the package imports on machines without
 Every wrapper counts the launches of its kernel in ``LAUNCHES`` (one per
 launch, nowhere else), so a run can show which kernels the path went
 through; ``device_us`` reads a kernel's device time from ``torch.profiler``.
+A CUDA graph replays its launches without calling a wrapper, and its
+capture calls the wrappers without launching anything: the engine's graphs
+(``repro_torch.serving.graphs``) take their capture's count back out of
+``LAUNCHES`` (``launches_since``, ``add_launches(delta, -1)``) and add it
+at every replay, so ``LAUNCHES`` counts the launches executed.
 """
 
 from __future__ import annotations
@@ -50,6 +55,18 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    """Launches per kernel since ``before`` (a ``launch_counts()``)."""
+    return {k: n - before.get(k, 0) for k, n in LAUNCHES.items()}
+
+
+def add_launches(delta: Dict[str, int], times: int = 1) -> None:
+    """Add ``times`` × ``delta`` to the counts (a graph's replays, or a
+    negative ``times`` to take a capture's count back out)."""
+    for k, n in delta.items():
+        LAUNCHES[k] += times * n
 
 
 def device_us(evt) -> float:

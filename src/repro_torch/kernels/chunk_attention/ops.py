@@ -21,7 +21,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -55,6 +55,34 @@ def split_ranges(n: int) -> Tuple[Tuple[int, int], ...]:
 
 
 _WORKSPACES: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+# outgrown workspaces, never freed: a CUDA graph captured before a growth
+# still reads and writes them at every replay
+_RETIRED: List[Tuple[torch.Tensor, torch.Tensor]] = []
+
+
+def _workspace_size(b: int, kv: int, rows: int, hd: int, n_parts: int):
+    """(scratch floats, arrival counters) of a call."""
+    n_idx = b * kv * -(-rows // ROW_TILE)
+    return n_idx * n_parts * ROW_TILE * (hd + 2), n_idx
+
+
+def _ensure(dev, stream: int, need: int, n_idx: int):
+    key = (dev.index, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws[0].numel() < need or ws[1].numel() < n_idx:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the chunk-attention workspace would grow while a CUDA graph "
+                "is being captured: reserve_workspace() it for the largest "
+                "call before the capture")
+        have = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        if ws is not None:
+            _RETIRED.append(ws)
+        ws = (torch.empty(max(need, have[0]), dtype=torch.float32, device=dev),
+              torch.zeros(max(n_idx, have[1], 1024), dtype=torch.int32,
+                          device=dev))
+        _WORKSPACES[key] = ws
+    return ws
 
 
 def workspace(dev, b: int, kv: int, rows: int, hd: int, n_parts: int):
@@ -63,19 +91,25 @@ def workspace(dev, b: int, kv: int, rows: int, hd: int, n_parts: int):
     (int32, zero; each launch leaves them zero). Both are kept per device
     and stream and grown when a call needs more: launches on one stream
     never overlap, and an allocation per call costs the host-bound decode
-    step more than the launch."""
-    n_idx = b * kv * -(-rows // ROW_TILE)
-    need = n_idx * n_parts * ROW_TILE * (hd + 2)
+    step more than the launch. A growth during a CUDA graph's capture
+    raises (the graph would keep the address of scratch sized for another
+    call); ``reserve_workspace`` sizes it beforehand."""
+    need, n_idx = _workspace_size(b, kv, rows, hd, n_parts)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    key = (dev.index, stream)
-    ws = _WORKSPACES.get(key)
-    if ws is None or ws[0].numel() < need or ws[1].numel() < n_idx:
-        have = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
-        ws = (torch.empty(max(need, have[0]), dtype=torch.float32, device=dev),
-              torch.zeros(max(n_idx, have[1], 1024), dtype=torch.int32,
-                          device=dev))
-        _WORKSPACES[key] = ws
+    ws = _ensure(dev, stream, need, n_idx)
     return ws[0], ws[1], stream
+
+
+def reserve_workspace(dev, stream, b: int, kv: int, g: int, hd: int,
+                      cap: int, max_len: int) -> None:
+    """Size the workspace of ``stream`` (a ``torch.cuda.Stream``) for every
+    call of ``b`` rows over a ring (or virtual ring) of ``cap`` slots with
+    chunks of up to ``max_len`` tokens of ``kv`` × ``g`` heads, before any
+    of them is captured into a CUDA graph."""
+    need, n_idx = _workspace_size(
+        b, kv, max_len * g, hd,
+        len(split_ranges(cap)) + len(split_ranges(max_len)))
+    _ensure(torch.device(dev), stream.cuda_stream, need, n_idx)
 
 
 def _require(t, name, dtype, shape, device):

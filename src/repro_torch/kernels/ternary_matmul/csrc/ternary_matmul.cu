@@ -710,6 +710,26 @@ __global__ void __launch_bounds__(TC_THREADS)
     }
 }
 
+// cudaFuncSetAttribute is not a stream operation, costs the host more than
+// a launch, and is no call to make while a stream is being captured into a
+// CUDA graph: each launcher raises its kernel's dynamic shared-memory limit
+// only when the kernel needs more on this device than it was given
+// (``allowed``, one table per kernel instantiation; a benign race at worst
+// repeats the call). The engine's first, eager call of every dispatch
+// raises it before the dispatch is captured.
+template <typename K>
+cudaError_t allow_smem(K kern, size_t smem, int* allowed) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 64 && allowed[dev] >= (int)smem) return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e == cudaSuccess && dev < 64) allowed[dev] = (int)smem;
+  return e;
+}
+
 template <typename TY, int G>
 cudaError_t launch_matvec_mma(const void* x, const void* t1p, const void* t2p,
                               const void* alpha, void* y, int m, int n, int d,
@@ -718,11 +738,9 @@ cudaError_t launch_matvec_mma(const void* x, const void* t1p, const void* t2p,
   const int nwarps = ng < MMV_MAX_WARPS ? ng : MMV_MAX_WARPS;
   const size_t smem = sizeof(float) * (size_t)ng * MMV_FEATS * MMV_TOKENS;
   auto kern = ternary_matvec_mma_kernel<TY, G>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  static int allowed[64] = {};
+  const cudaError_t e = allow_smem(kern, smem, allowed);
+  if (e != cudaSuccess) return e;
   dim3 grid((n + MMV_FEATS - 1) / MMV_FEATS);
   kern<<<grid, 32 * nwarps, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(t1p),
@@ -750,8 +768,8 @@ cudaError_t launch_matmul_mma(const void* x, const void* t1p, const void* t2p,
   if (d % TC_BK) return cudaErrorInvalidValue;
   constexpr size_t smem = sizeof(TcStage) * TC_STAGES;
   auto kern = ternary_matmul_mma_kernel<TY, G>;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static int allowed[64] = {};
+  const cudaError_t attr = allow_smem(kern, smem, allowed);
   if (attr != cudaSuccess) return attr;
   dim3 grid((n + TC_BN - 1) / TC_BN, (m + TC_BM - 1) / TC_BM);
   kern<<<grid, TC_THREADS, smem, s>>>(
@@ -782,11 +800,9 @@ cudaError_t launch_matvec(const void* x, const void* t1p, const void* t2p,
   const size_t smem =
       sizeof(float) * MV_ROWS * ((size_t)ng * MV_COLS + (size_t)nwarps * G);
   auto kern = ternary_matvec_kernel<T, TY, G>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  static int allowed[64] = {};
+  const cudaError_t e = allow_smem(kern, smem, allowed);
+  if (e != cudaSuccess) return e;
   dim3 grid((n + MV_COLS - 1) / MV_COLS);
   kern<<<grid, MV_COLS * nwarps, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(t1p),

@@ -6,7 +6,10 @@ batch-invariant).
 A ``Dense`` layer holds either a floating-point ``weight`` (d_out, d_in), as
 ``torch.nn.Linear`` does, or — after ``quantize_tree`` — the two packed
 trit-planes and group scales of a ``QuantizedKernel``; ``dense`` dispatches
-on which, so every model serves quantized without architectural change.
+on which, so every model serves quantized without architectural change. A
+floating-point layer runs ``F.linear`` (the reference leaves this product
+to XLA, outside any Pallas kernel) in row blocks of one fixed shape, so
+its rows are batch-invariant on the card too.
 """
 
 from __future__ import annotations
@@ -58,15 +61,38 @@ class Dense(nn.Module):
         return dense(self, x)
 
 
+#: rows of one GEMM of a floating-point layer on the card (see ``dense``)
+DENSE_ROW_BLOCK = 128
+
+
 def dense(layer: Dense, x: torch.Tensor) -> torch.Tensor:
     if layer.t1p is not None:
         y = ternary_matmul(x, layer.t1p, layer.t2p, layer.alpha,
                            group_size=layer.group_size, out_dtype=x.dtype)
     else:
-        y = torch.nn.functional.linear(x, layer.weight.to(x.dtype))
+        y = _linear_fixed_rows(x, layer.weight.to(x.dtype))
     if layer.bias is not None:
         y = y + layer.bias.to(y.dtype)
     return y
+
+
+def _linear_fixed_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ wᵀ in GEMMs of one shape. cuBLAS picks its kernel, and with it a
+    row's summation order, by the product's m, so a row's bits would depend
+    on how many rows share its call (on the card a request alone and in a
+    fleet gave other tokens). So x is cut into blocks of
+    ``DENSE_ROW_BLOCK`` rows, the last zero-padded, and each block goes
+    through ``F.linear`` alone: every row sees the same GEMM whatever its
+    batch."""
+    *lead, d = x.shape
+    x2 = x.reshape(-1, d)
+    m, rows = x2.shape[0], DENSE_ROW_BLOCK
+    pad = -m % rows
+    if pad:
+        x2 = torch.nn.functional.pad(x2, (0, 0, 0, pad))
+    y = torch.cat([torch.nn.functional.linear(x2[i:i + rows], w)
+                   for i in range(0, m + pad, rows)])
+    return y[:m].reshape(*lead, w.shape[0])
 
 
 class RMSNorm(nn.Module):

@@ -8,10 +8,13 @@ Model API:
   init_params(cfg, generator=None, device="cuda")  -> Transformer
   forward(model, cfg, tokens)                      -> logits (B, S, V)
   init_decode_state(cfg, batch, capacity, device, kv_spec=None) -> state
+  prefill(model, cfg, tokens, capacity, chunk=None) -> (logits (B, V), state)
   prefill_chunk(model, cfg, state, tokens, lengths) -> (logits (B, V), state)
   decode_step(model, cfg, state, tokens, active)   -> (logits (B, V), state)
 
-The serving functions update ``state`` in place and return it.
+The serving functions update ``state`` in place and return it: no tensor of
+the state is ever rebound, so a CUDA graph that captured a dispatch reads
+and writes the same storage at every replay.
 """
 
 from __future__ import annotations
@@ -149,6 +152,46 @@ def init_decode_state(cfg, batch: int, capacity: int, device="cuda",
 
 
 @torch.no_grad()
+def prefill(model: Transformer, cfg, tokens, capacity: int,
+            chunk: Optional[int] = None, state=None
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Process whole prompts into a fresh ring state (the reference's
+    ``prefill``). tokens (B, S), every row S tokens with S <= capacity.
+    Returns (logits at the last position (B, V), state at position S).
+
+    The reference computes this in one full-sequence pass; here the prompt
+    runs through ``prefill_chunk`` in chunks of ``chunk`` tokens (None: one
+    chunk of S), the same causal attention in another summation order. With
+    ``chunk`` the engine's ``prefill_chunk`` every row equals the bucketed
+    engine's rows bit for bit on the card (its kernels are batch-invariant
+    and its chunk boundaries the same). ``state`` (B rows, ring layout) is
+    reset in place and reused instead of a new one."""
+    b, s = tokens.shape
+    if not 0 < s <= capacity:
+        raise ValueError(f"prompt length {s} must be in [1, {capacity}]")
+    if state is None:
+        state = init_decode_state(cfg, b, capacity, device=tokens.device)
+    else:
+        reset_decode_state(state)
+    step = chunk or s
+    for c0 in range(0, s, step):
+        part = tokens[:, c0:c0 + step]
+        lengths = torch.full((b,), part.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+        logits, state = prefill_chunk(model, cfg, state, part, lengths)
+    return logits, state
+
+
+def reset_decode_state(state) -> None:
+    """Empty a ring decode state in place: positions 0, ring slots -1, KV
+    and scales 0."""
+    state["pos"].zero_()
+    for cache in state["layers"]:
+        for name, buf in cache.items():
+            buf.fill_(-1 if name == "pos" else 0)
+
+
+@torch.no_grad()
 def prefill_chunk(model: Transformer, cfg, state, tokens, lengths
                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Padded-batch / chunked prefill.
@@ -172,7 +215,7 @@ def prefill_chunk(model: Transformer, cfg, state, tokens, lengths
     x = model.final_norm(x, cfg.norm_eps)
     idx = torch.clamp(lengths - 1, min=0).long()
     x_last = x[torch.arange(b, device=x.device), idx]
-    state["pos"] = pos0 + lengths
+    pos0.add_(lengths)
     return model.lm_head(x_last), state
 
 
@@ -192,6 +235,5 @@ def decode_step(model: Transformer, cfg, state, tokens,
             rope, window=_window(kind, cfg), active=active)
         x = _mlp_residual(block, cfg, x + y)
     x = model.final_norm(x, cfg.norm_eps)
-    step = active.to(torch.int32) if active is not None else 1
-    state["pos"] = pos + step
+    pos.add_(active.to(torch.int32) if active is not None else 1)
     return model.lm_head(x), state

@@ -114,6 +114,7 @@ class RequestHandle:
         self.t_first = 0.0
         self.t_done = 0.0
         self._engine = engine
+        self._slot: Optional[int] = None  # last slot occupied (trace label)
         self._stop_ids: FrozenSet[int] = params.stop
 
     @property

@@ -1,6 +1,6 @@
 """Continuous-batching serving engine (the reference's
-``repro.serving.engine.ServingEngine``, same scheduling and field names),
-over the ring or the paged KV layout.
+``repro.serving.engine``: ``ServingEngine`` and ``SerialAdmitEngine``, same
+scheduling and field names), over the ring or the paged KV layout.
 
   * ``submit(prompt, SamplingParams(...)) -> RequestHandle`` enqueues;
   * ``step()`` advances the whole fleet one engine step: admission into all
@@ -13,9 +13,20 @@ The batch has ``max_slots`` fixed rows. Bucketed admission advances every
 mid-prompt row by one power-of-two prefill bucket in a single dispatch
 (rows not prefilling ride along with length 0); a long prompt is consumed
 ``prefill_chunk`` tokens per step, interleaved with shortened decode
-chunks. Decode runs ``K`` ``decode_step``s in a Python loop with sampling,
-stop-freezing and ``active`` kept on the device, and one host sync per
-K-step dispatch (no CUDA graph yet).
+chunks. Decode runs ``K`` ``decode_step``s with sampling, stop-freezing and
+``active`` kept on the device, and one host sync per K-step dispatch.
+
+The compiled dispatches (the reference's jit caches): on the card every
+dispatch is a CUDA graph (``serving.graphs``), captured at its key's first
+use and replayed on the engine's one stream from then on, all graphs in one
+memory pool. ``_loop_cache`` holds one K-step decode loop per
+``(n_steps, use_mask, stop_w, use_poison, draw)`` (the reference's key and
+the port's threefry-draw flag), ``_prefill_cache`` one prefill per
+power-of-two bucket; ``warmup()`` captures them all, ``compile_stats()``
+and ``memory_stats()`` report them as the reference does. A decode
+dispatch's inputs reach the device in one non-blocking copy from pinned
+memory and its tokens and finite flags come back in one copy: one host
+sync. On the CPU the caches hold the eager bodies under the same keys.
 
 Per-request sampling draws token i of a request from (seed, i) alone
 (``serving.sampling``, ``jax.random``'s threefry stream), so output is
@@ -48,31 +59,46 @@ timestamp comes from one injectable clock (``runtime.clock``; a
 with a ``serving.faults.FaultInjector`` also NaN-poisons chosen rows on the
 device; one built without runs no poison operation.
 
-Not ported yet, and rejected when set: observability, pre-unpacked planes
-and an attention-backend override.
+Observability (the reference's v1.3): every engine carries an
+``Observability`` bundle (``serving.observability``): the frozen metric
+registry polled from the engine's own counters, one span per engine phase
+(the decode dispatch and its sync apart) and the request lifecycle on the
+trace when tracing is on, all host-side around the dispatches; ``health()``
+reads the registry.
+
+Not ported yet, and rejected when set: pre-unpacked planes and an
+attention-backend override.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from collections import deque
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.models import decode_step, init_decode_state, prefill_chunk
+from repro_torch.kernels.chunk_attention.ops import reserve_workspace
+from repro_torch.models import (decode_step, init_decode_state, prefill,
+                                prefill_chunk)
 from repro_torch.runtime import clock as rtclock
+from repro_torch.runtime.monitor import HealthSnapshot
 from repro_torch.serving.api import (FINISH_CANCELLED, FINISH_ERROR,
                                      FINISH_LENGTH, FINISH_REJECTED,
                                      FINISH_STOP, FINISH_TIMEOUT,
                                      RequestHandle, SamplingParams,
                                      make_handle)
+from repro_torch.serving.graphs import (EagerDispatch, GraphDispatch, fetch,
+                                        upload)
+from repro_torch.serving.observability import TRACK_ENGINE, Observability
 from repro_torch.serving.paging import PageAllocator
 from repro_torch.serving.sampling import sample_tokens_per_request
 
-__all__ = ["EngineConfig", "ServingEngine", "SamplingParams", "RequestHandle",
-           "EngineFault", "EngineCrash"]
+__all__ = ["EngineConfig", "ServingEngine", "SerialAdmitEngine",
+           "SamplingParams", "RequestHandle", "EngineFault", "EngineCrash"]
 
 
 class EngineCrash(RuntimeError):
@@ -185,12 +211,18 @@ class ServingEngine:
     protocol: it may substitute the engine's clock, raise from a chosen
     dispatch and poison chosen rows' logits with NaN on the device. A
     production engine passes None and its decode loop has no poison
-    operation."""
+    operation.
+
+    ``observability`` (optional) is a ``serving.observability.
+    Observability`` bundle; the engine always carries one (a registry-only
+    default when none is given), puts it on its own clock and registers the
+    frozen serving metrics against its counters. ``Observability(
+    trace=True)`` also records the lifecycle and phase trace. All of it is
+    host-side around the dispatches: tokens are bit-identical with tracing
+    on, off or unconfigured, and no graph-cache axis is added."""
 
     def __init__(self, model, model_cfg, engine_cfg: EngineConfig, *,
-                 injector=None, observability=None):
-        if observability is not None:
-            raise NotImplementedError("observability is not ported yet")
+                 injector=None, observability: Optional[Observability] = None):
         self.model = model
         self.cfg = model_cfg
         self.ecfg = engine_cfg
@@ -229,9 +261,30 @@ class ServingEngine:
         self.state = init_decode_state(model_cfg, nb, engine_cfg.capacity,
                                        device=self.device, kv_spec=kv_spec)
         self.last_tokens = np.zeros((nb,), np.int32)
+        # the compiled dispatches: decode loops keyed (n_steps, use_mask,
+        # stop_w, use_poison, draw), prefills keyed by bucket (the serial
+        # baseline: by prompt length)
+        self._loop_cache: Dict[Tuple[int, bool, int, bool, bool], Any] = {}
+        self._prefill_cache: Dict[int, Any] = {}
+        # on the card: one stream for every dispatch of this engine, one
+        # memory pool for its graphs, and the attention scratch sized for
+        # its largest call before anything is captured. _capture = False
+        # runs the same bodies eagerly (the eager-vs-graph comparison).
+        self._stream = self._pool = None
+        self._capture = self.device.type == "cuda"
+        if self._capture:
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            kv = model_cfg.n_kv_heads
+            reserve_workspace(self.device, self._stream, nb, kv,
+                              model_cfg.n_heads // kv, model_cfg.head_dim,
+                              engine_cfg.capacity,
+                              _pow2ceil(engine_cfg.prefill_chunk))
         self._prompts: List[Optional[List[int]]] = [None] * nb
         self._cursor: List[int] = [0] * nb
-        self._slot_arrays = None  # fleet tensors; None → slots changed
+        self._admit_finished: List[RequestHandle] = []
+        self._slot_arrays = None  # fleet arrays; None → slots changed
         self._next_uid = 0
         self.steps = 0            # decode steps dispatched
         self.prefill_steps = 0    # prefill_chunk dispatches
@@ -249,9 +302,29 @@ class ServingEngine:
         self.sheds = 0            # rejected at submit
         self.timeouts = 0         # retired by the deadline sweep
         self.errors = 0           # retired by fault containment
+        # ---- observability (registry always on; tracing only when asked)
         self.submitted = 0
         self.tokens_generated = 0
         self.prefill_tokens = 0
+        self.obs = observability if observability is not None \
+            else Observability()
+        # the engine's clock (a VirtualClock under an injector) stamps the
+        # bundle's spans and histogram observations too
+        self.obs.clock = self._clock
+        self.obs.bind_engine(self)
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """Run the block on the engine's stream (on the card), ordered after
+        the caller's stream and before what the caller runs next."""
+        if self._stream is None:
+            yield
+            return
+        outer = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(outer)
+        with torch.cuda.stream(self._stream):
+            yield
+        outer.wait_stream(self._stream)
 
     # ------------------------------------------------------------------ API
     def submit(self, prompt, params: Optional[SamplingParams] = None, *,
@@ -276,6 +349,7 @@ class ServingEngine:
             stop |= {self.ecfg.eos_id}
         h._stop_ids = stop
         h.truncated = len(h.prompt) > self.ecfg.capacity
+        self.obs.request_submitted(h)
         never_fits = (self.ecfg.max_resident_tokens is not None
                       and self._committed_tokens(h)
                       > self.ecfg.max_resident_tokens)
@@ -397,18 +471,22 @@ class ServingEngine:
         (``pool[dst] = pool[src]``, one indexed copy per pool leaf across
         all layers), invalidation of freshly allocated pages (their
         ``pages_pos`` to -1: a recycled page's stale positions would
-        otherwise pass the mask), and the push of the host page tables."""
+        otherwise pass the mask), and the push of the host page tables,
+        eager and before the dispatch, with no host sync (the ids and the
+        tables go by non-blocking copies from pinned memory)."""
         pool = self.state["pool"]
-        if copies:
-            dev = self.device
-            src = torch.tensor([a for a, _ in copies], device=dev)
-            dst = torch.tensor([b for _, b in copies], device=dev)
-            for leaf in pool.values():
-                leaf[:, dst] = leaf[:, src]
-        if clear:
-            pool["pages_pos"][:, torch.tensor(list(clear),
-                                              device=self.device)] = -1
-        self.state["table"].copy_(torch.from_numpy(self._tables))
+        with self.obs.span("page_maint",
+                           args={"copies": len(copies), "clear": len(clear)}):
+            if copies or clear:
+                n = len(copies)
+                ids = upload(np.asarray([a for a, _ in copies]
+                                        + [b for _, b in copies]
+                                        + list(clear), np.int64), self.device)
+                for leaf in pool.values() if copies else ():
+                    leaf[:, ids[n:2 * n]] = leaf[:, ids[:n]]
+                if clear:
+                    pool["pages_pos"][:, ids[2 * n:]] = -1
+            self.state["table"].copy_(upload(self._tables, self.device))
         self._tables_dirty = False
 
     def _fork_writes(self, spans):
@@ -480,20 +558,211 @@ class ServingEngine:
             finished.extend(self.step())
         return finished
 
+    # ------------------------------------------------ compiled dispatches
+    def warmup(self):
+        """Capture every dispatch the engine can need (the reference's
+        warmup, which compiles them): the prefill buckets (powers of two up
+        to ``prefill_chunk``) and the decode chunks (powers of two up to
+        ``decode_chunk``, and ``decode_chunk_prefilling``), each unmasked
+        and with top-k/top-p, each with and without the threefry draw.
+        Stop-set widths over 1 are still captured at first use. Every warm
+        call is a no-op on the live state (rows of length 0, inactive
+        rows), so warmup may run at any point of the engine's life."""
+        with self._on_stream():
+            self._warm_prefill()
+            nb = len(self.slots)
+            k = self.ecfg.decode_chunk
+            chunks = {min(k, n) for n in self._bucket_lengths(k)}
+            chunks.add(min(k, self.ecfg.decode_chunk_prefilling))
+            use_poison = self._injector is not None
+            idle = self._decode_input(np.zeros((nb,), np.int32),
+                                      np.full((nb,), -1, np.int32),
+                                      self._idle_arrays(1))
+            for n in sorted(chunks):
+                for masked in (False, True):
+                    for draw in (False, True):
+                        self._loop_fn(n, masked, 1, use_poison, draw)(idle)
+            self._reset_rows(np.zeros((nb,), bool), np.zeros((nb,), np.int32))
+
+    def _warm_prefill(self):
+        nb = len(self.slots)
+        for length in self._bucket_lengths(self.ecfg.prefill_chunk):
+            self._prefill_fn(length)(self._prefill_input(
+                np.zeros((nb, length), np.int32), np.zeros((nb,), np.int32)))
+
+    @staticmethod
+    def _bucket_lengths(top: int) -> List[int]:
+        out = [1]
+        while out[-1] < _pow2ceil(top):
+            out.append(out[-1] * 2)
+        return out
+
+    def compile_stats(self) -> Dict[str, Any]:
+        """Occupancy of the dispatch caches (the reference's fields). The
+        prefill entries are power-of-two buckets <= prefill_chunk, so
+        ``n_prefill_compiles`` is bounded by ``prefill_bucket_bound`` =
+        log2(next_pow2(prefill_chunk)) + 1; the decode entries are (chunk
+        length, masked sampling, stop-width bucket, poison) keys, plus the
+        port's draw flag. The serial baseline caches one prefill per prompt
+        length instead. On the card each entry is one captured graph."""
+        return {
+            "prefill_bucket_lengths": sorted(self._prefill_cache),
+            "n_prefill_compiles": len(self._prefill_cache),
+            "prefill_bucket_bound":
+                _pow2ceil(self.ecfg.prefill_chunk).bit_length(),
+            "decode_chunk_lengths": sorted({k[0] for k in self._loop_cache}),
+            "n_decode_compiles": len(self._loop_cache),
+            "admits": self.admits,
+            "prefill_steps": self.prefill_steps,
+        }
+
+    def graph_stats(self) -> Dict[str, Any]:
+        """Per compiled dispatch: its kind and key, the seconds its capture
+        took (0 for an eager body), its replays (calls) and the kernel
+        launches each replay runs."""
+        rows = [("prefill", k, d) for k, d in sorted(self._prefill_cache.items())]
+        rows += [("decode", k, d) for k, d in sorted(self._loop_cache.items())]
+        out = [dict(kind=kind, key=key, graph=isinstance(d, GraphDispatch),
+                    capture_s=d.capture_s, replays=d.replays,
+                    launches=sum(d.launches.values())) for kind, key, d in rows]
+        return {"dispatches": out,
+                "capture_s": sum(r["capture_s"] for r in out)}
+
+    def memory_stats(self) -> Dict[str, Any]:
+        """Resident serving-state bytes (the reference's fields). The port
+        keeps the packed planes (``preunpack_decode`` is not ported), so
+        resident and packed plane bytes are equal. ``decode_state_bytes``
+        is the live batch state (KV rings or pool, positions, page table)."""
+        planes = sum(int(m.t1p.nbytes) + int(m.t2p.nbytes)
+                     for m in self.model.modules()
+                     if getattr(m, "t1p", None) is not None)
+        param_bytes = sum(int(t.nbytes) for t in self.model.parameters()) \
+            + sum(int(t.nbytes) for t in self.model.buffers())
+        state_bytes = sum(int(t.nbytes) for t in self._state_leaves())
+        out = {
+            "preunpack_decode": False,
+            "packed_plane_bytes": planes,
+            "resident_plane_bytes": planes,
+            "preunpack_ratio": 1.0,
+            "param_bytes": param_bytes,
+            "decode_state_bytes": state_bytes,
+            "resident_total_bytes": param_bytes + state_bytes,
+            "kv_layout": self.ecfg.kv_layout,
+        }
+        out.update(self._kv_bytes())
+        return out
+
+    def _state_leaves(self) -> List[torch.Tensor]:
+        """Every tensor of the decode state once (a paged layer's leaves are
+        views of the pool and the shared table)."""
+        if self.paged:
+            return [self.state["pos"], self.state["table"],
+                    *self.state["pool"].values()]
+        return [self.state["pos"]] + [t for c in self.state["layers"]
+                                      for t in c.values()]
+
+    def _kv_bytes(self) -> Dict[str, Any]:
+        """KV bytes: the ring's whole allocation is resident per slot; a
+        paged pool holds live KV only in used pages, so ``kv_resident_bytes``
+        is what the requests cost. The port's pool has one scratch page
+        more than the reference's and one table for all layers where the
+        reference has one a layer: ``kv_page_bytes`` is equal, the pool's
+        bytes differ by that page and those tables."""
+        if not self.paged:
+            kv = sum(int(t.nbytes) for c in self.state["layers"]
+                     for t in c.values())
+            return {"kv_pool_bytes": kv, "kv_resident_bytes": kv}
+        pool = self.state["pool"]
+        pool_bytes = sum(int(t.nbytes) for t in pool.values())
+        per_page = pool_bytes // pool["pages_pos"].shape[1]
+        table_bytes = int(self.state["table"].nbytes)
+        return {"kv_pool_bytes": pool_bytes + table_bytes,
+                "kv_page_bytes": per_page,
+                # used pages + the always-resident null page + the table
+                "kv_resident_bytes":
+                    per_page * (self.alloc.used_pages() + 1) + table_bytes}
+
+    def _compile(self, body, idle: np.ndarray, warm=None):
+        """The dispatch of ``body``: a CUDA graph on the card (captured now,
+        after one eager no-op call of ``warm`` or ``body`` on ``idle``), the
+        eager body on the CPU or with capture switched off."""
+        if not self._capture:
+            return EagerDispatch(body, self.device)
+        return GraphDispatch(body, idle, device=self.device,
+                             stream=self._stream, pool=self._pool, warm=warm)
+
+    def _loop_fn(self, n_steps: int, use_mask: bool, stop_w: int,
+                 use_poison: bool = False, draw: bool = False):
+        key = (n_steps, use_mask, stop_w, use_poison, draw)
+        if key not in self._loop_cache:
+            nb = len(self.slots)
+            idle = self._decode_input(np.zeros((nb,), np.int32),
+                                      np.full((nb,), -1, np.int32),
+                                      self._idle_arrays(stop_w))
+            body = functools.partial(
+                self._decode_body, use_mask=use_mask, stop_w=stop_w,
+                use_poison=use_poison, draw=draw)
+            self._loop_cache[key] = self._compile(
+                functools.partial(body, n_steps=n_steps), idle,
+                warm=functools.partial(body, n_steps=1))
+        return self._loop_cache[key]
+
+    def _prefill_fn(self, length: int):
+        """One dispatch per power-of-two chunk bucket."""
+        if length not in self._prefill_cache:
+            self._prefill_cache[length] = self._compile(
+                functools.partial(self._prefill_body, length=length),
+                self._prefill_input(np.zeros((len(self.slots), length),
+                                             np.int32),
+                                    np.zeros((len(self.slots),), np.int32)))
+        return self._prefill_cache[length]
+
+    @staticmethod
+    def _prefill_input(tokens: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+        """A prefill dispatch's one int32 input: lengths (B,), padded to 16
+        bytes (the attention kernel reads them in 16-byte vectors), then
+        the tokens (B, L)."""
+        pad = -len(lengths) % 4
+        return np.concatenate([lengths, np.zeros((pad,), np.int32),
+                               tokens.reshape(-1)])
+
+    def _prefill_body(self, inp: torch.Tensor, *, length: int):
+        """``_prefill_input``'s layout in; the logits at each row's last
+        token (B, V) out."""
+        nb = len(self.slots)
+        off = nb + -nb % 4
+        logits, _ = prefill_chunk(self.model, self.cfg, self.state,
+                                  inp[off:].view(nb, length), inp[:nb])
+        return logits
+
     # ----------------------------------------------------------------- step
     def step(self) -> List[RequestHandle]:
         """Sweep deadlines, admit into all free slots, advance prefill one
         chunk, decode one chunk; returns the requests that finished this
-        step (including those retired by the sweep or by containment)."""
+        step (including those retired by the sweep or by containment).
+
+        The decode chunk adapts to the largest remaining token budget among
+        decoding slots, rounded up to a power of two."""
+        with self._on_stream():
+            return self._step()
+
+    def _step(self) -> List[RequestHandle]:
+        obs = self.obs
+        t_step0, tok0, churn0 = self._step_begin()
         self.engine_steps += 1
         if self._injector is not None:
             self._injector.on_step(self)
-        done_now = self._sweep_deadlines()
-        self._auto_rehabilitate()
-        self._admit()
+        with obs.span("sweep"):
+            done_now = self._sweep_deadlines()
+            self._auto_rehabilitate()
+        with obs.span("admit"):
+            self._admit()
+        done_now += self._admit_finished
+        self._admit_finished = []
         done_now = done_now + self._prefill_step()
         dec = [i for i in range(len(self.slots)) if self._decoding(i)]
         if not dec:
+            self._step_end(t_step0, tok0, churn0)
             return done_now
         remaining = max(self.slots[i].params.max_new_tokens
                         - len(self.slots[i].output) for i in dec)
@@ -519,9 +788,33 @@ class ServingEngine:
             self._attribute_crash(exc, dec)
             raise
         except Exception as exc:  # containment unit: this dispatch only
-            return done_now + self._contain("decode", dec, exc)
+            done_now = done_now + self._contain("decode", dec, exc)
+            self._step_end(t_step0, tok0, churn0)
+            return done_now
         self.steps += n_steps
-        return done_now + self._collect(toks, bad)
+        with obs.span("collect"):
+            done_now = done_now + self._collect(toks, bad)
+        self._step_end(t_step0, tok0, churn0)
+        return done_now
+
+    def _step_begin(self) -> Tuple[float, int, int]:
+        churn = (self.alloc.allocs + self.alloc.releases) if self.paged else 0
+        return self._clock(), self.tokens_generated, churn
+
+    def _step_end(self, t0: float, tok0: int, churn0: int):
+        """Per-step observations (always on, host arithmetic only): step
+        duration, tokens delivered, page churn, and the enclosing "step"
+        span when tracing."""
+        obs = self.obs
+        now = self._clock()
+        obs.h_step.observe(now - t0)
+        obs.h_tokens_step.observe(self.tokens_generated - tok0)
+        if self.paged:
+            obs.h_page_churn.observe(
+                self.alloc.allocs + self.alloc.releases - churn0)
+        if obs.trace is not None:
+            obs.trace.complete("step", TRACK_ENGINE, t0, now, cat="engine",
+                               args={"engine_step": self.engine_steps})
 
     # ------------------------------------------------- deadlines / containment
     def _expired(self, h: RequestHandle, now: float) -> Optional[str]:
@@ -640,8 +933,38 @@ class ServingEngine:
         pool now; returns the slots restored."""
         back = sorted(self.quarantined)
         if back:
-            self._restore(back)
+            with self._on_stream():
+                self._restore(back)
         return back
+
+    def health(self) -> HealthSnapshot:
+        """Current engine health (``runtime.monitor.HealthSnapshot``):
+        every field a read of the registry counters and gauges the
+        observability bundle exports, so a snapshot and a metrics scrape
+        never disagree."""
+        reg = self.obs.registry
+        pages = {}
+        if self.paged:
+            pages = dict(
+                pages_free=reg.value("serving_pages_free"),
+                pages_used=reg.value("serving_pages_used"),
+                pages_shared=reg.value("serving_pages_shared"),
+                prefix_hits=reg.value("serving_prefix_hits_total"),
+                prefix_misses=reg.value("serving_prefix_misses_total"),
+                prefix_evictions=reg.value("serving_prefix_evictions_total"))
+        return HealthSnapshot(
+            t=self._clock(), steps=self.steps,
+            queue_depth=reg.value("serving_queue_depth"),
+            resident=reg.value("serving_resident_slots"),
+            free_slots=reg.value("serving_free_slots"),
+            quarantined_slots=tuple(sorted(self.quarantined)),
+            resident_tokens=reg.value("serving_resident_tokens"),
+            completed=reg.value("serving_requests_completed_total"),
+            cancelled=reg.value("serving_requests_cancelled_total"),
+            sheds=reg.value("serving_requests_shed_total"),
+            timeouts=reg.value("serving_requests_timeout_total"),
+            errors=reg.value("serving_requests_error_total"),
+            **pages)
 
     # ------------------------------------------------------------ internals
     def _prefilling(self, slot: int) -> bool:
@@ -674,6 +997,11 @@ class ServingEngine:
         self._cursor[slot] = 0
         self._slot_arrays = None
 
+    def _mark_first(self, h: RequestHandle, now: float):
+        if not h.t_first:
+            h.t_first = now
+            self.obs.request_first_token(h)
+
     def _finish(self, h: RequestHandle, reason: str, now: float):
         h.finish_reason = reason
         h.t_done = now
@@ -687,13 +1015,15 @@ class ServingEngine:
             self.sheds += 1
         elif reason == FINISH_ERROR:
             self.errors += 1
+        # every retirement comes through here: the one place the lifecycle
+        # spans and the completion histograms are emitted
+        self.obs.request_retired(h, h._slot)
 
     def _emit(self, h: RequestHandle, tok: int, now: float) -> bool:
         """Append a generated token; True if it finished the request."""
         h.output.append(tok)
         self.tokens_generated += 1
-        if not h.t_first:
-            h.t_first = now
+        self._mark_first(h, now)
         if tok in h._stop_ids:
             self._finish(h, FINISH_STOP, now)
         elif len(h.output) >= h.params.max_new_tokens:
@@ -708,10 +1038,13 @@ class ServingEngine:
         skips prefix-cached prompt pages), ring positions to -1 and KV to 0.
         The paged pool is physical storage owned by the allocator, not per
         row: ``_page_maintenance`` clears fresh pages and pushes the
-        tables instead."""
-        m = torch.as_tensor(mask, device=self.device)
-        self.state["pos"] = torch.where(
-            m, torch.as_tensor(pos0, device=self.device), self.state["pos"])
+        tables instead. Mask and positions reach the device in one
+        non-blocking copy."""
+        up = upload(np.stack([mask.astype(np.int32),
+                              pos0.astype(np.int32)]), self.device)
+        m = up[0] != 0
+        pos = self.state["pos"]
+        pos.copy_(torch.where(m, up[1], pos))
         if self.paged:
             return
         for cache in self.state["layers"]:
@@ -721,11 +1054,10 @@ class ServingEngine:
 
     def _admit(self):
         """Move queued requests into every free, non-quarantined slot.
-        Under the paged
-        layout a slot admits only when the queue head's worst-case page
-        budget is reservable now; otherwise the head waits (strict FIFO:
-        a shorter request behind it never jumps the line) until
-        retirements return pages."""
+        Under the paged layout a slot admits only when the queue head's
+        worst-case page budget is reservable now; otherwise the head waits
+        (strict FIFO: a shorter request behind it never jumps the line)
+        until retirements return pages."""
         fresh = np.zeros((len(self.slots),), bool)
         pos0 = np.zeros((len(self.slots),), np.int32)
         clear: List[int] = []
@@ -733,6 +1065,7 @@ class ServingEngine:
             if self.slots[slot] is not None or not self.queue \
                     or slot in self.quarantined:
                 continue
+            page_args = None
             if self.paged:
                 plan = self._plan_pages(self.queue[0])
                 if plan is None:
@@ -748,6 +1081,9 @@ class ServingEngine:
                 self._cacheable[slot] = cacheable
                 self._reserve[slot] = reserve
                 clear.extend(fresh_pages)
+                page_args = {"pages_shared": len(shared),
+                             "pages_fresh": len(fresh_pages),
+                             "pages_reserved": len(reserve)}
             else:
                 h = self.queue.popleft()
                 prompt, skip = list(h.prompt[-self.ecfg.capacity:]), 0
@@ -756,6 +1092,8 @@ class ServingEngine:
             self._cursor[slot] = skip  # cache-hit tokens never prefill
             pos0[slot] = skip
             h.t_admit = self._clock()
+            h._slot = slot
+            self.obs.request_admitted(h, slot, pages=page_args)
             fresh[slot] = True
             self.admits += 1
         if fresh.any():
@@ -767,24 +1105,25 @@ class ServingEngine:
     def _sample_first(self, logits, rows: List[int]) -> torch.Tensor:
         """Token 0 of every row in ``rows`` from its own stream (index 0),
         (B,) int32 on the device; other rows ride along greedy and are
-        ignored."""
+        ignored. The rows' parameters go to the device in one copy."""
         nb = logits.shape[0]
         p = {i: self.slots[i].params for i in rows}
-        temps = [p[i].temperature if i in p else 0.0 for i in range(nb)]
-        seeds = [p[i].seed & 0xFFFFFFFF if i in p else 0 for i in range(nb)]
-        tk = tp = None
-        if any(p[i].needs_mask for i in rows):
-            tk = torch.tensor([p[i].top_k if i in p else 0 for i in range(nb)],
-                              dtype=torch.int32, device=self.device)
-            tp = torch.tensor([p[i].top_p if i in p else 1.0
-                               for i in range(nb)],
-                              dtype=torch.float32, device=self.device)
-        toks = sample_tokens_per_request(
-            logits, torch.tensor(seeds, dtype=torch.int64, device=self.device),
-            torch.zeros((nb,), dtype=torch.int32, device=self.device),
-            torch.tensor(temps, dtype=torch.float32, device=self.device),
-            top_k=tk, top_p=tp, draw=any(t > 0.0 for t in temps))
-        return toks
+        temps = np.asarray([p[i].temperature if i in p else 0.0
+                            for i in range(nb)], np.float32)
+        seeds = np.asarray([p[i].seed & 0xFFFFFFFF if i in p else 0
+                            for i in range(nb)], np.uint32)
+        top_k = np.asarray([p[i].top_k if i in p else 0 for i in range(nb)],
+                           np.int32)
+        top_p = np.asarray([p[i].top_p if i in p else 1.0
+                            for i in range(nb)], np.float32)
+        up = upload(np.stack([temps.view(np.int32), seeds.view(np.int32),
+                              top_k, top_p.view(np.int32)]), self.device)
+        masked = any(p[i].needs_mask for i in rows)
+        return sample_tokens_per_request(
+            logits, up[1], torch.zeros_like(up[2]),
+            up[0].view(torch.float32), top_k=up[2] if masked else None,
+            top_p=up[3].view(torch.float32) if masked else None,
+            draw=bool((temps > 0.0).any()))
 
     def _prefill_step(self) -> List[RequestHandle]:
         """Advance every mid-prompt slot by one bucketed chunk; rows whose
@@ -810,23 +1149,29 @@ class ServingEngine:
             self._fork_writes([(i, self._cursor[i], take[i]) for i in pf])
             if self._tables_dirty:
                 self._page_maintenance()
+        obs = self.obs
+        t_pf0 = self._clock()
         try:
             self._guard_dispatch("prefill", pf)
-            logits, self.state = prefill_chunk(
-                self.model, self.cfg, self.state,
-                torch.from_numpy(tokens).to(self.device),
-                torch.from_numpy(lengths).to(self.device))
+            with obs.span("prefill_dispatch",
+                          args={"bucket": length, "rows": len(pf)}):
+                logits = self._prefill_fn(length)(
+                    self._prefill_input(tokens, lengths))
         except EngineCrash as exc:  # engine death escapes containment
             self._attribute_crash(exc, pf)
             raise
         except Exception as exc:  # cursors untouched: survivors retry as-is
             return self._contain("prefill", pf, exc)
+        t_pf1 = self._clock()
+        obs.h_prefill_chunk.observe(t_pf1 - t_pf0)
         self.prefill_steps += 1
         self.prefill_tokens += int(lengths.sum())
         finishers = [i for i in pf
                      if self._cursor[i] + take[i] >= len(self._prompts[i])]
         for i in pf:
             self._cursor[i] += take[i]
+            obs.prefill_chunk(self.slots[i], i, t_pf0, t_pf1, take[i],
+                              self._cursor[i])
         if not finishers:
             return []
         if self._injector is not None:
@@ -837,11 +1182,12 @@ class ServingEngine:
                 if self._injector.poison_index(self.slots[i].uid, 0, 1) == 0:
                     logits[i] = float("nan")
         # non-finite logits are contained before any token is kept: the
-        # row's flag rides the first-token sync (one .cpu() for both)
-        row_ok = torch.isfinite(logits).all(dim=-1)
-        toks, row_ok = torch.stack(
-            [self._sample_first(logits, finishers),
-             row_ok.to(torch.int32)]).cpu().numpy()
+        # row's flag rides the first-token sync (one copy back for both)
+        with obs.span("prefill_sync"):
+            row_ok = torch.isfinite(logits).all(dim=-1)
+            toks, row_ok = fetch(torch.stack(
+                [self._sample_first(logits, finishers),
+                 row_ok.to(torch.int32)]))
         if self.paged:
             self._register_pages(finishers, row_ok)
         now = self._clock()
@@ -853,25 +1199,48 @@ class ServingEngine:
             h.error = "non-finite logits at prefill completion"
             self._finish(h, FINISH_ERROR, now)
             finished.append(h)
-        for i in [i for i in finishers if row_ok[i]]:
-            h = self.slots[i]
-            if self._emit(h, int(toks[i]), now):
-                finished.append(h)
-                self._free_slot(i)
-            else:
-                self.last_tokens[i] = int(toks[i])
-                self._slot_arrays = None
+        finishers = [i for i in finishers if row_ok[i]]
+        if not finishers:
+            return finished
+        with obs.span("sample_collect", args={"rows": len(finishers)}):
+            for i in finishers:
+                h = self.slots[i]
+                if self._emit(h, int(toks[i]), now):
+                    finished.append(h)
+                    self._free_slot(i)
+                else:
+                    self.last_tokens[i] = int(toks[i])
+                    self._slot_arrays = None
         return finished
 
+    def _register_pages(self, finishers: List[int], row_ok):
+        """Publish a finished prompt's fully written pages to the prefix
+        cache, at prefill completion (the step that syncs for the first
+        token anyway). A row whose completion logits are not finite never
+        publishes: its pages must not splice into other requests."""
+        ps = self.ecfg.page_size
+        for i in finishers:
+            if not self._cacheable[i]:
+                continue
+            if not row_ok[i]:
+                self._cacheable[i] = False
+                continue
+            prompt = self._prompts[i]
+            upto = min(self._cursor[i], len(prompt)) // ps
+            for j in range(self._registered[i], upto):
+                self.alloc.cache_insert(tuple(prompt[:(j + 1) * ps]),
+                                        int(self._tables[i, j]))
+            self._registered[i] = upto
+
     def _fleet_arrays(self):
-        """Per-slot device tensors for the decode loop, cached until the
+        """Per-slot host arrays of the decode dispatch, cached until the
         fleet changes: (temps, active, seeds, top_k, top_p, stops) and the
-        host flags (masked, draw): any row with top-k/top-p, any row with
-        temperature > 0."""
+        static flags of the loop's key: masked (any row with top-k/top-p),
+        the stop-set width bucket, and draw (any row at temperature > 0)."""
         if self._slot_arrays is None:
             nb = len(self.slots)
             temps = np.zeros((nb,), np.float32)
-            seeds = np.zeros((nb,), np.int64)
+            seeds = np.zeros((nb,), np.uint32)
             top_k = np.zeros((nb,), np.int32)
             top_p = np.ones((nb,), np.float32)
             stop_sets: List[List[int]] = [[] for _ in range(nb)]
@@ -891,45 +1260,57 @@ class ServingEngine:
             for i, s in enumerate(stop_sets):
                 stops[i, :len(s)] = s
             active = np.asarray([self._decoding(i) for i in range(nb)])
-            dev = self.device
-            self._slot_arrays = tuple(
-                torch.from_numpy(a).to(dev)
-                for a in (temps, active, seeds, top_k, top_p, stops)
-            ) + (masked, bool((temps > 0.0).any()))
+            self._slot_arrays = ((temps, active, seeds, top_k, top_p, stops),
+                                 masked, width, bool((temps > 0.0).any()))
         return self._slot_arrays
 
-    def _decode_loop(self, n_steps: int, poison: Optional[np.ndarray] = None
-                     ) -> Tuple[np.ndarray, np.ndarray]:
-        """K decode steps with on-device sampling and stop-freezing: one
-        copy of the inputs to the device, one host sync at the end. Returns
-        (K, B) sampled tokens and (K, B) flags, True where the row's logits
-        for that step were not all finite (such a row freezes; the host
-        retires it).
-
-        ``poison`` ((B,) int32, -1 = never; given only by an engine with a
-        fault injector) NaNs a row's logits on the device when its
-        generated-token index equals it."""
-        temps, active, seeds, top_k, top_p, stops, masked, draw = \
-            self._fleet_arrays()
+    def _idle_arrays(self, stop_w: int):
+        """Fleet arrays of a dispatch with no active row."""
         nb = len(self.slots)
-        gen = np.asarray([len(self.slots[i].output) if self._decoding(i)
-                          else 0 for i in range(nb)], np.int32)
-        rows = [self.last_tokens, gen] + ([] if poison is None else [poison])
-        inputs = torch.from_numpy(np.stack(rows)).to(self.device)
-        tok, gen = inputs[0], inputs[1]
-        if poison is not None:
-            poison = inputs[2]
+        return (np.zeros((nb,), np.float32), np.zeros((nb,), bool),
+                np.zeros((nb,), np.uint32), np.zeros((nb,), np.int32),
+                np.ones((nb,), np.float32), np.full((nb, stop_w), -1,
+                                                    np.int32))
+
+    def _decode_input(self, gen: np.ndarray, poison: np.ndarray,
+                      arrays) -> np.ndarray:
+        """The decode loop's one int32 input (``_decode_body``'s layout):
+        rows of B for the last tokens, the generated counts, the poison
+        indices, temperatures (f32 bits), active, seeds (u32 bits), top-k,
+        top-p (f32 bits), then the (B, W) stop sets."""
+        temps, active, seeds, top_k, top_p, stops = arrays
+        return np.concatenate([
+            self.last_tokens.astype(np.int32), gen, poison,
+            temps.view(np.int32), active.astype(np.int32),
+            seeds.view(np.int32), top_k, top_p.view(np.int32),
+            stops.reshape(-1)])
+
+    def _decode_body(self, inp: torch.Tensor, *, n_steps: int,
+                     use_mask: bool, stop_w: int, use_poison: bool,
+                     draw: bool) -> torch.Tensor:
+        """K decode steps with on-device sampling and stop-freezing over the
+        input of ``_decode_input``; returns (2K, B) int32: step k's sampled
+        tokens in row 2k, its non-finite flags in row 2k + 1. A flagged row
+        freezes (its state is garbage from there; the host retires it).
+        With ``use_poison`` a row's logits turn NaN when its generated-token
+        index equals its poison index (an engine with an injector only)."""
+        nb = len(self.slots)
+        rows = inp[:8 * nb].view(8, nb)
+        tok, gen, poison = rows[0], rows[1], rows[2]
+        temps, top_p = rows[3].view(torch.float32), rows[7].view(torch.float32)
+        active, seeds, top_k = rows[4] != 0, rows[5], rows[6]
+        stops = inp[8 * nb:].view(nb, stop_w)
         out = []
         for _ in range(n_steps):
-            logits, self.state = decode_step(self.model, self.cfg, self.state,
-                                             tok, active)
-            if poison is not None:
+            logits, _ = decode_step(self.model, self.cfg, self.state, tok,
+                                    active)
+            if use_poison:
                 logits = torch.where(((gen == poison) & active)[:, None],
                                      float("nan"), logits)
             bad = active & ~torch.isfinite(logits).all(dim=-1)
             nxt = sample_tokens_per_request(
-                logits, seeds, gen, temps, top_k=top_k if masked else None,
-                top_p=top_p if masked else None, draw=draw)
+                logits, seeds, gen, temps, top_k=top_k if use_mask else None,
+                top_p=top_p if use_mask else None, draw=draw)
             nxt = torch.where(active, nxt, tok)  # frozen rows repeat
             gen = gen + active.to(gen.dtype)
             hit = (nxt[:, None] == stops).any(dim=-1)
@@ -937,8 +1318,32 @@ class ServingEngine:
             active = active & ~(hit | bad)
             out += [nxt, bad.to(nxt.dtype)]
             tok = nxt
-        flat = torch.stack(out).cpu().numpy()  # the dispatch's one sync
-        return flat[0::2], flat[1::2].astype(bool)
+        return torch.stack(out)
+
+    def _decode_loop(self, n_steps: int, poison: Optional[np.ndarray] = None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """One K-step decode dispatch: its inputs to the device in one copy,
+        the loop (a graph replay on the card), one host sync for its
+        outputs. Returns (K, B) sampled tokens and (K, B) non-finite flags.
+
+        ``poison`` ((B,) int32, -1 = never; given only by an engine with a
+        fault injector) selects the loop variant that NaNs a row's logits
+        on the device when its generated-token index equals it."""
+        arrays, masked, stop_w, draw = self._fleet_arrays()
+        nb = len(self.slots)
+        gen = np.asarray([len(self.slots[i].output) if self._decoding(i)
+                          else 0 for i in range(nb)], np.int32)
+        inp = self._decode_input(
+            gen, np.full((nb,), -1, np.int32) if poison is None else poison,
+            arrays)
+        with self.obs.span("decode_dispatch",
+                           args={"n_steps": n_steps,
+                                 "rows": int(arrays[1].sum())}):
+            out = self._loop_fn(n_steps, masked, stop_w, poison is not None,
+                                draw)(inp)
+        with self.obs.span("decode_sync"):
+            flat = fetch(out)  # the dispatch's one host sync
+        return flat[0::2].copy(), flat[1::2].astype(bool)
 
     def _collect(self, toks: np.ndarray,
                  bad: np.ndarray) -> List[RequestHandle]:
@@ -968,3 +1373,132 @@ class ServingEngine:
                     break
         return finished
 
+
+class SerialAdmitEngine(ServingEngine):
+    """The reference's serial-admit baseline: each arriving request is
+    prefilled alone, through ``models.prefill`` into a private one-row ring
+    state, with one compiled dispatch per distinct prompt length (a CUDA
+    graph on the card; up to ``capacity`` of them), and merged into its
+    slot; the decode fleet waits while the queue's prompts are consumed one
+    by one. Decode is ``ServingEngine``'s, and the prompt walks the same
+    ``prefill_chunk`` boundaries as there, so a request's tokens are equal
+    on both engines. Ring layout only, as in the reference."""
+
+    def __init__(self, model, model_cfg, engine_cfg: EngineConfig, *,
+                 injector=None, observability: Optional[Observability] = None):
+        if engine_cfg.kv_layout != "ring":
+            raise ValueError(
+                "SerialAdmitEngine prefills through prefill() into a "
+                "private ring state and merges it by slot — the paged "
+                "layout is a bucketed-scheduler feature; use "
+                "kv_layout='ring' here")
+        super().__init__(model, model_cfg, engine_cfg, injector=injector,
+                         observability=observability)
+        with self._on_stream():
+            self._one = init_decode_state(model_cfg, 1, engine_cfg.capacity,
+                                          device=self.device)
+
+    def _warm_prefill(self):
+        # the power-of-two prompt lengths only: any other length is still
+        # captured at its first admission, the cost this baseline shows
+        for length in self._bucket_lengths(self.ecfg.capacity):
+            if length > self.ecfg.capacity:
+                break
+            self._prefill_len_fn(length)(np.zeros((length,), np.int32))
+
+    def _prefill_len_fn(self, length: int):
+        """One dispatch per distinct prompt length (prompts are clipped to
+        ``capacity`` at admission, which bounds the cache)."""
+        if length not in self._prefill_cache:
+            self._prefill_cache[length] = self._compile(
+                functools.partial(self._serial_body, length=length),
+                np.zeros((length,), np.int32))
+        return self._prefill_cache[length]
+
+    def _serial_body(self, inp: torch.Tensor, *, length: int):
+        logits, _ = prefill(self.model, self.cfg, inp.view(1, length),
+                            self.ecfg.capacity, chunk=self.ecfg.prefill_chunk,
+                            state=self._one)
+        return logits
+
+    def _merge(self, slot: int):
+        """Write the private state into row ``slot`` of the batch state."""
+        self.state["pos"][slot:slot + 1].copy_(self._one["pos"])
+        for dst, src in zip(self.state["layers"], self._one["layers"]):
+            for name, buf in dst.items():
+                buf[slot:slot + 1].copy_(src[name])
+
+    def _first_token(self, logits, p: SamplingParams):
+        """Token 0 of one batch-1 logits row and its finite flag, in one
+        copy back; row-wise sampling is batch-size-invariant, so this
+        equals the bucketed engine's fleet dispatch."""
+        up = upload(np.asarray([np.float32(p.temperature).view(np.int32),
+                                np.uint32(p.seed & 0xFFFFFFFF).view(np.int32),
+                                p.top_k, np.float32(p.top_p).view(np.int32)],
+                               np.int32), self.device)
+        tok = sample_tokens_per_request(
+            logits, up[1:2], torch.zeros_like(up[2:3]),
+            up[0:1].view(torch.float32),
+            top_k=up[2:3] if p.needs_mask else None,
+            top_p=up[3:4].view(torch.float32) if p.needs_mask else None,
+            draw=p.temperature > 0.0)
+        ok = torch.isfinite(logits[0]).all().to(torch.int32)
+        return fetch(torch.stack([tok[0], ok]))
+
+    def _admit(self):
+        for slot in range(len(self.slots)):
+            if self.slots[slot] is not None or not self.queue \
+                    or slot in self.quarantined:
+                continue
+            h = self.queue.popleft()
+            self.admits += 1
+            prompt = h.prompt[-self.ecfg.capacity:]
+            self.slots[slot] = h          # resident before the dispatch so
+            self._prompts[slot] = list(prompt)  # containment can attribute
+            self._cursor[slot] = 0        # not decoding until token 0 lands
+            h.t_admit = self._clock()
+            h._slot = slot
+            self.obs.request_admitted(h, slot)
+            t_pf0 = self._clock()
+            try:
+                self._guard_dispatch("prefill", [slot])
+                with self.obs.span("prefill_dispatch",
+                                   args={"bucket": len(prompt), "rows": 1}):
+                    logits = self._prefill_len_fn(len(prompt))(
+                        np.asarray(prompt, np.int32))
+            except EngineCrash as exc:  # engine death escapes containment
+                self._attribute_crash(exc, [slot])
+                raise
+            except Exception as exc:  # serial admission: batch-1 containment
+                self._admit_finished.extend(
+                    self._contain("prefill", [slot], exc))
+                continue
+            self._merge(slot)
+            self.prefill_steps += 1
+            self.prefill_tokens += len(prompt)
+            self.obs.h_prefill_chunk.observe(self._clock() - t_pf0)
+            self.obs.prefill_chunk(h, slot, t_pf0, self._clock(),
+                                   len(prompt), len(prompt))
+            if self._injector is not None \
+                    and self._injector.poison_index(h.uid, 0, 1) == 0:
+                logits[0] = float("nan")
+            with self.obs.span("prefill_sync"):
+                tok, row_ok = self._first_token(logits, h.params)
+            if not row_ok:
+                self._free_slot(slot)
+                self._quarantine(slot)
+                h.error = "non-finite logits at prefill completion"
+                self._finish(h, FINISH_ERROR, self._clock())
+                self._admit_finished.append(h)
+                continue
+            with self.obs.span("sample_collect", args={"rows": 1}):
+                tok = int(tok)
+            now = self._clock()
+            # the prompt is consumed: the base class sees a decoding row
+            self._cursor[slot] = len(prompt)
+            if not self._emit(h, tok, now):
+                self.last_tokens[slot] = tok
+                self._slot_arrays = None
+                continue
+            self._admit_finished.append(h)
+            self._free_slot(slot)

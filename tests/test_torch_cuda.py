@@ -25,6 +25,11 @@ A quantized model written to an artifact and loaded onto the card holds
 byte-identical tensors and serves the same tokens; an engine with a fault
 injector contains a NaN row with one host sync per decode dispatch, as
 one without does, and only the injector's engine runs the poison.
+The engine's dispatches replayed from CUDA graphs give the eager bodies'
+streams token for token (greedy and sampled, ring and paged), a request
+alone the same as in the fleet, the serial-admit baseline the bucketed
+engine's; a decode dispatch syncs the host once, also after the fleet
+changed; the launch counts grow by each graph's capture per replay.
 """
 
 import dataclasses
@@ -54,7 +59,9 @@ from repro_torch.kernels.rms_norm import ref as norm_ref
 from repro_torch.kernels.ternary_matmul import ops as tm_ops
 from repro_torch.kernels.ternary_matmul import ref as tm_ref
 from repro_torch.models import init_params
-from repro_torch.serving import EngineConfig, SamplingParams, ServingEngine
+from repro_torch.serving import (EngineConfig, SamplingParams,
+                                 SerialAdmitEngine, ServingEngine)
+from repro_torch.serving.graphs import GraphDispatch
 from repro_torch.serving.faults import FaultInjector, FaultPlan
 
 pytestmark = pytest.mark.cuda
@@ -519,6 +526,7 @@ def _decode_profile(eng):
 
     def traced(n_steps, poison=None):
         rebuilt = eng._slot_arrays is None
+        graphs = len(eng._loop_cache)
         torch.cuda.synchronize()
         with warnings.catch_warnings(record=True) as seen, \
                 profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -532,7 +540,10 @@ def _decode_profile(eng):
                       if e.device_type == torch.autograd.DeviceType.CUDA)
         syncs = sum("called a synchronizing" in str(m.message)
                     for m in seen)
-        calls.append((n_steps, (rebuilt, syncs), kernels))
+        # a dispatch whose graph was captured in this call synchronizes for
+        # the capture; the others are replays
+        calls.append((n_steps, (rebuilt, syncs), kernels,
+                      len(eng._loop_cache) > graphs))
         return out
 
     eng._decode_loop = traced
@@ -542,10 +553,10 @@ def _decode_profile(eng):
 def test_nan_containment_on_the_card(cuda):
     """A NaN row poisoned inside a 4-step dispatch retires "error" with the
     clean run's tokens so far; its neighbour is unchanged; a decode
-    dispatch syncs the host twice (its inputs in, tokens and flags out;
-    more after the fleet changed, the per-slot arrays), with or without
-    an injector; the injector's engine runs more device kernels (the
-    poison), the production engine none of them."""
+    dispatch replayed from its graph syncs the host once (its tokens and
+    flags out; its inputs go in without a sync, also after the fleet
+    changed), with or without an injector; the injector's engine runs more
+    device kernels (the poison), the production engine none of them."""
     model, cfg = _quantized_smoke(cuda)
     prompts = [[5, 9, 17, 2], [1, 2, 3]]
     out = {}
@@ -570,9 +581,153 @@ def test_nan_containment_on_the_card(cuda):
     assert quarantined == {1: 1 + 2}  # step 1 + quarantine_steps
     syncs = {}
     for calls in (calls_clean, calls_inj, calls_nan):
-        for _, (rebuilt, n), _ in calls:
-            assert syncs.setdefault(rebuilt, n) == n, (calls_clean, calls_nan)
-    assert syncs[False] == 2, syncs
+        for _, (rebuilt, n), _, captured in calls:
+            if not captured:
+                assert syncs.setdefault(rebuilt, n) == n, (calls_clean,
+                                                           calls_nan)
+    assert syncs == {False: 1, True: 1}, syncs
     assert [c[0] for c in calls_clean] == [c[0] for c in calls_inj]
-    assert all(k_inj > k for (_, _, k), (_, _, k_inj)
+    assert all(k_inj > k for (_, _, k, _), (_, _, k_inj, _)
                in zip(calls_clean, calls_inj))
+
+
+def _bf16_smoke(dev):
+    cfg = dataclasses.replace(configs.get_smoke_config("qwen2-1.5b"),
+                              param_dtype="bfloat16",
+                              activation_dtype="bfloat16")
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    model, _ = quantize_tree(model, PTQTPConfig(group_size=64, t_max=5))
+    return model, cfg
+
+
+def _graph_serve(model, cfg, prompts, params, capture=True,
+                 cls=ServingEngine, **kw):
+    eng = cls(model, cfg, EngineConfig(**dict(
+        dict(max_slots=4, capacity=256, prefill_chunk=64), **kw)))
+    eng._capture = capture
+    hs = [eng.submit(p, sp) for p, sp in zip(prompts, params)]
+    eng.run()
+    return [h.output for h in hs], eng
+
+
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_graph_and_eager_streams_equal(cuda, layout, sampled):
+    """Every dispatch replayed from its CUDA graph gives the eager bodies'
+    tokens; a request alone gives its fleet tokens (the 129-token prompt
+    ends in bucket 1 alone, in a wider bucket in the fleet)."""
+    model, cfg = _bf16_smoke(cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (5, 40, 140, 129)]
+    params = [SamplingParams(max_new_tokens=9) for _ in prompts]
+    if sampled:
+        params[0] = SamplingParams(max_new_tokens=9, temperature=0.8, seed=5)
+        params[3] = SamplingParams(max_new_tokens=9, temperature=0.8, seed=7,
+                                   top_k=20, top_p=0.9)
+    kw = dict(kv_layout=layout, page_size=16)
+    graph, eng = _graph_serve(model, cfg, prompts, params, **kw)
+    eager, eager_eng = _graph_serve(model, cfg, prompts, params,
+                                    capture=False, **kw)
+    assert graph == eager
+    stats = eng.graph_stats()["dispatches"]
+    assert stats and all(d["graph"] for d in stats)
+    for kind in ("prefill", "decode"):
+        assert sum(d["replays"] for d in stats if d["kind"] == kind) \
+            == eng._dispatch_counts[kind]
+    assert not any(d["graph"] for d in eager_eng.graph_stats()["dispatches"])
+    for i in (2, 3):
+        assert _graph_serve(model, cfg, prompts[i:i + 1], params[i:i + 1],
+                            max_slots=1, **kw)[0][0] == graph[i]
+
+
+def test_serial_admit_equals_bucketed_on_the_card(cuda):
+    model, cfg = _bf16_smoke(cuda)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (5, 70, 129, 30)]
+    params = [SamplingParams(max_new_tokens=7) for _ in prompts]
+    params[1] = SamplingParams(max_new_tokens=7, temperature=0.8, seed=3)
+    bucketed, _ = _graph_serve(model, cfg, prompts, params)
+    serial, eng = _graph_serve(model, cfg, prompts, params,
+                               cls=SerialAdmitEngine)
+    assert serial == bucketed
+    assert eng.compile_stats()["n_prefill_compiles"] == 4
+    assert all(isinstance(d, GraphDispatch)
+               for d in eng._prefill_cache.values())
+
+
+def test_one_host_sync_per_decode_dispatch(cuda):
+    """After warmup() every decode dispatch is a replay: one host sync
+    each under torch.cuda's sync-debug mode, also right after the fleet
+    changed; the fleet adds no dispatch to the caches."""
+    model, cfg = _bf16_smoke(cuda)
+    eng = ServingEngine(model, cfg, EngineConfig(max_slots=2, capacity=128,
+                                                 prefill_chunk=16,
+                                                 decode_chunk=4))
+    eng.warmup()
+    before = eng.compile_stats()
+    calls = _decode_profile(eng)
+    hs = [eng.submit([1, 2, 3], SamplingParams(max_new_tokens=5)),
+          eng.submit(list(range(40)), SamplingParams(max_new_tokens=11)),
+          eng.submit([4, 5], SamplingParams(max_new_tokens=6,
+                                            temperature=0.8, seed=1))]
+    eng.run()
+    assert all(h.finish_reason == "length" for h in hs)
+    assert eng.compile_stats() == dict(before, admits=3,
+                                       prefill_steps=eng.prefill_steps)
+    assert calls and not any(c[3] for c in calls)
+    assert {c[1] for c in calls} == {(False, 1), (True, 1)}, calls
+
+
+def test_replays_count_the_launches_they_run(cuda):
+    model, cfg = _bf16_smoke(cuda)
+    eng = ServingEngine(model, cfg, EngineConfig(max_slots=2, capacity=64,
+                                                 prefill_chunk=16,
+                                                 decode_chunk=4))
+    eng.warmup()
+    key = (4, False, 1, False, False)
+    graph = eng._loop_cache[key]
+    assert isinstance(graph, GraphDispatch) and graph.capture_s > 0
+    # 7 linear layers a block and the lm_head, each step
+    assert graph.launches["ternary_matvec"] == 4 * (7 * cfg.n_layers + 1)
+    idle = eng._decode_input(np.zeros((2,), np.int32),
+                             np.full((2,), -1, np.int32), eng._idle_arrays(1))
+    reset_launch_counts()
+    with eng._on_stream():
+        for _ in range(3):
+            graph(idle)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts == {k: 3 * n for k, n in graph.launches.items()}
+    assert counts["chunk_attention"] == 3 * 4 * cfg.n_layers
+
+
+def test_capture_survives_collecting_dead_engines(cuda):
+    """An engine and its metrics registry hold each other, so a dropped
+    engine (and its graphs) waits for the garbage collector. A collection
+    during a capture would destroy those graphs mid-capture, which the
+    capturing stream refuses: captures run with automatic collection off.
+    Here the collector is set to run at nearly every allocation."""
+    import gc
+
+    model, cfg = _bf16_smoke(cuda)
+    ecfg = EngineConfig(max_slots=2, capacity=64, prefill_chunk=16,
+                        decode_chunk=4)
+    threshold = gc.get_threshold()
+    try:
+        for _ in range(3):
+            dead = ServingEngine(model, cfg, ecfg)
+            dead.submit([1, 2, 3], SamplingParams(max_new_tokens=5)).result()
+            del dead
+            gc.set_threshold(1)
+            eng = ServingEngine(model, cfg, ecfg)
+            h = eng.submit(list(range(20)), SamplingParams(max_new_tokens=6))
+            h.result()
+            gc.set_threshold(*threshold)
+            assert h.finish_reason == "length" and len(h.output) == 6
+            assert all(isinstance(d, GraphDispatch)
+                       for d in eng._loop_cache.values())
+    finally:
+        gc.set_threshold(*threshold)
