@@ -84,6 +84,27 @@ slice 7 also:
  15. C.2: the unquantized bf16 model served in the main fleet and alone
      for the longest and the bucket-1 request: equal streams.
 
+Since slice 8 (the concurrent frontend, ``serving.frontend``):
+
+ 16. (h) HTTP: a fresh engine, not warmed, behind ``EngineDriver`` and
+     ``ThreadedHttpServer`` on 127.0.0.1:0; the ring fleet posted from 8
+     client threads (half as SSE streams), so the driver's thread captures
+     its graphs while the clients are live, then posted again (replays):
+     every stream equal to phase 4's, ``/healthz`` and ``/metrics``
+     answering during each run; tok/s and TTFT through HTTP beside phase
+     4's in-process figures;
+ 17. (i) supervised recovery: an ``EngineSupervisor`` whose factory builds
+     ring engines on the same model, the HTTP server in front; three
+     rounds of the ring fleet, each generation dying in its own way (an
+     ambiguous crash mid-decode, a crash blamed on a poison request, a
+     hung step caught by the watchdog): the survivors' streams equal phase
+     4's with every SSE token index once, the poison request retires
+     "error" once, and device memory once generation 3 has settled exceeds
+     generation 1's by no more than generation 3's graph tensors and
+     attention scratch; each recovery's seconds, time to the first
+     replayed token and the new generation's capture seconds, and the
+     card's allocated and reserved bytes after each generation.
+
 Each phase's engines and graph pools are freed before the next; the run's
 total seconds are printed.
 
@@ -723,7 +744,16 @@ def make_engine(model, cfg, injector=None, *, warm=False, capture=True,
         observability=observability)
     eng._capture = capture
     eng.smoke = dict(decode_s=0.0, in_decode=dict.fromkeys(launch_counts(),
-                                                           0))
+                                                           0), captures=[])
+    compile_ = eng._compile
+
+    def stamped(*args, **kw):  # (clock at the capture's end, its seconds)
+        dispatch = compile_(*args, **kw)
+        eng.smoke["captures"].append((time.perf_counter(),
+                                      dispatch.capture_s))
+        return dispatch
+
+    eng._compile = stamped
     if warm:
         warmup(eng)
     inner = eng._decode_loop
@@ -1411,6 +1441,381 @@ def split_line(cfg, per_step):
             "attention launches per decode step")
 
 
+# ------------------------------------------------- phases (h)-(i): slice 8
+HTTP_CLIENT_TIMEOUT = 300  # seconds a client waits for its response
+
+
+def post_fleet(base, prompts, max_new=MAX_NEW, sse=lambda i: i % 2 == 0):
+    """Post ``prompts`` (greedy, ``max_new`` new tokens) to ``base``'s
+    ``/v1/completions`` from one client thread each, the ``sse(i)`` ones as
+    SSE streams. Returns (one dict a request: tokens, the indices of its
+    SSE token events, its result body, client seconds to the first token
+    event and to the end; the fleet's wall seconds)."""
+    import threading
+    import urllib.request
+
+    out = [None] * len(prompts)
+
+    def client(i):
+        stream = sse(i)
+        body = json.dumps({"prompt": prompts[i], "max_new_tokens": max_new,
+                           "stream": stream}).encode()
+        req = urllib.request.Request(
+            base + "/v1/completions", data=body,
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        rec = dict(sse=stream, tokens=[], indices=[], result=None,
+                   first_s=None)
+        try:
+            with urllib.request.urlopen(req, timeout=HTTP_CLIENT_TIMEOUT) \
+                    as resp:
+                if not stream:
+                    rec["result"] = json.loads(resp.read())
+                    rec["tokens"] = rec["result"]["tokens"]
+                for raw in resp if stream else ():
+                    line = raw.decode().strip()
+                    if not line.startswith("data: ") \
+                            or line == "data: [DONE]":
+                        continue
+                    ev = json.loads(line[len("data: "):])
+                    if "token" in ev:
+                        if rec["first_s"] is None:
+                            rec["first_s"] = time.perf_counter() - t0
+                        rec["tokens"].append(ev["token"])
+                        rec["indices"].append(ev["index"])
+                    else:
+                        rec["result"] = ev
+        except Exception as e:  # reported by the gate below
+            rec["error"] = f"{type(e).__name__}: {e}"
+        rec["end_s"] = time.perf_counter() - t0
+        out[i] = rec
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=HTTP_CLIENT_TIMEOUT + 60)
+    wall = time.perf_counter() - t0
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("an HTTP client never returned")
+    return out, wall
+
+
+def same_streams(got, want, what):
+    """Every request's tokens equal ``want``'s, each SSE token index given
+    once and in order, the result body's tokens the stream's."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if "error" in g or g["result"] is None:
+            raise AssertionError(f"{what}: request {i} failed: "
+                                 f"{g.get('error', 'no result event')}")
+        if g["result"]["finish_reason"] != "length":
+            raise AssertionError(f"{what}: request {i} ended "
+                                 f"{g['result']['finish_reason']}: "
+                                 f"{g['result']['error']}")
+        if tuple(g["tokens"]) != tuple(w) \
+                or tuple(g["result"]["tokens"]) != tuple(w):
+            raise AssertionError(f"{what}: request {i} gave {g['tokens']}, "
+                                 f"phase 4 {list(w)}")
+        if g["sse"] and g["indices"] != list(range(len(w))):
+            raise AssertionError(f"{what}: request {i}'s SSE token indices "
+                                 f"{g['indices']} (duplicated or missing)")
+
+
+def poll_endpoints(base, stop):
+    """Ask ``/healthz`` and ``/metrics`` in turn until ``stop`` is set;
+    returns the count of 200 answers of each."""
+    import urllib.request
+
+    ok = {"/healthz": 0, "/metrics": 0}
+    while not stop.is_set():
+        for path in ok:
+            with urllib.request.urlopen(base + path, timeout=60) as resp:
+                body = resp.read()
+                if resp.status == 200 and (
+                        path == "/metrics" or json.loads(body)["ok"]):
+                    ok[path] += 1
+    return ok
+
+
+def http_path(cfg, dev, model, mp):
+    """(h): a fresh engine, not warmed, behind ``EngineDriver`` and
+    ``ThreadedHttpServer``; the ring fleet posted twice from 8 client
+    threads (half SSE): the first run captures the graphs on the driver's
+    thread while the clients and the endpoint poller are live, the second
+    replays them. Both give phase 4's tokens. Launch counts reset just
+    before and read just after."""
+    import threading
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.frontend import EngineDriver, ThreadedHttpServer
+
+    want = [r.tokens for r in mp["results"]]
+    reset_launch_counts()
+    eng = make_engine(model, cfg)
+    driver = EngineDriver(eng).start()
+    try:
+        srv = ThreadedHttpServer(driver).start()
+    except BaseException:
+        driver.close()
+        raise
+    base = f"http://{srv.host}:{srv.port}"
+    runs = []
+    try:
+        for run in ("capture", "replay"):
+            dec0 = (eng.smoke["decode_s"], eng.tokens_generated, eng.steps)
+            stop, polled = threading.Event(), {}
+            poller = threading.Thread(
+                target=lambda: polled.update(poll_endpoints(base, stop)))
+            poller.start()
+            try:
+                got, wall = post_fleet(base, mp["prompts"])
+            finally:
+                stop.set()
+                poller.join(timeout=120)
+            same_streams(got, want, f"(h) {run}")
+            if not (polled.get("/healthz") and polled.get("/metrics")):
+                raise AssertionError(f"(h) {run}: /healthz and /metrics "
+                                     f"answered {polled} times")
+            n_tok = sum(len(g["tokens"]) for g in got)
+            runs.append(dict(
+                run=run, wall=wall, tokens=n_tok, polled=polled,
+                decode_s=eng.smoke["decode_s"] - dec0[0],
+                decode_tok=eng.tokens_generated - dec0[1] - len(got),
+                steps=eng.steps - dec0[2],
+                ttft=sorted(g["result"]["ttft_s"] for g in got),
+                client_ttft=sorted(g["first_s"] for g in got if g["sse"]),
+                graphs=driver.call(lambda e: (
+                    len(e._loop_cache) + len(e._prefill_cache),
+                    e.graph_stats()["capture_s"]))))
+    finally:
+        srv.stop()
+        driver.close()
+    return dict(runs=runs, counts=launch_counts())
+
+
+def settled_bytes(eng):
+    """Device bytes the live ``eng`` may hold beyond another generation
+    of the same engine: its graphs' static inputs and outputs (the live
+    tensors of its graph pool) and its attention scratch, each rounded up
+    to the allocator's 512-byte blocks. The margin of (i)'s memory gate."""
+    from repro_torch.kernels.chunk_attention import ops as ca_ops
+
+    def nbytes(t):
+        return -(-t.numel() * t.element_size() // 512) * 512
+
+    key = (eng._stream.device_index, eng._stream.cuda_stream)
+    scratch = list(ca_ops._WORKSPACES.get(key, ())) + [
+        t for ws in ca_ops._RETIRED.get(key, ()) for t in ws]
+    dispatches = list(eng._loop_cache.values()) + list(
+        eng._prefill_cache.values())
+    return sum(nbytes(t) for t in scratch) + sum(
+        nbytes(d.static_in) + nbytes(d.out) for d in dispatches)
+
+
+def recovery_path(cfg, dev, model, mp):
+    """(i): an ``EngineSupervisor`` (and the HTTP server in front of it)
+    whose factory builds ring engines on the model already on the card,
+    each with a fresh ``FaultPlan``; three rounds of the ring fleet over
+    HTTP (half SSE), each armed on the live generation: generation 0 dies
+    of a crash at a decode dispatch of half the fleet or more (ambiguous),
+    generation 1 of a crash blamed on a poison request resident since the
+    round began, generation 2 hangs a step of half the fleet or more (its
+    clock virtual) until the watchdog rebuilds. After each round the
+    survivors' streams equal phase 4's (every SSE index once), and once
+    generation 1, 2 and 3 have settled the dead ones are collected and
+    device memory is read: generation 3's may exceed generation 1's by
+    ``settled_bytes`` of generation 3's engine at most. Launch counts reset just before and read just after."""
+    import threading
+    import weakref
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import SamplingParams
+    from repro_torch.serving.faults import (FaultInjector, FaultPlan,
+                                            VirtualClock)
+    from repro_torch.serving.frontend import (EngineSupervisor,
+                                              ThreadedHttpServer)
+    from repro_torch.serving.graphs import collect_garbage
+
+    want = [r.tokens for r in mp["results"]]
+    poison_prompt = np.random.default_rng(SEED + 2).integers(
+        0, cfg.vocab_size, 16).tolist()  # decoding from the round's 1st step
+    injectors, engines = [], []
+
+    def factory():
+        clock = VirtualClock() if len(injectors) == 2 else None
+        injectors.append(FaultInjector(FaultPlan(), clock=clock))
+        eng = make_engine(model, cfg, injector=injectors[-1])
+        engines.append(weakref.ref(eng))
+        return eng
+
+    def settle(sup, gen):
+        """Wait for the driver's thread between steps, collect the dead
+        generations, read the card's memory."""
+        sup.call(lambda e: None)
+        collect_garbage()
+        torch.cuda.synchronize()
+        live = [r() for r in engines if r() is not None]
+        if len(live) != 1 or sup.generation != gen:
+            raise AssertionError(f"(i) generation {sup.generation} settled "
+                                 f"with {len(live)} engines alive")
+        eng = live[0]
+        return dict(generation=gen, allocated=torch.cuda.memory_allocated(),
+                    reserved=torch.cuda.memory_reserved(),
+                    margin=settled_bytes(eng),
+                    state=eng.memory_stats()["decode_state_bytes"],
+                    captures=list(eng.smoke["captures"]),
+                    capture_s=eng.graph_stats()["capture_s"],
+                    graphs=len(eng._loop_cache) + len(eng._prefill_cache))
+
+    reset_launch_counts()
+    sup = EngineSupervisor(factory, restart_backoff_s=0.0, max_restarts=9,
+                           blacklist_after=9, watchdog_step_timeout_s=5.0)
+    sup.start()
+    srv = None
+    rounds, mem = [], []
+    try:
+        srv = ThreadedHttpServer(sup).start()
+        base = f"http://{srv.host}:{srv.port}"
+        for gen in range(3):
+            plan = injectors[gen].plan
+            poison = None
+            if gen == 1:    # blamed on one request, resident from the start
+                n_dec = sup.call(lambda e: e._dispatch_counts["decode"])
+                poison = sup.submit(poison_prompt,
+                                    SamplingParams(max_new_tokens=MAX_NEW))
+                plan.engine_crash("decode", n_dec + 1, uid=poison.uid)
+            fleet = {}
+            clients = threading.Thread(target=lambda: fleet.update(zip(
+                ("got", "wall"), post_fleet(base, mp["prompts"]))))
+            clients.start()
+            if gen != 1:
+                # armed between two steps once half the fleet decodes, so
+                # that several requests are suspects: generation 0 crashes
+                # at the next decode dispatch, generation 2 hangs the next
+                # step (on its virtual clock) until the watchdog fires
+                def arm(e):
+                    if sum(map(e._decoding, range(len(e.slots)))) < 4:
+                        return False
+                    if gen == 0:
+                        plan.engine_crash("decode",
+                                          e._dispatch_counts["decode"])
+                    else:
+                        plan.stall_step(at_step=e.engine_steps + 1,
+                                        hang_s=60.0)
+                    return True
+
+                t0 = time.perf_counter()
+                while not sup.call(arm):
+                    if time.perf_counter() - t0 > HTTP_CLIENT_TIMEOUT:
+                        raise AssertionError("(i) half the fleet never "
+                                             "decoded at once")
+            clients.join(timeout=HTTP_CLIENT_TIMEOUT + 120)
+            if clients.is_alive() or "got" not in fleet:
+                raise AssertionError(f"(i) round {gen + 1}: the clients "
+                                     f"never finished")
+            got, wall = fleet["got"], fleet["wall"]
+            if gen == 2:  # the wedged thread wakes, launches nothing, exits
+                injectors[2].release_stalls()
+                for th in threading.enumerate():
+                    if th.name == "engine-driver-gen2":
+                        th.join(timeout=60)
+                        if th.is_alive():
+                            raise AssertionError("(i) the released thread "
+                                                 "of generation 2 hangs")
+            same_streams(got, want, f"(i) round {gen + 1}")
+            rounds.append(dict(wall=wall, tokens=sum(len(g["tokens"])
+                                                     for g in got)))
+            if poison is not None:
+                res = poison.result(timeout=HTTP_CLIENT_TIMEOUT)
+                n_err = [r.uid for r in sup.results()].count(poison.uid)
+                if res.finish_reason != "error" or n_err != 1 \
+                        or "blacklisted" not in res.error:
+                    raise AssertionError(
+                        f"(i) the poison request ended {res.finish_reason} "
+                        f"({n_err} records): {res.error}")
+            if len(sup.recoveries) != gen + 1:
+                raise AssertionError(f"(i) round {gen + 1}: "
+                                     f"{len(sup.recoveries)} recoveries")
+            mem.append(settle(sup, gen + 1))
+        counts = launch_counts()
+    finally:
+        for inj in injectors:
+            inj.release_stalls()
+        if srv is not None:
+            srv.stop()
+        sup.close()
+    excs = [r["exc"].split(":")[0] for r in sup.recoveries]
+    if excs != ["EngineCrash", "EngineCrash", "StepTimeout"] \
+            or len(sup.recoveries[0]["suspects"]) < 2 \
+            or len(sup.recoveries[1]["suspects"]) != 1:
+        raise AssertionError(f"(i) recoveries {sup.recoveries}")
+    if mem[2]["allocated"] - mem[0]["allocated"] > mem[2]["margin"]:
+        raise AssertionError(f"(i) device memory grew across generations: "
+                             f"{mem}")
+    # the supervisor's clock is rtclock.MONOTONIC, time.perf_counter
+    recs = [dict(generation=r["generation"], suspects=len(r["suspects"]),
+                 replayed=r["replayed"], exc=r["exc"].split(":")[0],
+                 duration_s=r["duration_s"],
+                 first_token_s=r["t_first_replayed_token"] - r["t_detect"],
+                 first_captures=[c for t, c in m["captures"]
+                                 if t <= r["t_first_replayed_token"]],
+                 capture_s=m["capture_s"], graphs=m["graphs"])
+            for r, m in zip(sup.recoveries, mem)]
+    return dict(recoveries=recs, memory=mem, rounds=rounds, counts=counts,
+                blacklist=sorted(sup.blacklist), restarts=sup.restarts)
+
+
+def log_http(gpu, hp, mp):
+    """(h)'s lines: each run through HTTP beside phase 4 in process."""
+    med = lambda xs: xs[len(xs) // 2]  # noqa: E731
+    for r in hp["runs"]:
+        log(f"{gpu} | (h) HTTP, {r['run']} run: phase 4's tokens in every "
+            f"stream; {r['tokens']} tokens in {r['wall']:.3f}s = "
+            f"{r['tokens'] / r['wall']:.1f} tok/s through HTTP; decode"
+            f"{' (its captures included)' if r['run'] == 'capture' else ''} "
+            f"{r['decode_tok'] / r['decode_s']:.1f} tok/s, "
+            f"{1e3 * r['decode_s'] / r['steps']:.3f} ms and "
+            f"{r['decode_tok'] / r['steps']:.2f} rows a decode step (phase 4 "
+            f"in process: {mp['decode_tok'] / mp['decode_s']:.1f} tok/s, "
+            f"{1e3 * mp['decode_s'] / mp['steps']:.3f} ms, "
+            f"{mp['decode_tok'] / mp['steps']:.2f} rows); TTFT "
+            f"median {med(r['ttft']):.3f}s max {r['ttft'][-1]:.3f}s (phase "
+            f"4: {med(mp['ttft']):.3f}s, {mp['ttft'][-1]:.3f}s), SSE client "
+            f"TTFT median {med(r['client_ttft']):.3f}s max "
+            f"{r['client_ttft'][-1]:.3f}s; {r['graphs'][0]} graphs "
+            f"({r['graphs'][1]:.2f}s of capture so far); /healthz and "
+            f"/metrics answered {r['polled']} during the run")
+
+
+def log_recovery(gpu, rp):
+    """(i)'s lines: each recovery's seconds, each generation's bytes."""
+    for r in rp["recoveries"]:
+        log(f"{gpu} | (i) recovery to generation {r['generation']} "
+            f"({r['exc']}, {r['suspects']} suspects, {r['replayed']} "
+            f"replayed): duration_s {r['duration_s']:.4f}, first replayed "
+            f"token after {r['first_token_s']:.3f}s, of which the new "
+            f"generation's first captures {sum(r['first_captures']):.3f}s "
+            f"({len(r['first_captures'])} graphs; {r['graphs']} graphs, "
+            f"{r['capture_s']:.3f}s in its round)")
+    for m in rp["memory"]:
+        log(f"{gpu} | (i) generation {m['generation']} settled: "
+            f"memory_allocated {m['allocated']} bytes, memory_reserved "
+            f"{m['reserved']} bytes; the generation's own: decode state "
+            f"(KV ring, positions) {m['state']} bytes, graph tensors and "
+            f"attention scratch {m['margin']} bytes (the margin)")
+    grew = rp["memory"][2]["allocated"] - rp["memory"][0]["allocated"]
+    log(f"(i) survivors gave phase 4's tokens in all {len(rp['rounds'])} "
+        f"rounds, every SSE index once; the poison request retired 'error' "
+        f"once (blacklist {rp['blacklist']}); {rp['restarts']} restarts; "
+        f"generation 3 holds {grew} bytes more than generation 1 (margin "
+        f"{rp['memory'][2]['margin']})")
+
+
 # -------------------------------------------------------- phase 4: timings
 def time_ternary(model, cfg, dev):
     """Kernel, plain and library times of the quantized linear layers of
@@ -1888,6 +2293,21 @@ def main() -> int:
         f"{med(dp['ttft']):.3f}s; elements of rows 0-7 that one F.linear "
         f"gives other bits alone than in a 512-row call, by layer: "
         f"{dp['plain_diff']} (the row blocks: none)")
+
+    gc_free()
+    t0 = time.perf_counter()
+    hp = http_path(cfg, dev, model, mp)
+    need(hp["counts"], RING_PATH, "the HTTP path")
+    log_http(gpu, hp, mp)
+    log(f"(h) launches on the HTTP path: {hp['counts']}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    gc_free()
+    t0 = time.perf_counter()
+    rp = recovery_path(cfg, dev, model, mp)
+    need(rp["counts"], RING_PATH, "the supervised path")
+    log_recovery(gpu, rp)
+    log(f"(i) launches on the supervised path: {rp['counts']}; "
+        f"{time.perf_counter() - t0:.1f}s")
 
     gc_free()
     dcounts, dlayers = decode_attention_path(cfg, dev)

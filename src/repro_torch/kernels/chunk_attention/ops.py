@@ -55,9 +55,10 @@ def split_ranges(n: int) -> Tuple[Tuple[int, int], ...]:
 
 
 _WORKSPACES: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
-# outgrown workspaces, never freed: a CUDA graph captured before a growth
-# still reads and writes them at every replay
-_RETIRED: List[Tuple[torch.Tensor, torch.Tensor]] = []
+# outgrown workspaces by (device, stream), kept until release_workspace: a
+# CUDA graph captured before a growth still reads and writes them at every
+# replay
+_RETIRED: Dict[tuple, List[Tuple[torch.Tensor, torch.Tensor]]] = {}
 
 
 def _workspace_size(b: int, kv: int, rows: int, hd: int, n_parts: int):
@@ -77,12 +78,20 @@ def _ensure(dev, stream: int, need: int, n_idx: int):
                 "call before the capture")
         have = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
         if ws is not None:
-            _RETIRED.append(ws)
+            _RETIRED.setdefault(key, []).append(ws)
         ws = (torch.empty(max(need, have[0]), dtype=torch.float32, device=dev),
               torch.zeros(max(n_idx, have[1], 1024), dtype=torch.int32,
                           device=dev))
         _WORKSPACES[key] = ws
     return ws
+
+
+def release_workspace(device_index: int, stream: int) -> None:
+    """Drop the workspace of a raw ``stream`` and those it outgrew, once
+    nothing will launch there or replay a graph captured there (the engine
+    that owned the stream is freed, its graphs with it)."""
+    _WORKSPACES.pop((device_index, stream), None)
+    _RETIRED.pop((device_index, stream), None)
 
 
 def workspace(dev, b: int, kv: int, rows: int, hd: int, n_parts: int):

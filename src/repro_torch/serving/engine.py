@@ -66,6 +66,17 @@ registry polled from the engine's own counters, one span per engine phase
 trace when tracing is on, all host-side around the dispatches; ``health()``
 reads the registry.
 
+Threads (the concurrent frontend, ``serving.frontend``): the engine is
+single-threaded, and after ``EngineDriver.start()`` the driver's thread is
+its only caller; nothing in it depends on which thread that is (the stream
+it works on is entered per step, and the host syncs wait on that stream).
+A capture that fails or a replay that raises is a ``GraphFailure``, which
+escapes containment like an ``EngineCrash``: under a supervisor the engine
+is rebuilt. ``abandon()`` (a supervisor's reap) stops a dead engine's
+thread at its next dispatch, and on the card each engine holds a stream no
+other live engine has, so even a thread that is mid-dispatch never
+launches onto a newer generation's stream.
+
 Not ported yet, and rejected when set: pre-unpacked planes and an
 attention-backend override.
 """
@@ -91,7 +102,8 @@ from repro_torch.serving.api import (FINISH_CANCELLED, FINISH_ERROR,
                                      FINISH_STOP, FINISH_TIMEOUT,
                                      RequestHandle, SamplingParams,
                                      make_handle)
-from repro_torch.serving.graphs import (EagerDispatch, GraphDispatch, fetch,
+from repro_torch.serving.graphs import (EagerDispatch, GraphDispatch,
+                                        GraphFailure, claim_stream, fetch,
                                         upload)
 from repro_torch.serving.observability import TRACK_ENGINE, Observability
 from repro_torch.serving.paging import PageAllocator
@@ -266,14 +278,15 @@ class ServingEngine:
         # baseline: by prompt length)
         self._loop_cache: Dict[Tuple[int, bool, int, bool, bool], Any] = {}
         self._prefill_cache: Dict[int, Any] = {}
-        # on the card: one stream for every dispatch of this engine, one
-        # memory pool for its graphs, and the attention scratch sized for
-        # its largest call before anything is captured. _capture = False
-        # runs the same bodies eagerly (the eager-vs-graph comparison).
+        # on the card: one stream for every dispatch of this engine (no
+        # other live engine's), one memory pool for its graphs, and the
+        # attention scratch sized for its largest call before anything is
+        # captured (dropped with the engine). _capture = False runs the same
+        # bodies eagerly (the eager-vs-graph comparison).
         self._stream = self._pool = None
         self._capture = self.device.type == "cuda"
         if self._capture:
-            self._stream = torch.cuda.Stream(self.device)
+            self._stream = claim_stream(self, self.device)
             self._pool = torch.cuda.graph_pool_handle()
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
             kv = model_cfg.n_kv_heads
@@ -291,6 +304,7 @@ class ServingEngine:
         self.admits = 0
         # ---- fault containment / admission control state
         self._injector = injector
+        self._abandoned = False   # abandon(): no further device work
         clock = getattr(injector, "clock", None) if injector else None
         self._clock = clock if clock is not None else rtclock.MONOTONIC
         # suspect slots → engine step at which they may auto-rehabilitate
@@ -312,6 +326,21 @@ class ServingEngine:
         # bundle's spans and histogram observations too
         self.obs.clock = self._clock
         self.obs.bind_engine(self)
+
+    @property
+    def clock(self):
+        """The engine's injectable clock (``runtime.clock`` duck type; a
+        ``VirtualClock`` under a fault injector). Frontend layers stamp
+        their timestamps through this so every layer shares one time
+        base."""
+        return self._clock
+
+    def abandon(self) -> None:
+        """Give the engine up (a supervisor has replaced it): from now on a
+        step raises ``EngineCrash`` before its next dispatch, so a thread
+        that wakes inside a step of the dead engine reaches the device no
+        more."""
+        self._abandoned = True
 
     @contextlib.contextmanager
     def _on_stream(self):
@@ -752,6 +781,7 @@ class ServingEngine:
         self.engine_steps += 1
         if self._injector is not None:
             self._injector.on_step(self)
+        self._check_abandoned()
         with obs.span("sweep"):
             done_now = self._sweep_deadlines()
             self._auto_rehabilitate()
@@ -784,7 +814,7 @@ class ServingEngine:
         try:
             self._guard_dispatch("decode", dec)
             toks, bad = self._decode_loop(n_steps, poison)
-        except EngineCrash as exc:  # engine death escapes containment
+        except (EngineCrash, GraphFailure) as exc:  # engine death
             self._attribute_crash(exc, dec)
             raise
         except Exception as exc:  # containment unit: this dispatch only
@@ -867,13 +897,20 @@ class ServingEngine:
         """Count the dispatch and let the injector veto it (raising
         ``EngineFault``) before the device call, so the batch state is
         never half-written."""
+        self._check_abandoned()
         idx = self._dispatch_counts[kind]
         self._dispatch_counts[kind] = idx + 1
         if self._injector is not None:
             self._injector.before_dispatch(self, kind, idx, slots)
 
-    def _attribute_crash(self, exc: EngineCrash, slots: List[int]) -> None:
-        """Stamp an escaping ``EngineCrash`` with its suspects: the blamed
+    def _check_abandoned(self):
+        if self._abandoned:
+            raise EngineCrash("engine abandoned: a newer generation serves "
+                              "its requests")
+
+    def _attribute_crash(self, exc, slots: List[int]) -> None:
+        """Stamp an escaping ``EngineCrash`` (or a ``GraphFailure`` of the
+        dispatch's capture or replay) with its suspects: the blamed
         uid when it is resident in the dying dispatch, else every row of
         the dispatch."""
         if exc.suspects:
@@ -1157,7 +1194,7 @@ class ServingEngine:
                           args={"bucket": length, "rows": len(pf)}):
                 logits = self._prefill_fn(length)(
                     self._prefill_input(tokens, lengths))
-        except EngineCrash as exc:  # engine death escapes containment
+        except (EngineCrash, GraphFailure) as exc:  # engine death
             self._attribute_crash(exc, pf)
             raise
         except Exception as exc:  # cursors untouched: survivors retry as-is
@@ -1466,7 +1503,7 @@ class SerialAdmitEngine(ServingEngine):
                                    args={"bucket": len(prompt), "rows": 1}):
                     logits = self._prefill_len_fn(len(prompt))(
                         np.asarray(prompt, np.int32))
-            except EngineCrash as exc:  # engine death escapes containment
+            except (EngineCrash, GraphFailure) as exc:  # engine death
                 self._attribute_crash(exc, [slot])
                 raise
             except Exception as exc:  # serial admission: batch-1 containment

@@ -30,10 +30,19 @@ streams token for token (greedy and sampled, ring and paged), a request
 alone the same as in the fleet, the serial-admit baseline the bucketed
 engine's; a decode dispatch syncs the host once, also after the fleet
 changed; the launch counts grow by each graph's capture per replay.
+Behind the concurrent frontend: an engine captures its graphs on the
+driver's thread while another thread builds engines and copies to and
+from the card, with the eager bodies' streams; device memory stays flat
+across three supervisor rebuilds (a dead generation's graphs, pool, KV and
+attention scratch are freed with it); a released thread of an abandoned
+engine launches nothing, and the new generation's stream is not its.
 """
 
 import dataclasses
+import threading
+import time
 import warnings
+import weakref
 
 import numpy as np
 import pytest
@@ -61,8 +70,10 @@ from repro_torch.kernels.ternary_matmul import ref as tm_ref
 from repro_torch.models import init_params
 from repro_torch.serving import (EngineConfig, SamplingParams,
                                  SerialAdmitEngine, ServingEngine)
+from repro_torch.serving import graphs
 from repro_torch.serving.graphs import GraphDispatch
-from repro_torch.serving.faults import FaultInjector, FaultPlan
+from repro_torch.serving.faults import FaultInjector, FaultPlan, VirtualClock
+from repro_torch.serving.frontend import EngineDriver, EngineSupervisor
 
 pytestmark = pytest.mark.cuda
 
@@ -731,3 +742,178 @@ def test_capture_survives_collecting_dead_engines(cuda):
                        for d in eng._loop_cache.values())
     finally:
         gc.set_threshold(*threshold)
+
+
+# ------------------------------------------------------- concurrent frontend
+def _wait_until(pred, timeout=120.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return True
+        time.sleep(0.005)
+    return False
+
+
+def test_capture_on_the_driver_thread_while_an_engine_is_built(cuda):
+    """An engine that was not warmed captures at first use on the driver's
+    thread while another thread builds engines (allocations, a claimed
+    stream, scratch) and copies to and from the card, as a supervisor's
+    factory does: every capture succeeds, with the eager bodies' streams.
+    (That thread draws no random numbers: PyTorch ties the default CUDA
+    generator to every capture, so no other thread may draw from it while
+    one runs.)"""
+    model, cfg = _bf16_smoke(cuda)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (5, 40, 140, 129)]
+    params = [SamplingParams(max_new_tokens=9) for _ in prompts]
+    eager, _ = _graph_serve(model, cfg, prompts, params, capture=False)
+    ecfg = EngineConfig(max_slots=4, capacity=256, prefill_chunk=64)
+    stop, built, errors = threading.Event(), [], []
+
+    def build_engines():
+        try:
+            while not stop.is_set():
+                eng = ServingEngine(model, cfg, ecfg)
+                x = torch.arange(1 << 20, device=cuda, dtype=torch.float32)
+                built.append(float(x.sum().item()))  # a synchronous copy
+                del eng
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    driver = EngineDriver(ServingEngine(model, cfg, ecfg)).start()
+    th = threading.Thread(target=build_engines, daemon=True)
+    th.start()
+    try:
+        assert _wait_until(lambda: built or errors)
+        hs = [driver.submit(p, sp) for p, sp in zip(prompts, params)]
+        got = [list(h.result(timeout=300).tokens) for h in hs]
+        n_built = len(built)
+    finally:
+        stop.set()
+        th.join(timeout=120)
+        driver.close()
+    assert not th.is_alive() and not errors, errors
+    assert got == eager
+    assert n_built >= 2
+    stats = driver.engine.graph_stats()["dispatches"]
+    assert stats and all(d["graph"] and d["capture_s"] > 0 for d in stats)
+
+
+def _settled_bytes(eng):
+    """Bytes the live ``eng`` may hold beyond another generation's: its
+    graphs' static inputs and outputs (its pool's live tensors) and its
+    attention scratch, each rounded up to the allocator's 512-byte blocks.
+    The margin of the flat-memory gate."""
+    def nbytes(t):
+        return -(-t.numel() * t.element_size() // 512) * 512
+
+    key = (eng._stream.device_index, eng._stream.cuda_stream)
+    scratch = list(ca_ops._WORKSPACES.get(key, ())) + [
+        t for ws in ca_ops._RETIRED.get(key, ()) for t in ws]
+    dispatches = list(eng._loop_cache.values()) + list(
+        eng._prefill_cache.values())
+    return sum(nbytes(t) for t in scratch) + sum(
+        nbytes(d.static_in) + nbytes(d.out) for d in dispatches)
+
+
+def test_device_memory_flat_across_supervisor_rebuilds(cuda):
+    """Generations 0-2 each serve a fleet, settle, then die on a one-request
+    crash; generation 3 serves the fleet too. After each has settled the
+    dead generations are gone (engines collected, streams released, their
+    scratch dropped) and device memory is that of generation 1 within one
+    engine's graph tensors and scratch."""
+    model, cfg = _bf16_smoke(cuda)
+    ecfg = EngineConfig(max_slots=2, capacity=128, prefill_chunk=16,
+                        decode_chunk=4)
+    engines = []
+
+    def factory():
+        plan = FaultPlan()
+        if len(engines) < 3:
+            plan = plan.engine_crash("decode", 2)  # the fleet uses #0, #1
+        eng = ServingEngine(model, cfg, ecfg, injector=FaultInjector(plan))
+        engines.append(weakref.ref(eng))
+        return eng
+
+    sup = EngineSupervisor(factory, restart_backoff_s=0.01, max_restarts=9,
+                           blacklist_after=9).start()
+    mem, keys, margins = [], [], []
+    try:
+        for g in range(4):
+            assert _wait_until(lambda: sup.generation == g
+                               and sup.driver is not None)
+            hs = [sup.submit([1, 2, 3], SamplingParams(max_new_tokens=8)),
+                  sup.submit([4, 5], SamplingParams(max_new_tokens=8,
+                                                    temperature=0.8,
+                                                    seed=1))]
+            assert [h.result(timeout=300).finish_reason for h in hs] == \
+                ["length"] * 2
+            graphs.collect_garbage()
+            torch.cuda.synchronize()
+            live = [r() for r in engines if r() is not None]
+            assert len(live) == 1 and live[0] is sup.engine
+            key = (live[0]._stream.device_index, live[0]._stream.cuda_stream)
+            keys.append(key)
+            for dead in keys[:-1]:
+                assert dead not in graphs._CLAIMED
+                assert dead not in ca_ops._WORKSPACES
+                assert dead not in ca_ops._RETIRED
+            mem.append(torch.cuda.memory_allocated())
+            margins.append(_settled_bytes(live[0]))
+            del live
+            if g < 3:  # a lone request dies with the engine
+                crash = sup.submit([7, 8], SamplingParams(max_new_tokens=8))
+                assert crash.result(timeout=300).finish_reason == "error"
+    finally:
+        sup.close()
+    assert sup.restarts == 3
+    assert mem[3] - mem[1] <= margins[3], (mem, margins)
+
+
+def test_released_abandoned_thread_never_launches(cuda):
+    """A step of generation 0 hangs (the watchdog rebuilds the engine on
+    another stream and the requests replay there); when the wedged thread
+    is released it launches nothing more, and the new generation's stream
+    is not the dead one's."""
+    model, cfg = _bf16_smoke(cuda)
+    ecfg = EngineConfig(max_slots=2, capacity=128, prefill_chunk=16,
+                        decode_chunk=4)
+    jobs = [([5, 9, 17, 2], SamplingParams(max_new_tokens=12)),
+            ([1, 2, 3], SamplingParams(max_new_tokens=12, temperature=0.8,
+                                       seed=2))]
+    want, _ = _graph_serve(model, cfg, [p for p, _ in jobs],
+                           [sp for _, sp in jobs], max_slots=2,
+                           capacity=128, prefill_chunk=16, decode_chunk=4)
+    inj = FaultInjector(FaultPlan().stall_step(at_step=3, hang_s=60.0),
+                        clock=VirtualClock())
+    engines = []
+
+    def factory():
+        eng = ServingEngine(model, cfg, ecfg,
+                            injector=None if engines else inj)
+        engines.append(eng)
+        return eng
+
+    sup = EngineSupervisor(factory, watchdog_step_timeout_s=5.0,
+                           restart_backoff_s=0.01, blacklist_after=9).start()
+    try:
+        hs = [sup.submit(p, sp) for p, sp in jobs]
+        assert inj.stall_engaged.wait(timeout=120)
+        wedged = next(t for t in threading.enumerate()
+                      if t.name == "engine-driver-gen0")
+        assert _wait_until(lambda: len(sup.recoveries) == 1)
+        got = [list(h.result(timeout=300).tokens) for h in hs]
+        old, new = engines
+        assert old._stream.cuda_stream != new._stream.cuda_stream
+        counts, steps = launch_counts(), dict(old._dispatch_counts)
+        inj.release_stalls()
+        wedged.join(timeout=120)
+        assert not wedged.is_alive()
+        torch.cuda.synchronize()
+        assert launch_counts() == counts  # the new generation is idle
+        assert old._dispatch_counts == steps
+    finally:
+        inj.release_stalls()
+        sup.close()
+    assert got == want

@@ -337,9 +337,14 @@ def test_draws_are_position_addressed_and_follow_softmax():
 def test_port_imports_neither_jax_nor_the_reference():
     """Importing every module of the port (and chip_smoke.py) loads no
     ``jax`` and no ``repro`` module; the artifact store, the clock, the
-    fault harness and both launchers among them."""
+    fault harness, the concurrent frontend and both launchers among
+    them."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "import repro_torch.serving.frontend, repro_torch.launch.serve\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -350,7 +355,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "for m in ('serving.paging', 'kernels.ptqtp_search.ops', "
         "'kernels.decode_attention.ops', 'artifacts.format', "
         "'artifacts.reader', 'artifacts.writer', 'runtime.clock', "
-        "'serving.faults', 'launch.quantize', 'launch.serve'):\n"
+        "'serving.faults', 'launch.quantize', 'launch.serve', "
+        "'serving.frontend', 'serving.frontend.driver', "
+        "'serving.frontend.fairness', 'serving.frontend.server', "
+        "'serving.frontend.supervisor'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
