@@ -105,6 +105,42 @@ Since slice 8 (the concurrent frontend, ``serving.frontend``):
      replayed token and the new generation's capture seconds, and the
      card's allocated and reserved bytes after each generation.
 
+Since slice 9 (the sliding-window and mixture-of-experts decoders), after
+the phases above:
+
+ 18. (j) gemma3-27b at full width (d 5376, 32/16 heads, hd 168, d_ff
+     21504, GeGLU, vocab 262144, window 1024, bf16), cut to 8 layers (one
+     period of 5 local + 1 global and the 2-local rest), random weights
+     from a seeded generator quantized on the card (G = 128, t_max = 20;
+     B6): 8 greedy requests of 64-1800 prompt tokens (two past the
+     1024-slot local rings, which wrap; the global ring holds 4096), 32
+     new tokens each, through CUDA graphs; every request finishes, the
+     longest and the bucket-1 request alone give their fleet tokens, graph
+     == eager, a paged engine raises the reference's ValueError, and B2 at
+     hd 168 matches its plain version alone and in the batch of 8;
+ 19. (k) deepseek-moe-16b at full width and depth (28 layers: a dense
+     layer 0 of d_ff 10944, then 64 routed experts top-6 of d 1408 and 2
+     shared, capacity factor 1.25, vocab 102400), quantized on the card:
+     the phase-4 fleet on the ring and the paged layout (graph == eager);
+     the expert-axis launch equal to one launch per expert bit for bit
+     and to the plain version; a row's router probabilities alone, in 8
+     and in 512 rows bit for bit; then the no-drop copy (capacity factor
+     -1, the same weights): ring == paged, solo == fleet, and warm == cold
+     for the shared-prefix fleet on the paged layout. With the published
+     factor a request's tokens may depend on its fleet and on the layout
+     (capacity is per dispatch, idle rows included, and an idle row reads
+     its stale ring but null pages, as in the reference): reported, not
+     gated;
+ 20. (l) the JAX package's smoke gemma3-27b and deepseek-moe-16b artifacts
+     (``tests/torch_fixtures/``, f32: the FMA kernels) with the JAX
+     engine's committed greedy streams, on the ring (both) and the paged
+     layout (deepseek), and the bucket-1 request alone;
+ 21. the times of the new routes (the expert-axis B1 at cap 1 and 60, B3
+     at cap 3072, one MoE layer's three stacks; B2 at hd 168 for a gemma3
+     decode step and prefill dispatch) and of B1/B3 at both models' dense
+     layers, beside their plain versions, one PyTorch call (``torch.bmm``
+     on dequantized stacks, ``F.linear``, SDPA) and their bounds.
+
 Each phase's engines and graph pools are freed before the next; the run's
 total seconds are printed.
 
@@ -164,27 +200,44 @@ def gpu_line() -> str:
 
 
 def device_ms(fn, reps: int) -> float:
-    """Device milliseconds per call of ``fn``: the CUDA kernels' own time,
-    summed by ``torch.profiler`` over ``reps`` calls after one warm-up call.
-    A loop of small launches is bound by the host, so CUDA events around it
-    would time the host; the profiler times the kernels. Raises if the
-    profiler records no device time."""
+    """Device milliseconds per call of ``fn``: ``fn`` captured into a CUDA
+    graph (after one call on the capture stream, which sizes the attention
+    scratch and raises shared-memory limits before the capture), the graph
+    replayed once, then ``reps`` times between two CUDA events. A replay
+    launches every kernel of the call back to back without the host, so a
+    loop of small launches is timed on the device, not in Python (it adds
+    the graph's gaps between kernels, ~1 µs each). Summing
+    ``torch.profiler``'s kernel times, as these timings once did, undercounts
+    late in a long run: the profiler drops kernel events (PERF.md §6)."""
+    import gc
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels._build import device_us
+    from repro_torch.kernels.chunk_attention.ops import release_workspace
 
-    fn()
+    dev = torch.cuda.current_device()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(device_us(e) for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not us > 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / 1e3 / reps
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    release_workspace(dev, side.cuda_stream)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ms
 
 
 # kernels each serving path must launch
@@ -738,9 +791,10 @@ def make_engine(model, cfg, injector=None, *, warm=False, capture=True,
     from repro_torch.kernels import launch_counts
     from repro_torch.serving import EngineConfig, ServingEngine
 
-    eng = (cls or ServingEngine)(model, cfg, EngineConfig(
-        max_slots=SLOTS, capacity=CAPACITY, prefill_chunk=PREFILL_CHUNK,
-        decode_chunk=DECODE_CHUNK, **ecfg), injector=injector,
+    eng = (cls or ServingEngine)(model, cfg, EngineConfig(**{
+        **dict(max_slots=SLOTS, capacity=CAPACITY,
+               prefill_chunk=PREFILL_CHUNK, decode_chunk=DECODE_CHUNK),
+        **ecfg}), injector=injector,
         observability=observability)
     eng._capture = capture
     eng.smoke = dict(decode_s=0.0, in_decode=dict.fromkeys(launch_counts(),
@@ -862,18 +916,8 @@ def main_path(cfg, dev, model):
     # the longest prompt, and the one whose last chunk runs in bucket 1 alone
     # but in a wider bucket in the fleet (the case a shape-dependent norm
     # reduction would break)
+    longest, one = solo_gates(model, cfg, prompts, results, "main path")
     fleet_buckets = final_buckets([len(p) for p in prompts])
-    one = [i for i in range(len(prompts))
-           if final_buckets([len(prompts[i])])[0] == 1 < fleet_buckets[i]]
-    if not one:
-        raise AssertionError(f"no prompt ends in bucket 1 alone and a wider "
-                             f"bucket in the fleet ({fleet_buckets})")
-    longest = max(range(len(prompts)), key=lambda i: len(prompts[i]))
-    for i in (longest, one[0]):
-        solo = serve(model, cfg, [prompts[i]])[0]
-        if solo[0].tokens != results[i].tokens:
-            raise AssertionError(f"request {i} alone gave {solo[0].tokens}, "
-                                 f"in the fleet {results[i].tokens}")
     ttft = sorted(r.ttft for r in results)
     return dict(counts=counts,
                 wall=wall, decode_s=decode_s, decode_tok=decode_tok,
@@ -884,8 +928,8 @@ def main_path(cfg, dev, model):
                 pool_bytes=eng.smoke["pool_bytes"],
                 compiled=eng.smoke["compiled"],
                 solo=dict(longest=(longest, len(prompts[longest])),
-                          bucket_1=(one[0], len(prompts[one[0]]),
-                                    fleet_buckets[one[0]])))
+                          bucket_1=(one, len(prompts[one]),
+                                    fleet_buckets[one])))
 
 
 def paged_path(cfg, dev, model, mp):
@@ -1139,40 +1183,58 @@ def artifact_path(cfg, dev, model, mp):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def fixture_path(dev):
-    """(f) the artifact written by the JAX package
-    (``tests/torch_fixtures/make_artifact_fixture.py``), served on the card
-    through the kernels (f32 activations: the FMA routes) with the JAX
-    engine's committed greedy streams, the fleet and the bucket-1 request
-    alone. A mismatch fails the run as it is."""
+#: the layouts each committed JAX-written fixture is served on (gemma3's
+#: sliding window refuses paging, as in the reference)
+FIXTURE_LAYOUTS = {"qwen2": ("ring", "paged"), "gemma3": ("ring",),
+                   "deepseek": ("ring", "paged")}
+
+
+def fixture_path(dev, name):
+    """(f), (l): the artifact the JAX package wrote for ``name``
+    (``tests/torch_fixtures/make_artifact_fixture.py``), served on the
+    card through the kernels (f32 activations: the FMA routes) with the
+    JAX engine's committed greedy streams on each of its layouts (the
+    paged streams are the ring's unless the fixture has its own), and the
+    bucket-1 request alone on the ring, the launch counts reset just before
+    and read just after. A mismatch fails the run as it is."""
     from repro_torch.artifacts import load_model
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import EngineConfig, SamplingParams, ServingEngine
 
-    spec = json.loads((FIXTURES / "qwen2_smoke_streams.json").read_text())
-    model, cfg, _ = load_model(FIXTURES / "qwen2_smoke_artifact",
+    spec = json.loads((FIXTURES / f"{name}_smoke_streams.json").read_text())
+    model, cfg, _ = load_model(FIXTURES / f"{name}_smoke_artifact",
                                verify="full", device=dev)
     reqs = [(r["prompt"], r["max_new_tokens"]) for r in spec["requests"]]
+    paged = spec.get("paged", {})
+    want = {"ring": spec["streams"],
+            "paged": paged.get("streams", spec["streams"])}
 
     def run(rs, layout):
         eng = ServingEngine(model, cfg, EngineConfig(
-            **spec["engine"], kv_layout=layout, page_size=8))
+            **spec["engine"], kv_layout=layout,
+            page_size=paged.get("page_size", 8)))
         hs = [eng.submit(p, SamplingParams(max_new_tokens=n)) for p, n in rs]
         eng.run()
         return [h.output for h in hs]
 
     reset_launch_counts()
-    got = {layout: run(reqs, layout) for layout in ("ring", "paged")}
+    got = {layout: run(reqs, layout) for layout in FIXTURE_LAYOUTS[name]}
     solo = run([reqs[spec["solo"]["index"]]], "ring")[0]
     counts = launch_counts()
     for layout, streams in got.items():
-        if streams != spec["streams"]:
-            raise AssertionError(f"(f) {layout}: the port served {streams}, "
-                                 f"the JAX engine {spec['streams']}")
+        if streams != want[layout]:
+            raise AssertionError(f"{name} {layout}: the port served "
+                                 f"{streams}, the JAX engine {want[layout]}")
     if solo != spec["solo"]["tokens"]:
-        raise AssertionError(f"(f) the bucket-1 request alone: {solo}, the "
-                             f"JAX engine {spec['solo']['tokens']}")
-    return dict(counts=counts, n=len(reqs),
+        raise AssertionError(f"{name}: the bucket-1 request alone {solo}, "
+                             f"the JAX engine {spec['solo']['tokens']}")
+    kernels = ["ternary_matvec", "chunk_attention", "rms_norm"]
+    if "paged" in got:
+        kernels.append("chunk_attention_paged")
+    if cfg.moe is not None:
+        kernels.append("ternary_matvec_experts")
+    need(counts, kernels, f"the JAX package's {name} artifact")
+    return dict(counts=counts, layouts=list(got), n=len(reqs),
                 tokens=sum(len(t) for t in spec["streams"]))
 
 
@@ -1817,8 +1879,9 @@ def log_recovery(gpu, rp):
 
 
 # -------------------------------------------------------- phase 4: timings
-def time_ternary(model, cfg, dev):
-    """Kernel, plain and library times of the quantized linear layers of
+def time_ternary(model, dev):
+    """Kernel, plain and library times of the quantized linear layers (the
+    ``Dense`` ones: MoE expert stacks are ``time_experts``') of
     one decode step (all 197 at m = 8, matvec) and one prefill dispatch
     (the 196 block layers at m = 512, tiled; the lm_head of a prefill reads
     one row per slot, m = 8, through the matvec), walking the model's own
@@ -1830,7 +1893,8 @@ def time_ternary(model, cfg, dev):
     from repro_torch.kernels.ternary_matmul import ops, ref
     from repro_torch.models.common import Dense
 
-    all_layers = [m for m in model.modules() if isinstance(m, Dense)]
+    all_layers = [m for m in model.modules()
+                  if isinstance(m, Dense) and m.t1p is not None]
     out = {}
     for key, m, kern, reps in (("ternary_matvec", SLOTS, ops.ternary_matvec, 5),
                                ("ternary_matmul", SLOTS * PREFILL_CHUNK,
@@ -1840,7 +1904,7 @@ def time_ternary(model, cfg, dev):
         dense_w = [dequantize_kernel(layer.quant, torch.bfloat16)
                    for layer in layers]
         xs = {d: torch.randn((m, d), device=dev).to(torch.bfloat16)
-              for d in {cfg.d_model, cfg.d_ff}}
+              for d in {layer.d_in for layer in layers}}
 
         def run_kernel():
             for layer in layers:
@@ -1866,12 +1930,20 @@ def time_ternary(model, cfg, dev):
             lambda layer=layer: kern(xs[layer.d_in], layer.t1p, layer.t2p,
                                      layer.alpha, GROUP, torch.bfloat16), 10)
             for (n, d), layer in shapes.items()}
+        worst = worst_abs = 0.0  # each layer's kernel against its plain
+        for layer in layers:
+            x = xs[layer.d_in]
+            worst, worst_abs = _close(
+                kern(x, layer.t1p, layer.t2p, layer.alpha, GROUP),
+                ref.ternary_matmul_grouped(x, layer.t1p, layer.t2p,
+                                           layer.alpha, GROUP),
+                f"{key} {layer.d_out}x{layer.d_in} m={m}", worst, worst_abs)
         out[key] = dict(ms=device_ms(run_kernel, reps),
                         plain_ms=device_ms(run_plain, max(1, reps // 2)),
                         library_ms=device_ms(run_library, reps),
                         bound_ms=bound, bound_by=by, bytes=nbytes,
                         flops=flops, calls=len(layers), m=m,
-                        us_per_call=per_shape)
+                        us_per_call=per_shape, max_abs_err=worst_abs)
     return out
 
 
@@ -1921,7 +1993,10 @@ def time_attention(cfg, dev, fill):
                         plain_ms=device_ms(run_plain, max(1, reps // 2)),
                         library_ms=device_ms(run_library, reps),
                         bound_ms=bound, bound_by=by, L=L,
-                        bytes=per_layer * cfg.n_layers)
+                        bytes=per_layer * cfg.n_layers,
+                        max_abs_err=attention_err(
+                            ops.chunk_attention_cuda,
+                            ref.chunk_attention_stream, layers[0]))
     return out
 
 
@@ -1991,7 +2066,10 @@ def time_paged_attention(cfg, dev, fill):
             torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, attn_mask=m, enable_gqa=True)
             for q, k, v, m in sdpa_args], 10),
-        bound_ms=bound, bound_by=by, bytes=per_layer * cfg.n_layers)
+        bound_ms=bound, bound_by=by, bytes=per_layer * cfg.n_layers,
+        max_abs_err=attention_err(ops.chunk_attention_paged_cuda,
+                                  ref.chunk_attention_paged_stream,
+                                  layers[0]))
 
 
 def time_decode_attention(cfg, dev, layers):
@@ -2088,6 +2166,19 @@ def time_sampling(cfg, dev):
     return out
 
 
+def attention_err(kernel, plain, args):
+    """max |kernel - plain| over one read's operands; raises past ATTN_TOL."""
+    import torch
+
+    got, want = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not err <= ATTN_TOL:
+        raise AssertionError(f"{getattr(kernel, '__name__', kernel)}: max "
+                             f"err {err:.3e} > {ATTN_TOL}")
+    return err
+
+
 def _sdpa_operands(a, cap):
     """The same attention for ``scaled_dot_product_attention``: keys are the
     ring followed by the chunk, the visibility rule as a boolean mask."""
@@ -2106,36 +2197,613 @@ def _sdpa_operands(a, cap):
     return qh, k, v, mask
 
 
-# ------------------------------------------------------------------- main
-def main() -> int:
-    try:
-        import torch
-    except ImportError:
-        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
-        return 2
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "False); this script runs on a GPU", file=sys.stderr)
-        return 2
-    try:
-        from repro_torch import configs
-        from repro_torch.kernels import _build
-    except ImportError as e:
-        print(f"chip_smoke: run from the root of a checkout of the repository "
-              f"({e})", file=sys.stderr)
-        return 2
+# ------------------------------------------------- phases (j)-(l): slice 9
+GEMMA_LAYERS = 8        # one period (5 local + 1 global) + the 2-local rest
+GEMMA_CAPACITY = 4096   # the global ring; the local rings hold the window
+GEMMA_MAX_PROMPT = 1800
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    gpu = gpu_line()
-    log(f"card: {gpu}")
-    t_start = time.perf_counter()
+
+def gemma_prompts(cfg):
+    """8 prompts of 64-1800 random ids: the first 2·64 + 1 tokens (its last
+    chunk is bucket 1 alone), two past the 1024-slot local rings (1800 and
+    1100 tokens: those rings wrap, the 4096-slot global ring does not)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 9)
+    lens = rng.integers(64, GEMMA_MAX_PROMPT + 1, N_REQUESTS)
+    lens[0], lens[1], lens[2] = 2 * PREFILL_CHUNK + 1, GEMMA_MAX_PROMPT, 1100
+    return [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
+
+
+def solo_gates(model, cfg, prompts, results, what, **ecfg):
+    """Serve alone the longest prompt and one whose last chunk runs in
+    bucket 1 alone but in a wider bucket in the fleet; each must give its
+    fleet tokens. Returns their indices."""
+    fleet_buckets = final_buckets([len(p) for p in prompts])
+    one = [i for i in range(len(prompts))
+           if final_buckets([len(prompts[i])])[0] == 1 < fleet_buckets[i]]
+    if not one:
+        raise AssertionError(f"{what}: no prompt ends in bucket 1 alone and "
+                             f"a wider bucket in the fleet ({fleet_buckets})")
+    longest = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+    for i in (longest, one[0]):
+        solo = serve(model, cfg, [prompts[i]], **ecfg)[0]
+        if solo[0].tokens != results[i].tokens:
+            raise AssertionError(f"{what}: request {i} alone gave "
+                                 f"{solo[0].tokens}, in the fleet "
+                                 f"{results[i].tokens}")
+    return longest, one[0]
+
+
+def finished(results, what, max_new=MAX_NEW):
+    bad = [r.uid for r in results
+           if r.finish_reason != "length" or len(r.tokens) != max_new]
+    if bad:
+        raise AssertionError(f"{what}: requests {bad} did not finish with "
+                             f"{max_new} tokens")
+
+
+def same_tokens(got, want, what):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.tokens != w.tokens:
+            raise AssertionError(f"{what}: request {i} gave {g.tokens}, "
+                                 f"against {w.tokens}")
+
+
+def tokens_apart(got, want):
+    """Tokens of ``got`` that differ from ``want`` (request by request)."""
+    return sum(a != b for g, w in zip(got, want)
+               for a, b in zip(g.tokens, w.tokens))
+
+
+def fleet_run(model, cfg, prompts, **ecfg):
+    """The fleet on a warmed engine, the launch counts reset just before
+    and read just after: (results, counts, engine, wall seconds)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    eng = make_engine(model, cfg, warm=True, **ecfg)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = serve_on(eng, prompts)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    for k, n in eng.smoke["compiled"].items():
+        if k in ("admits", "prefill_steps"):
+            continue
+        if eng.compile_stats()[k] != n:
+            raise AssertionError("the fleet compiled more after warmup()")
+    return results, counts, eng, wall
+
+
+def fleet_stats(eng, results, wall):
+    ttft = sorted(r.ttft for r in results)
+    dec_tok = eng.tokens_generated - len(results)
+    return dict(wall=wall, ttft=ttft, decode_tok=dec_tok,
+                decode_s=eng.smoke["decode_s"], steps=eng.steps,
+                per_step=per_step(eng), warmup_s=eng.smoke["warmup_s"])
+
+
+def check_attention_hd168(cfg, dev):
+    """B2 at gemma3-27b's head dim (168) against its plain version on the
+    card, at the (j) path's shapes: 8 rows, 16 kv heads of 2 query heads,
+    L = 1 and 64, a local ring of 1024 slots under its window and the
+    global ring of 4096, bf16 and int8; every row alone equals its row in
+    the batch of 8, and L = 1 equals l = 0 of L = 64 with length 1."""
+    import functools
+
+    import torch
+
+    from repro_torch.kernels.chunk_attention import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    kv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    fill = [0, 300, 1023, 1024, 1500, 2900, 64, 1800]
+    worst = 0.0
+    for cap, window in ((cfg.window, cfg.window), (GEMMA_CAPACITY, None)):
+        kern = functools.partial(ops.chunk_attention_cuda, window=window)
+        for ring in ("bfloat16", "int8"):
+            for L in (1, PREFILL_CHUNK):
+                args = attention_inputs(SLOTS, L, cap, kv, g, hd, ring, fill,
+                                        gen, dev)
+                got = kern(*args)
+                want = ref.chunk_attention_stream(*args, window=window)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                if not err <= ATTN_TOL:
+                    raise AssertionError(
+                        f"chunk_attention hd {hd} cap {cap} L={L} {ring}: "
+                        f"max err {err:.3e} > {ATTN_TOL}")
+                worst = max(worst, err)
+            args = attention_inputs(SLOTS, PREFILL_CHUNK, cap, kv, g, hd,
+                                    ring, fill, gen, dev)
+            args[9].fill_(1)
+            same_rows(kern, args, 8, f"B2 hd {hd} cap {cap} {ring}")
+    log(f"chunk_attention at hd {hd} == plain (max abs err {worst:.2e} <= "
+        f"{ATTN_TOL}) on {cfg.window}-slot local rings (window "
+        f"{cfg.window}) and the {GEMMA_CAPACITY}-slot global ring, bf16 and "
+        "int8, L in (1, 64); rows bit-identical alone and in the batch of 8, "
+        "and at L = 1 and L = 64 with length 1")
+    return worst
+
+
+def gemma_path(dev):
+    """(j) gemma3-27b at full width, cut to 8 layers: quantize on the card,
+    serve the fleet on the ring (local rings of 1024 slots, the global one
+    of 4096) through CUDA graphs; solo == fleet, graph == eager, the paged
+    layout refused as the reference refuses it, B2 at hd 168 against its
+    plain version."""
+    from repro_torch import configs
+
+    cfg = configs.get_config("gemma3-27b").scaled(n_layers=GEMMA_LAYERS)
+    model, report, quant_s, qcounts = quantize_path(cfg, dev)
+    need(qcounts, ("ptqtp_search",), "(j) the quantize path")
+    ring = dict(capacity=GEMMA_CAPACITY)
+    prompts = gemma_prompts(cfg)
+    results, counts, eng, wall = fleet_run(model, cfg, prompts, **ring)
+    need(counts, RING_PATH, "(j) gemma3-27b's ring path")
+    finished(results, "(j)")
+    caps = sorted({c["k"].shape[1] for c in eng.state["layers"]})
+    if caps != [cfg.window, GEMMA_CAPACITY]:
+        raise AssertionError(f"(j) ring sizes {caps}")
+    stats = fleet_stats(eng, results, wall)
+    eng = None
+    gc_free()
+    solo = solo_gates(model, cfg, prompts, results, "(j) solo", **ring)
+    eager = serve(model, cfg, prompts, capture=False, **ring)[0]
+    same_tokens(eager, results, "(j) eager vs graph")
+    try:
+        make_engine(model, cfg, kv_layout="paged", page_size=PAGE, **ring)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("(j) a paged engine took sliding windows")
+    if "paged KV layout requires full-capacity attention layers" not in \
+            refused:
+        raise AssertionError(f"(j) paged refusal: {refused}")
+    gc_free()
+    attn_err = check_attention_hd168(cfg, dev)
+    return dict(cfg=cfg, model=model, report=report, quant_s=quant_s,
+                qcounts=qcounts, counts=counts, prompts=prompts,
+                solo=solo, refused=refused, attn_err=attn_err, **stats)
+
+
+def check_experts(moe, cfg, dev):
+    """The expert-axis launch (B1 and B3 with the expert on the grid's z
+    axis) at the (k) path's shapes: one MoE layer's three stacks at cap 1
+    (decode), 60 (a capped 64-token prefill bucket) and 3072 (the no-drop
+    copy's): each expert's rows bit for bit those of a launch of its matrix
+    alone, and within MM_RTOL of the plain version. Returns the worst
+    absolute error."""
+    import torch
+
+    from repro_torch.kernels.ternary_matmul import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    worst = worst_abs = 0.0
+    stacks = (moe.experts.wi, moe.experts.wg, moe.experts.wo)
+    for m in (1, 60, 3072):
+        one = ops.ternary_matvec if m < ops.SMALL_M_THRESHOLD \
+            else ops.ternary_matmul_tiled
+        for st in stacks:
+            x = torch.randn((st.n_experts, m, st.d_in), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            y = ops.ternary_matmul_experts(x, st.t1p, st.t2p, st.alpha,
+                                           group_size=GROUP,
+                                           out_dtype=torch.bfloat16)
+            y32 = ops.ternary_matmul_experts(x, st.t1p, st.t2p, st.alpha,
+                                             group_size=GROUP)
+            if not torch.equal(y, y32.to(torch.bfloat16)):
+                raise AssertionError(f"experts m={m}: bf16 output is not the "
+                                     "f32 output rounded")
+            for e in range(st.n_experts):
+                if not torch.equal(y32[e], one(x[e].contiguous(), st.t1p[e],
+                                               st.t2p[e], st.alpha[e],
+                                               GROUP)):
+                    raise AssertionError(
+                        f"experts m={m} {st.d_out}x{st.d_in}: expert {e} of "
+                        "the stacked launch differs from its own launch")
+                worst, worst_abs = _close(
+                    y32[e], ref.ternary_matmul_grouped(
+                        x[e], st.t1p[e], st.t2p[e], st.alpha[e], GROUP),
+                    f"experts m={m} expert {e}", worst, worst_abs)
+            del x, y, y32
+    log(f"expert-axis ternary launch == one launch per expert bit for bit "
+        f"and == plain (max abs err {worst_abs:.2e}, max err / scale "
+        f"{worst:.2e} <= {MM_RTOL}) for {stacks[0].n_experts} experts of "
+        f"{[f'{s.d_out}x{s.d_in}' for s in stacks]} at cap 1, 60, 3072")
+    return worst_abs
+
+
+def router_invariance(moe, cfg, dev):
+    """A row's router probabilities (f32 product in 128-row blocks, then
+    softmax) have the same bits alone, in 8 rows and in 512."""
+    import torch
+
+    from repro_torch.models.moe import router_probs
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn((512, cfg.d_model), generator=gen, device=dev).to(
+        torch.bfloat16)
+    full = router_probs(moe, x)
+    eight = router_probs(moe, x[:8])
+    if not torch.equal(full[:8], eight):
+        raise AssertionError("router probabilities of rows 0-7 differ in "
+                             "512 rows and in 8")
+    for i in (0, 3, 7):
+        if not torch.equal(router_probs(moe, x[i:i + 1]), full[i:i + 1]):
+            raise AssertionError(f"router probabilities of row {i} differ "
+                                 "alone and in 512 rows")
+
+
+def deepseek_path(dev):
+    """(k) deepseek-moe-16b at full width and depth: quantize on the card,
+    the phase-4 fleet on the ring and the paged layout with the published
+    capacity factor (graph == eager), the expert-axis launch and the
+    router at the path's shapes; then the no-drop copy (capacity factor
+    -1) for ring == paged, solo == fleet and warm == cold, which the capped
+    config does not promise: its capacity is per dispatch, idle rows
+    included, as the reference's, and an idle slot's row reads its stale
+    ring on the ring layout but null pages on the paged one (the
+    reference's engines differ there too). How far the capped config's
+    streams move is reported."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+
+    cfg = configs.get_config("deepseek-moe-16b")
+    model, report, quant_s, qcounts = quantize_path(cfg, dev)
+    need(qcounts, ("ptqtp_search",), "(k) the quantize path")
+    prompts = make_prompts(cfg)
+    results, counts, eng, wall = fleet_run(model, cfg, prompts)
+    need(counts, RING_PATH + ("ternary_matvec_experts",),
+         "(k) deepseek-moe-16b's ring path")
+    finished(results, "(k) ring")
+    stats = fleet_stats(eng, results, wall)
+    eng = None
+    paged = dict(kv_layout="paged", page_size=PAGE, prefix_cache=True)
+    presults, pcounts, peng, pwall = fleet_run(model, cfg, prompts, **paged)
+    need(pcounts, PAGED_PATH + ("ternary_matvec_experts",),
+         "(k) deepseek-moe-16b's paged path")
+    finished(presults, "(k) paged")
+    capped_paged = tokens_apart(presults, results)
+    pstats = fleet_stats(peng, presults, pwall)
+    peng = None
+    gc_free()
+    eager = serve(model, cfg, prompts, capture=False)[0]
+    same_tokens(eager, results, "(k) eager vs graph")
+    longest = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+    alone = serve(model, cfg, [prompts[longest]])[0][0].tokens
+    capped_solo = sum(a != b for a, b in zip(alone, results[longest].tokens))
+    moe = model.layers[1].moe
+    experts_err = check_experts(moe, cfg, dev)
+    router_invariance(moe, cfg, dev)
+    gc_free()
+
+    # the no-drop copy: the same weights, capacity factor -1
+    nd = cfg.scaled(moe=dataclasses.replace(cfg.moe, capacity_factor=-1.0))
+    nresults, ncounts, neng, nwall = fleet_run(model, nd, prompts)
+    need(ncounts, RING_PATH + ("ternary_matvec_experts",
+                               "ternary_matmul_experts"),
+         "(k) the no-drop copy's ring path")
+    finished(nresults, "(k) no-drop")
+    nstats = fleet_stats(neng, nresults, nwall)
+    neng = None
+    gc_free()
+    npaged = serve(model, nd, prompts, **paged)[0]
+    same_tokens(npaged, nresults, "(k) no-drop paged vs ring")
+    nsolo = solo_gates(model, nd, prompts, nresults, "(k) no-drop solo")
+    rng = np.random.default_rng(SEED + 1)
+    prefix = rng.integers(0, cfg.vocab_size, SHARED_PREFIX).tolist()
+    fleet = [prefix + rng.integers(0, cfg.vocab_size, int(n)).tolist()
+             for n in rng.integers(TAILS[0], TAILS[1] + 1, N_REQUESTS)]
+    cold_eng = make_engine(model, nd, **paged)
+    cold = serve_on(cold_eng, fleet)
+    warm_eng = make_engine(model, nd, **paged)
+    serve_on(warm_eng, [prefix + [1]], 1)
+    warm = serve_on(warm_eng, fleet)
+    same_tokens(warm, cold, "(k) no-drop warm vs cold")
+    hits = warm_eng.alloc.hits
+    if not hits > 0:
+        raise AssertionError("(k) the warm fleet found no prefix page cached")
+    cold_eng = warm_eng = None
+    gc_free()
+    return dict(cfg=cfg, nd=nd, model=model, report=report, quant_s=quant_s,
+                counts=counts, pcounts=pcounts, ncounts=ncounts,
+                prompts=prompts, experts_err=experts_err,
+                capped_solo=(longest, capped_solo), capped_paged=capped_paged,
+                nsolo=nsolo, hits=hits,
+                paged=pstats, nodrop=nstats, **stats)
+
+
+def time_experts(moe, dev, m, reps):
+    """Kernel, plain and ``torch.bmm`` times of one MoE layer's three
+    stacked expert products (wi, wg, wo over all E experts, as the
+    reference's dispatch computes every expert's cap rows) at ``m`` rows an
+    expert, bf16 x and outputs. The library call multiplies the stacks
+    dequantized to bf16 (not timed)."""
+    import torch
+
+    from repro_torch.core.quantize_model import dequantize_kernel
+    from repro_torch.kernels.ternary_matmul import ops, ref
+
+    stacks = (moe.experts.wi, moe.experts.wg, moe.experts.wo)
+    xs = [torch.randn((st.n_experts, m, st.d_in), device=dev).to(
+        torch.bfloat16) for st in stacks]
+    dense_w = [dequantize_kernel(st.quant, torch.bfloat16).transpose(1, 2)
+               for st in stacks]
+    nbytes = flops = 0
+    for st in stacks:
+        b, f = matmul_cost(st.d_out, st.d_in, m)
+        nbytes, flops = nbytes + st.n_experts * b, flops + st.n_experts * f
+    bound, by = bound_ms(nbytes, flops)
+    def experts_kernel():
+        for x, st in zip(xs, stacks):
+            ops.ternary_matmul_experts(x, st.t1p, st.t2p, st.alpha,
+                                       group_size=GROUP,
+                                       out_dtype=torch.bfloat16)
+
+    def experts_plain():
+        for x, st in zip(xs, stacks):
+            ref.ternary_matmul_experts(x, st.t1p, st.t2p, st.alpha, GROUP)
+
+    def experts_bmm():
+        for x, w in zip(xs, dense_w):
+            torch.bmm(x, w)
+
+    out = dict(ms=device_ms(experts_kernel, reps),
+               plain_ms=device_ms(experts_plain, 1),
+               library_ms=device_ms(experts_bmm, reps), bound_ms=bound,
+               bound_by=by, bytes=nbytes, flops=flops, m=m)
+    del xs, dense_w
+    gc_free()
+    return out
+
+
+def time_attention_hd168(cfg, dev, fill):
+    """Kernel, plain and SDPA times of the 8 attention reads of one (j)
+    decode step (L = 1) and one prefill dispatch (L = 64) at hd 168: the 7
+    local rings of 1024 slots (window 1024 = the ring, so the reach is the
+    ring's) and the global ring of 4096, bf16, filled as ``fill``."""
+    import torch
+
+    from repro_torch.kernels.chunk_attention import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    kv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    caps = [cfg.window if k.startswith("local") else GEMMA_CAPACITY
+            for k in cfg.layer_kinds]
+    out = {}
+    for key, L, reps in (("decode", 1, 10), ("prefill", PREFILL_CHUNK, 3)):
+        layers = [attention_inputs(SLOTS, L, cap, kv, g, hd, "bfloat16",
+                                   fill, gen, dev) for cap in caps]
+        for a in layers:
+            a[9].fill_(L)
+        sdpa_args = [_sdpa_operands(a, cap) for a, cap in zip(layers, caps)]
+        nbytes = flops = 0
+        for a, cap in zip(layers, caps):
+            visible = int(ref.history_mask(a[7], a[8], cap).any(1).sum())
+            nbytes += (visible * kv * hd * 2 * 2 + a[7].numel() * 4
+                       + (a[0].numel() + a[1].numel() + a[2].numel()) * 2
+                       + a[0].numel() * 4)
+            flops += 4 * SLOTS * kv * g * L * (visible // SLOTS + L) * hd
+        bound, by = bound_ms(nbytes, flops)
+        out[key] = dict(
+            ms=device_ms(lambda: [ops.chunk_attention_cuda(*a)
+                                  for a in layers], reps),
+            plain_ms=device_ms(lambda: [ref.chunk_attention_stream(*a)
+                                        for a in layers], max(1, reps // 2)),
+            library_ms=device_ms(lambda: [
+                torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True)
+                for q, k, v, mask in sdpa_args], reps),
+            bound_ms=bound, bound_by=by, L=L, bytes=nbytes,
+            max_abs_err=max(attention_err(ops.chunk_attention_cuda,
+                                          ref.chunk_attention_stream, a)
+                            for a in layers))
+        del layers, sdpa_args
+        gc_free()
+    return out
+
+
+def log_fleet(gpu, what, st):
+    med = st["ttft"][len(st["ttft"]) // 2]
+    log(f"{gpu} | {what}: TTFT median {med:.3f}s max {st['ttft'][-1]:.3f}s; "
+        f"decode {st['decode_tok']} tokens in {st['decode_s']:.3f}s = "
+        f"{st['decode_tok'] / st['decode_s']:.1f} tok/s ({st['steps']} decode "
+        f"steps, {1e3 * st['decode_s'] / max(st['steps'], 1):.3f} ms a step); "
+        f"fleet {st['wall']:.2f}s; warmup() {st['warmup_s']:.2f}s")
+
+
+def slice9_phases(gpu, dev):
+    """(j)-(l): gemma3-27b and deepseek-moe-16b at full width, the JAX
+    package's smoke artifacts of both; then the new routes' times. Returns
+    their rows of the ``kernels`` line."""
+    import torch
 
     t0 = time.perf_counter()
-    libs = _build.build(_build.kernel_sources())
-    log(f"built {len(libs)} kernel libraries in "
-        f"{time.perf_counter() - t0:.1f}s: {[p.name for p in libs]}")
+    gp = gemma_path(dev)
+    gcfg = gp["cfg"]
+    tot = gp["report"]["__total__"]
+    log(f"{gpu} | (j) gemma3-27b ({GEMMA_LAYERS} of {62} layers, d "
+        f"{gcfg.d_model}, {gcfg.n_heads}/{gcfg.n_kv_heads} heads, hd "
+        f"{gcfg.head_dim}, d_ff {gcfg.d_ff}, vocab {gcfg.vocab_size}, window "
+        f"{gcfg.window}): quantize {gp['quant_s']:.2f}s on B6 "
+        f"({gp['qcounts']['ptqtp_search']} launches, {tot['n_quantized']} "
+        f"kernels, {tot['compression']:.2f}x)")
+    log_fleet(gpu, f"(j) ring fleet of {N_REQUESTS} ({sum(map(len, gp['prompts']))} "
+              f"prompt tokens, {sorted(map(len, gp['prompts']))})", gp)
+    log(f"(j) every request finished; solo == fleet for requests "
+        f"{gp['solo']} (longest, bucket 1 alone); graph == eager; the paged "
+        f"engine refused: {gp['refused']!r}; launches {gp['counts']}; per "
+        f"decode step {gp['per_step']}; {time.perf_counter() - t0:.1f}s")
+    gfill = [len(p) + MAX_NEW // 2 for p in gp["prompts"]]
+    gtern = time_ternary(gp["model"], dev)
+    del gp["model"]
+    gc_free()
+    gattn = time_attention_hd168(gcfg, dev, gfill)
+
+    t0 = time.perf_counter()
+    dp = deepseek_path(dev)
+    dcfg = dp["cfg"]
+    tot = dp["report"]["__total__"]
+    log(f"{gpu} | (k) deepseek-moe-16b ({dcfg.n_layers} layers, d "
+        f"{dcfg.d_model}, {dcfg.moe.n_experts} experts top-{dcfg.moe.top_k} "
+        f"of d {dcfg.moe.d_expert}, {dcfg.moe.n_shared} shared, capacity "
+        f"factor {dcfg.moe.capacity_factor}): quantize {dp['quant_s']:.2f}s "
+        f"on B6 ({tot['n_quantized']} kernels, {tot['compression']:.2f}x)")
+    log_fleet(gpu, "(k) ring fleet", dp)
+    log_fleet(gpu, "(k) paged fleet", dp["paged"])
+    log_fleet(gpu, "(k) no-drop copy, ring fleet", dp["nodrop"])
+    li, nd = dp["capped_solo"]
+    log(f"(k) graph == eager; with the published capacity factor the "
+        f"longest request ({li}) alone differs from the fleet in {nd} of "
+        f"{MAX_NEW} tokens and the paged fleet from the ring's in "
+        f"{dp['capped_paged']} of {N_REQUESTS * MAX_NEW} (capacity per "
+        f"dispatch, idle rows included: not gated); the no-drop copy: ring "
+        f"== paged, solo == fleet for requests {dp['nsolo']}, warm == cold "
+        f"on the paged layout ({dp['hits']} prefix pages hit); router "
+        f"rows bit-identical alone, in 8 and in 512; launches ring "
+        f"{dp['counts']}, paged {dp['pcounts']}, no-drop {dp['ncounts']}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    moe = dp["model"].layers[1].moe
+    n_moe = sum(k.endswith("+moe") for k in dcfg.layer_kinds)
+    t_dec = time_experts(moe, dev, 1, 5)
+    t_cap = time_experts(moe, dev, 60, 3)
+    t_nd = time_experts(moe, dev, 3072, 2)
+    dtern = time_ternary(dp["model"], dev)
+    del dp["model"], moe
+    gc_free()
+    dfill = [len(p) + MAX_NEW // 2 for p in dp["prompts"]]
+    dattn = time_attention(dcfg, dev, dfill)
+    dpattn = time_paged_attention(dcfg, dev, dfill)
+
+    t0 = time.perf_counter()
+    lp = {}
+    for name in ("gemma3", "deepseek"):
+        lp[name] = fixture_path(dev, name)
+        gc_free()
+    for name, r in lp.items():
+        log(f"(l) the JAX package's {name} artifact: {r['n']} requests, "
+            f"{r['tokens']} tokens equal to the JAX engine's on "
+            f"{r['layouts']}, and the bucket-1 request alone; launches "
+            f"{r['counts']}")
+    log(f"(l) {time.perf_counter() - t0:.1f}s")
+
+    named = [("gemma3-27b B1", gtern["ternary_matvec"]),
+             ("gemma3-27b B3", gtern["ternary_matmul"]),
+             ("gemma3-27b B2 hd 168 L=1", gattn["decode"]),
+             ("gemma3-27b B2 hd 168 L=64", gattn["prefill"]),
+             ("deepseek-moe-16b B1 (dense layers)", dtern["ternary_matvec"]),
+             ("deepseek-moe-16b B3 (dense layers)", dtern["ternary_matmul"]),
+             ("deepseek-moe-16b B2 L=1", dattn["decode"]),
+             ("deepseek-moe-16b B2 L=64", dattn["prefill"]),
+             ("deepseek-moe-16b B4 L=1", dpattn),
+             ("deepseek-moe-16b experts cap 1 (one layer)", t_dec),
+             ("deepseek-moe-16b experts cap 60 (one layer)", t_cap),
+             ("deepseek-moe-16b experts cap 3072 (one layer)", t_nd)]
+    for name, t in named:
+        log(f"{gpu} | {name}: kernel {t['ms']:.3f} ms, plain "
+            f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}) -> "
+            f"{t['bound_ms'] / t['ms']:.1%} of bound")
+    log(f"{gpu} | deepseek-moe-16b experts of a decode step ({n_moe} MoE "
+        f"layers at cap 1): {n_moe * t_dec['ms']:.3f} ms, bound "
+        f"{n_moe * t_dec['bound_ms']:.4f} ms; every expert's planes read "
+        f"({t_dec['bytes'] * n_moe / 1e9:.2f} GB a step)")
+
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    src = "src/repro_torch/kernels/ternary_matmul/csrc/ternary_matmul.cu"
+    attn_src = ("src/repro_torch/kernels/chunk_attention/csrc/"
+                "chunk_attention.cu")
+    b1, b3 = ("src/repro/kernels/ternary_matmul/kernel.py:175",
+              "src/repro/kernels/ternary_matmul/kernel.py:91")
+    b2, b4 = ("src/repro/kernels/chunk_attention/kernel.py:197",
+              "src/repro/kernels/chunk_attention/kernel.py:149")
+
+    def row(name, source, replaces, counts, per_step, t, work):
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=counts[name.split(" ")[0]],
+                    launches_per_decode_step=per_step[name.split(" ")[0]],
+                    max_abs_err=t["max_abs_err"], work=work,
+                    **{k: t[k] for k in timed})
+
+    per_model = [
+        row("ternary_matvec (gemma3-27b)", src, b1, gp["counts"],
+            gp["per_step"], gtern["ternary_matvec"],
+            "the 57 linear layers of one (j) decode step, m=8, bf16; "
+            "launches are the (j) ring path's"),
+        row("ternary_matmul (gemma3-27b)", src, b3, gp["counts"],
+            gp["per_step"], gtern["ternary_matmul"],
+            "the 56 block linear layers of one (j) prefill dispatch, "
+            "m=512, bf16"),
+        row("ternary_matvec (deepseek-moe-16b)", src, b1, dp["counts"],
+            dp["per_step"], dtern["ternary_matvec"],
+            "the quantized Dense layers (attention, shared experts, layer "
+            "0's MLP but its d_in-10944 wo, lm_head) of one (k) decode "
+            "step, m=8, bf16"),
+        row("ternary_matmul (deepseek-moe-16b)", src, b3, dp["counts"],
+            dp["per_step"], dtern["ternary_matmul"],
+            "those layers but the lm_head in one (k) prefill dispatch, "
+            "m=512, bf16"),
+        row("chunk_attention (deepseek-moe-16b)", attn_src, b2,
+            dp["counts"], dp["per_step"], dattn["decode"],
+            "28 reads of one (k) decode step, L=1, 16 kv heads, bf16 ring "
+            "of 1024; library: SDPA with a boolean mask"),
+        row("chunk_attention_paged (deepseek-moe-16b)", attn_src, b4,
+            dp["pcounts"], dp["paged"]["per_step"], dpattn,
+            "28 paged reads of one (k) decode step, L=1, 16-slot pages; "
+            "launches are the (k) paged path's"),
+    ]
+    return per_model + [
+        dict(name="ternary_matvec_experts", route="cuda", source=src,
+             replaces="src/repro/kernels/ternary_matmul/kernel.py:175",
+             launches=dp["counts"]["ternary_matvec_experts"],
+             launches_per_decode_step=dp["per_step"][
+                 "ternary_matvec_experts"],
+             max_abs_err=dp["experts_err"],
+             work="one deepseek-moe-16b MoE layer's three stacked expert "
+                  "products (64 experts, 2048<->1408) at cap 1, the decode "
+                  "step's, bf16 x on the tensor cores, the expert on the "
+                  "grid's z axis; launches are the (k) ring path's; "
+                  "library: torch.bmm on the stacks dequantized to bf16",
+             **{k: t_dec[k] for k in timed}),
+        dict(name="ternary_matmul_experts", route="cuda", source=src,
+             replaces="src/repro/kernels/ternary_matmul/kernel.py:91",
+             launches=dp["ncounts"]["ternary_matmul_experts"],
+             launches_per_decode_step=dp["nodrop"]["per_step"][
+                 "ternary_matmul_experts"],
+             max_abs_err=dp["experts_err"],
+             work="one deepseek-moe-16b MoE layer's three stacked expert "
+                  "products at cap 3072 (the no-drop copy's 64-token "
+                  "prefill bucket), bf16 x on the tensor cores; launches are "
+                  "the (k) no-drop ring path's (the published capacity "
+                  "factor caps a bucket at 60 rows: the matvec); library: "
+                  "torch.bmm on the stacks dequantized to bf16",
+             **{k: t_nd[k] for k in timed}),
+        dict(name="chunk_attention_hd168", route="cuda",
+             source="src/repro_torch/kernels/chunk_attention/csrc/"
+                    "chunk_attention.cu",
+             replaces="src/repro/kernels/chunk_attention/kernel.py:197",
+             launches=gp["counts"]["chunk_attention"],
+             launches_per_decode_step=gp["per_step"]["chunk_attention"],
+             max_abs_err=gp["attn_err"],
+             work="the 8 attention reads of one gemma3-27b decode step at "
+                  "hd 168 (7 local rings of 1024 slots, 1 global of 4096), "
+                  "L=1, bf16; launches are the (j) ring path's; library: "
+                  "SDPA with a boolean mask",
+             **{k: gattn["decode"][k] for k in timed}),
+    ]
+
+
+# ------------------------------------------------------------------- main
+def qwen2_phases(gpu, dev):
+    """Phases 2-17 and (e)-(i) on full-width qwen2-1.5b (the module
+    docstring); returns their rows of the ``kernels`` line."""
+    import torch
+
+    from repro_torch import configs
 
     cfg = configs.get_config("qwen2-1.5b")
     mm_err = check_ternary(cfg, dev)
@@ -2227,10 +2895,7 @@ def main() -> int:
         f"flipped byte in {ar['flip']['tensor']}:{ar['flip']['buffer']} "
         f"passes it and fails verify='full'")
     gc_free()
-    fx = fixture_path(dev)
-    need(fx["counts"], ("ternary_matvec", "chunk_attention",
-                        "chunk_attention_paged", "rms_norm"),
-         "the JAX package's artifact")
+    fx = fixture_path(dev, "qwen2")
     log(f"(f) the JAX package's artifact: {fx['n']} requests, "
         f"{fx['tokens']} tokens equal to the JAX engine's on the ring and "
         f"paged layouts, and the bucket-1 request alone; launches "
@@ -2314,7 +2979,7 @@ def main() -> int:
     need(dcounts, ("decode_attention",), "the decode-attention op")
 
     fill = [len(p) + MAX_NEW // 2 for p in mp["prompts"]]
-    tern = time_ternary(model, cfg, dev)
+    tern = time_ternary(model, dev)
     norm = time_rms_norm(model, cfg, dev)
     del model
     torch.cuda.empty_cache()
@@ -2410,6 +3075,42 @@ def main() -> int:
                   "first-wins tie rule, so library_ms is null",
              **{k: search[k] for k in timed}),
     ]
+    return kernels
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False); this script runs on a GPU", file=sys.stderr)
+        return 2
+    try:
+        from repro_torch import configs  # noqa: F401  (a checkout's package)
+        from repro_torch.kernels import _build
+    except ImportError as e:
+        print(f"chip_smoke: run from the root of a checkout of the repository "
+              f"({e})", file=sys.stderr)
+        return 2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    gpu = gpu_line()
+    log(f"card: {gpu}")
+    t_start = time.perf_counter()
+
+    t0 = time.perf_counter()
+    libs = _build.build(_build.kernel_sources())
+    log(f"built {len(libs)} kernel libraries in "
+        f"{time.perf_counter() - t0:.1f}s: {[p.name for p in libs]}")
+
+    kernels = qwen2_phases(gpu, dev)
+    gc_free()
+    kernels += slice9_phases(gpu, dev)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

@@ -275,19 +275,11 @@ def default_predicate(path: str, leaf: Any, group_size: int) -> bool:
 
 def quantize_kernel(kernel: torch.Tensor, cfg) -> QuantizedKernel:
     """Quantize a (..., d_in, d_out) kernel of the reference's layout on its
-    device, layer by layer over the leading dims (scan-stacked layers), as
-    the reference vmaps them."""
+    device, matrix by matrix over the leading dims (scan-stacked layers,
+    expert stacks), as the reference vmaps them."""
     from repro_torch.core import quantize_model
 
-    lead = tuple(kernel.shape[:-2])
-    d_in, d_out = kernel.shape[-2:]
-    parts = [quantize_model.quantize_kernel(k.T, cfg)
-             for k in kernel.reshape((-1, d_in, d_out))]
-    t1p, t2p, alpha = (torch.stack([getattr(q, f) for q in parts])
-                       .reshape(lead + getattr(parts[0], f).shape)
-                       for f in ("t1p", "t2p", "alpha"))
-    return QuantizedKernel(t1p, t2p, alpha, int(d_in), int(d_out),
-                           cfg.group_size)
+    return quantize_model.quantize_kernel(kernel.swapaxes(-1, -2), cfg)
 
 
 def _rel_fro_error(kernel: torch.Tensor, qk: QuantizedKernel) -> float:

@@ -1,14 +1,22 @@
 """Architecture registry: ``--arch <id>`` → (full config, smoke config).
 
-Only the dense GQA decoder runs in the port so far; the registry holds the
-architectures the port serves.
+The registry holds the architectures the port serves: the attention family
+of the reference's registry (dense GQA, sliding-window ``local`` blocks and
+mixture-of-experts FFNs). The recurrent mixers (rglru, rwkv6) and the
+stub-frontend archs are not ported yet.
 """
 
-from repro_torch.configs import qwen2_1_5b
+from repro_torch.configs import (deepseek_moe_16b, gemma3_27b, grok1_314b,
+                                 llama3_405b, qwen2_1_5b, qwen15_32b)
 from repro_torch.configs.base import ModelConfig, MoEConfig
 
 _MODULES = {
+    "qwen1.5-32b": qwen15_32b,
     "qwen2-1.5b": qwen2_1_5b,
+    "llama3-405b": llama3_405b,
+    "gemma3-27b": gemma3_27b,
+    "grok-1-314b": grok1_314b,
+    "deepseek-moe-16b": deepseek_moe_16b,
 }
 
 ARCH_IDS = tuple(_MODULES)

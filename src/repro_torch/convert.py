@@ -9,12 +9,18 @@ the same bytes. Dense kernels are (d_in, d_out) there and become (d_out,
 d_in) weights here; quantized kernels — any object or dict with ``t1p``,
 ``t2p``, ``alpha``, ``d_in``, ``d_out``, ``group_size`` — keep their uint8
 packed planes and f32 scales unchanged. Scan-stacked ``blocks/b{i}``
-leaves are split into one ``ModuleList`` entry per layer.
+leaves are split into one ``ModuleList`` entry per layer. A MoE layer's
+``moe`` subtree carries the f32 ``router``, the ``experts`` stacks
+``wi``/``wg``/``wo`` with their leading E axis (kernels (E, d_in, d_out)
+there, weights (E, d_out, d_in) here) and the ``shared`` MLP.
 
 ``to_reference_tree(model, cfg)`` is the inverse: the reference's paths,
 key order, scan stacking (a leading L under ``blocks/b{i}``) and kernel
 layout, with the model's tensors (on its device) as leaves, so the artifact
 writer can store a port model in the reference's format, byte for byte.
+The reference's ``init_params`` builds the unstacked ``prefix``/``suffix``
+blocks in insertion order and the stacked ``blocks`` with sorted keys
+(``jax.tree.map`` sorts them); the tree here follows both.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ import torch
 from repro_torch.core.quantize_model import QuantizedKernel
 from repro_torch.device import dtype_of, resolve_device
 from repro_torch.models.common import Dense
+from repro_torch.models.mlp import MLP
+from repro_torch.models.moe import MoE
 from repro_torch.models.transformer import Block, Transformer
 
 _QK_FIELDS = ("t1p", "t2p", "alpha", "d_in", "d_out", "group_size")
@@ -64,7 +72,9 @@ def _tensor(a, dtype, device):
                                                        dtype=dtype)
 
 
-def _load_dense(layer: Dense, node: Dict[str, Any], device):
+def _load_dense(layer, node: Dict[str, Any], device):
+    """A ``Dense`` layer, or a MoE ``ExpertDense`` stack (kernel (E, d_in,
+    d_out) there, weight (E, d_out, d_in) here)."""
     kernel = node["kernel"]
     if _is_qk(kernel):
         layer.set_quantized(QuantizedKernel(
@@ -76,7 +86,8 @@ def _load_dense(layer: Dense, node: Dict[str, Any], device):
     else:
         kernel = kernel if isinstance(kernel, torch.Tensor) \
             else np.asarray(kernel)
-        layer.weight.copy_(_tensor(kernel.T, layer.weight.dtype, device))
+        layer.weight.copy_(_tensor(kernel.swapaxes(-1, -2),
+                                   layer.weight.dtype, device))
     if "bias" in node:
         layer.bias.copy_(_tensor(node["bias"], layer.bias.dtype, device))
 
@@ -88,10 +99,23 @@ def _load_block(block: Block, node: Dict[str, Any], device):
                                        block.mlp_norm.scale.dtype, device))
     for name in ("wq", "wk", "wv", "wo"):
         _load_dense(getattr(block.attn, name), node["attn"][name], device)
+    if block.moe is not None:
+        moe: MoE = block.moe
+        _load_dense(moe.router, node["moe"]["router"], device)
+        for name in ("wi", "wg", "wo"):
+            _load_dense(getattr(moe.experts, name),
+                        node["moe"]["experts"][name], device)
+        if moe.shared is not None:
+            _load_mlp(moe.shared, node["moe"]["shared"], device)
+    else:
+        _load_mlp(block.mlp, node["mlp"], device)
+
+
+def _load_mlp(mlp: MLP, node: Dict[str, Any], device):
     for name in ("wi", "wg", "wo"):
-        layer = getattr(block.mlp, name)
+        layer = getattr(mlp, name)
         if layer is not None:
-            _load_dense(layer, node["mlp"][name], device)
+            _load_dense(layer, node[name], device)
 
 
 def _layer_nodes(tree, cfg) -> List[Dict[str, Any]]:
@@ -123,28 +147,53 @@ def from_jax_params(tree: Dict[str, Any], cfg, device="cuda") -> Transformer:
 # port -> reference layout
 # ---------------------------------------------------------------------------
 
-def _dense_node(layer: Dense) -> Dict[str, Any]:
+def _dense_node(layer, order=sorted) -> Dict[str, Any]:
+    """A dense layer's (or expert stack's) node, keys in ``order``."""
     qk = layer.quant
-    node: Dict[str, Any] = {}
-    if layer.bias is not None:
+    node: Dict[str, Any] = {
+        "kernel": qk if qk is not None
+        else layer.weight.detach().swapaxes(-1, -2).contiguous()}
+    if getattr(layer, "bias", None) is not None:
         node["bias"] = layer.bias.detach()
-    node["kernel"] = qk if qk is not None \
-        else layer.weight.detach().T.contiguous()
-    return node
+    return {k: node[k] for k in order(node)}
 
 
-def _block_node(block: Block) -> Dict[str, Any]:
-    """One layer's subtree, keys in sorted order (the order the reference's
-    scan-stacked subtrees have)."""
-    attn = {name: _dense_node(getattr(block.attn, name))
-            for name in ("wk", "wo", "wq", "wv")}
-    mlp = {name: _dense_node(getattr(block.mlp, name))
-           for name in ("wg", "wi", "wo")
-           if getattr(block.mlp, name) is not None}
-    return {"attn": attn,
-            "attn_norm": {"scale": block.attn_norm.scale.detach()},
-            "mlp": mlp,
-            "mlp_norm": {"scale": block.mlp_norm.scale.detach()}}
+def _insertion(keys):
+    """The order of the reference's initializers (``dense_init``: kernel,
+    bias; ``mlp_init``: wi, wg, wo; attention: wq, wk, wv, wo; a block:
+    attn_norm, attn, mlp_norm, mlp or moe; ``moe_init``: router, experts,
+    shared)."""
+    rank = ("kernel", "bias", "attn_norm", "attn", "mlp_norm", "mlp", "moe",
+            "wq", "wk", "wv", "wi", "wg", "wo", "router", "experts",
+            "shared")
+    return sorted(keys, key=rank.index)
+
+
+def _mlp_node(mlp: MLP, order) -> Dict[str, Any]:
+    return {name: _dense_node(getattr(mlp, name), order)
+            for name in order(("wi", "wg", "wo"))
+            if getattr(mlp, name) is not None}
+
+
+def _block_node(block: Block, order=sorted) -> Dict[str, Any]:
+    """One layer's subtree, keys in ``order``: sorted for the scan-stacked
+    ``blocks``, ``_insertion`` for the ``prefix`` and ``suffix`` blocks."""
+    node: Dict[str, Any] = {
+        "attn": {name: _dense_node(getattr(block.attn, name), order)
+                 for name in order(("wq", "wk", "wv", "wo"))},
+        "attn_norm": {"scale": block.attn_norm.scale.detach()},
+        "mlp_norm": {"scale": block.mlp_norm.scale.detach()}}
+    if block.moe is not None:
+        moe = {"router": _dense_node(block.moe.router, order),
+               "experts": {name: _dense_node(getattr(block.moe.experts, name),
+                                             order)
+                           for name in order(("wi", "wg", "wo"))}}
+        if block.moe.shared is not None:
+            moe["shared"] = _mlp_node(block.moe.shared, order)
+        node["moe"] = {k: moe[k] for k in order(moe)}
+    else:
+        node["mlp"] = _mlp_node(block.mlp, order)
+    return {k: node[k] for k in order(node)}
 
 
 def _stack(nodes: List[Any]) -> Any:
@@ -167,13 +216,15 @@ def to_reference_tree(model: Transformer, cfg) -> Dict[str, Any]:
     layers = list(model.layers)
     n_pre = len(cfg.prefix_pattern)
     tree: Dict[str, Any] = {"embed": {"embedding": model.embed.detach()}}
-    tree["prefix"] = {f"p{i}": _block_node(layers[i]) for i in range(n_pre)}
+    tree["prefix"] = {f"p{i}": _block_node(layers[i], _insertion)
+                      for i in range(n_pre)}
     tree["blocks"] = {
         f"b{pidx}": _stack([_block_node(layers[n_pre + i * cfg.period + pidx])
                             for i in range(cfg.n_periods)])
         for pidx in range(cfg.period) if cfg.n_periods}
     first_suffix = n_pre + cfg.n_periods * cfg.period
-    tree["suffix"] = {f"s{i}": _block_node(layers[first_suffix + i])
+    tree["suffix"] = {f"s{i}": _block_node(layers[first_suffix + i],
+                                           _insertion)
                       for i in range(len(cfg.remainder_pattern))}
     tree["final_norm"] = {"scale": model.final_norm.scale.detach()}
     tree["lm_head"] = _dense_node(model.lm_head)

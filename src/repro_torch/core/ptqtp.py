@@ -10,7 +10,9 @@ start; each iteration refits α by the 2×2 ridge solve with the
 condition-number-driven λ growth, then re-picks every trit pair by the
 9-candidate search (first candidate in ``CANDIDATES`` order wins ties, a
 strict ``<``); the loop stops per matrix when ``max_i ||Δα_i|| < eps`` or
-after ``t_max`` iterations, and ends with a final α refit.
+after ``t_max`` iterations, and ends with a final α refit. A stack of
+matrices (a MoE layer's experts, ``ptqtp_quantize_stack``) runs at once,
+each matrix stopping on its own; a single matrix is a stack of one.
 
 The search (``kernels/ptqtp_search``) is 9 compare-selects over
 preallocated planes, walked in row chunks so that a 151936×1536
@@ -32,7 +34,7 @@ from repro_torch.kernels.ptqtp_search import ops as search_ops
 from repro_torch.kernels.ptqtp_search.ref import CANDIDATES
 
 __all__ = ["CANDIDATES", "PTQTPConfig", "QuantizedTensor", "ptqtp_quantize",
-           "ptqtp_dequantize"]
+           "ptqtp_quantize_stack", "ptqtp_dequantize"]
 
 # Group-rows per search chunk: 2^20 rows of G = 128 is 512 MiB of f32.
 _CHUNK_ELEMS = 1 << 27
@@ -100,34 +102,76 @@ def _trit_search(w, alpha, t1, t2):
 
 
 def _quantize_grouped(wg: torch.Tensor, cfg: PTQTPConfig):
-    """Alg. 1/2 on group-rows wg (R, G) of one matrix.
+    """Alg. 1/2 on the group-rows wg (S, R, G) of S matrices at once, each
+    matrix stopping on its own (the reference vmaps its quantizer over a
+    stack's leading axes, and a batched ``while_loop`` freezes a finished
+    matrix's carry): a matrix's iterations, sums and searches are those of
+    a call on it alone, and once it stops its planes, α and λ stay as they
+    were. One host sync an iteration for the whole stack.
 
-    Returns (t1, t2, alpha, iters)."""
+    Returns (t1, t2, alpha, iters (S,))."""
     wg = wg.to(torch.float32).contiguous()
-    R = wg.shape[0]
+    S, R, G = wg.shape
+    dev = wg.device
     t1 = torch.where(wg >= 0.0, 1.0, -1.0)
     t2 = t1.clone()
-    alpha = torch.ones((R, 2), dtype=torch.float32, device=wg.device)
-    lam = torch.full((R,), cfg.lambda_init, dtype=torch.float32,
-                     device=wg.device)
-    iters = 0
-    while iters < cfg.t_max:
+    alpha = torch.ones((S, R, 2), dtype=torch.float32, device=dev)
+    lam = torch.full((S, R), cfg.lambda_init, dtype=torch.float32,
+                     device=dev)
+    active = torch.ones((S,), dtype=torch.bool, device=dev)
+    iters = torch.zeros((S,), dtype=torch.int64, device=dev)
+    n_active, spare = S, None
+    for _ in range(cfg.t_max):
         sums = _ridge_sums(t1, t2, wg)
         _, kappa = _ridge_solve(sums, lam)
-        lam = torch.where(
+        lam_new = torch.where(
             kappa >= cfg.cond_bound,
             torch.clamp(lam * torch.sqrt(kappa / cfg.cond_bound),
                         max=cfg.lambda_max),
             lam)
-        alpha_new, _ = _ridge_solve(sums, lam)
-        _trit_search(wg, alpha_new, t1, t2)
-        delta = torch.sqrt(((alpha_new - alpha) ** 2).sum(-1)).max()
-        alpha = alpha_new
-        iters += 1
-        if bool(delta < cfg.eps):
+        alpha_new, _ = _ridge_solve(sums, lam_new)
+        delta = torch.sqrt(((alpha_new - alpha) ** 2).sum(-1)).amax(-1)
+        if n_active == S:  # every matrix steps: search in place
+            out = (t1, t2)
+        else:              # finished matrices keep their planes
+            spare = spare or (torch.empty_like(t1), torch.empty_like(t2))
+            out = spare
+        _trit_search(wg.reshape(S * R, G), alpha_new.reshape(S * R, 2),
+                     out[0].reshape(S * R, G), out[1].reshape(S * R, G))
+        if n_active < S:
+            on = active[:, None, None]
+            t1 = torch.where(on, out[0], t1)
+            t2 = torch.where(on, out[1], t2)
+        alpha = torch.where(active[:, None, None], alpha_new, alpha)
+        lam = torch.where(active[:, None], lam_new, lam)
+        iters += active
+        active = active & ~(delta < cfg.eps)
+        n_active = int(active.sum())
+        if not n_active:
             break
     alpha, _ = _ridge_solve(_ridge_sums(t1, t2, wg), lam)
     return t1.to(torch.int8), t2.to(torch.int8), alpha, iters
+
+
+def ptqtp_quantize_stack(w: torch.Tensor, cfg: Optional[PTQTPConfig] = None
+                         ) -> QuantizedTensor:
+    """Quantize a stack of S weights (S, n, d) at once, each as
+    ``ptqtp_quantize`` quantizes it alone (its own stopping). Returns
+    planes (S, n, d), alpha (S, n, d // G, 2) and ``iters`` the most any
+    matrix ran."""
+    cfg = cfg or PTQTPConfig()
+    if w.dim() != 3:
+        raise ValueError(f"ptqtp_quantize_stack expects (S, n, d), got "
+                         f"{tuple(w.shape)}")
+    S, n, d = w.shape
+    g = cfg.group_size
+    if d % g:
+        raise ValueError(f"last dim {d} not divisible by group size {g}")
+    t1, t2, alpha, iters = _quantize_grouped(
+        w.reshape(S, n * (d // g), g), cfg)
+    return QuantizedTensor(t1.reshape(S, n, d), t2.reshape(S, n, d),
+                           alpha.reshape(S, n, d // g, 2), g,
+                           int(iters.max()) if S else 0)
 
 
 def ptqtp_quantize(w: torch.Tensor,
@@ -137,13 +181,9 @@ def ptqtp_quantize(w: torch.Tensor,
     if w.dim() != 2:
         raise ValueError(f"ptqtp_quantize expects a 2-D matrix, got "
                          f"{tuple(w.shape)}")
-    n, d = w.shape
-    g = cfg.group_size
-    if d % g:
-        raise ValueError(f"last dim {d} not divisible by group size {g}")
-    t1, t2, alpha, iters = _quantize_grouped(w.reshape(n * (d // g), g), cfg)
-    return QuantizedTensor(t1.reshape(n, d), t2.reshape(n, d),
-                           alpha.reshape(n, d // g, 2), g, iters)
+    q = ptqtp_quantize_stack(w[None], cfg)
+    return QuantizedTensor(q.t1[0], q.t2[0], q.alpha[0], q.group_size,
+                           q.iters)
 
 
 def ptqtp_dequantize(q: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:

@@ -41,6 +41,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: kernel name -> launches since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {"ternary_matvec": 0, "ternary_matmul": 0,
+                            "ternary_matvec_experts": 0,
+                            "ternary_matmul_experts": 0,
                             "chunk_attention": 0, "rms_norm": 0,
                             "chunk_attention_paged": 0, "decode_attention": 0,
                             "ptqtp_search": 0}

@@ -102,6 +102,16 @@
 //   order are the same at every L, so a request's last prefill chunk at
 //   bucket 1 alone and in a wider bucket give the same bits.
 //
+// Head dims: any multiple of 8 up to 256 (gemma3-27b's 168 among them).
+// K and q rows are padded by 16 bytes in shared memory; when hd is not a
+// multiple of 16 the MMA's last k16 chunk reads 8 elements of that padding,
+// which are zeroed, so they add exactly 0. int8 rows of such a head dim are
+// copied in 8-byte pieces (their 16-byte vectors would straddle rows); P·V
+// runs in passes of 128 head dims and the combine gives a thread the dims
+// tid and tid + 128. A head dim of 128 keeps its partition, copies and
+// every sum order. f32 K/V rows past hd ~176 outgrow a block's shared
+// memory and are refused.
+//
 // B2, B4 and B5 are this one kernel. `Slots` maps a logical slot to its
 // storage row, so B4 over a pool equals B2 over the gathered ring bit for
 // bit (a pool row is KV*hd elements: every 16-byte vector stays aligned);
@@ -121,6 +131,9 @@
 namespace {
 
 constexpr int RT = 32;          // query rows per block
+constexpr int MAX_HD = 256;     // head dim at most (a multiple of 8)
+constexpr int DPT = MAX_HD / 128;  // head dims per thread in the combine
+constexpr int MAX_SMEM = 232448;   // dynamic shared memory of a block
 constexpr int MAX_PART = 128;   // key slots per part at most: one per thread
 constexpr int NTHREADS = 128;
 constexpr int NWARPS = NTHREADS / 32;
@@ -168,6 +181,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(gmem), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem,
+                                          bool ok) {  // zero-fills when !ok
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(ok ? 8 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -316,14 +336,15 @@ __host__ __device__ inline int parts_of(int cap, int L, int part) {
 }
 
 // One P·V pass over R rows of a warp (rows row0, row0 + NWARPS, ...): lane
-// l owns head dims 4l .. 4l+3, and each (row, dim) is one f32 FMA chain
+// l owns head dims dbase + 4l .. +3, and each (row, dim) is one f32 FMA chain
 // over the part's slots in ascending order. Sub-tiles that no row needs
 // add nothing and are passed over.
 template <int R, typename TK>
 __device__ __forceinline__ void pv_pass(const float* sc, const unsigned char* vs,
                                         int vstride, const int* sub_s,
-                                        int row0, float* acc_out, int hd) {
-  const int d0 = 4 * (threadIdx.x % 32);
+                                        int row0, float* acc_out, int hd,
+                                        int dbase) {
+  const int d0 = dbase + 4 * (threadIdx.x % 32);
   float acc[R][4];
 #pragma unroll
   for (int j = 0; j < R; ++j)
@@ -433,28 +454,43 @@ __device__ __forceinline__ void part_partial(const Params<TQ, TC, Slots>& P,
     const unsigned bv = __ballot_sync(0xffffffffu, need_v);
     if (lane == 0) sub_s[warp] = (bk ? 1 : 0) | (bv ? 2 : 0);
     if (!__syncthreads_or(need_v)) {  // no row sees the part (B2, B4):
-      if (tid < hd)                     // (-1e30, 0, 0), an exact no-op
-        for (int r = 0; r < rows_here; ++r)
-          __stcg(&P.part_acc[(slot0 + r) * hd + tid], 0.0f);
+      for (int dd = tid; dd < hd; dd += NTHREADS)  // (-1e30, 0, 0), an
+        for (int r = 0; r < rows_here; ++r)        // exact no-op
+          __stcg(&P.part_acc[(slot0 + r) * hd + dd], 0.0f);
       if (tid < rows_here)
         __stcg(&P.part_ml[slot0 + tid], make_float2(NEG_INF, 0.0f));
       return;
     }
   }
 
-  // K (with q, issued by the caller) and V of the part: 16-byte cp.async
-  // in the storage type, zero-filled where no row needs the slot, in two
-  // groups so the scores and softmax run while V is in flight. Vector e =
-  // s*kvec + c (slot s, 16-byte chunk c) is stepped without a division.
-  const int kvec = vstride / 16;  // 16-byte vectors per row
+  // The MMA's last k16 chunk of a head dim that is not a multiple of 16
+  // reads 8 elements past each K and q row: zeros (the K rows' here, q's
+  // by the caller), so they add exactly 0.
+  if (kMMA && hd % 16)
+    for (int s = tid; s < MAX_PART; s += NTHREADS)
+#pragma unroll
+      for (int i = 0; i < (int)sizeof(TK); ++i)
+        reinterpret_cast<uint2*>(ks + s * kstride + hd * (int)sizeof(TK))[i] =
+            make_uint2(0u, 0u);
+
+  // K (with q, issued by the caller) and V of the part: cp.async of 16
+  // bytes (8 for int8 rows whose bytes are not a multiple of 16) in the
+  // storage type, zero-filled where no row needs the slot, in two groups so
+  // the scores and softmax run while V is in flight. Vector e = s*kvec + c
+  // (slot s, chunk c) is stepped without a division.
+  const int vb = vstride % 16 ? 8 : 16;  // bytes of one copy
+  const int kvec = vstride / vb;         // copies per row
   const int s_step = NTHREADS / kvec, c_step = NTHREADS - s_step * kvec;
-  constexpr int EPV = 16 / (int)sizeof(TK);
+  const int epv = vb / (int)sizeof(TK);
   auto copy_rows = [&](const TK* g, unsigned char* dst, int stride, int bit) {
     int s = tid / kvec, c = tid - s * kvec;
     for (int e = tid; e < MAX_PART * kvec; e += NTHREADS) {
       const bool ok = need_s[s] & bit;
-      const TK* src = ok ? g + ((size_t)krow_s[s] * KV + kv) * hd + c * EPV : g;
-      cp_async16(dst + s * stride + c * 16, src, ok);
+      const TK* src = ok ? g + ((size_t)krow_s[s] * KV + kv) * hd + c * epv : g;
+      if (vb == 16)
+        cp_async16(dst + s * stride + c * 16, src, ok);
+      else
+        cp_async8(dst + s * stride + c * 8, src, ok);
       s += s_step;
       c += c_step;
       if (c >= kvec) {
@@ -620,16 +656,18 @@ __device__ __forceinline__ void part_partial(const Params<TQ, TC, Slots>& P,
 
   // acc[r][d] = Σ_s p'[r][s] · v[s][d]: warp w owns rows w, w+4, ... in
   // passes of up to 4 rows, so each p is read by one warp only
-  if (4 * lane < hd) {
+  // passes of 128 head dims (a warp's 32 lanes x 4)
+  for (int dc = 0; dc < hd; dc += 128) {
+    if (dc + 4 * lane >= hd) continue;
     float* acc_out = P.part_acc + slot0 * hd;
     const int nr = (rows_here - warp + NWARPS - 1) / NWARPS;  // this warp's
     for (int j0 = 0; j0 < nr; j0 += 4) {
       const int row0 = warp + NWARPS * j0;
       switch (min(4, nr - j0)) {
-        case 1: pv_pass<1, TK>(sc, vs, vstride, sub_s, row0, acc_out, hd); break;
-        case 2: pv_pass<2, TK>(sc, vs, vstride, sub_s, row0, acc_out, hd); break;
-        case 3: pv_pass<3, TK>(sc, vs, vstride, sub_s, row0, acc_out, hd); break;
-        default: pv_pass<4, TK>(sc, vs, vstride, sub_s, row0, acc_out, hd);
+        case 1: pv_pass<1, TK>(sc, vs, vstride, sub_s, row0, acc_out, hd, dc); break;
+        case 2: pv_pass<2, TK>(sc, vs, vstride, sub_s, row0, acc_out, hd, dc); break;
+        case 3: pv_pass<3, TK>(sc, vs, vstride, sub_s, row0, acc_out, hd, dc); break;
+        default: pv_pass<4, TK>(sc, vs, vstride, sub_s, row0, acc_out, hd, dc);
       }
     }
   }
@@ -670,6 +708,9 @@ __global__ void __launch_bounds__(NTHREADS)
       cp_async16(smem + S.qs + r * (hd * 2 + 16) + c * 16,
                  ok ? q_row(r0 + r) + c * 8 : P.q, ok);
     }
+    if (hd % 16 && tid < RT)  // the last k16 chunk's 8 elements past hd
+      *reinterpret_cast<uint4*>(smem + S.qs + tid * (hd * 2 + 16) + hd * 2) =
+          make_uint4(0u, 0u, 0u, 0u);
   } else {
     float* qs = reinterpret_cast<float*>(smem + S.qs);
     for (int e = tid; e < RT * hd; e += NTHREADS) {
@@ -772,16 +813,21 @@ __global__ void __launch_bounds__(NTHREADS)
   __syncthreads();
   STAGE(9);
   const int n_chunks = n_groups * n_chunks_g;
-  float a[8];
+  float a[DPT][8];  // thread: head dims tid, tid + NTHREADS
   for (int k = 0; k < n_chunks; ++k) {
     if (k + 1 < n_chunks) issue(k + 1);
     const int rb = (k / n_chunks_g) * 8, i0 = (k % n_chunks_g) * per_buf;
     const int np = min(per_buf, n_parts - i0);
     if (i0 == 0)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) a[j] = 0.0f;
-    if (tid < hd) {
-      const float* buf = abuf + (k % 2) * per_buf * slab + tid;
+      for (int h = 0; h < DPT; ++h)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) a[h][j] = 0.0f;
+#pragma unroll
+    for (int h = 0; h < DPT; ++h) {
+      const int dd = tid + h * NTHREADS;
+      if (dd >= hd) break;
+      const float* buf = abuf + (k % 2) * per_buf * slab + dd;
 #pragma unroll 4
       for (int u = 0; u < np; ++u) {
         const float4* wu =
@@ -790,7 +836,7 @@ __global__ void __launch_bounds__(NTHREADS)
         const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
 #pragma unroll
         for (int j = 0; j < 8; ++j)
-          a[j] = fmaf(buf[(u * 8 + j) * hd], w[j], a[j]);
+          a[h][j] = fmaf(buf[(u * 8 + j) * hd], w[j], a[h][j]);
       }
       if (i0 + np == n_parts) {
 #pragma unroll
@@ -798,7 +844,7 @@ __global__ void __launch_bounds__(NTHREADS)
           const int r = r0 + rb + j;
           if (rb + j < rows_here)
             P.out[((((size_t)b * L + r / G) * P.KV + kv) * G + r % G) * hd +
-                  tid] = a[j] / fmaxf(lg_s[rb + j], 1e-30f);
+                  dd] = a[h][j] / fmaxf(lg_s[rb + j], 1e-30f);
         }
       }
     }
@@ -817,6 +863,7 @@ cudaError_t launch(Params<TQ, TC, Slots> P, int B, float* scratch,
   auto kern = chunk_attention_kernel<TQ, TC, Slots, kChunk>;
   const int n_parts = parts_of<kChunk>(P.cap, P.L, P.part);
   const int smem = layout_of<TQ, TC, kChunk>(P.hd, n_parts).total;
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;  // f32 rows, large hd
   // cudaFuncSetAttribute costs the host more than the launch: raise the
   // shared-memory limit only when this kernel needs more on this device
   // than it was given (a benign race at worst repeats it).
@@ -874,7 +921,8 @@ Params<TQ, TC, Slots> params(const void* q, const void* kn, const void* vn,
 }
 
 bool bad_shape(int hd, int part, int rt) {
-  return hd > 128 || hd % 16 || part < 1 || part > MAX_PART || rt != RT;
+  return hd < 8 || hd > MAX_HD || hd % 8 || part < 1 || part > MAX_PART ||
+         rt != RT;
 }
 
 template <typename TQ, typename Slots>
@@ -937,7 +985,8 @@ int chunk_attention_stages(void* dst) {
 
 // q_bf16: 0 -> q/k_new/v_new are f32, 1 -> bf16.
 // ring_int8: 0 -> the ring has q's dtype, 1 -> int8 ring with scales.
-// hd <= 128 and a multiple of 16 (16-byte rows of an int8 ring); part: the
+// hd <= 256 and a multiple of 8 (f32 rows past hd ~176 outgrow the shared
+// memory and are refused); part: the
 // slots of a part (<= 128); rt: the wrapper's query rows per block, which
 // must equal RT. scratch: B*KV*ceil(L*G/RT)*n_part*RT*(hd + 2) f32, n_part
 // = ceil(cap/part) + ceil(L/part); counters: B*KV*ceil(L*G/RT) int32,

@@ -39,7 +39,7 @@ _SIGNATURES = {
         _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]}
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256  # and a multiple of 8 (csrc MAX_HD)
 PART_SLOTS = 128  # key slots per part of the split-KV walk (csrc MAX_PART)
 ROW_TILE = 32     # query rows per block (csrc RT)
 
@@ -144,9 +144,9 @@ def _check_common(q, k_new, v_new, k_store, k_scale, v_store, v_scale,
         raise ValueError("the chunk-attention kernels need CUDA tensors")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if hd > MAX_HEAD_DIM or hd % 16:
+    if hd > MAX_HEAD_DIM or hd % 8:
         raise ValueError(f"head dim {hd} must be <= {MAX_HEAD_DIM} and a "
-                         "multiple of 16")
+                         "multiple of 8")
     int8 = k_store.dtype == torch.int8
     if not int8 and k_store.dtype != q.dtype:
         raise TypeError(f"a float ring must have q's dtype {q.dtype}, got "

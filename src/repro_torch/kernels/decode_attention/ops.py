@@ -36,7 +36,7 @@ _SIGNATURES = {"decode_attention_launch": [
     _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
     _I, ctypes.c_float, _P]}
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256  # and a multiple of 8 (csrc MAX_HD)
 
 
 def _require(t, name, dtype, shape, device):
@@ -61,9 +61,9 @@ def decode_attention_cuda(q, k8, k_scale, v8, v_scale, pos_buf, pos, *,
         raise ValueError("decode_attention_cuda needs CUDA tensors")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if hd > MAX_HEAD_DIM or hd % 16:
+    if hd > MAX_HEAD_DIM or hd % 8:
         raise ValueError(f"head dim {hd} must be <= {MAX_HEAD_DIM} and a "
-                         "multiple of 16")
+                         "multiple of 8")
     _require(q, "q", q.dtype, (b, kv, g, hd), dev)
     _require(k8, "k8", torch.int8, (b, s, kv, hd), dev)
     _require(v8, "v8", torch.int8, (b, s, kv, hd), dev)

@@ -101,6 +101,11 @@
 //       its 8 x values and 4+4 trits of one k as four 16-byte loads for 64
 //       FMAs; the next step's x and planes are fetched into registers while
 //       this step computes.
+//
+// The MoE experts' products (the reference vmaps ternary_matmul over the
+// expert axis, src/repro/models/moe.py:70) are one launch of either kernel
+// with the expert on blockIdx.z (``expert_offsets``).
+//
 //   Ragged m and n edges are masked (rows past the edge read zeros or a
 //   clamped valid row, and their outputs are dropped), never padded in
 //   memory.
@@ -159,6 +164,20 @@ __device__ __forceinline__ void vec_to_f32(const uint4& u,
   }
 }
 
+// A stacked launch (the MoE experts' products, ``ternary_matmul_experts``)
+// runs expert e = blockIdx.z on its own slices: x (E, m, d), the planes
+// (E, n, d/4), alpha (E, n, d/G, 2) and y (E, m, n). Every block then runs
+// the unstacked kernel's code on them, so an expert's rows have the bits
+// of a launch of that expert's matrix alone; a plain launch has one z.
+struct ExpertOffsets {
+  size_t x, planes, alpha, y;  // elements of x, plane bytes, floats, outputs
+};
+__device__ __forceinline__ ExpertOffsets expert_offsets(int m, int n, int d,
+                                                        int ng) {
+  const size_t e = blockIdx.z;
+  return {e * m * d, e * n * (d / 4), e * n * ng * 2, e * m * n};
+}
+
 // the NW 32-bit words (16 trits each) of one group of one plane row, in
 // 16-byte loads (8-byte loads when the group has only 8 bytes, G = 32)
 template <int NW>
@@ -198,6 +217,14 @@ __global__ void __launch_bounds__(MV_COLS* MV_MAX_WARPS)
   constexpr int XV = MV_ROWS * G / EPV / 32;  // x vectors per lane per group
   extern __shared__ __align__(16) float smem[];
   const int ng = d / G;
+  {  // expert blockIdx.z of a stacked launch (see expert_offsets)
+    const ExpertOffsets eo = expert_offsets(m, n, d, ng);
+    x += eo.x;
+    t1p += eo.planes;
+    t2p += eo.planes;
+    alpha += eo.alpha;
+    y += eo.y;
+  }
   const int nwarps = blockDim.x / 32;
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
@@ -307,6 +334,14 @@ __global__ void __launch_bounds__(MM_THREADS)
   const int tx = tid % (MM_BN / MM_TN), ty = tid / (MM_BN / MM_TN);
   const int i0 = blockIdx.y * MM_BM, j0 = blockIdx.x * MM_BN;
   const int ng = d / G, spg = G / MM_BK, n_steps = d / MM_BK;
+  {  // expert blockIdx.z of a stacked launch (see expert_offsets)
+    const ExpertOffsets eo = expert_offsets(m, n, d, ng);
+    x += eo.x;
+    t1p += eo.planes;
+    t2p += eo.planes;
+    alpha += eo.alpha;
+    y += eo.y;
+  }
 
   // staging: thread tid fetches 16 of a step's 32 x values of tile row
   // tid/2, and 16 trits (4 bytes) of each plane of tile column tid/2
@@ -501,6 +536,14 @@ __global__ void __launch_bounds__(32 * MMV_MAX_WARPS)
   constexpr int CPG = G / 16;  // k16 chunks of a group = words of a plane row
   extern __shared__ __align__(16) float terms[];  // [ng][MMV_FEATS][MMV_TOKENS]
   const int ng = d / G;
+  {  // expert blockIdx.z of a stacked launch (see expert_offsets)
+    const ExpertOffsets eo = expert_offsets(m, n, d, ng);
+    x += eo.x;
+    t1p += eo.planes;
+    t2p += eo.planes;
+    alpha += eo.alpha;
+    y += eo.y;
+  }
   const int nwarps = blockDim.x / 32;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int gid = lane / 4, tig = lane % 4;
@@ -601,6 +644,14 @@ __global__ void __launch_bounds__(TC_THREADS)
   const int wf = warp % TC_WF, wt = warp / TC_WF;
   const int i0 = blockIdx.y * TC_BM, j0 = blockIdx.x * TC_BN;
   const int ng = d / G, n_steps = d / TC_BK;
+  {  // expert blockIdx.z of a stacked launch (see expert_offsets)
+    const ExpertOffsets eo = expert_offsets(m, n, d, ng);
+    x += eo.x;
+    t1p += eo.planes;
+    t2p += eo.planes;
+    alpha += eo.alpha;
+    y += eo.y;
+  }
   const size_t row_bytes = (size_t)d / 4;
   // this thread's cp.async sources: x rows xr0 + 32*i at column piece xc
   // (rows past m zero-fill), and one plane row (rows past n zero-fill);
@@ -733,7 +784,7 @@ cudaError_t allow_smem(K kern, size_t smem, int* allowed) {
 template <typename TY, int G>
 cudaError_t launch_matvec_mma(const void* x, const void* t1p, const void* t2p,
                               const void* alpha, void* y, int m, int n, int d,
-                              cudaStream_t stream) {
+                              int ne, cudaStream_t stream) {
   const int ng = d / G;
   const int nwarps = ng < MMV_MAX_WARPS ? ng : MMV_MAX_WARPS;
   const size_t smem = sizeof(float) * (size_t)ng * MMV_FEATS * MMV_TOKENS;
@@ -741,7 +792,7 @@ cudaError_t launch_matvec_mma(const void* x, const void* t1p, const void* t2p,
   static int allowed[64] = {};
   const cudaError_t e = allow_smem(kern, smem, allowed);
   if (e != cudaSuccess) return e;
-  dim3 grid((n + MMV_FEATS - 1) / MMV_FEATS);
+  dim3 grid((n + MMV_FEATS - 1) / MMV_FEATS, 1, ne);
   kern<<<grid, 32 * nwarps, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(t1p),
       static_cast<const uint8_t*>(t2p), static_cast<const float*>(alpha),
@@ -752,11 +803,11 @@ cudaError_t launch_matvec_mma(const void* x, const void* t1p, const void* t2p,
 template <typename TY>
 cudaError_t launch_matvec_mma_g(int G, const void* x, const void* t1p,
                                 const void* t2p, const void* alpha, void* y,
-                                int m, int n, int d, cudaStream_t s) {
+                                int m, int n, int d, int ne, cudaStream_t s) {
   switch (G) {
-    case 32: return launch_matvec_mma<TY, 32>(x, t1p, t2p, alpha, y, m, n, d, s);
-    case 64: return launch_matvec_mma<TY, 64>(x, t1p, t2p, alpha, y, m, n, d, s);
-    case 128: return launch_matvec_mma<TY, 128>(x, t1p, t2p, alpha, y, m, n, d, s);
+    case 32: return launch_matvec_mma<TY, 32>(x, t1p, t2p, alpha, y, m, n, d, ne, s);
+    case 64: return launch_matvec_mma<TY, 64>(x, t1p, t2p, alpha, y, m, n, d, ne, s);
+    case 128: return launch_matvec_mma<TY, 128>(x, t1p, t2p, alpha, y, m, n, d, ne, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -764,14 +815,14 @@ cudaError_t launch_matvec_mma_g(int G, const void* x, const void* t1p,
 template <typename TY, int G>
 cudaError_t launch_matmul_mma(const void* x, const void* t1p, const void* t2p,
                               const void* alpha, void* y, int m, int n, int d,
-                              cudaStream_t s) {
+                              int ne, cudaStream_t s) {
   if (d % TC_BK) return cudaErrorInvalidValue;
   constexpr size_t smem = sizeof(TcStage) * TC_STAGES;
   auto kern = ternary_matmul_mma_kernel<TY, G>;
   static int allowed[64] = {};
   const cudaError_t attr = allow_smem(kern, smem, allowed);
   if (attr != cudaSuccess) return attr;
-  dim3 grid((n + TC_BN - 1) / TC_BN, (m + TC_BM - 1) / TC_BM);
+  dim3 grid((n + TC_BN - 1) / TC_BN, (m + TC_BM - 1) / TC_BM, ne);
   kern<<<grid, TC_THREADS, smem, s>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(t1p),
       static_cast<const uint8_t*>(t2p), static_cast<const float*>(alpha),
@@ -782,11 +833,11 @@ cudaError_t launch_matmul_mma(const void* x, const void* t1p, const void* t2p,
 template <typename TY>
 cudaError_t launch_matmul_mma_g(int G, const void* x, const void* t1p,
                                 const void* t2p, const void* alpha, void* y,
-                                int m, int n, int d, cudaStream_t s) {
+                                int m, int n, int d, int ne, cudaStream_t s) {
   switch (G) {
-    case 32: return launch_matmul_mma<TY, 32>(x, t1p, t2p, alpha, y, m, n, d, s);
-    case 64: return launch_matmul_mma<TY, 64>(x, t1p, t2p, alpha, y, m, n, d, s);
-    case 128: return launch_matmul_mma<TY, 128>(x, t1p, t2p, alpha, y, m, n, d, s);
+    case 32: return launch_matmul_mma<TY, 32>(x, t1p, t2p, alpha, y, m, n, d, ne, s);
+    case 64: return launch_matmul_mma<TY, 64>(x, t1p, t2p, alpha, y, m, n, d, ne, s);
+    case 128: return launch_matmul_mma<TY, 128>(x, t1p, t2p, alpha, y, m, n, d, ne, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -794,7 +845,7 @@ cudaError_t launch_matmul_mma_g(int G, const void* x, const void* t1p,
 template <typename T, typename TY, int G>
 cudaError_t launch_matvec(const void* x, const void* t1p, const void* t2p,
                           const void* alpha, void* y, int m, int n, int d,
-                          cudaStream_t stream) {
+                          int ne, cudaStream_t stream) {
   const int ng = d / G;
   const int nwarps = ng < MV_MAX_WARPS ? ng : MV_MAX_WARPS;
   const size_t smem =
@@ -803,7 +854,7 @@ cudaError_t launch_matvec(const void* x, const void* t1p, const void* t2p,
   static int allowed[64] = {};
   const cudaError_t e = allow_smem(kern, smem, allowed);
   if (e != cudaSuccess) return e;
-  dim3 grid((n + MV_COLS - 1) / MV_COLS);
+  dim3 grid((n + MV_COLS - 1) / MV_COLS, 1, ne);
   kern<<<grid, MV_COLS * nwarps, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(t1p),
       static_cast<const uint8_t*>(t2p), static_cast<const float*>(alpha),
@@ -814,11 +865,11 @@ cudaError_t launch_matvec(const void* x, const void* t1p, const void* t2p,
 template <typename T, typename TY>
 cudaError_t launch_matvec_g(int G, const void* x, const void* t1p,
                             const void* t2p, const void* alpha, void* y, int m,
-                            int n, int d, cudaStream_t s) {
+                            int n, int d, int ne, cudaStream_t s) {
   switch (G) {
-    case 32: return launch_matvec<T, TY, 32>(x, t1p, t2p, alpha, y, m, n, d, s);
-    case 64: return launch_matvec<T, TY, 64>(x, t1p, t2p, alpha, y, m, n, d, s);
-    case 128: return launch_matvec<T, TY, 128>(x, t1p, t2p, alpha, y, m, n, d, s);
+    case 32: return launch_matvec<T, TY, 32>(x, t1p, t2p, alpha, y, m, n, d, ne, s);
+    case 64: return launch_matvec<T, TY, 64>(x, t1p, t2p, alpha, y, m, n, d, ne, s);
+    case 128: return launch_matvec<T, TY, 128>(x, t1p, t2p, alpha, y, m, n, d, ne, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -826,9 +877,9 @@ cudaError_t launch_matvec_g(int G, const void* x, const void* t1p,
 template <typename T, typename TY>
 cudaError_t launch_matmul(const void* x, const void* t1p, const void* t2p,
                           const void* alpha, void* y, int m, int n, int d,
-                          int G, cudaStream_t s) {
+                          int G, int ne, cudaStream_t s) {
   if (G % MM_BK) return cudaErrorInvalidValue;
-  dim3 grid((n + MM_BN - 1) / MM_BN, (m + MM_BM - 1) / MM_BM);
+  dim3 grid((n + MM_BN - 1) / MM_BN, (m + MM_BM - 1) / MM_BM, ne);
   ternary_matmul_kernel<T, TY><<<grid, MM_THREADS, 0, s>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(t1p),
       static_cast<const uint8_t*>(t2p), static_cast<const float*>(alpha),
@@ -845,19 +896,23 @@ extern "C" {
 int ternary_mma_route(int x_bf16) { return x_bf16 ? 1 : 0; }
 
 // x_bf16: 0 -> x is f32, 1 -> x is bf16. y_bf16: 0 -> y is f32, 1 -> y is
-// bf16 (only with bf16 x). Group size G in {32, 64, 128}.
+// bf16 (only with bf16 x). Group size G in {32, 64, 128}. ne: products
+// stacked along a leading expert axis (x (ne, m, d), planes (ne, n, d/4),
+// alpha (ne, n, d/G, 2), y (ne, m, n)), one per blockIdx.z; 1 for a plain
+// product.
 int ternary_matvec_launch(const void* x, int x_bf16, const void* t1p,
                           const void* t2p, const void* alpha, void* y,
-                          int y_bf16, int m, int n, int d, int G, void* stream) {
+                          int y_bf16, int m, int n, int d, int G, int ne,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (!ternary_mma_route(x_bf16))
     e = y_bf16 ? cudaErrorInvalidValue
-               : launch_matvec_g<float, float>(G, x, t1p, t2p, alpha, y, m, n, d, s);
+               : launch_matvec_g<float, float>(G, x, t1p, t2p, alpha, y, m, n, d, ne, s);
   else if (y_bf16)
-    e = launch_matvec_mma_g<__nv_bfloat16>(G, x, t1p, t2p, alpha, y, m, n, d, s);
+    e = launch_matvec_mma_g<__nv_bfloat16>(G, x, t1p, t2p, alpha, y, m, n, d, ne, s);
   else
-    e = launch_matvec_mma_g<float>(G, x, t1p, t2p, alpha, y, m, n, d, s);
+    e = launch_matvec_mma_g<float>(G, x, t1p, t2p, alpha, y, m, n, d, ne, s);
   return static_cast<int>(e);
 }
 
@@ -865,16 +920,17 @@ int ternary_matvec_launch(const void* x, int x_bf16, const void* t1p,
 // step is 32 columns of d), and in {32, 64, 128} for bf16 x.
 int ternary_matmul_launch(const void* x, int x_bf16, const void* t1p,
                           const void* t2p, const void* alpha, void* y,
-                          int y_bf16, int m, int n, int d, int G, void* stream) {
+                          int y_bf16, int m, int n, int d, int G, int ne,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (!ternary_mma_route(x_bf16))
     e = y_bf16 ? cudaErrorInvalidValue
-               : launch_matmul<float, float>(x, t1p, t2p, alpha, y, m, n, d, G, s);
+               : launch_matmul<float, float>(x, t1p, t2p, alpha, y, m, n, d, G, ne, s);
   else if (y_bf16)
-    e = launch_matmul_mma_g<__nv_bfloat16>(G, x, t1p, t2p, alpha, y, m, n, d, s);
+    e = launch_matmul_mma_g<__nv_bfloat16>(G, x, t1p, t2p, alpha, y, m, n, d, ne, s);
   else
-    e = launch_matmul_mma_g<float>(G, x, t1p, t2p, alpha, y, m, n, d, s);
+    e = launch_matmul_mma_g<float>(G, x, t1p, t2p, alpha, y, m, n, d, ne, s);
   return static_cast<int>(e);
 }
 

@@ -7,6 +7,11 @@ splits its Pallas kernels:
   * m < 128  -> ``ternary_matvec`` (decode: every linear layer of a step);
   * m >= 128 -> ``ternary_matmul_tiled`` (prefill chunks).
 
+``ternary_matmul_experts`` runs E such products stacked along a leading
+expert axis (the MoE FFN's, which the reference vmaps over its experts) in
+one launch of the same kernels, the expert on the grid's z axis: expert
+e's rows have the bits of a launch of its matrix alone.
+
 bf16 x runs both on the tensor cores (one shared ``mma.sync`` tile
 routine), f32 x on the FMA kernels (``route``). Either way both give
 bit-identical rows for the same x rows (see the source note), so where a
@@ -37,7 +42,7 @@ MATVEC_GROUP_SIZES = (32, 64, 128)
 _SOURCE = Path(__file__).parent / "csrc" / "ternary_matmul.cu"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIG = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_SIG = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _SIGNATURES = {"ternary_matvec_launch": _SIG, "ternary_matmul_launch": _SIG,
                "ternary_mma_route": [_I]}
 
@@ -97,19 +102,24 @@ def route(dtype) -> str:
 
 
 def _check(x, t1p, t2p, alpha, group_size):
-    if x.dim() != 2:
-        raise ValueError(f"x must be (m, d), got {tuple(x.shape)}")
-    m, d = x.shape
-    n = t1p.shape[0]
+    """Validate a plain (x (m, d), planes (n, d/4)) or a stacked (x (E, m,
+    d), planes (E, n, d/4)) product; returns (E or 0, m, n, d)."""
+    if x.dim() not in (2, 3):
+        raise ValueError(f"x must be (m, d) or (E, m, d), got "
+                         f"{tuple(x.shape)}")
+    lead = tuple(x.shape[:-2])
+    m, d = x.shape[-2:]
+    n = t1p.shape[-2] if t1p.dim() >= 2 else -1
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     for name, t in (("t1p", t1p), ("t2p", t2p)):
-        if t.dtype != torch.uint8 or tuple(t.shape) != (n, d // 4):
-            raise ValueError(f"{name} must be uint8 ({n}, {d // 4}), got "
-                             f"{t.dtype} {tuple(t.shape)}")
-    if alpha.dtype != torch.float32 or tuple(alpha.shape) != (
+        if t.dtype != torch.uint8 or tuple(t.shape) != lead + (n, d // 4):
+            raise ValueError(f"{name} must be uint8 {lead + (n, d // 4)}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    if alpha.dtype != torch.float32 or tuple(alpha.shape) != lead + (
             n, d // group_size, 2):
-        raise ValueError(f"alpha must be float32 ({n}, {d // group_size}, 2)")
+        raise ValueError(f"alpha must be float32 "
+                         f"{lead + (n, d // group_size, 2)}")
     if d % group_size or d % 64:
         raise ValueError(f"d={d} must be a multiple of the group size "
                          f"{group_size} and of 64")
@@ -122,25 +132,26 @@ def _check(x, t1p, t2p, alpha, group_size):
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % align:
             raise ValueError(f"{name} must be {align}-byte aligned")
-    return m, n, d
+    return (x.shape[0] if lead else 0), m, n, d
 
 
 def _launch(fn_name, counter, x, t1p, t2p, alpha, group_size, out_dtype):
-    m, n, d = _check(x, t1p, t2p, alpha, group_size)
+    ne, m, n, d = _check(x, t1p, t2p, alpha, group_size)
     if out_dtype not in (torch.float32, x.dtype):
         raise TypeError(f"out_dtype must be float32 or x's dtype {x.dtype}, "
                         f"got {out_dtype}")
-    y = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    if m == 0 or n == 0:
+    y = torch.empty(x.shape[:-1] + (n,), dtype=out_dtype, device=x.device)
+    if y.numel() == 0:
         return y
     lib = _build.load(_SOURCE, _SIGNATURES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = getattr(lib, fn_name)(
         x.data_ptr(), int(x.dtype == torch.bfloat16), t1p.data_ptr(),
         t2p.data_ptr(), alpha.data_ptr(), y.data_ptr(),
-        int(out_dtype == torch.bfloat16), m, n, d, group_size, stream)
+        int(out_dtype == torch.bfloat16), m, n, d, group_size, max(ne, 1),
+        stream)
     _build.check(status, fn_name)
-    _build.LAUNCHES[counter] += 1
+    _build.LAUNCHES[counter + ("_experts" if ne else "")] += 1
     return y
 
 
@@ -148,7 +159,9 @@ def ternary_matvec(x, t1p, t2p, alpha, group_size: int = 128,
                    out_dtype=torch.float32):
     """Decode kernel (replaces ``ternary_matvec_pallas``): x (m, d) on the
     card, any m (meant for m < 128). Returns (m, n) in ``out_dtype``: f32,
-    or x's dtype (the f32 result rounded as ``.to`` would round it)."""
+    or x's dtype (the f32 result rounded as ``.to`` would round it). With x
+    (E, m, d) and stacked planes, the E products of one launch (counted as
+    ``ternary_matvec_experts``)."""
     if group_size not in MATVEC_GROUP_SIZES:
         raise ValueError(f"group size {group_size} not in {MATVEC_GROUP_SIZES}")
     return _launch("ternary_matvec_launch", "ternary_matvec", x, t1p, t2p,
@@ -160,7 +173,8 @@ def ternary_matmul_tiled(x, t1p, t2p, alpha, group_size: int = 128,
     """Prefill kernel (replaces ``ternary_matmul_pallas``): x (m, d) on the
     card, any m (meant for m >= 128). Returns (m, n) in ``out_dtype`` (f32
     or x's dtype). G must be a multiple of 32, and for bf16 x (the
-    tensor-core kernel) one of ``MATVEC_GROUP_SIZES``."""
+    tensor-core kernel) one of ``MATVEC_GROUP_SIZES``. Stacked operands as
+    for ``ternary_matvec`` (counted as ``ternary_matmul_experts``)."""
     if group_size % 32:
         raise ValueError(f"group size {group_size} must be a multiple of 32")
     if x.dtype == torch.bfloat16 and group_size not in MATVEC_GROUP_SIZES:
@@ -168,6 +182,25 @@ def ternary_matmul_tiled(x, t1p, t2p, alpha, group_size: int = 128,
                          f"{MATVEC_GROUP_SIZES}")
     return _launch("ternary_matmul_launch", "ternary_matmul", x, t1p, t2p,
                    alpha, group_size, out_dtype)
+
+
+def ternary_matmul_experts(x, t1p, t2p, alpha, *, group_size: int = 128,
+                           out_dtype=None):
+    """E stacked products y[e] = x[e] @ Ŵ[e]ᵀ: x (E, m, d); planes (E, n,
+    d//4) uint8; alpha (E, n, d//G, 2) f32. Returns (E, m, n) in
+    ``out_dtype`` (f32 if None). On the card one launch of the matvec (m <
+    128) or the tiled kernel with the expert on the grid's z axis; on the
+    CPU the plain grouped formula, expert by expert."""
+    out_dtype = out_dtype or torch.float32
+    if x.device.type == "cpu":
+        return _ref.ternary_matmul_experts(x, t1p, t2p, alpha,
+                                           group_size).to(out_dtype)
+    direct = out_dtype in (torch.float32, x.dtype)
+    kern = (ternary_matvec if x.shape[1] < SMALL_M_THRESHOLD
+            else ternary_matmul_tiled)
+    y = kern(x.contiguous(), t1p, t2p, alpha, group_size,
+             out_dtype if direct else torch.float32)
+    return y if direct else y.to(out_dtype)
 
 
 def ternary_matmul(x, t1p, t2p, alpha, *, group_size: int = 128,

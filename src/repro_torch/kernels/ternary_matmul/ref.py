@@ -33,3 +33,11 @@ def ternary_matmul_grouped(x, t1p, t2p, alpha, group_size: int = 128):
     y = torch.einsum("bgn,ng->bn", p1, a[..., 0]) + torch.einsum(
         "bgn,ng->bn", p2, a[..., 1])
     return y.reshape(*lead, n)
+
+
+def ternary_matmul_experts(x, t1p, t2p, alpha, group_size: int = 128):
+    """E stacked products, expert by expert: x (E, m, d); planes (E, n,
+    d//4); alpha (E, n, d//G, 2). Returns (E, m, n) float32."""
+    return torch.stack([ternary_matmul_grouped(x[e], t1p[e], t2p[e], alpha[e],
+                                               group_size)
+                        for e in range(x.shape[0])])

@@ -15,7 +15,13 @@ manifest and shards (written by either package): no floating-point weights
 are built and nothing is quantized; the boot time is printed by phase.
 Without it: the smoke configuration of ``--arch``, group size min(128,
 d_model), ``--t-max`` iterations. One request per built-in prompt, each
-seeded ``seed + i``.
+seeded ``seed + i``. ``--arch`` takes every id of the port's registry:
+qwen2-1.5b, qwen1.5-32b and llama3-405b (dense), gemma3-27b (sliding-window
+local layers: the ring layout only, as the paged layout refuses a window
+narrower than the capacity) and deepseek-moe-16b and grok-1-314b
+(mixture of experts). A model with a stub modality frontend
+(``embed_inputs=False``) is refused, as the reference's launcher refuses
+it.
 
 ``--warmup`` captures every dispatch before serving (CUDA graphs on the
 card; their capture seconds are printed). ``--scheduler serial`` serves on
@@ -55,7 +61,7 @@ from pathlib import Path
 import torch
 
 from repro_torch import configs
-from repro_torch.artifacts import load_model
+from repro_torch.artifacts import load_model, load_model_config, read_manifest
 from repro_torch.core.ptqtp import PTQTPConfig
 from repro_torch.core.quantize_model import quantize_tree
 from repro_torch.data.tokenizer import ByteTokenizer
@@ -400,6 +406,10 @@ def main(argv=None):
     boot = {}
     t_boot = rtclock.now()
     if args.artifact:
+        cfg = load_model_config(read_manifest(args.artifact))
+        if not cfg.embed_inputs:
+            ap.error(f"artifact model {cfg.name} has a stub modality "
+                     "frontend; token serving applies to LM archs")
         with _boot_phase(obs, boot, "artifact_load",
                          verify=args.verify_artifact):
             model, cfg, manifest = load_model(
@@ -414,6 +424,9 @@ def main(argv=None):
             f"{k} {1e3 * v:.1f}ms" for k, v in boot.items()))
     else:
         cfg = configs.get_smoke_config(args.arch)
+        if not cfg.embed_inputs:  # reject stub archs before any boot work
+            ap.error(f"{args.arch} has a stub modality frontend; token "
+                     "serving applies to LM archs")
         with _boot_phase(obs, boot, "weight_init"):
             gen = torch.Generator(device=dev).manual_seed(args.seed)
             model = init_params(cfg, gen, device=dev)

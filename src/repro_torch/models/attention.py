@@ -178,11 +178,24 @@ def _scatter_slots(buf, idx, vals, keep):
     each (B, S), where ``keep``; elsewhere the slot keeps its value (the
     reference's dropped write). Slots of one row are distinct when
     S <= cap (consecutive positions), so the indexed write has no
-    collisions and is deterministic; longer chunks write only the kept
-    entries."""
+    collisions and is deterministic. A chunk longer than the ring (a
+    sliding-window layer's ring under a wider prefill chunk) keeps only its
+    last ``cap`` valid entries, whose slots are again distinct: every slot
+    gathers the one kept entry that lands on it, if any, so no two
+    positions are ever scattered into one slot (and no shape depends on
+    the data)."""
     vals = vals.to(buf.dtype)
-    if keep.shape[1] > buf.shape[1]:
-        buf[idx[0][keep], idx[1][keep]] = vals[keep]
+    b, s = keep.shape
+    cap = buf.shape[1]
+    if s > cap:
+        slots = torch.arange(cap, device=buf.device)
+        hit = keep[:, :, None] & (idx[1][:, :, None] == slots)  # (B, S, cap)
+        order = torch.arange(1, s + 1, device=buf.device)[None, :, None]
+        j = (hit.to(torch.int64) * order).amax(1) - 1           # (B, cap)
+        tail = (1,) * (vals.dim() - 2)
+        src = torch.gather(vals, 1, torch.clamp(j, min=0).reshape(
+            (b, cap) + tail).expand((b, cap) + tuple(vals.shape[2:])))
+        buf.copy_(torch.where((j >= 0).reshape((b, cap) + tail), src, buf))
         return
     k = keep.reshape(keep.shape + (1,) * (vals.dim() - 2))
     buf[idx] = torch.where(k, vals, buf[idx])

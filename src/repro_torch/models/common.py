@@ -95,6 +95,23 @@ def _linear_fixed_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y[:m].reshape(*lead, w.shape[0])
 
 
+def bmm_fixed_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Stacked products x[e] @ w[e]ᵀ, x (E, m, d), w (E, n, d) -> (E, m, n),
+    in batched GEMMs of one shape (the rows cut into zero-padded blocks of
+    ``DENSE_ROW_BLOCK``, as ``_linear_fixed_rows``): a row's bits do not
+    depend on m. The floating-point MoE expert stacks (the reference leaves
+    this product to XLA's einsum)."""
+    e, m, d = x.shape
+    rows = DENSE_ROW_BLOCK
+    pad = -m % rows
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    wt = w.transpose(1, 2)
+    y = torch.cat([torch.bmm(x[:, i:i + rows], wt)
+                   for i in range(0, m + pad, rows)], dim=1)
+    return y[:, :m]
+
+
 class RMSNorm(nn.Module):
     def __init__(self, d: int, *, dtype=torch.float32, device="cpu"):
         super().__init__()

@@ -1,8 +1,10 @@
-"""Decoder LM of ``attn+mlp`` blocks (dense GQA: llama/qwen-style).
+"""Decoder LM of attention blocks: ``attn+mlp`` (dense GQA: llama/qwen-
+style), ``local+mlp`` (sliding-window attention: gemma3's local layers) and
+``attn+moe`` (a mixture-of-experts FFN: deepseek-moe, grok-1).
 
 The reference stacks layers for ``lax.scan``; here they are a
-``ModuleList`` and a Python loop. Other block kinds raise
-``NotImplementedError``.
+``ModuleList`` and a Python loop. Other block kinds (the recurrent rglru
+and rwkv mixers) raise ``NotImplementedError``.
 
 Model API:
   init_params(cfg, generator=None, device="cuda")  -> Transformer
@@ -28,8 +30,9 @@ from repro_torch.device import dtype_of, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import Dense, RMSNorm, rope_tables
 from repro_torch.models.mlp import MLP
+from repro_torch.models.moe import ExpertDense, MoE, moe_forward
 
-SUPPORTED_KINDS = ("attn+mlp",)
+SUPPORTED_KINDS = ("attn+mlp", "local+mlp", "attn+moe")
 
 
 def _check_kinds(cfg) -> None:
@@ -45,13 +48,22 @@ def _window(kind: str, cfg) -> Optional[int]:
 
 
 class Block(nn.Module):
-    def __init__(self, cfg, *, dtype, device):
+    """Attention, then an MLP or (``*+moe`` kinds) a mixture of experts."""
+
+    def __init__(self, cfg, kind: str, *, dtype, device):
         super().__init__()
         d = cfg.d_model
         self.attn_norm = RMSNorm(d, dtype=dtype, device=device)
         self.attn = attn_mod.Attention(cfg, dtype=dtype, device=device)
         self.mlp_norm = RMSNorm(d, dtype=dtype, device=device)
-        self.mlp = MLP(d, cfg.d_ff, cfg.mlp_type, dtype=dtype, device=device)
+        if kind.endswith("+moe"):
+            self.mlp = None
+            self.moe = MoE(d, cfg.moe, cfg.mlp_type, dtype=dtype,
+                           device=device)
+        else:
+            self.mlp = MLP(d, cfg.d_ff, cfg.mlp_type, dtype=dtype,
+                           device=device)
+            self.moe = None
 
 
 class Transformer(nn.Module):
@@ -62,8 +74,8 @@ class Transformer(nn.Module):
             torch.empty((cfg.vocab_size, cfg.d_model), dtype=dtype,
                         device=device), requires_grad=False)
         self.layers = nn.ModuleList(
-            Block(cfg, dtype=dtype, device=device)
-            for _ in range(cfg.n_layers))
+            Block(cfg, kind, dtype=dtype, device=device)
+            for kind in cfg.layer_kinds)
         self.final_norm = RMSNorm(cfg.d_model, dtype=dtype, device=device)
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, dtype=dtype,
                              device=device)
@@ -73,8 +85,10 @@ class Transformer(nn.Module):
 def init_params(cfg, generator: Optional[torch.Generator] = None,
                 device="cuda") -> Transformer:
     """Random init from ``generator`` (seeded by the caller), directly on
-    ``device``: embedding N(0, 0.02²), dense weights N(0, 1/d_in), biases 0,
-    norm scales 1 — the reference's initializer, not its random bits."""
+    ``device``: embedding N(0, 0.02²), dense weights (the f32 router and the
+    expert stacks too) N(0, 1/d_in), biases 0, norm scales 1 — the
+    reference's initializer, not its random bits. An expert stack is drawn
+    one expert at a time (no f32 copy of the whole stack)."""
     dev = resolve_device(device)
     dtype = dtype_of(cfg.param_dtype)
     model = Transformer(cfg, dtype=dtype, device=dev)
@@ -88,6 +102,9 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
         if isinstance(module, Dense):
             module.weight.copy_(normal(module.weight.shape,
                                        1.0 / module.d_in ** 0.5))
+        elif isinstance(module, ExpertDense):
+            for w in module.weight:
+                w.copy_(normal(w.shape, 1.0 / module.d_in ** 0.5))
     return model
 
 
@@ -95,8 +112,14 @@ def _embed(model: Transformer, cfg, tokens):
     return model.embed[tokens.long()].to(dtype_of(cfg.activation_dtype))
 
 
-def _mlp_residual(block: Block, cfg, x):
-    return x + block.mlp(block.mlp_norm(x, cfg.norm_eps))
+def _mlp_residual(block: Block, cfg, x, valid=None):
+    """x + the block's FFN of its normed x. ``valid`` marks a prefill
+    chunk's real tokens for the MoE (padding never takes capacity); decode
+    passes none, as the reference's ``_block_decode``."""
+    h = block.mlp_norm(x, cfg.norm_eps)
+    if block.moe is not None:
+        return x + moe_forward(block.moe, cfg.moe, h, valid)
+    return x + block.mlp(h)
 
 
 @torch.no_grad()
@@ -205,13 +228,15 @@ def prefill_chunk(model: Transformer, cfg, state, tokens, lengths
     pos0 = state["pos"]
     positions = (pos0[:, None]
                  + torch.arange(L, dtype=torch.int32, device=x.device)[None])
+    valid = (torch.arange(L, device=x.device)[None, :] < lengths[:, None]
+             if cfg.moe is not None else None)
     rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     for kind, block, cache in zip(cfg.layer_kinds, model.layers,
                                   state["layers"]):
         y, _ = attn_mod.attention_prefill_chunk(
             block.attn, cfg, cache, block.attn_norm(x, cfg.norm_eps),
             positions, lengths, rope, window=_window(kind, cfg))
-        x = _mlp_residual(block, cfg, x + y)
+        x = _mlp_residual(block, cfg, x + y, valid)
     x = model.final_norm(x, cfg.norm_eps)
     idx = torch.clamp(lengths - 1, min=0).long()
     x_last = x[torch.arange(b, device=x.device), idx]

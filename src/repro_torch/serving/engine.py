@@ -251,10 +251,14 @@ class ServingEngine:
             total = engine_cfg.max_pages
             if total is None:
                 total = nb * self._per_slot
-            # every block of the port is attention + MLP, so prefix reuse
-            # is always sound (the reference turns it off for recurrent
-            # mixers, whose state cannot skip the shared prefix)
-            self._prefix_reuse = engine_cfg.prefix_cache
+            # prefix reuse splices cached KV pages under a later request:
+            # sound only when attention is the only stateful mixer (a
+            # recurrent rwkv/rglru state summarizes every prior token and
+            # cannot skip the shared prefix), so it turns off otherwise,
+            # as in the reference
+            attn_only = all(k != "rwkv" and not k.startswith("rglru")
+                            for k in model_cfg.layer_kinds)
+            self._prefix_reuse = engine_cfg.prefix_cache and attn_only
             self.alloc = PageAllocator(total, ps,
                                        prefix_cache=self._prefix_reuse)
             # host-authoritative logical→physical page map per slot; pushed

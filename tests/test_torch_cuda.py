@@ -36,6 +36,8 @@ from the card, with the eager bodies' streams; device memory stays flat
 across three supervisor rebuilds (a dead generation's graphs, pool, KV and
 attention scratch are freed with it); a released thread of an abandoned
 engine launches nothing, and the new generation's stream is not its.
+The MoE experts' stacked ternary launch gives each expert the bits of its
+own launch, and the attention kernels take gemma3-27b's head dim of 168.
 """
 
 import dataclasses
@@ -146,6 +148,39 @@ def test_ternary_bf16_spanning_binades(cuda, g):
     for a, b in _windows(m):
         vec = tm_ops.ternary_matvec(x[a:b].contiguous(), t1p, t2p, alpha, g)
         assert torch.equal(vec, tiled[a:b]), (a, b)
+
+
+@pytest.mark.parametrize("m", [1, 60, 200])    # decode, capped prefill, B3
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ternary_expert_axis_equals_per_expert_launches(cuda, dtype, m):
+    """The MoE experts' stacked launch (the expert on the grid's z axis):
+    each expert's rows bit for bit those of a launch of its matrix alone,
+    within 1e-4 of the plain version, each launch counted once under the
+    stacked route's own name."""
+    rng = np.random.default_rng(m)
+    e, n, d, g = 5, 200, 512, 128
+    planes = [_planes(rng, n, d, g, cuda) for _ in range(e)]
+    t1p, t2p, alpha = (torch.stack([pl[i] for pl in planes])
+                       for i in range(3))
+    x = torch.from_numpy(rng.standard_normal((e, m, d)).astype(
+        np.float32)).to(cuda, dtype)
+    before = dict(tm_ops._build.LAUNCHES)
+    got = tm_ops.ternary_matmul_experts(x, t1p, t2p, alpha, group_size=g)
+    kind = "ternary_matvec" if m < 128 else "ternary_matmul"
+    after = dict(tm_ops._build.LAUNCHES)
+    assert after[kind + "_experts"] - before[kind + "_experts"] == 1
+    assert after[kind] == before[kind]
+    one = (tm_ops.ternary_matvec if m < 128 else tm_ops.ternary_matmul_tiled)
+    plain = tm_ref.ternary_matmul_experts(x, t1p, t2p, alpha, g)
+    torch.cuda.synchronize()
+    for i in range(e):
+        assert torch.equal(got[i], one(x[i].contiguous(), t1p[i], t2p[i],
+                                       alpha[i], g)), i
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
+    if dtype == torch.bfloat16:
+        yb = tm_ops.ternary_matmul_experts(x, t1p, t2p, alpha, group_size=g,
+                                           out_dtype=torch.bfloat16)
+        assert torch.equal(yb, got.to(torch.bfloat16))
 
 
 def _attention_case(rng, b, L, kv, g, hd, cap, ring, dev):
@@ -311,6 +346,38 @@ def test_decode_attention_matches_plain(cuda, s, window, qdtype):
     mean_v = (v8[3].float() * vs[3][..., None]).mean(0)        # (KV, hd)
     torch.testing.assert_close(got[3], mean_v[:, None].expand(kv, g, hd),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("ring", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("L,window", [(1, None), (40, None), (40, 50)])
+def test_attention_head_dim_168(cuda, L, window, ring):
+    """gemma3-27b's head dim (168, not a multiple of 16): B2 and B4 within
+    1e-4 of the plain version, B4 == B2 bit for bit, a row alone == the row
+    in the batch; B5 over an int8 ring within 1e-4 of its plain version."""
+    rng = np.random.default_rng(L + 168)
+    args = _attention_case(rng, 4, L, 2, 2, 168, 200, ring, cuda)
+    plain = ca_ref.chunk_attention_stream(*args, window=window)
+    got = ca_ops.chunk_attention_cuda(*args, window=window)
+    paged, gathered = _paged_case(rng, args, 8, cuda)
+    pgot = ca_ops.chunk_attention_paged_cuda(*paged, window=window)
+    ring_kernel = ca_ops.chunk_attention_cuda(*gathered, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
+    assert torch.equal(pgot, ring_kernel)
+    for i in (0, 3):
+        assert torch.equal(ca_ops.chunk_attention_cuda(*_row(args, i),
+                                                       window=window),
+                           got[i:i + 1])
+    if L == 1:
+        q, _, _, kc, ks, vc, vs, pb, positions, _ = args
+        if ring != "int8":
+            return
+        dargs = [q[:, 0].contiguous(), kc, ks, vc, vs, pb,
+                 positions[:, 0].contiguous()]
+        dgot = da_ops.decode_attention_cuda(*dargs, window=window)
+        dplain = da_ref.decode_attention_plain(*dargs, window=window)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(dgot, dplain, rtol=1e-4, atol=1e-4)
 
 
 # the main path's attention shapes: cap 1024, 16-slot pages, 2 kv heads of

@@ -17,7 +17,8 @@ the reference's launcher.
 Every wait is bounded; every supervisor and driver is closed, and every
 stall released, in a ``finally``. The watchdog case waits for the
 recovery record, not for the generation counter, which is bumped before
-the survivors are adopted.
+the survivors are adopted; so every case that returns the supervisor's
+record after a crash first waits for all of its recovery records.
 """
 
 import json
@@ -220,6 +221,7 @@ class TestCrashReplay:
                 assert [r.finish_reason for r in results] == \
                     ["length", "length"]
                 assert [tuple(r.tokens) for r in results] == ref
+                assert _wait_until(lambda: len(sup.recoveries) == 1)
                 for i, evs in enumerate(events):
                     toks = [e for e in evs if e[0] == "token"]
                     assert [e[1] for e in toks] == list(range(8))
@@ -257,6 +259,7 @@ class TestCrashReplay:
                 assert res_v.finish_reason == "length"
                 assert tuple(res_v.tokens) == ref[1]
                 assert sup.blacklist == {0}
+                assert _wait_until(lambda: len(sup.recoveries) == 1)
                 once = [r.uid for r in sup.results()].count(0)
                 assert once == 1
                 assert sup.replayed == 1
@@ -288,6 +291,7 @@ class TestCrashReplay:
                 assert sup.blacklist == {hp.uid}
                 assert sup.crash_counts[hp.uid] == 2
                 assert _wait_until(lambda: sup.generation == 2)
+                assert _wait_until(lambda: len(sup.recoveries) == 2)
                 assert not sup.degraded
                 return ref, _result(res_p), _result(res_v), _sup_record(sup)
             finally:
@@ -308,6 +312,7 @@ class TestCrashReplay:
                 got = [tuple(h.result(timeout=120).tokens) for h in hs]
                 assert got == ref
                 assert sup.generation == 1
+                assert _wait_until(lambda: len(sup.recoveries) == 1)
                 return got, _sup_record(sup)
             finally:
                 _close(sup)
@@ -334,6 +339,7 @@ class TestCrashReplay:
                 assert res_v.finish_reason == "length"
                 assert tuple(res_v.tokens) == ref[0]
                 assert sup.blacklist == {suspect.uid}
+                assert _wait_until(lambda: len(sup.recoveries) == 1)
                 return ref, _result(res_s), _result(res_v), _sup_record(sup)
             finally:
                 _close(sup)
@@ -432,6 +438,7 @@ class TestHttpRecovery:
                 results = [h.result(timeout=120) for h in hs]
                 assert all(r.finish_reason == "length" for r in results)
                 assert _wait_until(lambda: sup.degraded)
+                assert _wait_until(lambda: len(sup.recoveries) == 2)
                 assert sup.restarts == 2
                 status, headers, body = _post(base, {"prompt": [1, 2],
                                                      "max_new_tokens": 2})
@@ -512,6 +519,7 @@ class TestBreaker:
                 results = [h.result(timeout=120) for h in hs]
                 assert all(r.finish_reason == "length" for r in results)
                 assert _wait_until(lambda: sup.restarts == 1)
+                assert _wait_until(lambda: len(sup.recoveries) == 1)
                 assert _wait_until(lambda: not sup.degraded)
                 h2 = sup.submit([4, 5], SP(max_new_tokens=2, seed=1))
                 r2 = h2.result(timeout=120)
@@ -590,6 +598,7 @@ class TestShutdownRaces:
                     ([4, 5], SP(max_new_tokens=4, seed=1))])
                 results = [h.result(timeout=120) for h in hs]
                 assert all(r.finish_reason == "length" for r in results)
+                assert _wait_until(lambda: len(sup.recoveries) == 1)
             finally:
                 _close(sup)
             sup.close()  # a second close is a no-op, not an error

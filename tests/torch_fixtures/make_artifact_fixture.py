@@ -1,27 +1,35 @@
-"""Write the cross-package fixture: an artifact written by the JAX package
-and the JAX engine's greedy streams for a fixed fleet.
+"""Write the cross-package fixtures: artifacts written by the JAX package and
+the JAX engine's greedy streams for a fixed fleet.
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_fixtures/make_artifact_fixture.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_fixtures/make_artifact_fixture.py [ARCH ...]
 
-Writes, next to this script:
+For each smoke architecture (all by default: qwen2-1.5b, gemma3-27b,
+deepseek-moe-16b) it writes, next to this script:
 
-  * ``qwen2_smoke_artifact/``: ``repro.artifacts.write_artifact`` of the
-    smoke qwen2-1.5b (2 layers, d 64, vocab 512, f32) initialised from
-    ``PRNGKey(0)`` and PTQTP-quantized (G = 64, t_max = 5);
-  * ``qwen2_smoke_streams.json``: the engine settings, the four requests
+  * ``<name>_smoke_artifact/``: ``repro.artifacts.write_artifact`` of the
+    smoke config (f32) initialised from ``PRNGKey(0)`` and PTQTP-quantized
+    (G = 64, t_max = 5; a ``d_in`` of 32, deepseek's expert and shared
+    ``wo``, stays dense at G = 64, as in the reference);
+  * ``<name>_smoke_streams.json``: the engine settings, the four requests
     (prompts from numpy seeds, greedy budgets) and the tokens the JAX
     engine serves from that artifact on the ring layout: for the fleet,
     and for the request whose prompt (33 tokens, prefill chunk 16) ends in
-    a one-token prefill bucket when it is served alone, alone.
+    a one-token prefill bucket when it is served alone, alone; for
+    deepseek also the fleet's tokens on the paged layout (page size 8).
 
-The port reads both (``tests/test_torch_artifacts.py`` on the CPU,
-``chip_smoke.py`` on the card) and must serve the same tokens.
+gemma3's smoke window is 8, so its prefill chunks of 16 are longer than
+its local rings and every prompt but one runs past the window.
+
+The port reads them (``tests/test_torch_artifacts.py`` and
+``tests/test_torch_archs.py`` on the CPU, ``chip_smoke.py`` on the card)
+and must serve the same tokens.
 """
 
 from __future__ import annotations
 
 import json
 import shutil
+import sys
 from pathlib import Path
 
 import jax
@@ -34,13 +42,19 @@ from repro.models import init_params
 from repro.serving import EngineConfig, SamplingParams, ServingEngine
 
 HERE = Path(__file__).resolve().parent
-ARTIFACT = HERE / "qwen2_smoke_artifact"
-STREAMS = HERE / "qwen2_smoke_streams.json"
+
+#: arch -> file name stem of its artifact and streams
+NAMES = {"qwen2-1.5b": "qwen2", "gemma3-27b": "gemma3",
+         "deepseek-moe-16b": "deepseek"}
+# archs whose paged streams are written too (the qwen2 fixture's test
+# holds both layouts to its ring streams; gemma3 refuses paging)
+PAGED_STREAMS = ("deepseek-moe-16b",)
 
 ENGINE = dict(max_slots=3, capacity=64, prefill_chunk=16, decode_chunk=4)
 LENGTHS = (33, 5, 23, 40)
 BUDGETS = (8, 6, 9, 12)
 SOLO = 0  # 33 tokens = 16 + 16 + 1: its last chunk is bucket 1 alone
+PAGE_SIZE = 8
 
 
 def prompts():
@@ -48,32 +62,45 @@ def prompts():
             for i, n in enumerate(LENGTHS)]
 
 
-def serve(params, cfg, reqs):
-    eng = ServingEngine(params, cfg, EngineConfig(**ENGINE))
+def serve(params, cfg, reqs, **kw):
+    eng = ServingEngine(params, cfg, EngineConfig(**ENGINE, **kw))
     handles = [eng.submit(p, SamplingParams(max_new_tokens=n))
                for p, n in reqs]
     eng.run()
     return [list(h.output) for h in handles]
 
 
-def main():
-    cfg = configs.get_smoke_config("qwen2-1.5b")
-    if ARTIFACT.exists():
-        shutil.rmtree(ARTIFACT)
-    write_artifact(ARTIFACT, arch="qwen2-1.5b", model_cfg=cfg,
+def write(arch):
+    cfg = configs.get_smoke_config(arch)
+    artifact = HERE / f"{NAMES[arch]}_smoke_artifact"
+    streams = HERE / f"{NAMES[arch]}_smoke_streams.json"
+    if artifact.exists():
+        shutil.rmtree(artifact)
+    write_artifact(artifact, arch=arch, model_cfg=cfg,
                    ptqtp_cfg=PTQTPConfig(group_size=64, t_max=5),
                    params=init_params(cfg, jax.random.PRNGKey(0)))
-    params, _ = load_artifact(ARTIFACT, verify="full")
+    params, _ = load_artifact(artifact, verify="full")
     reqs = list(zip(prompts(), BUDGETS))
-    STREAMS.write_text(json.dumps({
+    spec = {
         "engine": ENGINE,
         "requests": [{"prompt": p, "max_new_tokens": n} for p, n in reqs],
         "streams": serve(params, cfg, reqs),
         "solo": {"index": SOLO, "tokens": serve(params, cfg,
                                                 [reqs[SOLO]])[0]},
-    }) + "\n")
-    print(f"wrote {ARTIFACT} and {STREAMS}")
+    }
+    if arch in PAGED_STREAMS:
+        spec["paged"] = {"page_size": PAGE_SIZE,
+                         "streams": serve(params, cfg, reqs,
+                                          kv_layout="paged",
+                                          page_size=PAGE_SIZE)}
+    streams.write_text(json.dumps(spec) + "\n")
+    print(f"wrote {artifact} and {streams}")
+
+
+def main(argv):
+    for arch in argv or list(NAMES):
+        write(arch)
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])
