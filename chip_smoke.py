@@ -141,6 +141,42 @@ the phases above:
      layers, beside their plain versions, one PyTorch call (``torch.bmm``
      on dequantized stacks, ``F.linear``, SDPA) and their bounds.
 
+Since slice 10 (the recurrent decoders), after the phases above:
+
+ 22. (p) the recurrences' hand kernels against their plain versions at the
+     paths' shapes: ``rglru_scan`` (8 rows of width 2560) and ``wkv6`` (8
+     rows of 40 heads of 64, bf16 and f32) at decode (S = 1) and prefill
+     (S = 64) shapes with ragged and idle rows: the states bit for bit, the
+     wkv6 readout within its tolerance; a row alone equals its row in the
+     batch of 8, and a 64-step chunk equals 64 one-step calls, bit for bit;
+ 23. (m) recurrentgemma-2b at full width and depth (26 layers, 2 RG-LRU
+     (width 2560 in 10 blocks) : 1 local attention (10/1 heads, hd 256,
+     window 2048), d 2560, d_ff 7680 GeGLU, vocab 256000), quantized on
+     the card: 8 greedy requests of 64-3000 prompt tokens (two past the
+     2048-slot local rings, which wrap) at capacity 4096, 32 new tokens
+     each, through CUDA graphs: every request finishes, solo == fleet
+     (longest, bucket 1), graph == eager, ``SerialAdmitEngine`` ==
+     bucketed (two requests), a paged engine at 4096 raises the
+     reference's ValueError, and at capacity 2048 (prompts cut to 1900)
+     ring == paged with B4 launched and prefix reuse off; B2 at hd 256 and
+     G 10 against its plain version, rows alone and in the batch;
+ 24. (n) rwkv6-3b at full width and depth (32 layers, d 2560, 40 heads of
+     64, d_ff 8960, vocab 65536), quantized on the card: phase 4's fleet
+     with its last prompt a 4000-token one, at capacity 4096, on the ring
+     and the paged layout: ring == paged, solo == fleet, graph == eager,
+     serial == bucketed, the decode state's bytes equal at capacity 1024
+     and 4096 (O(1)), and the shared-prefix fleet with prefix reuse off and
+     no prefill token saved; no attention kernel launches;
+ 25. (o) the JAX package's smoke recurrentgemma-2b and rwkv6-3b artifacts
+     (f32: the FMA kernels) with the JAX engine's committed greedy streams
+     on the ring (both) and the paged layout (rwkv6), and the bucket-1
+     request alone;
+ 26. the times of B1/B3 at both models' layers, B2 at hd 256 (L = 1 and
+     64) and B4 at hd 256, and of ``rglru_scan`` and ``wkv6`` (a decode
+     step's and a prefill dispatch's layers) beside their plain versions,
+     one PyTorch call where one computes the same function, and their
+     bounds.
+
 Each phase's engines and graph pools are freed before the next; the run's
 total seconds are printed.
 
@@ -1184,9 +1220,11 @@ def artifact_path(cfg, dev, model, mp):
 
 
 #: the layouts each committed JAX-written fixture is served on (gemma3's
-#: sliding window refuses paging, as in the reference)
+#: and recurrentgemma's sliding windows refuse paging at the fixtures'
+#: capacity, as in the reference)
 FIXTURE_LAYOUTS = {"qwen2": ("ring", "paged"), "gemma3": ("ring",),
-                   "deepseek": ("ring", "paged")}
+                   "deepseek": ("ring", "paged"),
+                   "recurrentgemma": ("ring",), "rwkv6": ("ring", "paged")}
 
 
 def fixture_path(dev, name):
@@ -1199,6 +1237,7 @@ def fixture_path(dev, name):
     and read just after. A mismatch fails the run as it is."""
     from repro_torch.artifacts import load_model
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.transformer import has_attention
     from repro_torch.serving import EngineConfig, SamplingParams, ServingEngine
 
     spec = json.loads((FIXTURES / f"{name}_smoke_streams.json").read_text())
@@ -1228,11 +1267,19 @@ def fixture_path(dev, name):
     if solo != spec["solo"]["tokens"]:
         raise AssertionError(f"{name}: the bucket-1 request alone {solo}, "
                              f"the JAX engine {spec['solo']['tokens']}")
-    kernels = ["ternary_matvec", "chunk_attention", "rms_norm"]
-    if "paged" in got:
+    kinds = set(cfg.layer_kinds)
+    attention = has_attention(cfg)
+    kernels = ["ternary_matvec", "rms_norm"]
+    if attention:
+        kernels.append("chunk_attention")
+    if attention and "paged" in got:
         kernels.append("chunk_attention_paged")
     if cfg.moe is not None:
         kernels.append("ternary_matvec_experts")
+    if "rwkv" in kinds:
+        kernels.append("wkv6")
+    if any(k.startswith("rglru") for k in kinds):
+        kernels.append("rglru_scan")
     need(counts, kernels, f"the JAX package's {name} artifact")
     return dict(counts=counts, layouts=list(got), n=len(reqs),
                 tokens=sum(len(t) for t in spec["streams"]))
@@ -2025,9 +2072,10 @@ def time_rms_norm(model, cfg, dev):
         bound_ms=bound, bound_by=by, calls=len(norms))
 
 
-def time_paged_attention(cfg, dev, fill):
-    """Kernel, plain and SDPA times of the 28 paged attention reads of one
-    decode step (L = 1), over 28 distinct bf16 pools of 16-slot pages
+def time_paged_attention(cfg, dev, fill, capacity=CAPACITY, n_layers=None):
+    """Kernel, plain and SDPA times of the paged attention reads of one
+    decode step (L = 1): ``n_layers`` (all of cfg's: qwen2's and
+    deepseek's 28) distinct bf16 pools of 16-slot pages at ``capacity``
     under shuffled tables (one per layer, as on the paged path); SDPA runs
     with a boolean mask on each gathered ring."""
     import numpy as np
@@ -2038,25 +2086,26 @@ def time_paged_attention(cfg, dev, fill):
     gen = torch.Generator(device=dev).manual_seed(10)
     rng = np.random.default_rng(10)
     kv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    n_layers = n_layers or cfg.n_layers
     layers, sdpa_args = [], []
-    for _ in range(cfg.n_layers):
-        a = attention_inputs(SLOTS, 1, CAPACITY, kv, g, hd, "bfloat16", fill,
+    for _ in range(n_layers):
+        a = attention_inputs(SLOTS, 1, capacity, kv, g, hd, "bfloat16", fill,
                              gen, dev)
         a[9].fill_(1)
         paged, gathered = paged_operands(a, PAGE, rng)
         layers.append(paged)
-        sdpa_args.append(_sdpa_operands(gathered, CAPACITY))
+        sdpa_args.append(_sdpa_operands(gathered, capacity))
     # bytes this run's data needs: the visible slots' k and v in the pool,
     # every logical slot's position, the table, q, the chunk, the output
     a = layers[0]
     pos_ring = ref.gather_pages(a[7], a[8])
-    visible = int(ref.history_mask(pos_ring, a[9], CAPACITY).any(1).sum())
+    visible = int(ref.history_mask(pos_ring, a[9], capacity).any(1).sum())
     per_layer = (visible * kv * hd * 2 * 2 + pos_ring.numel() * 4
                  + a[8].numel() * 4
                  + (a[0].numel() + a[1].numel() + a[2].numel()) * 2
                  + a[0].numel() * 4)
     flops = 4 * SLOTS * kv * g * (visible // SLOTS + 1) * hd
-    bound, by = bound_ms(per_layer * cfg.n_layers, flops * cfg.n_layers)
+    bound, by = bound_ms(per_layer * n_layers, flops * n_layers)
     return dict(
         ms=device_ms(lambda: [ops.chunk_attention_paged_cuda(*p)
                               for p in layers], 10),
@@ -2066,7 +2115,7 @@ def time_paged_attention(cfg, dev, fill):
             torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, attn_mask=m, enable_gqa=True)
             for q, k, v, m in sdpa_args], 10),
-        bound_ms=bound, bound_by=by, bytes=per_layer * cfg.n_layers,
+        bound_ms=bound, bound_by=by, bytes=per_layer * n_layers,
         max_abs_err=attention_err(ops.chunk_attention_paged_cuda,
                                   ref.chunk_attention_paged_stream,
                                   layers[0]))
@@ -2283,12 +2332,24 @@ def fleet_stats(eng, results, wall):
                 per_step=per_step(eng), warmup_s=eng.smoke["warmup_s"])
 
 
-def check_attention_hd168(cfg, dev):
-    """B2 at gemma3-27b's head dim (168) against its plain version on the
-    card, at the (j) path's shapes: 8 rows, 16 kv heads of 2 query heads,
-    L = 1 and 64, a local ring of 1024 slots under its window and the
-    global ring of 4096, bf16 and int8; every row alone equals its row in
-    the batch of 8, and L = 1 equals l = 0 of L = 64 with length 1."""
+def attention_rings(cfg, capacity):
+    """(ring slots, window) of each attention layer of ``cfg`` at
+    ``capacity``: a local layer's ring holds min(window, capacity) slots."""
+    from repro_torch.models.transformer import is_recurrent
+
+    return [(min(cfg.window, capacity), cfg.window) if k.startswith("local")
+            else (capacity, None) for k in cfg.layer_kinds
+            if not is_recurrent(k)]
+
+
+def check_attention_layers(cfg, dev, capacity):
+    """B2 at a model's head dim against its plain version on the card, at
+    its path's shapes: 8 rows, its kv heads and group, L = 1 and 64, each
+    distinct ring of its attention layers at ``capacity`` (gemma3: local
+    rings of 1024 under the window and the global ring of 4096; hd 168,
+    G 2; recurrentgemma: local rings of 2048, hd 256, G 10), bf16 and int8;
+    every row alone equals its row in the batch of 8, and L = 1 equals
+    l = 0 of L = 64 with length 1."""
     import functools
 
     import torch
@@ -2299,7 +2360,9 @@ def check_attention_hd168(cfg, dev):
     kv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
     fill = [0, 300, 1023, 1024, 1500, 2900, 64, 1800]
     worst = 0.0
-    for cap, window in ((cfg.window, cfg.window), (GEMMA_CAPACITY, None)):
+    rings = sorted(set(attention_rings(cfg, capacity)),
+                   key=lambda r: (r[0], r[1] is None))
+    for cap, window in rings:
         kern = functools.partial(ops.chunk_attention_cuda, window=window)
         for ring in ("bfloat16", "int8"):
             for L in (1, PREFILL_CHUNK):
@@ -2311,18 +2374,17 @@ def check_attention_hd168(cfg, dev):
                 err = float((got - want).abs().max())
                 if not err <= ATTN_TOL:
                     raise AssertionError(
-                        f"chunk_attention hd {hd} cap {cap} L={L} {ring}: "
-                        f"max err {err:.3e} > {ATTN_TOL}")
+                        f"chunk_attention hd {hd} G {g} cap {cap} L={L} "
+                        f"{ring}: max err {err:.3e} > {ATTN_TOL}")
                 worst = max(worst, err)
             args = attention_inputs(SLOTS, PREFILL_CHUNK, cap, kv, g, hd,
                                     ring, fill, gen, dev)
             args[9].fill_(1)
             same_rows(kern, args, 8, f"B2 hd {hd} cap {cap} {ring}")
-    log(f"chunk_attention at hd {hd} == plain (max abs err {worst:.2e} <= "
-        f"{ATTN_TOL}) on {cfg.window}-slot local rings (window "
-        f"{cfg.window}) and the {GEMMA_CAPACITY}-slot global ring, bf16 and "
-        "int8, L in (1, 64); rows bit-identical alone and in the batch of 8, "
-        "and at L = 1 and L = 64 with length 1")
+    log(f"chunk_attention at hd {hd}, G {g} == plain (max abs err "
+        f"{worst:.2e} <= {ATTN_TOL}) on rings (slots, window) {rings}, bf16 "
+        "and int8, L in (1, 64); rows bit-identical alone and in the batch "
+        "of 8, and at L = 1 and L = 64 with length 1")
     return worst
 
 
@@ -2361,7 +2423,7 @@ def gemma_path(dev):
             refused:
         raise AssertionError(f"(j) paged refusal: {refused}")
     gc_free()
-    attn_err = check_attention_hd168(cfg, dev)
+    attn_err = check_attention_layers(cfg, dev, GEMMA_CAPACITY)
     return dict(cfg=cfg, model=model, report=report, quant_s=quant_s,
                 qcounts=qcounts, counts=counts, prompts=prompts,
                 solo=solo, refused=refused, attn_err=attn_err, **stats)
@@ -2561,19 +2623,20 @@ def time_experts(moe, dev, m, reps):
     return out
 
 
-def time_attention_hd168(cfg, dev, fill):
-    """Kernel, plain and SDPA times of the 8 attention reads of one (j)
-    decode step (L = 1) and one prefill dispatch (L = 64) at hd 168: the 7
-    local rings of 1024 slots (window 1024 = the ring, so the reach is the
-    ring's) and the global ring of 4096, bf16, filled as ``fill``."""
+def time_attention_layers(cfg, dev, fill, capacity):
+    """Kernel, plain and SDPA times of the attention reads of one decode
+    step (L = 1) and one prefill dispatch (L = 64) of a model at
+    ``capacity``, bf16 rings filled as ``fill``: (j) gemma3's 7 local rings
+    of 1024 slots (window 1024 = the ring, so the reach is the ring's) and
+    its global ring of 4096 at hd 168; (m) recurrentgemma's 8 local rings of
+    2048 at hd 256."""
     import torch
 
     from repro_torch.kernels.chunk_attention import ops, ref
 
     gen = torch.Generator(device=dev).manual_seed(15)
     kv, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
-    caps = [cfg.window if k.startswith("local") else GEMMA_CAPACITY
-            for k in cfg.layer_kinds]
+    caps = [cap for cap, _ in attention_rings(cfg, capacity)]
     out = {}
     for key, L, reps in (("decode", 1, 10), ("prefill", PREFILL_CHUNK, 3)):
         layers = [attention_inputs(SLOTS, L, cap, kv, g, hd, "bfloat16",
@@ -2642,7 +2705,7 @@ def slice9_phases(gpu, dev):
     gtern = time_ternary(gp["model"], dev)
     del gp["model"]
     gc_free()
-    gattn = time_attention_hd168(gcfg, dev, gfill)
+    gattn = time_attention_layers(gcfg, dev, gfill, GEMMA_CAPACITY)
 
     t0 = time.perf_counter()
     dp = deepseek_path(dev)
@@ -2794,6 +2857,549 @@ def slice9_phases(gpu, dev):
                   "L=1, bf16; launches are the (j) ring path's; library: "
                   "SDPA with a boolean mask",
              **{k: gattn["decode"][k] for k in timed}),
+    ]
+
+
+# ------------------------------------------------ phases (m)-(p): slice 10
+RG_CAPACITY = 4096        # (m) the ring fleet; the local rings hold 2048
+RG_MAX_PROMPT = 3000
+RG_PAGED_CAPACITY = 2048  # (m) ring == paged, capacity within the window
+RG_PAGED_PROMPT = 1900
+RWKV_CAPACITY, RWKV_LONG = 4096, 4000
+# stated tolerances of the recurrences' kernels against their plain
+# versions on the same inputs. The scans' states are a product and a sum
+# a step, each rounded on its own in both (no contraction): exactly equal.
+# The wkv6 readout sums hd products in another order than the plain
+# version's reduction, then normalises the head: (relative, absolute) per
+# element, f32 within 1e-4 of outputs ~ 1, bf16 within one bf16 step of the
+# value (2^-7) plus 2^-7 (a step of one pre-norm y moves the head's mean
+# and variance, so every element of the head).
+SCAN_TOL = 0.0
+WKV_TOL = {"float32": (0.0, 1e-4), "bfloat16": (2.0 ** -7, 2.0 ** -7)}
+# how each recurrence kernel's operands are laid out: the state's index,
+# the lengths', the per-step operands (cut per step) and the per-row ones
+RECURRENCES = {
+    "rglru_scan": dict(state=2, lengths=3, steps=(0, 1), rows=(0, 1, 2, 3)),
+    "wkv6": dict(state=5, lengths=6, steps=(0, 1, 2, 3),
+                 rows=(0, 1, 2, 3, 5, 6)),
+}
+
+
+def recurrent_lengths(s):
+    """Per-row lengths of an ``s``-step chunk: full, ragged and idle rows."""
+    return [s, max(s - 3, 0), 0, s, 1, s, s // 2, s]
+
+
+def scan_inputs(b, s, r, gen, dev):
+    """``rglru_scan`` operands: a ∈ (0.01, 0.99), gx ~ 0.1, h ~ 1."""
+    import torch
+
+    a = torch.rand((b, s, r), generator=gen, device=dev) * 0.98 + 0.01
+    gx = torch.randn((b, s, r), generator=gen, device=dev) * 0.1
+    h = torch.randn((b, r), generator=gen, device=dev)
+    lengths = torch.tensor(recurrent_lengths(s), dtype=torch.int32,
+                           device=dev)
+    return [a, gx, h, lengths]
+
+
+def wkv_inputs(b, s, nh, hd, dtype, gen, dev):
+    """``wkv6`` operands: r, k, v ~ 0.5 in ``dtype``, a decay w ∈ (0, 1)
+    as the model makes it, u ~ 0.1, state ~ 0.1, scale ~ 1."""
+    import torch
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    r, k, v = (rnd(b, s, nh, hd, std=0.5).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(rnd(b, s, nh, hd, std=0.5) - 1.0))
+    u = rnd(nh, hd, std=0.1).to(dtype)
+    state = rnd(b, nh, hd, hd, std=0.1)
+    lengths = torch.tensor(recurrent_lengths(s), dtype=torch.int32,
+                           device=dev)
+    scale = (1.0 + rnd(nh * hd, std=0.1)).to(dtype)
+    return [r, k, v, w, u, state, lengths, scale]
+
+
+def run_recurrence(kern, args, spec):
+    """``kern`` on the operands with a copy of the state: (out, state)."""
+    args = list(args)
+    args[spec["state"]] = args[spec["state"]].clone()
+    return kern(*args), args[spec["state"]]
+
+
+def recurrence_invariance(kern, args, spec, what):
+    """A recurrence kernel's batch and chunk invariance at the path's
+    shapes, bit for bit: each row alone (B = 1) gives its output and state
+    rows of the batch of 8; and with every row full, one S-step call gives
+    the outputs and the state of S one-step calls."""
+    import torch
+
+    out, st = run_recurrence(kern, args, spec)
+    for i in range(out.shape[0]):
+        one = [a[i:i + 1].clone() if j in spec["rows"] else a
+               for j, a in enumerate(args)]
+        o, s1 = run_recurrence(kern, one, spec)
+        if not (torch.equal(o, out[i:i + 1]) and torch.equal(s1, st[i:i + 1])):
+            raise AssertionError(f"{what}: row {i} alone differs from the "
+                                 "batch of 8")
+    s = args[0].shape[1]
+    full = list(args)
+    full[spec["lengths"]] = torch.full_like(args[spec["lengths"]], s)
+    chunk, st_chunk = run_recurrence(kern, full, spec)
+    stepped = list(full)
+    stepped[spec["state"]] = full[spec["state"]].clone()
+    stepped[spec["lengths"]] = torch.ones_like(full[spec["lengths"]])
+    outs = [kern(*[a[:, t:t + 1].contiguous() if j in spec["steps"] else a
+                   for j, a in enumerate(stepped)]) for t in range(s)]
+    if not (torch.equal(torch.cat(outs, dim=1), chunk)
+            and torch.equal(stepped[spec["state"]], st_chunk)):
+        raise AssertionError(f"{what}: one {s}-step call differs from {s} "
+                             "one-step calls")
+
+
+def check_recurrences(dev):
+    """(p) ``rglru_scan`` and ``wkv6`` against their plain versions on the
+    card at the (m)/(n) paths' shapes: 8 rows at decode (S = 1) and of a
+    prefill dispatch (S = 64), ragged and idle rows among them;
+    recurrentgemma-2b's RG-LRU width 2560; rwkv6-3b's 40 heads of 64, bf16
+    (the served dtype) and f32 (the smoke artifacts'). Then their batch and
+    chunk invariance (``recurrence_invariance``). Returns the largest
+    errors {kernel: max abs err}."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
+    from repro_torch.kernels.rglru_scan import ref as scan_ref
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.kernels.wkv6 import ref as wkv_ref
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    rg = configs.get_config("recurrentgemma-2b")
+    rw = configs.get_config("rwkv6-3b")
+    nh, hd = rw.d_model // rw.rwkv_head_dim, rw.rwkv_head_dim
+    worst = {"rglru_scan": 0.0, "wkv6": 0.0}
+    for s in (1, PREFILL_CHUNK):
+        args = scan_inputs(SLOTS, s, rg.rglru_width, gen, dev)
+        spec = RECURRENCES["rglru_scan"]
+        got, got_h = run_recurrence(scan_ops.rglru_scan_cuda, args, spec)
+        want, want_h = run_recurrence(scan_ref.rglru_scan_plain, args, spec)
+        torch.cuda.synchronize()
+        err = max(float((got - want).abs().max()),
+                  float((got_h - want_h).abs().max()))
+        if not err <= SCAN_TOL:
+            raise AssertionError(f"rglru_scan S={s}: max err {err:.3e} > "
+                                 f"{SCAN_TOL}")
+        worst["rglru_scan"] = max(worst["rglru_scan"], err)
+        recurrence_invariance(scan_ops.rglru_scan_cuda, args, spec,
+                              f"rglru_scan S={s}")
+        for dtype in (torch.bfloat16, torch.float32):
+            args = wkv_inputs(SLOTS, s, nh, hd, dtype, gen, dev)
+            spec = RECURRENCES["wkv6"]
+            got, got_s = run_recurrence(wkv_ops.wkv6_cuda, args, spec)
+            want, want_s = run_recurrence(wkv_ref.wkv6_plain, args, spec)
+            torch.cuda.synchronize()
+            rel, tol = WKV_TOL[str(dtype).split(".")[-1]]
+            diff = (got.float() - want.float()).abs()
+            over = diff - rel * want.float().abs()
+            if not float(over.max()) <= tol:
+                raise AssertionError(
+                    f"wkv6 S={s} {dtype}: max err {float(diff.max()):.3e} "
+                    f"past {rel:.2e}·|y| + {tol:.2e}")
+            state_err = float((got_s - want_s).abs().max())
+            if not state_err <= SCAN_TOL:
+                raise AssertionError(f"wkv6 S={s} {dtype}: state err "
+                                     f"{state_err:.3e} > {SCAN_TOL}")
+            worst["wkv6"] = max(worst["wkv6"], float(diff.max()))
+            recurrence_invariance(wkv_ops.wkv6_cuda, args, spec,
+                                  f"wkv6 S={s} {dtype}")
+    log(f"rglru_scan == plain bit for bit (R {rg.rglru_width}) and wkv6 == "
+        f"plain (max abs err {worst['wkv6']:.2e}: f32 within "
+        f"{WKV_TOL['float32'][1]}, bf16 within 2^-7·|y| + 2^-7; states bit "
+        f"for bit; {nh} heads of {hd}) at S = 1 and S = {PREFILL_CHUNK} with "
+        "ragged and idle rows; rows bit-identical alone and in the batch of "
+        "8, and a chunk equal to one step at a time")
+    return worst
+
+
+def time_recurrence(name, dev, n_layers):
+    """Kernel and plain times of one kernel's calls in one decode step
+    (S = 1) and one prefill dispatch (S = 64) of its model: distinct
+    operands per layer (recurrentgemma-2b's 18 RG-LRU layers at width 2560,
+    rwkv6-3b's 32 layers of 40 heads of 64 in bf16), every row full. No
+    single PyTorch call computes either, so library_ms is null. Bound: the
+    bytes each call must move (inputs read once, outputs and state written
+    once) against the f32 operations at 67 TFLOP/s."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
+    from repro_torch.kernels.rglru_scan import ref as scan_ref
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.kernels.wkv6 import ref as wkv_ref
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    out = {}
+    for key, s, reps in (("decode", 1, 20), ("prefill", PREFILL_CHUNK, 3)):
+        if name == "rglru_scan":
+            r = configs.get_config("recurrentgemma-2b").rglru_width
+            layers = [scan_inputs(SLOTS, s, r, gen, dev)
+                      for _ in range(n_layers)]
+            kern, plain = scan_ops.rglru_scan_cuda, scan_ref.rglru_scan_plain
+            n = SLOTS * s * r
+            nbytes = 12 * n + 8 * SLOTS * r + 4 * SLOTS
+            flops = 2 * n
+        else:
+            cfg = configs.get_config("rwkv6-3b")
+            hd = cfg.rwkv_head_dim
+            nh = cfg.d_model // hd
+            layers = [wkv_inputs(SLOTS, s, nh, hd, torch.bfloat16, gen, dev)
+                      for _ in range(n_layers)]
+            kern, plain = wkv_ops.wkv6_cuda, wkv_ref.wkv6_plain
+            n = SLOTS * s * nh * hd
+            nbytes = (3 * 2 + 4 + 2) * n + 2 * SLOTS * nh * hd * hd * 4 \
+                + 2 * 2 * nh * hd + 4 * SLOTS
+            flops = SLOTS * s * nh * (7 * hd * hd + 8 * hd)
+        for a in layers:
+            a[RECURRENCES[name]["lengths"]].fill_(s)
+        bound, by = bound_ms(nbytes * n_layers, flops * n_layers, F32_FLOPS)
+        out[key] = dict(
+            ms=device_ms(lambda: [kern(*a) for a in layers], reps),
+            plain_ms=device_ms(lambda: [plain(*a) for a in layers],
+                               max(1, reps // 2)),
+            library_ms=None, bound_ms=bound, bound_by=by, S=s,
+            bytes=nbytes * n_layers)
+        del layers
+        gc_free()
+    return out
+
+
+def rg_prompts(cfg):
+    """8 prompts of 64-3000 random ids: the first 2·64 + 1 tokens (its last
+    chunk is bucket 1 alone), two past the 2048-slot local rings (3000 and
+    2200 tokens: those rings wrap)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 10)
+    lens = rng.integers(64, RG_MAX_PROMPT + 1, N_REQUESTS)
+    lens[0], lens[1], lens[2] = 2 * PREFILL_CHUNK + 1, RG_MAX_PROMPT, 2200
+    return [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
+
+
+def serial_gate(model, cfg, prompts, results, what, **ecfg):
+    """``SerialAdmitEngine`` on the fleet's two shortest prompts gives
+    their fleet tokens. Returns their indices."""
+    from repro_torch.serving import SerialAdmitEngine
+
+    idx = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))[:2]
+    got = serve(model, cfg, [prompts[i] for i in idx], cls=SerialAdmitEngine,
+                **ecfg)[0]
+    same_tokens(got, [results[i] for i in idx], what)
+    return idx
+
+
+def recurrentgemma_path(dev):
+    """(m) recurrentgemma-2b at full width and depth: quantize on the card,
+    the fleet on the ring at capacity 4096 (local rings of 2048, two
+    prompts past them) through CUDA graphs; solo == fleet, graph == eager,
+    serial == bucketed, the paged layout refused at 4096 as the reference
+    refuses it, and at capacity 2048 (prompts cut to 1900) ring == paged
+    with prefix reuse off."""
+    from repro_torch import configs
+
+    cfg = configs.get_config("recurrentgemma-2b")
+    model, report, quant_s, qcounts = quantize_path(cfg, dev)
+    need(qcounts, ("ptqtp_search",), "(m) the quantize path")
+    ring = dict(capacity=RG_CAPACITY)
+    prompts = rg_prompts(cfg)
+    results, counts, eng, wall = fleet_run(model, cfg, prompts, **ring)
+    need(counts, RING_PATH + ("rglru_scan",), "(m) recurrentgemma-2b's ring "
+         "path")
+    finished(results, "(m)")
+    caps = sorted({c["k"].shape[1] for c in eng.state["layers"] if "k" in c})
+    if caps != [cfg.window]:
+        raise AssertionError(f"(m) ring sizes {caps}")
+    stats = fleet_stats(eng, results, wall)
+    eng = None
+    gc_free()
+    solo = solo_gates(model, cfg, prompts, results, "(m) solo", **ring)
+    eager = serve(model, cfg, prompts, capture=False, **ring)[0]
+    same_tokens(eager, results, "(m) eager vs graph")
+    serial = serial_gate(model, cfg, prompts, results,
+                         "(m) serial vs bucketed", **ring)
+    try:
+        make_engine(model, cfg, kv_layout="paged", page_size=PAGE, **ring)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("(m) a paged engine took a window narrower "
+                             "than its capacity")
+    if "paged KV layout requires full-capacity attention layers" not in \
+            refused:
+        raise AssertionError(f"(m) paged refusal: {refused}")
+    gc_free()
+    small = dict(capacity=RG_PAGED_CAPACITY)
+    short = [p[:RG_PAGED_PROMPT] for p in prompts]
+    ring_short = serve(model, cfg, short, **small)[0]
+    presults, pcounts, peng, pwall = fleet_run(
+        model, cfg, short, kv_layout="paged", page_size=PAGE,
+        prefix_cache=True, **small)
+    need(pcounts, PAGED_PATH + ("rglru_scan",), "(m) recurrentgemma-2b's "
+         "paged path")
+    if pcounts["chunk_attention"]:
+        raise AssertionError("(m) the paged path launched the ring kernel")
+    if peng._prefix_reuse:
+        raise AssertionError("(m) prefix reuse on with a recurrent mixer")
+    same_tokens(presults, ring_short, "(m) paged vs ring at capacity 2048")
+    pstats = fleet_stats(peng, presults, pwall)
+    peng = None
+    gc_free()
+    attn_err = check_attention_layers(cfg, dev, RG_CAPACITY)
+    return dict(cfg=cfg, model=model, report=report, quant_s=quant_s,
+                qcounts=qcounts, counts=counts, pcounts=pcounts,
+                prompts=prompts, solo=solo, serial=serial, refused=refused,
+                attn_err=attn_err, paged=pstats, **stats)
+
+
+def rwkv_path(dev):
+    """(n) rwkv6-3b at full width and depth: quantize on the card, the
+    phase-4 fleet with its last prompt replaced by a 4000-token one at
+    capacity 4096 on the ring and the paged layout through CUDA graphs
+    (ring == paged); solo == fleet (the 4000-token request and the
+    bucket-1 one), graph == eager, serial == bucketed; the decode state's
+    bytes at capacity 4096 equal those at 1024 (O(1) in the context); the
+    shared-prefix fleet on the paged layout with prefix reuse off and no
+    prefill token saved."""
+    import numpy as np
+
+    from repro_torch import configs
+
+    cfg = configs.get_config("rwkv6-3b")
+    model, report, quant_s, qcounts = quantize_path(cfg, dev)
+    need(qcounts, ("ptqtp_search",), "(n) the quantize path")
+    rng = np.random.default_rng(SEED + 11)
+    prompts = make_prompts(cfg)[:N_REQUESTS - 1] + [
+        rng.integers(0, cfg.vocab_size, RWKV_LONG).tolist()]
+    cap = dict(capacity=RWKV_CAPACITY)
+    path = ("ternary_matvec", "ternary_matmul", "rms_norm", "wkv6")
+    results, counts, eng, wall = fleet_run(model, cfg, prompts, **cap)
+    need(counts, path, "(n) rwkv6-3b's ring path")
+    if counts["chunk_attention"] or counts["chunk_attention_paged"]:
+        raise AssertionError("(n) an attention-free model read a KV cache")
+    finished(results, "(n) ring")
+    state_bytes = {RWKV_CAPACITY: eng.memory_stats()["decode_state_bytes"]}
+    stats = fleet_stats(eng, results, wall)
+    eng = None
+    gc_free()
+    state_bytes[CAPACITY] = make_engine(
+        model, cfg, capacity=CAPACITY).memory_stats()["decode_state_bytes"]
+    if len(set(state_bytes.values())) != 1:
+        raise AssertionError(f"(n) decode state bytes by capacity "
+                             f"{state_bytes}: not O(1)")
+    paged = dict(kv_layout="paged", page_size=PAGE, prefix_cache=True)
+    presults, pcounts, peng, pwall = fleet_run(model, cfg, prompts, **paged,
+                                               **cap)
+    need(pcounts, path, "(n) rwkv6-3b's paged path")
+    same_tokens(presults, results, "(n) paged vs ring")
+    pstats = fleet_stats(peng, presults, pwall)
+    peng = None
+    gc_free()
+    solo = solo_gates(model, cfg, prompts, results, "(n) solo", **cap)
+    eager = serve(model, cfg, prompts, capture=False, **cap)[0]
+    same_tokens(eager, results, "(n) eager vs graph")
+    serial = serial_gate(model, cfg, prompts, results,
+                         "(n) serial vs bucketed", **cap)
+    prefix = rng.integers(0, cfg.vocab_size, SHARED_PREFIX).tolist()
+    fleet = [prefix + rng.integers(0, cfg.vocab_size, int(n)).tolist()
+             for n in rng.integers(TAILS[0], TAILS[1] + 1, N_REQUESTS)]
+    cold = serve(model, cfg, fleet, **paged)[0]
+    warm_eng = make_engine(model, cfg, **paged)
+    serve_on(warm_eng, [prefix + [1]], 1)
+    before = warm_eng.prefill_tokens
+    warm = serve_on(warm_eng, fleet)
+    saved = sum(map(len, fleet)) - (warm_eng.prefill_tokens - before)
+    if warm_eng._prefix_reuse or warm_eng.alloc.hits or saved:
+        raise AssertionError(f"(n) prefix reuse with a recurrent mixer: "
+                             f"{warm_eng.alloc.hits} hits, {saved} saved")
+    same_tokens(warm, cold, "(n) shared-prefix fleet warm vs cold")
+    warm_eng = None
+    gc_free()
+    return dict(cfg=cfg, model=model, report=report, quant_s=quant_s,
+                qcounts=qcounts, counts=counts, pcounts=pcounts,
+                prompts=prompts, solo=solo, serial=serial, saved=saved,
+                state_bytes=state_bytes, paged=pstats, **stats)
+
+
+def slice10_phases(gpu, dev):
+    """(m)-(p): recurrentgemma-2b and rwkv6-3b at full width and depth, the
+    JAX package's smoke artifacts of both, the recurrences' kernels against
+    their plain versions; then the times. Returns their rows of the
+    ``kernels`` line."""
+    t0 = time.perf_counter()
+    rerr = check_recurrences(dev)
+    log(f"(p) {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    mp = recurrentgemma_path(dev)
+    rcfg = mp["cfg"]
+    tot = mp["report"]["__total__"]
+    log(f"{gpu} | (m) recurrentgemma-2b ({rcfg.n_layers} layers, d "
+        f"{rcfg.d_model}, {rcfg.n_heads}/{rcfg.n_kv_heads} heads, hd "
+        f"{rcfg.head_dim}, d_ff {rcfg.d_ff}, vocab {rcfg.vocab_size}, RG-LRU "
+        f"{rcfg.rglru_width} in {rcfg.rglru_blocks} blocks, window "
+        f"{rcfg.window}): quantize {mp['quant_s']:.2f}s on B6 "
+        f"({mp['qcounts']['ptqtp_search']} launches, {tot['n_quantized']} "
+        f"kernels, {tot['compression']:.2f}x)")
+    log_fleet(gpu, f"(m) ring fleet of {N_REQUESTS} "
+              f"({sum(map(len, mp['prompts']))} prompt tokens, "
+              f"{sorted(map(len, mp['prompts']))})", mp)
+    log_fleet(gpu, f"(m) paged fleet at capacity {RG_PAGED_CAPACITY}",
+              mp["paged"])
+    log(f"(m) every request finished; solo == fleet for requests "
+        f"{mp['solo']} (longest, bucket 1 alone); graph == eager; serial == "
+        f"bucketed for requests {mp['serial']}; the paged engine at "
+        f"{RG_CAPACITY} refused: {mp['refused']!r}; at {RG_PAGED_CAPACITY} "
+        f"ring == paged, prefix reuse off; launches ring {mp['counts']}, "
+        f"paged {mp['pcounts']}; per decode step {mp['per_step']}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    rfill = [min(len(p), RG_CAPACITY) + MAX_NEW // 2 for p in mp["prompts"]]
+    rtern = time_ternary(mp["model"], dev)
+    del mp["model"]
+    gc_free()
+    rattn = time_attention_layers(rcfg, dev, rfill, RG_CAPACITY)
+    n_local = len(attention_rings(rcfg, RG_CAPACITY))
+    rpattn = time_paged_attention(rcfg, dev, [min(f, RG_PAGED_CAPACITY - 1)
+                                              for f in rfill],
+                                  capacity=RG_PAGED_CAPACITY,
+                                  n_layers=n_local)
+    n_rec = sum(k.startswith("rglru") for k in rcfg.layer_kinds)
+    tscan = time_recurrence("rglru_scan", dev, n_rec)
+
+    t0 = time.perf_counter()
+    np_ = rwkv_path(dev)
+    wcfg = np_["cfg"]
+    tot = np_["report"]["__total__"]
+    log(f"{gpu} | (n) rwkv6-3b ({wcfg.n_layers} layers, d {wcfg.d_model}, "
+        f"{wcfg.d_model // wcfg.rwkv_head_dim} heads of "
+        f"{wcfg.rwkv_head_dim}, d_ff {wcfg.d_ff}, vocab {wcfg.vocab_size}): "
+        f"quantize {np_['quant_s']:.2f}s on B6 "
+        f"({np_['qcounts']['ptqtp_search']} launches, {tot['n_quantized']} "
+        f"kernels, {tot['compression']:.2f}x)")
+    log_fleet(gpu, f"(n) ring fleet of {N_REQUESTS} "
+              f"({sum(map(len, np_['prompts']))} prompt tokens, "
+              f"{sorted(map(len, np_['prompts']))})", np_)
+    log_fleet(gpu, "(n) paged fleet", np_["paged"])
+    log(f"(n) ring == paged; solo == fleet for requests {np_['solo']}; "
+        f"graph == eager; serial == bucketed for requests {np_['serial']}; "
+        f"decode state bytes by capacity {np_['state_bytes']}; the "
+        f"shared-prefix fleet: prefix reuse off, {np_['saved']} prefill "
+        f"tokens saved; launches ring {np_['counts']}, paged "
+        f"{np_['pcounts']}; per decode step {np_['per_step']}; "
+        f"{time.perf_counter() - t0:.1f}s")
+    wtern = time_ternary(np_["model"], dev)
+    del np_["model"]
+    gc_free()
+    twkv = time_recurrence("wkv6", dev, wcfg.n_layers)
+
+    t0 = time.perf_counter()
+    for name in ("recurrentgemma", "rwkv6"):
+        r = fixture_path(dev, name)
+        gc_free()
+        log(f"(o) the JAX package's {name} artifact: {r['n']} requests, "
+            f"{r['tokens']} tokens equal to the JAX engine's on "
+            f"{r['layouts']}, and the bucket-1 request alone; launches "
+            f"{r['counts']}")
+    log(f"(o) {time.perf_counter() - t0:.1f}s")
+
+    named = [("recurrentgemma-2b B1", rtern["ternary_matvec"]),
+             ("recurrentgemma-2b B3", rtern["ternary_matmul"]),
+             ("recurrentgemma-2b B2 hd 256 G 10 L=1", rattn["decode"]),
+             ("recurrentgemma-2b B2 hd 256 G 10 L=64", rattn["prefill"]),
+             ("recurrentgemma-2b B4 hd 256 G 10 L=1", rpattn),
+             ("rwkv6-3b B1", wtern["ternary_matvec"]),
+             ("rwkv6-3b B3", wtern["ternary_matmul"]),
+             ("rglru_scan S=1", tscan["decode"]),
+             ("rglru_scan S=64", tscan["prefill"]),
+             ("wkv6 S=1", twkv["decode"]),
+             ("wkv6 S=64", twkv["prefill"])]
+    for name, t in named:
+        lib = "—" if t["library_ms"] is None else f"{t['library_ms']:.3f} ms"
+        log(f"{gpu} | {name}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.3f} ms, library {lib}, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}) -> "
+            f"{t['bound_ms'] / t['ms']:.1%} of bound")
+
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    src = "src/repro_torch/kernels/ternary_matmul/csrc/ternary_matmul.cu"
+    attn_src = ("src/repro_torch/kernels/chunk_attention/csrc/"
+                "chunk_attention.cu")
+    b1, b3 = ("src/repro/kernels/ternary_matmul/kernel.py:175",
+              "src/repro/kernels/ternary_matmul/kernel.py:91")
+    b2, b4 = ("src/repro/kernels/chunk_attention/kernel.py:197",
+              "src/repro/kernels/chunk_attention/kernel.py:149")
+
+    def row(name, source, replaces, counts, per_step, t, err, work):
+        kernel = name.split(" ")[0]
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=counts[kernel],
+                    launches_per_decode_step=per_step[kernel],
+                    max_abs_err=err, work=work, **{k: t[k] for k in timed})
+
+    mm_err = max(rtern["ternary_matvec"]["max_abs_err"],
+                 rtern["ternary_matmul"]["max_abs_err"])
+    wmm_err = max(wtern["ternary_matvec"]["max_abs_err"],
+                  wtern["ternary_matmul"]["max_abs_err"])
+    return [
+        row("ternary_matvec (recurrentgemma-2b)", src, b1, mp["counts"],
+            mp["per_step"], rtern["ternary_matvec"], mm_err,
+            f"the {rtern['ternary_matvec']['calls']} linear layers of one "
+            "(m) decode step, m=8, bf16; launches are the (m) ring path's"),
+        row("ternary_matmul (recurrentgemma-2b)", src, b3, mp["counts"],
+            mp["per_step"], rtern["ternary_matmul"], mm_err,
+            f"the {rtern['ternary_matmul']['calls']} block linear layers of "
+            "one (m) prefill dispatch, m=512, bf16"),
+        row("ternary_matvec (rwkv6-3b)", src, b1, np_["counts"],
+            np_["per_step"], wtern["ternary_matvec"], wmm_err,
+            f"the {wtern['ternary_matvec']['calls']} linear layers of one "
+            "(n) decode step, m=8, bf16; launches are the (n) ring path's"),
+        row("ternary_matmul (rwkv6-3b)", src, b3, np_["counts"],
+            np_["per_step"], wtern["ternary_matmul"], wmm_err,
+            f"the {wtern['ternary_matmul']['calls']} block linear layers of "
+            "one (n) prefill dispatch, m=512, bf16"),
+        row("chunk_attention (recurrentgemma-2b, hd 256)", attn_src, b2,
+            mp["counts"], mp["per_step"], rattn["decode"], mp["attn_err"],
+            f"the {n_local} local reads of one (m) decode step, hd 256, 1 kv "
+            "head of 10 queries, rings of 2048, L=1, bf16; launches are the "
+            "(m) ring path's; library: SDPA with a boolean mask"),
+        row("chunk_attention_paged (recurrentgemma-2b, hd 256)", attn_src,
+            b4, mp["pcounts"], mp["paged"]["per_step"], rpattn,
+            rpattn["max_abs_err"],
+            f"the {n_local} paged reads of one (m) decode step at capacity "
+            f"{RG_PAGED_CAPACITY}, 16-slot pages, L=1; launches are the (m) "
+            "paged path's; library: SDPA on the gathered ring"),
+        dict(name="rglru_scan", route="cuda",
+             source="src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+             replaces="src/repro/models/rglru.py:75",
+             launches=mp["counts"]["rglru_scan"],
+             launches_per_decode_step=mp["per_step"]["rglru_scan"],
+             max_abs_err=rerr["rglru_scan"],
+             work=f"the {n_rec} RG-LRU scans of one (m) decode step, 8 rows "
+                  "of width 2560, S=1; launches are the (m) ring path's; "
+                  "replaces an XLA-fused lax.scan, not a Pallas kernel; no "
+                  "single PyTorch call computes it, so library_ms is null",
+             **{k: tscan["decode"][k] for k in timed}),
+        dict(name="wkv6", route="cuda",
+             source="src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+             replaces="src/repro/models/rwkv6.py:128",
+             launches=np_["counts"]["wkv6"],
+             launches_per_decode_step=np_["per_step"]["wkv6"],
+             max_abs_err=rerr["wkv6"],
+             work=f"the {wcfg.n_layers} WKV steps with their group norm of "
+                  "one (n) decode step, 8 rows of 40 heads of 64, S=1, "
+                  "bf16; launches are the (n) ring path's; replaces an "
+                  "XLA-fused lax.scan and _group_norm, not a Pallas kernel; "
+                  "no single PyTorch call computes it, so library_ms is "
+                  "null",
+             **{k: twkv["decode"][k] for k in timed}),
     ]
 
 
@@ -3111,6 +3717,8 @@ def main() -> int:
     kernels = qwen2_phases(gpu, dev)
     gc_free()
     kernels += slice9_phases(gpu, dev)
+    gc_free()
+    kernels += slice10_phases(gpu, dev)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

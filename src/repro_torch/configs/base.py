@@ -2,9 +2,9 @@
 dry-run bookkeeping the port does not use).
 
 A model is a block pattern: an optional prefix, a repeating period and an
-automatic remainder. The port runs ``"attn+mlp"``, ``"local+mlp"`` and
-``"attn+moe"`` blocks; other kinds are carried as data and rejected when a
-model is built.
+automatic remainder. The port runs ``"attn+mlp"``, ``"local+mlp"``,
+``"attn+moe"``, ``"rglru+mlp"`` and ``"rwkv"`` blocks; other kinds are
+carried as data and rejected when a model is built.
 """
 
 from __future__ import annotations

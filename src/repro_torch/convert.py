@@ -12,7 +12,11 @@ packed planes and f32 scales unchanged. Scan-stacked ``blocks/b{i}``
 leaves are split into one ``ModuleList`` entry per layer. A MoE layer's
 ``moe`` subtree carries the f32 ``router``, the ``experts`` stacks
 ``wi``/``wg``/``wo`` with their leading E axis (kernels (E, d_in, d_out)
-there, weights (E, d_out, d_in) here) and the ``shared`` MLP.
+there, weights (E, d_out, d_in) here) and the ``shared`` MLP. A recurrent
+layer's ``rec`` (RG-LRU) or ``time``/``chan`` (rwkv6) subtree keeps its
+floating-point leaves (conv, gates, ``lam``, token-shift mixes, LoRAs,
+decay, ``u``, ``ln_x``) in the reference's layout, and its dense kernels
+as above.
 
 ``to_reference_tree(model, cfg)`` is the inverse: the reference's paths,
 key order, scan stacking (a leading L under ``blocks/b{i}``) and kernel
@@ -35,7 +39,11 @@ from repro_torch.device import dtype_of, resolve_device
 from repro_torch.models.common import Dense
 from repro_torch.models.mlp import MLP
 from repro_torch.models.moe import MoE
-from repro_torch.models.transformer import Block, Transformer
+from repro_torch.models.transformer import Block, Transformer, is_recurrent
+
+#: the rwkv6 time mix's floating-point leaves, in the reference's order
+TIME_FP = ("mu_x", "mu", "mix_lora_a", "mix_lora_b", "decay_base",
+           "decay_lora_a", "decay_lora_b", "u")
 
 _QK_FIELDS = ("t1p", "t2p", "alpha", "d_in", "d_out", "group_size")
 
@@ -92,7 +100,42 @@ def _load_dense(layer, node: Dict[str, Any], device):
         layer.bias.copy_(_tensor(node["bias"], layer.bias.dtype, device))
 
 
+def _copy(param, leaf, device):
+    param.copy_(_tensor(leaf, param.dtype, device))
+
+
+def _load_recurrent(block: Block, node: Dict[str, Any], device):
+    if block.kind == "rwkv":
+        _copy(block.time_norm.scale, node["time_norm"]["scale"], device)
+        _copy(block.chan_norm.scale, node["chan_norm"]["scale"], device)
+        t, tn = block.time, node["time"]
+        for name in TIME_FP:
+            _copy(getattr(t, name), tn[name], device)
+        _copy(t.ln_x.scale, tn["ln_x"]["scale"], device)
+        for name in ("wr", "wk", "wv", "wg", "wo"):
+            _load_dense(getattr(t, name), tn[name], device)
+        c, cn = block.chan, node["chan"]
+        _copy(c.mu_k, cn["mu_k"], device)
+        _copy(c.mu_r, cn["mu_r"], device)
+        for name in ("wk", "wv", "wr"):
+            _load_dense(getattr(c, name), cn[name], device)
+        return
+    _copy(block.rec_norm.scale, node["rec_norm"]["scale"], device)
+    _copy(block.mlp_norm.scale, node["mlp_norm"]["scale"], device)
+    rec, rn = block.rec, node["rec"]
+    for name in ("wx", "wgate", "wo"):
+        _load_dense(getattr(rec, name), rn[name], device)
+    for name in ("conv", "gate_a", "gate_x"):
+        _copy(getattr(rec, name).w, rn[name]["w"], device)
+        _copy(getattr(rec, name).b, rn[name]["b"], device)
+    _copy(rec.lam, rn["lam"], device)
+    _load_mlp(block.mlp, node["mlp"], device)
+
+
 def _load_block(block: Block, node: Dict[str, Any], device):
+    if is_recurrent(block.kind):
+        _load_recurrent(block, node, device)
+        return
     block.attn_norm.scale.copy_(_tensor(node["attn_norm"]["scale"],
                                         block.attn_norm.scale.dtype, device))
     block.mlp_norm.scale.copy_(_tensor(node["mlp_norm"]["scale"],
@@ -169,6 +212,49 @@ def _insertion(keys):
     return sorted(keys, key=rank.index)
 
 
+def _keyed(node: Dict[str, Any], order) -> Dict[str, Any]:
+    """``node`` (built in the reference's insertion order) in ``order``."""
+    if order is _insertion:
+        return node
+    return {k: node[k] for k in order(node)}
+
+
+def _wb(wb, order) -> Dict[str, Any]:
+    return _keyed({"w": wb.w.detach(), "b": wb.b.detach()}, order)
+
+
+def _recurrent_node(block: Block, order) -> Dict[str, Any]:
+    """A recurrent layer's subtree in ``order`` (the reference's
+    ``_block_init``, ``rglru_init``, ``rwkv_time_init`` and
+    ``rwkv_channel_init`` build theirs in insertion order)."""
+    if block.kind == "rwkv":
+        t, c = block.time, block.chan
+        time = {name: getattr(t, name).detach() for name in TIME_FP}
+        time.update({name: _dense_node(getattr(t, name), order)
+                     for name in ("wr", "wk", "wv", "wg", "wo")})
+        time["ln_x"] = {"scale": t.ln_x.scale.detach()}
+        chan = {"mu_k": c.mu_k.detach(), "mu_r": c.mu_r.detach()}
+        chan.update({name: _dense_node(getattr(c, name), order)
+                     for name in ("wk", "wv", "wr")})
+        node = {"time_norm": {"scale": block.time_norm.scale.detach()},
+                "time": _keyed(time, order),
+                "chan_norm": {"scale": block.chan_norm.scale.detach()},
+                "chan": _keyed(chan, order)}
+        return _keyed(node, order)
+    rec = block.rec
+    rnode = {"wx": _dense_node(rec.wx, order),
+             "wgate": _dense_node(rec.wgate, order),
+             "conv": _wb(rec.conv, order),
+             "gate_a": _wb(rec.gate_a, order),
+             "gate_x": _wb(rec.gate_x, order), "lam": rec.lam.detach(),
+             "wo": _dense_node(rec.wo, order)}
+    node = {"rec_norm": {"scale": block.rec_norm.scale.detach()},
+            "rec": _keyed(rnode, order),
+            "mlp_norm": {"scale": block.mlp_norm.scale.detach()},
+            "mlp": _mlp_node(block.mlp, order)}
+    return _keyed(node, order)
+
+
 def _mlp_node(mlp: MLP, order) -> Dict[str, Any]:
     return {name: _dense_node(getattr(mlp, name), order)
             for name in order(("wi", "wg", "wo"))
@@ -178,6 +264,8 @@ def _mlp_node(mlp: MLP, order) -> Dict[str, Any]:
 def _block_node(block: Block, order=sorted) -> Dict[str, Any]:
     """One layer's subtree, keys in ``order``: sorted for the scan-stacked
     ``blocks``, ``_insertion`` for the ``prefix`` and ``suffix`` blocks."""
+    if is_recurrent(block.kind):
+        return _recurrent_node(block, order)
     node: Dict[str, Any] = {
         "attn": {name: _dense_node(getattr(block.attn, name), order)
                  for name in order(("wq", "wk", "wv", "wo"))},

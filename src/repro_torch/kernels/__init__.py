@@ -2,7 +2,8 @@
 
 ``ternary_matmul`` (decode matvec + prefill tiled kernel),
 ``chunk_attention`` (ring and paged), ``rms_norm``, ``ptqtp_search`` (the
-quantizer's trit step) and ``decode_attention`` (its op only). CUDA
+quantizer's trit step), ``decode_attention`` (its op only), and the
+recurrences ``rglru_scan`` and ``wkv6``. CUDA
 sources live under each package's ``csrc/`` and build at first use
 (``_build``); ``launch_counts`` reads the per-kernel launch counters.
 """

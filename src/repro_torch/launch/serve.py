@@ -18,8 +18,12 @@ d_model), ``--t-max`` iterations. One request per built-in prompt, each
 seeded ``seed + i``. ``--arch`` takes every id of the port's registry:
 qwen2-1.5b, qwen1.5-32b and llama3-405b (dense), gemma3-27b (sliding-window
 local layers: the ring layout only, as the paged layout refuses a window
-narrower than the capacity) and deepseek-moe-16b and grok-1-314b
-(mixture of experts). A model with a stub modality frontend
+narrower than the capacity), deepseek-moe-16b and grok-1-314b (mixture of
+experts), recurrentgemma-2b (RG-LRU and local attention; paged only at a
+capacity within its window) and rwkv6-3b (attention-free). With a
+recurrent mixer the paged layout keeps each row's recurrent state beside
+the pool and the prefix cache is off (printed at boot), as in the
+reference. A model with a stub modality frontend
 (``embed_inputs=False``) is refused, as the reference's launcher refuses
 it.
 
@@ -452,6 +456,14 @@ def main(argv=None):
         max_pages=args.max_pages, prefix_cache=args.prefix_cache)
     with _boot_phase(obs, boot, "engine_init", scheduler=args.scheduler):
         engine = cls(model, cfg, ecfg, observability=obs)
+    if engine.paged:
+        mem = engine.memory_stats()
+        why = ("" if engine._prefix_reuse or not args.prefix_cache else
+               " (a recurrent mixer's state cannot skip a shared prefix)")
+        print(f"[serve] paged KV: pool {engine.alloc.n_pages} pages x "
+              f"{args.page_size} tokens ({mem['kv_pool_bytes'] / 1e6:.2f} MB"
+              f", {mem['kv_page_bytes'] / 1e3:.1f} KB/page across layers), "
+              f"prefix cache {'on' if engine._prefix_reuse else 'off'}{why}")
 
     def engine_factory():
         # a supervised rebuild: reload the artifact (no checksum pass; it

@@ -9,7 +9,9 @@ trit-planes and group scales of a ``QuantizedKernel``; ``dense`` dispatches
 on which, so every model serves quantized without architectural change. A
 floating-point layer runs ``F.linear`` (the reference leaves this product
 to XLA, outside any Pallas kernel) in row blocks of one fixed shape, so
-its rows are batch-invariant on the card too.
+its rows are batch-invariant on the card too; ``linear_fixed_rows`` and
+``bmm_fixed_rows`` serve the other floating-point products the same way
+(the MoE expert stacks, the recurrent blocks' gates and LoRAs).
 """
 
 from __future__ import annotations
@@ -70,13 +72,13 @@ def dense(layer: Dense, x: torch.Tensor) -> torch.Tensor:
         y = ternary_matmul(x, layer.t1p, layer.t2p, layer.alpha,
                            group_size=layer.group_size, out_dtype=x.dtype)
     else:
-        y = _linear_fixed_rows(x, layer.weight.to(x.dtype))
+        y = linear_fixed_rows(x, layer.weight.to(x.dtype))
     if layer.bias is not None:
         y = y + layer.bias.to(y.dtype)
     return y
 
 
-def _linear_fixed_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def linear_fixed_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ wᵀ in GEMMs of one shape. cuBLAS picks its kernel, and with it a
     row's summation order, by the product's m, so a row's bits would depend
     on how many rows share its call (on the card a request alone and in a
@@ -98,7 +100,7 @@ def _linear_fixed_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def bmm_fixed_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Stacked products x[e] @ w[e]ᵀ, x (E, m, d), w (E, n, d) -> (E, m, n),
     in batched GEMMs of one shape (the rows cut into zero-padded blocks of
-    ``DENSE_ROW_BLOCK``, as ``_linear_fixed_rows``): a row's bits do not
+    ``DENSE_ROW_BLOCK``, as ``linear_fixed_rows``): a row's bits do not
     depend on m. The floating-point MoE expert stacks (the reference leaves
     this product to XLA's einsum)."""
     e, m, d = x.shape

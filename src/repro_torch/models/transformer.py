@@ -1,10 +1,12 @@
-"""Decoder LM of attention blocks: ``attn+mlp`` (dense GQA: llama/qwen-
-style), ``local+mlp`` (sliding-window attention: gemma3's local layers) and
-``attn+moe`` (a mixture-of-experts FFN: deepseek-moe, grok-1).
+"""Decoder LM of the reference's block kinds: ``attn+mlp`` (dense GQA:
+llama/qwen-style), ``local+mlp`` (sliding-window attention: gemma3's and
+recurrentgemma's local layers), ``attn+moe`` (a mixture-of-experts FFN:
+deepseek-moe, grok-1), ``rglru+mlp`` (recurrentgemma's RG-LRU mixer) and
+``rwkv`` (rwkv6's time and channel mixes).
 
 The reference stacks layers for ``lax.scan``; here they are a
-``ModuleList`` and a Python loop. Other block kinds (the recurrent rglru
-and rwkv mixers) raise ``NotImplementedError``.
+``ModuleList`` and a Python loop. Other block kinds raise
+``NotImplementedError``.
 
 Model API:
   init_params(cfg, generator=None, device="cuda")  -> Transformer
@@ -16,7 +18,11 @@ Model API:
 
 The serving functions update ``state`` in place and return it: no tensor of
 the state is ever rebound, so a CUDA graph that captured a dispatch reads
-and writes the same storage at every replay.
+and writes the same storage at every replay. A recurrent layer's cache is
+its per-row state (rwkv: ``x_time``, ``wkv``, ``x_chan``; rglru: ``h``,
+``conv``); a chunk's right padding and a decode step's inactive rows
+(length 0) leave it as it was, as the reference's masks and
+``_freeze_rows`` do.
 """
 
 from __future__ import annotations
@@ -31,8 +37,11 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import Dense, RMSNorm, rope_tables
 from repro_torch.models.mlp import MLP
 from repro_torch.models.moe import ExpertDense, MoE, moe_forward
+from repro_torch.models.rglru import RGLRU, rglru_forward
+from repro_torch.models.rwkv6 import (RWKVChannel, RWKVTime,
+                                      rwkv_channel_forward, rwkv_time_forward)
 
-SUPPORTED_KINDS = ("attn+mlp", "local+mlp", "attn+moe")
+SUPPORTED_KINDS = ("attn+mlp", "local+mlp", "attn+moe", "rglru+mlp", "rwkv")
 
 
 def _check_kinds(cfg) -> None:
@@ -47,23 +56,49 @@ def _window(kind: str, cfg) -> Optional[int]:
     return cfg.window if kind.startswith("local") else None
 
 
+def is_recurrent(kind: str) -> bool:
+    return kind == "rwkv" or kind.startswith("rglru")
+
+
+def has_attention(cfg) -> bool:
+    return not all(is_recurrent(k) for k in cfg.layer_kinds)
+
+
 class Block(nn.Module):
-    """Attention, then an MLP or (``*+moe`` kinds) a mixture of experts."""
+    """Attention, then an MLP or (``*+moe`` kinds) a mixture of experts; an
+    RG-LRU, then an MLP (``rglru+mlp``); or rwkv6's time mix, then its
+    channel mix (``rwkv``), with the reference's norm names."""
 
     def __init__(self, cfg, kind: str, *, dtype, device):
         super().__init__()
         d = cfg.d_model
+        self.kind = kind
+        self.mlp = self.moe = None
+        if kind == "rwkv":
+            self.time_norm = RMSNorm(d, dtype=dtype, device=device)
+            self.time = RWKVTime(d, cfg.rwkv_head_dim, dtype=dtype,
+                                 device=device)
+            self.chan_norm = RMSNorm(d, dtype=dtype, device=device)
+            self.chan = RWKVChannel(d, cfg.d_ff, dtype=dtype, device=device)
+            return
+        if kind.startswith("rglru"):
+            self.rec_norm = RMSNorm(d, dtype=dtype, device=device)
+            self.rec = RGLRU(d, cfg.rglru_width or d,
+                             cfg.rglru_blocks or cfg.n_heads, cfg.conv_width,
+                             dtype=dtype, device=device)
+            self.mlp_norm = RMSNorm(d, dtype=dtype, device=device)
+            self.mlp = MLP(d, cfg.d_ff, cfg.mlp_type, dtype=dtype,
+                           device=device)
+            return
         self.attn_norm = RMSNorm(d, dtype=dtype, device=device)
         self.attn = attn_mod.Attention(cfg, dtype=dtype, device=device)
         self.mlp_norm = RMSNorm(d, dtype=dtype, device=device)
         if kind.endswith("+moe"):
-            self.mlp = None
             self.moe = MoE(d, cfg.moe, cfg.mlp_type, dtype=dtype,
                            device=device)
         else:
             self.mlp = MLP(d, cfg.d_ff, cfg.mlp_type, dtype=dtype,
                            device=device)
-            self.moe = None
 
 
 class Transformer(nn.Module):
@@ -105,6 +140,8 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
         elif isinstance(module, ExpertDense):
             for w in module.weight:
                 w.copy_(normal(w.shape, 1.0 / module.d_in ** 0.5))
+        elif isinstance(module, (RGLRU, RWKVTime)):
+            module.init_random(normal)
     return model
 
 
@@ -122,18 +159,63 @@ def _mlp_residual(block: Block, cfg, x, valid=None):
     return x + block.mlp(h)
 
 
+def _recurrent_block(kind: str, block: Block, cfg, cache, x, lengths):
+    """A recurrent block over a right-padded chunk x (B, S, D): row b's
+    first ``lengths[b]`` steps are real. Its cache advances in place."""
+    eps = cfg.norm_eps
+    if kind == "rwkv":
+        x = x + rwkv_time_forward(block.time, block.time_norm(x, eps),
+                                  cache["x_time"], cache["wkv"], lengths)
+        return x + rwkv_channel_forward(block.chan, block.chan_norm(x, eps),
+                                        cache["x_chan"], lengths)
+    x = x + rglru_forward(block.rec, block.rec_norm(x, eps), cache["h"],
+                          cache["conv"], lengths)
+    return _mlp_residual(block, cfg, x)
+
+
+def _recurrent_cache_init(kind: str, cfg, batch: int, dtype, device
+                          ) -> Dict[str, torch.Tensor]:
+    """Zeroed per-row state of a recurrent layer (the reference's
+    ``_block_cache_init``)."""
+    d = cfg.d_model
+    if kind == "rwkv":
+        h, hd = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        return {"x_time": torch.zeros((batch, d), dtype=dtype, device=device),
+                "wkv": torch.zeros((batch, h, hd, hd), dtype=torch.float32,
+                                   device=device),
+                "x_chan": torch.zeros((batch, d), dtype=dtype, device=device)}
+    r = cfg.rglru_width or d
+    return {"h": torch.zeros((batch, r), dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, cfg.conv_width - 1, r), dtype=dtype,
+                                device=device)}
+
+
 @torch.no_grad()
 def forward(model: Transformer, cfg, tokens) -> torch.Tensor:
     """Full-sequence forward. tokens (B, S) -> logits (B, S, V)."""
     x = _embed(model, cfg, tokens)
-    positions = torch.arange(x.shape[1], device=x.device)
-    rope = rope_tables(positions[None, :], cfg.head_dim, cfg.rope_theta)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)
+    rope = (rope_tables(positions[None, :], cfg.head_dim, cfg.rope_theta)
+            if has_attention(cfg) else None)
+    full = torch.full((b,), s, dtype=torch.int32, device=x.device)
     for kind, block in zip(cfg.layer_kinds, model.layers):
+        if is_recurrent(kind):
+            cache = _recurrent_cache_init(kind, cfg, b, x.dtype, x.device)
+            x = _recurrent_block(kind, block, cfg, cache, x, full)
+            continue
         x = x + attn_mod.attention_forward(
             block.attn, cfg, block.attn_norm(x, cfg.norm_eps), positions,
             rope, window=_window(kind, cfg))
         x = _mlp_residual(block, cfg, x)
     return model.lm_head(model.final_norm(x, cfg.norm_eps))
+
+
+def _layer_cache(kind: str, cfg, batch: int, capacity: int, dtype, device):
+    if is_recurrent(kind):
+        return _recurrent_cache_init(kind, cfg, batch, dtype, device)
+    return attn_mod.cache_init(cfg, batch, capacity, _window(kind, cfg),
+                               dtype, device)
 
 
 def init_decode_state(cfg, batch: int, capacity: int, device="cuda",
@@ -142,35 +224,42 @@ def init_decode_state(cfg, batch: int, capacity: int, device="cuda",
     """Zeroed decode state: per-row positions and one cache per layer.
 
     ``kv_spec = {"page_size": ps, "max_pages": n}`` selects the paged
-    layout for every layer: the state then also holds ``pool`` (each
-    ``pages_*`` leaf stacked (n_layers, P, ps, ...), as the reference
-    stacks its layers) and one ``table`` (B, n_pages) int32 that every
-    layer reads; each layer's cache holds views of them. None keeps a ring
-    per layer."""
+    layout for the attention layers: the state then also holds ``pool``
+    (each ``pages_*`` leaf stacked (n_attention_layers, P, ps, ...), as the
+    reference stacks its layers) and one ``table`` (B, n_pages) int32 that
+    every attention layer reads; each attention layer's cache holds views of
+    them. A recurrent layer keeps its per-row state in either layout (the
+    reference's paged state does too). None keeps a ring per attention
+    layer."""
     _check_kinds(cfg)
     dev = resolve_device(device)
     adt = dtype_of(cfg.activation_dtype)
     state: Dict[str, Any] = {
         "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
     if kv_spec is None:
-        state["layers"] = [
-            attn_mod.cache_init(cfg, batch, capacity, _window(k, cfg), adt,
-                                dev)
-            for k in cfg.layer_kinds]
+        state["layers"] = [_layer_cache(k, cfg, batch, capacity, adt, dev)
+                           for k in cfg.layer_kinds]
         return state
     ps, max_pages = kv_spec["page_size"], kv_spec["max_pages"]
-    windows = [_window(k, cfg) for k in cfg.layer_kinds]
+    attention = [k for k in cfg.layer_kinds if not is_recurrent(k)]
+    windows = [_window(k, cfg) for k in attention]
     narrow = [w for w in windows if w is not None and w < capacity]
-    pool = attn_mod.paged_pool(cfg, cfg.n_layers, capacity,
+    pool = attn_mod.paged_pool(cfg, len(attention), capacity,
                                narrow[0] if narrow else None, adt, dev,
                                page_size=ps, max_pages=max_pages)
     table = torch.zeros((batch, capacity // ps), dtype=torch.int32,
                         device=dev)
     state["pool"] = pool
     state["table"] = table
-    state["layers"] = [
-        dict({name: leaf[i] for name, leaf in pool.items()}, table=table)
-        for i in range(cfg.n_layers)]
+    layers, i = [], 0
+    for kind in cfg.layer_kinds:
+        if is_recurrent(kind):
+            layers.append(_recurrent_cache_init(kind, cfg, batch, adt, dev))
+            continue
+        layers.append(dict({name: leaf[i] for name, leaf in pool.items()},
+                           table=table))
+        i += 1
+    state["layers"] = layers
     return state
 
 
@@ -206,8 +295,8 @@ def prefill(model: Transformer, cfg, tokens, capacity: int,
 
 
 def reset_decode_state(state) -> None:
-    """Empty a ring decode state in place: positions 0, ring slots -1, KV
-    and scales 0."""
+    """Empty a ring decode state in place: positions 0, ring slots -1, KV,
+    scales and recurrent states 0."""
     state["pos"].zero_()
     for cache in state["layers"]:
         for name, buf in cache.items():
@@ -221,7 +310,10 @@ def prefill_chunk(model: Transformer, cfg, state, tokens, lengths
 
     tokens (B, L) right-padded; lengths (B,) int32 — row r consumes
     positions ``state['pos'][r] .. + lengths[r] - 1`` (0 = no-op row).
-    Returns (logits at each row's last valid token (B, V), state)."""
+    Recurrent layers take ``lengths`` as the reference's ``valid`` mask
+    (steps past a row's length leave its state as it was); the MoE takes
+    ``valid`` itself. Returns (logits at each row's last valid token (B,
+    V), state)."""
     x = _embed(model, cfg, tokens)
     b, L, _ = x.shape
     lengths = lengths.to(torch.int32)
@@ -230,9 +322,13 @@ def prefill_chunk(model: Transformer, cfg, state, tokens, lengths
                  + torch.arange(L, dtype=torch.int32, device=x.device)[None])
     valid = (torch.arange(L, device=x.device)[None, :] < lengths[:, None]
              if cfg.moe is not None else None)
-    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    rope = (rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+            if has_attention(cfg) else None)
     for kind, block, cache in zip(cfg.layer_kinds, model.layers,
                                   state["layers"]):
+        if is_recurrent(kind):
+            x = _recurrent_block(kind, block, cfg, cache, x, lengths)
+            continue
         y, _ = attn_mod.attention_prefill_chunk(
             block.attn, cfg, cache, block.attn_norm(x, cfg.norm_eps),
             positions, lengths, rope, window=_window(kind, cfg))
@@ -249,16 +345,24 @@ def decode_step(model: Transformer, cfg, state, tokens,
                 active: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step. tokens (B,) int; rows with active=False are frozen:
-    their position and cache pass through unchanged."""
+    their position and cache pass through unchanged (a recurrent layer runs
+    the step with length 0)."""
     x = _embed(model, cfg, tokens)
     pos = state["pos"]
-    rope = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+    steps = (active.to(torch.int32) if active is not None
+             else torch.ones_like(pos))
+    rope = (rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+            if has_attention(cfg) else None)
     for kind, block, cache in zip(cfg.layer_kinds, model.layers,
                                   state["layers"]):
+        if is_recurrent(kind):
+            x = _recurrent_block(kind, block, cfg, cache, x[:, None],
+                                 steps)[:, 0]
+            continue
         y, _ = attn_mod.attention_decode(
             block.attn, cfg, cache, block.attn_norm(x, cfg.norm_eps), pos,
             rope, window=_window(kind, cfg), active=active)
         x = _mlp_residual(block, cfg, x + y)
     x = model.final_norm(x, cfg.norm_eps)
-    pos.add_(active.to(torch.int32) if active is not None else 1)
+    pos.add_(steps)
     return model.lm_head(x), state

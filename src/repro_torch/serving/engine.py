@@ -95,6 +95,7 @@ import torch
 from repro_torch.kernels.chunk_attention.ops import reserve_workspace
 from repro_torch.models import (decode_step, init_decode_state, prefill,
                                 prefill_chunk)
+from repro_torch.models.transformer import has_attention, is_recurrent
 from repro_torch.runtime import clock as rtclock
 from repro_torch.runtime.monitor import HealthSnapshot
 from repro_torch.serving.api import (FINISH_CANCELLED, FINISH_ERROR,
@@ -111,6 +112,9 @@ from repro_torch.serving.sampling import sample_tokens_per_request
 
 __all__ = ["EngineConfig", "ServingEngine", "SerialAdmitEngine",
            "SamplingParams", "RequestHandle", "EngineFault", "EngineCrash"]
+
+# a ring layer's KV leaves (the reference's ``_kv_bytes`` names)
+_KV_LEAVES = ("k", "v", "k_scale", "v_scale", "pos")
 
 
 class EngineCrash(RuntimeError):
@@ -256,8 +260,7 @@ class ServingEngine:
             # recurrent rwkv/rglru state summarizes every prior token and
             # cannot skip the shared prefix), so it turns off otherwise,
             # as in the reference
-            attn_only = all(k != "rwkv" and not k.startswith("rglru")
-                            for k in model_cfg.layer_kinds)
+            attn_only = not any(map(is_recurrent, model_cfg.layer_kinds))
             self._prefix_reuse = engine_cfg.prefix_cache and attn_only
             self.alloc = PageAllocator(total, ps,
                                        prefix_cache=self._prefix_reuse)
@@ -294,10 +297,11 @@ class ServingEngine:
             self._pool = torch.cuda.graph_pool_handle()
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
             kv = model_cfg.n_kv_heads
-            reserve_workspace(self.device, self._stream, nb, kv,
-                              model_cfg.n_heads // kv, model_cfg.head_dim,
-                              engine_cfg.capacity,
-                              _pow2ceil(engine_cfg.prefill_chunk))
+            if has_attention(model_cfg):  # rwkv6 reads no KV
+                reserve_workspace(self.device, self._stream, nb, kv,
+                                  model_cfg.n_heads // kv,
+                                  model_cfg.head_dim, engine_cfg.capacity,
+                                  _pow2ceil(engine_cfg.prefill_chunk))
         self._prompts: List[Optional[List[int]]] = [None] * nb
         self._cursor: List[int] = [0] * nb
         self._admit_finished: List[RequestHandle] = []
@@ -686,11 +690,14 @@ class ServingEngine:
         return out
 
     def _state_leaves(self) -> List[torch.Tensor]:
-        """Every tensor of the decode state once (a paged layer's leaves are
-        views of the pool and the shared table)."""
+        """Every tensor of the decode state once (a paged attention layer's
+        leaves are views of the pool and the shared table; a recurrent
+        layer's are its own in either layout)."""
         if self.paged:
             return [self.state["pos"], self.state["table"],
-                    *self.state["pool"].values()]
+                    *self.state["pool"].values(),
+                    *(t for c in self.state["layers"] if "table" not in c
+                      for t in c.values())]
         return [self.state["pos"]] + [t for c in self.state["layers"]
                                       for t in c.values()]
 
@@ -701,9 +708,9 @@ class ServingEngine:
         more than the reference's and one table for all layers where the
         reference has one a layer: ``kv_page_bytes`` is equal, the pool's
         bytes differ by that page and those tables."""
-        if not self.paged:
+        if not self.paged:  # the rings; recurrent states are not KV
             kv = sum(int(t.nbytes) for c in self.state["layers"]
-                     for t in c.values())
+                     for name, t in c.items() if name in _KV_LEAVES)
             return {"kv_pool_bytes": kv, "kv_resident_bytes": kv}
         pool = self.state["pool"]
         pool_bytes = sum(int(t.nbytes) for t in pool.values())
@@ -1079,16 +1086,18 @@ class ServingEngine:
         skips prefix-cached prompt pages), ring positions to -1 and KV to 0.
         The paged pool is physical storage owned by the allocator, not per
         row: ``_page_maintenance`` clears fresh pages and pushes the
-        tables instead. Mask and positions reach the device in one
-        non-blocking copy."""
+        tables instead; a recurrent layer's per-row state is cleared in
+        either layout (a reused slot must not start from the last request's
+        state). Mask and positions reach the device in one non-blocking
+        copy."""
         up = upload(np.stack([mask.astype(np.int32),
                               pos0.astype(np.int32)]), self.device)
         m = up[0] != 0
         pos = self.state["pos"]
         pos.copy_(torch.where(m, up[1], pos))
-        if self.paged:
-            return
         for cache in self.state["layers"]:
+            if "table" in cache:  # a paged attention layer: pool views
+                continue
             for name, buf in cache.items():
                 shaped = m.reshape((-1,) + (1,) * (buf.dim() - 1))
                 buf.masked_fill_(shaped, -1 if name == "pos" else 0)
@@ -1463,7 +1472,9 @@ class SerialAdmitEngine(ServingEngine):
         return logits
 
     def _merge(self, slot: int):
-        """Write the private state into row ``slot`` of the batch state."""
+        """Write the private state into row ``slot`` of the batch state:
+        every leaf of every layer (ring KV and positions, recurrent states)
+        has the row first."""
         self.state["pos"][slot:slot + 1].copy_(self._one["pos"])
         for dst, src in zip(self.state["layers"], self._one["layers"]):
             for name, buf in dst.items():

@@ -82,7 +82,8 @@ def test_registry_configs_equal_the_references():
             ours = dataclasses.asdict(getattr(configs, get)(arch))
             theirs = dataclasses.asdict(getattr(jconfigs, get)(arch))
             assert ours == theirs, (arch, get)
-    assert set(configs.ARCH_IDS) == set(ARCHS) | {"qwen2-1.5b"}
+    assert set(configs.ARCH_IDS) == set(ARCHS) | {
+        "qwen2-1.5b", "recurrentgemma-2b", "rwkv6-3b"}
     assert configs.get_config("gemma3-27b").head_dim == 168
 
 

@@ -38,6 +38,13 @@ attention scratch are freed with it); a released thread of an abandoned
 engine launches nothing, and the new generation's stream is not its.
 The MoE experts' stacked ternary launch gives each expert the bits of its
 own launch, and the attention kernels take gemma3-27b's head dim of 168.
+The recurrences (``rglru_scan``, ``wkv6``) equal their plain versions
+(the scans' states exactly: a product and a sum a step, rounded on their
+own in both; the wkv6 readout f32 within 1e-4, bf16 within one bf16 step
+plus 2^-7: its sums run in another order), give a row the same bits alone
+and in a batch, and a chunk the bits of one step at a time; the recurrent
+smoke models serve the same streams alone, in the fleet and on the paged
+layout.
 """
 
 import dataclasses
@@ -65,10 +72,14 @@ from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.kernels.ptqtp_search import ops as ps_ops
 from repro_torch.kernels.ptqtp_search import ref as ps_ref
+from repro_torch.kernels.rglru_scan import ops as scan_ops
+from repro_torch.kernels.rglru_scan import ref as scan_ref
 from repro_torch.kernels.rms_norm import ops as norm_ops
 from repro_torch.kernels.rms_norm import ref as norm_ref
 from repro_torch.kernels.ternary_matmul import ops as tm_ops
 from repro_torch.kernels.ternary_matmul import ref as tm_ref
+from repro_torch.kernels.wkv6 import ops as wkv_ops
+from repro_torch.kernels.wkv6 import ref as wkv_ref
 from repro_torch.models import init_params
 from repro_torch.serving import (EngineConfig, SamplingParams,
                                  SerialAdmitEngine, ServingEngine)
@@ -984,3 +995,109 @@ def test_released_abandoned_thread_never_launches(cuda):
         inj.release_stalls()
         sup.close()
     assert got == want
+
+
+def _recurrence_checks(kern, plain, args, state_at, lengths_at, steps, rows):
+    """kernel vs plain (output, state); a row alone == its batch row; one
+    S-step call == S one-step calls (every row full). Returns the output
+    pair and the state pair."""
+    def run(fn, a):
+        a = list(a)
+        a[state_at] = a[state_at].clone()
+        return fn(*a), a[state_at]
+
+    got, got_s = run(kern, args)
+    want, want_s = run(plain, args)
+    for i in range(got.shape[0]):
+        one = [a[i:i + 1].clone() if j in rows else a
+               for j, a in enumerate(args)]
+        o, s1 = run(kern, one)
+        assert torch.equal(o, got[i:i + 1]) and torch.equal(s1, got_s[i:i + 1])
+    s = args[0].shape[1]
+    full = list(args)
+    full[lengths_at] = torch.full_like(args[lengths_at], s)
+    chunk, chunk_s = run(kern, full)
+    full[state_at] = full[state_at].clone()
+    full[lengths_at] = torch.ones_like(full[lengths_at])
+    outs = [kern(*[a[:, t:t + 1].contiguous() if j in steps else a
+                   for j, a in enumerate(full)]) for t in range(s)]
+    assert torch.equal(torch.cat(outs, 1), chunk)
+    assert torch.equal(full[state_at], chunk_s)
+    return (got, want), (got_s, want_s)
+
+
+@pytest.mark.parametrize("s", [1, 9])
+def test_rglru_scan_matches_plain_and_is_invariant(cuda, s):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    b, r = 5, 300   # r off the 256-thread grid
+    a = torch.rand((b, s, r), generator=g, device=cuda) * 0.98 + 0.01
+    gx = torch.randn((b, s, r), generator=g, device=cuda)
+    h = torch.randn((b, r), generator=g, device=cuda)
+    lengths = torch.tensor([s, 0, 1, s // 2, s], dtype=torch.int32,
+                           device=cuda)
+    (got, want), (got_h, want_h) = _recurrence_checks(
+        scan_ops.rglru_scan_cuda, scan_ref.rglru_scan_plain,
+        [a, gx, h, lengths], 2, 3, (0, 1), (0, 1, 2, 3))
+    assert torch.equal(got, want) and torch.equal(got_h, want_h)
+
+
+@pytest.mark.parametrize("s", [1, 7])
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_matches_plain_and_is_invariant(cuda, dtype, hd, s):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    b, nh = 4, 3
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device=cuda) * std
+
+    r, k, v = (rnd(b, s, nh, hd, std=0.5).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(rnd(b, s, nh, hd, std=0.5) - 1.0))
+    u = rnd(nh, hd, std=0.1).to(dtype)
+    state = rnd(b, nh, hd, hd, std=0.1)
+    lengths = torch.tensor([s, 0, 1, s // 2], dtype=torch.int32, device=cuda)
+    scale = (1.0 + rnd(nh * hd, std=0.1)).to(dtype)
+    (got, want), (got_s, want_s) = _recurrence_checks(
+        wkv_ops.wkv6_cuda, wkv_ref.wkv6_plain,
+        [r, k, v, w, u, state, lengths, scale], 5, 6, (0, 1, 2, 3),
+        (0, 1, 2, 3, 5, 6))
+    assert torch.equal(got_s, want_s)
+    diff = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 1e-4
+    else:
+        assert float((diff - 2.0 ** -7 * want.float().abs()).max()) <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b"])
+def test_recurrent_engines_are_fleet_and_layout_invariant(cuda, arch):
+    """bf16 smoke models (tensor-core route): every kernel of the path
+    launches; a request alone gives its fleet tokens; rwkv6's paged fleet
+    and recurrentgemma's at a capacity within its window give the ring's."""
+    cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                              param_dtype="bfloat16",
+                              activation_dtype="bfloat16")
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    model, _ = quantize_tree(model, PTQTPConfig(group_size=64, t_max=5))
+    rng = np.random.default_rng(0)
+    cap = 8 if arch == "recurrentgemma-2b" else 256
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in ((5, 8, 3, 7) if cap == 8 else (5, 40, 140, 129))]
+
+    def serve(ps, slots, **kw):
+        eng = ServingEngine(model, cfg, EngineConfig(
+            max_slots=slots, capacity=cap, prefill_chunk=64, **kw))
+        hs = [eng.submit(p, SamplingParams(max_new_tokens=6)) for p in ps]
+        eng.run()
+        return [h.output for h in hs]
+
+    reset_launch_counts()
+    fleet = serve(prompts, 4)
+    counts = launch_counts()
+    path = ["ternary_matvec", "rms_norm",
+            "wkv6" if arch == "rwkv6-3b" else "rglru_scan"]
+    assert all(counts[k] > 0 for k in path), counts
+    for i in (2, 3):
+        assert serve(prompts[i:i + 1], 1)[0] == fleet[i]
+    assert serve(prompts, 4, kv_layout="paged", page_size=4) == fleet

@@ -254,8 +254,8 @@ def test_forward_matches_reference(quantized):
 
 def test_unported_block_kinds_raise():
     cfg = configs.get_smoke_config("qwen2-1.5b").scaled(
-        block_pattern=("rwkv",))
-    with pytest.raises(NotImplementedError, match="rwkv"):
+        block_pattern=("mamba+mlp",))  # a kind no architecture defines
+    with pytest.raises(NotImplementedError, match="mamba"):
         init_params(cfg, device="cpu")
 
 

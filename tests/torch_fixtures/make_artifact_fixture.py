@@ -4,7 +4,8 @@ the JAX engine's greedy streams for a fixed fleet.
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_fixtures/make_artifact_fixture.py [ARCH ...]
 
 For each smoke architecture (all by default: qwen2-1.5b, gemma3-27b,
-deepseek-moe-16b) it writes, next to this script:
+deepseek-moe-16b, recurrentgemma-2b, rwkv6-3b) it writes, next to this
+script:
 
   * ``<name>_smoke_artifact/``: ``repro.artifacts.write_artifact`` of the
     smoke config (f32) initialised from ``PRNGKey(0)`` and PTQTP-quantized
@@ -15,10 +16,12 @@ deepseek-moe-16b) it writes, next to this script:
     engine serves from that artifact on the ring layout: for the fleet,
     and for the request whose prompt (33 tokens, prefill chunk 16) ends in
     a one-token prefill bucket when it is served alone, alone; for
-    deepseek also the fleet's tokens on the paged layout (page size 8).
+    deepseek and rwkv6 also the fleet's tokens on the paged layout (page
+    size 8).
 
-gemma3's smoke window is 8, so its prefill chunks of 16 are longer than
-its local rings and every prompt but one runs past the window.
+gemma3's and recurrentgemma's smoke window is 8, so their prefill chunks
+of 16 are longer than their local rings, every prompt but one runs past
+the window, and the paged layout refuses them at capacity 64.
 
 The port reads them (``tests/test_torch_artifacts.py`` and
 ``tests/test_torch_archs.py`` on the CPU, ``chip_smoke.py`` on the card)
@@ -45,10 +48,12 @@ HERE = Path(__file__).resolve().parent
 
 #: arch -> file name stem of its artifact and streams
 NAMES = {"qwen2-1.5b": "qwen2", "gemma3-27b": "gemma3",
-         "deepseek-moe-16b": "deepseek"}
+         "deepseek-moe-16b": "deepseek", "recurrentgemma-2b": "recurrentgemma",
+         "rwkv6-3b": "rwkv6"}
 # archs whose paged streams are written too (the qwen2 fixture's test
-# holds both layouts to its ring streams; gemma3 refuses paging)
-PAGED_STREAMS = ("deepseek-moe-16b",)
+# holds both layouts to its ring streams; gemma3 and recurrentgemma refuse
+# paging)
+PAGED_STREAMS = ("deepseek-moe-16b", "rwkv6-3b")
 
 ENGINE = dict(max_slots=3, capacity=64, prefill_chunk=16, decode_chunk=4)
 LENGTHS = (33, 5, 23, 40)
