@@ -3058,7 +3058,9 @@ def time_recurrence(name, dev, n_layers):
             n = SLOTS * s * nh * hd
             nbytes = (3 * 2 + 4 + 2) * n + 2 * SLOTS * nh * hd * hd * 4 \
                 + 2 * 2 * nh * hd + 4 * SLOTS
-            flops = SLOTS * s * nh * (7 * hd * hd + 8 * hd)
+            # a head and step: y_j = sum_i r_i S_ij + v_j sum_i r_i u_i k_i
+            # (2 hd^2), S = w S + k v (3 hd^2), the readout and norm O(hd)
+            flops = SLOTS * s * nh * (5 * hd * hd + 12 * hd)
         for a in layers:
             a[RECURRENCES[name]["lengths"]].fill_(s)
         bound, by = bound_ms(nbytes * n_layers, flops * n_layers, F32_FLOPS)

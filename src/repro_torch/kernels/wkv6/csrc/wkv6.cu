@@ -155,7 +155,7 @@ extern "C" {
 // r, k, v, out: (B, S, H, hd) row-major in the activation dtype (x_bf16: 0
 // f32, 1 bf16); w: (B, S, H, hd) f32; u: (H, hd) and scale: (H·hd,) in the
 // parameter dtype (p_bf16); state: (B, H, hd, hd) f32, in place; lengths:
-// (B,) int32, clamped to [0, S]. hd is 16, 32, 64 or 128.
+// (B,) int32, clamped to [0, S]. hd is 16 or 64 (the configs' head dims).
 int wkv6_launch(const void* r, const void* k, const void* v, const void* w,
                 const void* u, void* state, const void* lengths,
                 const void* scale, void* out, int x_bf16, int p_bf16, int B,
@@ -164,9 +164,7 @@ int wkv6_launch(const void* r, const void* k, const void* v, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16: return static_cast<int>(dispatch<16>(x_bf16, p_bf16, r, k, v, w, u, state, lengths, scale, out, B, S, H, eps, s));
-    case 32: return static_cast<int>(dispatch<32>(x_bf16, p_bf16, r, k, v, w, u, state, lengths, scale, out, B, S, H, eps, s));
     case 64: return static_cast<int>(dispatch<64>(x_bf16, p_bf16, r, k, v, w, u, state, lengths, scale, out, B, S, H, eps, s));
-    case 128: return static_cast<int>(dispatch<128>(x_bf16, p_bf16, r, k, v, w, u, state, lengths, scale, out, B, S, H, eps, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -25,7 +25,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {"wkv6_launch": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P]}
 _DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 64)  # the configs' rwkv_head_dim: full width and smoke
 
 
 def wkv6_cuda(r, k, v, w, u, state, lengths, scale,

@@ -113,10 +113,6 @@ from repro_torch.serving.sampling import sample_tokens_per_request
 __all__ = ["EngineConfig", "ServingEngine", "SerialAdmitEngine",
            "SamplingParams", "RequestHandle", "EngineFault", "EngineCrash"]
 
-# a ring layer's KV leaves (the reference's ``_kv_bytes`` names)
-_KV_LEAVES = ("k", "v", "k_scale", "v_scale", "pos")
-
-
 class EngineCrash(RuntimeError):
     """The engine itself died: not a containable per-dispatch fault.
 
@@ -709,8 +705,9 @@ class ServingEngine:
         reference has one a layer: ``kv_page_bytes`` is equal, the pool's
         bytes differ by that page and those tables."""
         if not self.paged:  # the rings; recurrent states are not KV
-            kv = sum(int(t.nbytes) for c in self.state["layers"]
-                     for name, t in c.items() if name in _KV_LEAVES)
+            kv = sum(int(t.nbytes) for kind, c in zip(self.cfg.layer_kinds,
+                                                      self.state["layers"])
+                     if not is_recurrent(kind) for t in c.values())
             return {"kv_pool_bytes": kv, "kv_resident_bytes": kv}
         pool = self.state["pool"]
         pool_bytes = sum(int(t.nbytes) for t in pool.values())
