@@ -177,6 +177,26 @@ Since slice 10 (the recurrent decoders), after the phases above:
      one PyTorch call where one computes the same function, and their
      bounds.
 
+Since slice 11 (the norm fused with the residual add, ``wkv6`` staged in
+shared memory), within the phases above:
+
+ 27. ``add_rms_norm`` at qwen2-1.5b's, gemma3-27b's, recurrentgemma-2b's
+     and rwkv6-3b's widths and at 16384 (the route wider than a lane's
+     registers), bf16 and f32: x + delta equal to PyTorch's add and h
+     equal to the norm kernel's ``rms_norm`` of it, bit for bit, h within
+     the norm's tolerance of the plain version, and a row the same bits
+     alone, in an (8, 1, d) call and in an (8, 64, d) call; every serving
+     path must launch it (each norm after a residual add is one launch);
+ 28. ``wkv6`` also at S = 200 (six 32-step tiles and a ragged seventh)
+     with the ragged and idle rows: the state bit for bit, a row alone ==
+     its row in the batch, a chunk == 200 one-step calls;
+ 29. the times of the 56 fused norms and the one plain norm of a qwen2
+     decode step beside PyTorch's ``x + y`` then ``F.rms_norm`` and
+     ``F.rms_norm`` alone, the step's norms as before the fusion (56 adds
+     and 57 norms), ``wkv6`` at S = 1, 64 and 200, and qwen2's graph
+     decode step as ``launch/profile_decode.py`` profiles it (launches
+     and device-busy ms a step).
+
 Each phase's engines and graph pools are freed before the next; the run's
 total seconds are printed.
 
@@ -277,9 +297,10 @@ def device_ms(fn, reps: int) -> float:
 
 
 # kernels each serving path must launch
-RING_PATH = ("ternary_matvec", "ternary_matmul", "chunk_attention", "rms_norm")
+RING_PATH = ("ternary_matvec", "ternary_matmul", "chunk_attention", "rms_norm",
+             "add_rms_norm")
 PAGED_PATH = ("ternary_matvec", "ternary_matmul", "chunk_attention_paged",
-              "rms_norm")
+              "rms_norm", "add_rms_norm")
 
 
 def need(counts, kernels, path):
@@ -564,6 +585,73 @@ def check_rms_norm(cfg, dev):
         f"{NORM_RTOL}); kernel rows bit-identical across (8, 1, d) and "
         f"(8, 64, d) calls; the plain version's rows differ there in "
         f"{gaps} of {SLOTS * d} elements")
+    return worst
+
+
+# the model widths the fused norm is held at: qwen2-1.5b, gemma3-27b,
+# recurrentgemma-2b and rwkv6-3b (2560 both), and llama3-405b's 16384 (the
+# two-pass route: wider than a lane's registers hold)
+FUSED_NORM_WIDTHS = (1536, 5376, 2560, 16384)
+
+
+def check_add_rms_norm(dev):
+    """``add_rms_norm`` at the models' widths, bf16 and f32, at decode (8
+    rows of one token) and prefill (8 x 64) shapes: x_new equal to
+    PyTorch's add bit for bit, h equal to the norm kernel's ``rms_norm`` of
+    x_new bit for bit and to the plain version within ``NORM_RTOL``, and
+    each row of an (8, 1, d) call, and one row alone, bit-identical to its
+    row in the (8, 64, d) call. Returns the largest abs err against the
+    plain version."""
+    import torch
+
+    from repro_torch.kernels.rms_norm import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    worst = 0.0
+    for d in FUSED_NORM_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            scale = (1 + 0.1 * torch.randn((d,), generator=gen,
+                                           device=dev)).to(dtype)
+            x, y = (torch.randn((SLOTS, PREFILL_CHUNK, d), generator=gen,
+                                device=dev).to(dtype) for _ in range(2))
+            full_sum, full_h = ops.add_rms_norm(scale, x, y)
+            for name, sl in (("decode", slice(0, 1)),
+                             ("prefill", slice(None))):
+                xs, ys = x[:, sl].contiguous(), y[:, sl].contiguous()
+                got_sum, got = ops.add_rms_norm(scale, xs, ys)
+                want_sum, want = ref.add_rms_norm_plain(scale, xs, ys)
+                torch.cuda.synchronize()
+                what = f"add_rms_norm d={d} {name} {dtype}"
+                if not torch.equal(got_sum, xs + ys):
+                    raise AssertionError(f"{what}: x + delta differs from "
+                                         "PyTorch's add")
+                if not torch.equal(got, ops.rms_norm(scale, got_sum)):
+                    raise AssertionError(f"{what}: h differs from rms_norm "
+                                         "of x + delta")
+                if not (torch.equal(got_sum, full_sum[:, sl])
+                        and torch.equal(got, full_h[:, sl])):
+                    raise AssertionError(f"{what}: rows differ from the same "
+                                         "rows in (8, 64, d)")
+                err = float(((got.float() - want.float()).abs()
+                             / want.float().abs().clamp_min(1e-30)).max())
+                tol = NORM_RTOL[str(dtype).split(".")[-1]]
+                if not err <= tol:
+                    raise AssertionError(f"{what}: max relative err "
+                                         f"{err:.3e} > {tol}")
+                worst = max(worst,
+                            float((got.float() - want.float()).abs().max()))
+            one_sum, one = ops.add_rms_norm(scale, x[3:4, 7:8].contiguous(),
+                                            y[3:4, 7:8].contiguous())
+            if not (torch.equal(one_sum, full_sum[3:4, 7:8])
+                    and torch.equal(one, full_h[3:4, 7:8])):
+                raise AssertionError(f"add_rms_norm d={d} {dtype}: a row "
+                                     "alone differs from its row in "
+                                     "(8, 64, d)")
+    log(f"add_rms_norm at d {FUSED_NORM_WIDTHS}, bf16 and f32: x + delta "
+        f"== PyTorch's add and h == rms_norm(x + delta) bit for bit; h == "
+        f"plain (max abs err {worst:.2e}; relative tolerances {NORM_RTOL}); "
+        "rows of (8, 1, d) calls and a row alone bit-identical to their "
+        "rows in (8, 64, d)")
     return worst
 
 
@@ -1269,7 +1357,7 @@ def fixture_path(dev, name):
                              f"the JAX engine {spec['solo']['tokens']}")
     kinds = set(cfg.layer_kinds)
     attention = has_attention(cfg)
-    kernels = ["ternary_matvec", "rms_norm"]
+    kernels = ["ternary_matvec", "rms_norm", "add_rms_norm"]
     if attention:
         kernels.append("chunk_attention")
     if attention and "paged" in got:
@@ -2048,28 +2136,55 @@ def time_attention(cfg, dev, fill):
 
 
 def time_rms_norm(model, cfg, dev):
-    """Kernel, plain and library times of the norms of one decode step
-    (2 per layer and the final one, 8 rows of one token each, bf16), each
-    with its own layer's scale as on the main path."""
+    """Times of the norms of one decode step (2 per layer and the final
+    one, 8 rows of one token each, bf16, each with its own layer's scale
+    as on the main path): the first, after the embedding, alone
+    (``rms_norm``), and the other 56 each fused with the residual add
+    before it (``add_rms_norm``). Beside each: its plain version, its
+    bound, and PyTorch's calls for the same function (``x + y`` then
+    ``F.rms_norm``, and ``F.rms_norm`` alone). Also, in this run, the whole
+    step's norms as the path runs them now (56 fused + 1) and as it ran
+    them before the fusion (56 adds + 57 ``rms_norm`` launches)."""
     import torch
 
     from repro_torch.kernels.rms_norm import ops, ref
     from repro_torch.models.common import RMSNorm
 
     norms = [m.scale for m in model.modules() if isinstance(m, RMSNorm)]
+    first, fused = norms[0], norms[1:]
     d, eps = cfg.d_model, cfg.norm_eps
-    x = torch.randn((SLOTS, 1, d), device=dev).to(torch.bfloat16)
-    lib = getattr(torch.nn.functional, "rms_norm", None)
-    nbytes = len(norms) * (2 * x.numel() * 2 + d * 2)
-    flops = len(norms) * 4 * x.numel()  # x² accumulated, two products
-    bound, by = bound_ms(nbytes, flops, F32_FLOPS)
-    return dict(
-        ms=device_ms(lambda: [ops.rms_norm(w, x, eps) for w in norms], 10),
-        plain_ms=device_ms(
-            lambda: [ref.rms_norm_plain(w, x, eps) for w in norms], 10),
-        library_ms=None if lib is None else device_ms(
-            lambda: [lib(x, (d,), w, eps) for w in norms], 10),
-        bound_ms=bound, bound_by=by, calls=len(norms))
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x, y = (torch.randn((SLOTS, 1, d), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    lib = torch.nn.functional.rms_norm
+    n = x.numel()
+    one = bound_ms(2 * n * 2 + d * 2, 4 * n, F32_FLOPS)  # x², two products
+    many = bound_ms(len(fused) * (4 * n * 2 + d * 2),
+                    len(fused) * 5 * n, F32_FLOPS)  # + the add
+    out = dict(
+        rms_norm=dict(
+            ms=device_ms(lambda: ops.rms_norm(first, x, eps), 50),
+            plain_ms=device_ms(lambda: ref.rms_norm_plain(first, x, eps), 50),
+            library_ms=device_ms(lambda: lib(x, (d,), first, eps), 50),
+            bound_ms=one[0], bound_by=one[1], calls=1),
+        add_rms_norm=dict(
+            ms=device_ms(lambda: [ops.add_rms_norm(w, x, y, eps)
+                                  for w in fused], 10),
+            plain_ms=device_ms(lambda: [ref.add_rms_norm_plain(w, x, y, eps)
+                                        for w in fused], 10),
+            library_ms=device_ms(lambda: [lib(x + y, (d,), w, eps)
+                                          for w in fused], 10),
+            library_norm_only_ms=device_ms(lambda: [lib(x, (d,), w, eps)
+                                                    for w in fused], 10),
+            bound_ms=many[0], bound_by=many[1], calls=len(fused)))
+    out["step"] = dict(
+        ms=device_ms(lambda: [ops.rms_norm(first, x, eps)]
+                     + [ops.add_rms_norm(w, x, y, eps) for w in fused], 10),
+        before_ms=device_ms(lambda: [ops.rms_norm(first, x, eps)]
+                            + [ops.rms_norm(w, x + y, eps) for w in fused],
+                            10),
+        calls=len(norms))
+    return out
 
 
 def time_paged_attention(cfg, dev, fill, capacity=CAPACITY, n_layers=None):
@@ -2182,6 +2297,34 @@ def time_trit_search(cfg, dev):
                library_ms=None, bound_ms=bound, bound_by=by, bytes=nbytes)
     del w, alpha, t1, t2
     torch.cuda.empty_cache()
+    return out
+
+
+def graph_step(cfg, model, gpu):
+    """qwen2's decode step as ``launch/profile_decode.py`` profiles it: the
+    engine's K-step decode dispatch (8 requests of 512 tokens, past their
+    prefill) replayed from its CUDA graph under ``torch.profiler``:
+    launches, device-busy and host ms a step (its lines are printed), and
+    the hand kernels' launches a step from the graph's own count."""
+    import argparse
+
+    import torch
+
+    from repro_torch.launch import profile_decode as pd
+
+    eng, run = pd.engine_dispatches(
+        model, cfg, argparse.Namespace(kv_layout="ring", page_size=PAGE),
+        True)
+    out = pd.profiled(run, pd.DISPATCHES * pd.STEPS, gpu,
+                      "qwen2-1.5b, ring KV, engine decode dispatch (graph "
+                      "replay)")
+    graph = max(eng._loop_cache.values(), key=lambda g: g.replays)
+    k = next(key[0] for key, g in eng._loop_cache.items() if g is graph)
+    out["K"] = k
+    out["hand"] = {name: n / k for name, n in graph.launches.items() if n}
+    del eng, run, graph
+    gc_free()
+    torch.cuda.synchronize()
     return out
 
 
@@ -2875,6 +3018,9 @@ RWKV_CAPACITY, RWKV_LONG = 4096, 4000
 # value (2^-7) plus 2^-7 (a step of one pre-norm y moves the head's mean
 # and variance, so every element of the head).
 SCAN_TOL = 0.0
+# wkv6 stages a chunk in tiles of 32 steps: this S spans six full tiles and
+# a ragged seventh (the gates and a time), beside the paths' S = 1 and 64
+WKV_LONG = 200
 WKV_TOL = {"float32": (0.0, 1e-4), "bfloat16": (2.0 ** -7, 2.0 ** -7)}
 # how each recurrence kernel's operands are laid out: the state's index,
 # the lengths', the per-step operands (cut per step) and the per-row ones
@@ -2978,20 +3124,22 @@ def check_recurrences(dev):
     rw = configs.get_config("rwkv6-3b")
     nh, hd = rw.d_model // rw.rwkv_head_dim, rw.rwkv_head_dim
     worst = {"rglru_scan": 0.0, "wkv6": 0.0}
-    for s in (1, PREFILL_CHUNK):
-        args = scan_inputs(SLOTS, s, rg.rglru_width, gen, dev)
-        spec = RECURRENCES["rglru_scan"]
-        got, got_h = run_recurrence(scan_ops.rglru_scan_cuda, args, spec)
-        want, want_h = run_recurrence(scan_ref.rglru_scan_plain, args, spec)
-        torch.cuda.synchronize()
-        err = max(float((got - want).abs().max()),
-                  float((got_h - want_h).abs().max()))
-        if not err <= SCAN_TOL:
-            raise AssertionError(f"rglru_scan S={s}: max err {err:.3e} > "
-                                 f"{SCAN_TOL}")
-        worst["rglru_scan"] = max(worst["rglru_scan"], err)
-        recurrence_invariance(scan_ops.rglru_scan_cuda, args, spec,
-                              f"rglru_scan S={s}")
+    for s in (1, PREFILL_CHUNK, WKV_LONG):
+        if s != WKV_LONG:
+            args = scan_inputs(SLOTS, s, rg.rglru_width, gen, dev)
+            spec = RECURRENCES["rglru_scan"]
+            got, got_h = run_recurrence(scan_ops.rglru_scan_cuda, args, spec)
+            want, want_h = run_recurrence(scan_ref.rglru_scan_plain, args,
+                                          spec)
+            torch.cuda.synchronize()
+            err = max(float((got - want).abs().max()),
+                      float((got_h - want_h).abs().max()))
+            if not err <= SCAN_TOL:
+                raise AssertionError(f"rglru_scan S={s}: max err {err:.3e} "
+                                     f"> {SCAN_TOL}")
+            worst["rglru_scan"] = max(worst["rglru_scan"], err)
+            recurrence_invariance(scan_ops.rglru_scan_cuda, args, spec,
+                                  f"rglru_scan S={s}")
         for dtype in (torch.bfloat16, torch.float32):
             args = wkv_inputs(SLOTS, s, nh, hd, dtype, gen, dev)
             spec = RECURRENCES["wkv6"]
@@ -3015,7 +3163,8 @@ def check_recurrences(dev):
     log(f"rglru_scan == plain bit for bit (R {rg.rglru_width}) and wkv6 == "
         f"plain (max abs err {worst['wkv6']:.2e}: f32 within "
         f"{WKV_TOL['float32'][1]}, bf16 within 2^-7·|y| + 2^-7; states bit "
-        f"for bit; {nh} heads of {hd}) at S = 1 and S = {PREFILL_CHUNK} with "
+        f"for bit; {nh} heads of {hd}) at S = 1 and S = {PREFILL_CHUNK} "
+        f"(wkv6 also at S = {WKV_LONG}: six tiles and a ragged seventh) with "
         "ragged and idle rows; rows bit-identical alone and in the batch of "
         "8, and a chunk equal to one step at a time")
     return worst
@@ -3025,10 +3174,12 @@ def time_recurrence(name, dev, n_layers):
     """Kernel and plain times of one kernel's calls in one decode step
     (S = 1) and one prefill dispatch (S = 64) of its model: distinct
     operands per layer (recurrentgemma-2b's 18 RG-LRU layers at width 2560,
-    rwkv6-3b's 32 layers of 40 heads of 64 in bf16), every row full. No
-    single PyTorch call computes either, so library_ms is null. Bound: the
-    bytes each call must move (inputs read once, outputs and state written
-    once) against the f32 operations at 67 TFLOP/s."""
+    rwkv6-3b's 32 layers of 40 heads of 64 in bf16), every row full; for
+    wkv6 also the kernel alone at S = ``WKV_LONG`` (its plain version's
+    graph would hold ~10^5 launches: not timed). No single PyTorch call
+    computes either, so library_ms is null. Bound: the bytes each call must
+    move (inputs read once, outputs and state written once) against the
+    f32 operations at 67 TFLOP/s."""
     import torch
 
     from repro_torch import configs
@@ -3039,7 +3190,10 @@ def time_recurrence(name, dev, n_layers):
 
     gen = torch.Generator(device=dev).manual_seed(21)
     out = {}
-    for key, s, reps in (("decode", 1, 20), ("prefill", PREFILL_CHUNK, 3)):
+    shapes = [("decode", 1, 20), ("prefill", PREFILL_CHUNK, 3)]
+    if name == "wkv6":
+        shapes.append(("long", WKV_LONG, 3))
+    for key, s, reps in shapes:
         if name == "rglru_scan":
             r = configs.get_config("recurrentgemma-2b").rglru_width
             layers = [scan_inputs(SLOTS, s, r, gen, dev)
@@ -3066,8 +3220,8 @@ def time_recurrence(name, dev, n_layers):
         bound, by = bound_ms(nbytes * n_layers, flops * n_layers, F32_FLOPS)
         out[key] = dict(
             ms=device_ms(lambda: [kern(*a) for a in layers], reps),
-            plain_ms=device_ms(lambda: [plain(*a) for a in layers],
-                               max(1, reps // 2)),
+            plain_ms=None if key == "long" else device_ms(
+                lambda: [plain(*a) for a in layers], max(1, reps // 2)),
             library_ms=None, bound_ms=bound, bound_by=by, S=s,
             bytes=nbytes * n_layers)
         del layers
@@ -3182,7 +3336,8 @@ def rwkv_path(dev):
     prompts = make_prompts(cfg)[:N_REQUESTS - 1] + [
         rng.integers(0, cfg.vocab_size, RWKV_LONG).tolist()]
     cap = dict(capacity=RWKV_CAPACITY)
-    path = ("ternary_matvec", "ternary_matmul", "rms_norm", "wkv6")
+    path = ("ternary_matvec", "ternary_matmul", "rms_norm", "add_rms_norm",
+            "wkv6")
     results, counts, eng, wall = fleet_run(model, cfg, prompts, **cap)
     need(counts, path, "(n) rwkv6-3b's ring path")
     if counts["chunk_attention"] or counts["chunk_attention_paged"]:
@@ -3322,11 +3477,14 @@ def slice10_phases(gpu, dev):
              ("rglru_scan S=1", tscan["decode"]),
              ("rglru_scan S=64", tscan["prefill"]),
              ("wkv6 S=1", twkv["decode"]),
-             ("wkv6 S=64", twkv["prefill"])]
+             ("wkv6 S=64", twkv["prefill"]),
+             (f"wkv6 S={WKV_LONG}", twkv["long"])]
     for name, t in named:
         lib = "—" if t["library_ms"] is None else f"{t['library_ms']:.3f} ms"
+        plain = ("not timed" if t["plain_ms"] is None
+                 else f"{t['plain_ms']:.3f} ms")
         log(f"{gpu} | {name}: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.3f} ms, library {lib}, bound "
+            f"{plain}, library {lib}, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}) -> "
             f"{t['bound_ms'] / t['ms']:.1%} of bound")
 
@@ -3400,7 +3558,13 @@ def slice10_phases(gpu, dev):
                   "bf16; launches are the (n) ring path's; replaces an "
                   "XLA-fused lax.scan and _group_norm, not a Pallas kernel; "
                   "no single PyTorch call computes it, so library_ms is "
-                  "null",
+                  f"null; *_S64 and *_S{WKV_LONG}: the same 32 layers at "
+                  f"S = 64 and S = {WKV_LONG}",
+             ms_S64=twkv["prefill"]["ms"],
+             plain_ms_S64=twkv["prefill"]["plain_ms"],
+             bound_ms_S64=twkv["prefill"]["bound_ms"],
+             **{f"ms_S{WKV_LONG}": twkv["long"]["ms"],
+                f"bound_ms_S{WKV_LONG}": twkv["long"]["bound_ms"]},
              **{k: twkv["decode"][k] for k in timed}),
     ]
 
@@ -3417,6 +3581,7 @@ def qwen2_phases(gpu, dev):
     mm_err = check_ternary(cfg, dev)
     attn_err = check_attention(cfg, dev)
     norm_err = check_rms_norm(cfg, dev)
+    fused_err = check_add_rms_norm(dev)
     paged_err = check_paged_attention(cfg, dev)
     decode_err = check_decode_attention(cfg, dev)
     search_err = check_trit_search(cfg, dev)
@@ -3589,6 +3754,8 @@ def qwen2_phases(gpu, dev):
     fill = [len(p) + MAX_NEW // 2 for p in mp["prompts"]]
     tern = time_ternary(model, dev)
     norm = time_rms_norm(model, cfg, dev)
+    gc_free()
+    step = graph_step(cfg, model, gpu)
     del model
     torch.cuda.empty_cache()
     attn = time_attention(cfg, dev, fill)
@@ -3599,7 +3766,9 @@ def qwen2_phases(gpu, dev):
     draw = time_sampling(cfg, dev)
     for name, t in list(tern.items()) + [("chunk_attention/" + k, v)
                                          for k, v in attn.items()] + [
-            ("rms_norm", norm), ("chunk_attention_paged", pattn),
+            ("rms_norm", norm["rms_norm"]),
+            ("add_rms_norm", norm["add_rms_norm"]),
+            ("chunk_attention_paged", pattn),
             ("decode_attention", dattn), ("ptqtp_search", search)]:
         lib_ms = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.3f}"
         log(f"{gpu} | {name}: kernel {t['ms']:.3f} ms, plain "
@@ -3609,6 +3778,21 @@ def qwen2_phases(gpu, dev):
         if "us_per_call" in t:
             log(f"{gpu} | {name} device us per call, by n x d (m = {t['m']}): "
                 + ", ".join(f"{k} {v:.1f}" for k, v in t["us_per_call"].items()))
+    fn, st = norm["add_rms_norm"], norm["step"]
+    log(f"{gpu} | add_rms_norm x {fn['calls']}: library F.rms_norm alone "
+        f"{fn['library_norm_only_ms']:.3f} ms; the {st['calls']} "
+        f"norms of a decode step as the path runs them (1 rms_norm + "
+        f"{fn['calls']} add_rms_norm) {st['ms']:.3f} ms, as before the "
+        f"fusion ({fn['calls']} adds + {st['calls']} rms_norm) "
+        f"{st['before_ms']:.3f} ms")
+    log(f"{gpu} | qwen2 graph decode step (launch/profile_decode.py, the "
+        f"engine's K={step['K']} dispatch replayed): "
+        f"{step['launches_per_step']:.0f} launches/step, device busy "
+        f"{step['device_busy_ms_per_step']:.3f} ms/step, host "
+        f"{step['host_ms_per_step']:.3f} ms/step (before the fused norm, "
+        f"PERF.md §5: 1436 launches, 4.52 ms busy); the graph's hand-kernel "
+        f"launches a step "
+        f"{step['hand']}")
     log(f"{gpu} | sampling per decode step (8 rows x {cfg.vocab_size}): "
         + "; ".join(f"{k} device {v['device_ms']:.3f} ms, host "
                     f"{v['host_ms']:.3f} ms" for k, v in draw.items()))
@@ -3647,10 +3831,29 @@ def qwen2_phases(gpu, dev):
              launches=counts["rms_norm"],
              launches_per_decode_step=mp["per_step"]["rms_norm"],
              max_abs_err=norm_err,
-             work=f"{norm['calls']} norms of one decode step, 8 rows "
-                  "of d=1536, bf16; "
-                  "replaces an XLA-fused function, not a Pallas kernel",
-             **{k: norm[k] for k in timed}),
+             work="the norm after the embedding of one decode step, 8 rows "
+                  "of d=1536, bf16 (the only one no residual add precedes); "
+                  "replaces an XLA-fused function, not a Pallas kernel; "
+                  "library: F.rms_norm",
+             **{k: norm["rms_norm"][k] for k in timed}),
+        dict(name="add_rms_norm", route="cuda",
+             source="src/repro_torch/kernels/rms_norm/csrc/rms_norm.cu",
+             replaces="src/repro/models/common.py:78",
+             launches=counts["add_rms_norm"],
+             launches_per_decode_step=mp["per_step"]["add_rms_norm"],
+             max_abs_err=max(norm_err, fused_err),
+             work=f"the {norm['add_rms_norm']['calls']} norms of one decode "
+                  "step that follow a residual add, each fused with it, 8 "
+                  "rows of d=1536, bf16; replaces the reference's x + y and "
+                  "rms_norm, which XLA fuses (no Pallas kernel); library: "
+                  "x + y then F.rms_norm (F.rms_norm alone in "
+                  "library_norm_only_ms); step_ms: all 57 norms of the step "
+                  "as the path runs them, step_before_ms: 56 adds and 57 "
+                  "rms_norm launches, as before the fusion",
+             library_norm_only_ms=norm["add_rms_norm"]["library_norm_only_ms"],
+             step_ms=norm["step"]["ms"],
+             step_before_ms=norm["step"]["before_ms"],
+             **{k: norm["add_rms_norm"][k] for k in timed}),
         dict(name="chunk_attention_paged", route="cuda",
              source="src/repro_torch/kernels/chunk_attention/csrc/chunk_attention.cu",
              replaces="src/repro/kernels/chunk_attention/kernel.py:149",

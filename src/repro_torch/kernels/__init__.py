@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
 ``ternary_matmul`` (decode matvec + prefill tiled kernel),
-``chunk_attention`` (ring and paged), ``rms_norm``, ``ptqtp_search`` (the
+``chunk_attention`` (ring and paged), ``rms_norm`` (alone, and fused with
+the residual add before it: ``add_rms_norm``), ``ptqtp_search`` (the
 quantizer's trit step), ``decode_attention`` (its op only), and the
 recurrences ``rglru_scan`` and ``wkv6``. CUDA
 sources live under each package's ``csrc/`` and build at first use

@@ -13,14 +13,18 @@ libraries expose plain C functions; tensors cross as ``c_void_p`` from
 here runs at import time, so the package imports on machines without
 ``nvcc``.
 
-Every wrapper counts the launches of its kernel in ``LAUNCHES`` (one per
+Every wrapper counts the launches of its kernel with ``count`` (one per
 launch, nowhere else), so a run can show which kernels the path went
 through; ``device_us`` reads a kernel's device time from ``torch.profiler``.
-A CUDA graph replays its launches without calling a wrapper, and its
-capture calls the wrappers without launching anything: the engine's graphs
-(``repro_torch.serving.graphs``) take their capture's count back out of
-``LAUNCHES`` (``launches_since``, ``add_launches(delta, -1)``) and add it
-at every replay, so ``LAUNCHES`` counts the launches executed.
+``count`` adds to the process-wide ``LAUNCHES`` and to a tally of the
+calling thread. A CUDA graph replays its launches without calling a
+wrapper, and its capture calls the wrappers without launching anything:
+the engine's graphs (``repro_torch.serving.graphs``) read their capture's
+count from the capturing thread's tally (``thread_launch_counts``,
+``launches_since``), so the eager launches of other threads (engines of
+the frontend and the supervisor) stay out of it, take it back out of
+``LAUNCHES`` (``add_launches(delta, -1)``) and add it at every replay, so
+``LAUNCHES`` counts the launches executed.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, List
 
@@ -44,31 +49,59 @@ LAUNCHES: Dict[str, int] = {"ternary_matvec": 0, "ternary_matmul": 0,
                             "ternary_matvec_experts": 0,
                             "ternary_matmul_experts": 0,
                             "chunk_attention": 0, "rms_norm": 0,
+                            "add_rms_norm": 0,
                             "chunk_attention_paged": 0, "decode_attention": 0,
                             "ptqtp_search": 0, "rglru_scan": 0, "wkv6": 0}
 
 _LIBS: Dict[tuple, ctypes.CDLL] = {}
+_LOCK = threading.Lock()        # guards LAUNCHES: threads launch at once
+_THREAD = threading.local()     # .tally: the calling thread's launches
+
+
+def _tally() -> Dict[str, int]:
+    tally = getattr(_THREAD, "tally", None)
+    if tally is None:
+        tally = _THREAD.tally = dict.fromkeys(LAUNCHES, 0)
+    return tally
+
+
+def count(name: str, n: int = 1) -> None:
+    """Count ``n`` launches of kernel ``name`` by the calling thread: in
+    ``LAUNCHES`` and in the thread's own tally."""
+    with _LOCK:
+        LAUNCHES[name] += n
+    _tally()[name] += n
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(LAUNCHES)
+    """Launches per kernel in the whole process."""
+    with _LOCK:
+        return dict(LAUNCHES)
+
+
+def thread_launch_counts() -> Dict[str, int]:
+    """Launches per kernel counted by the calling thread."""
+    return dict(_tally())
 
 
 def launches_since(before: Dict[str, int]) -> Dict[str, int]:
-    """Launches per kernel since ``before`` (a ``launch_counts()``)."""
-    return {k: n - before.get(k, 0) for k, n in LAUNCHES.items()}
+    """The calling thread's launches per kernel since ``before`` (its
+    ``thread_launch_counts()``); other threads' launches are not in it."""
+    return {k: n - before.get(k, 0) for k, n in _tally().items()}
 
 
 def add_launches(delta: Dict[str, int], times: int = 1) -> None:
-    """Add ``times`` × ``delta`` to the counts (a graph's replays, or a
-    negative ``times`` to take a capture's count back out)."""
-    for k, n in delta.items():
-        LAUNCHES[k] += times * n
+    """Add ``times`` × ``delta`` to the process's counts (a graph's
+    replays, or a negative ``times`` to take a capture's count back out)."""
+    with _LOCK:
+        for k, n in delta.items():
+            LAUNCHES[k] += times * n
 
 
 def device_us(evt) -> float:

@@ -193,7 +193,7 @@ def chunk_attention_cuda(q, k_new, v_new, k_cache, k_scale, v_cache, v_scale,
         PART_SLOTS, ROW_TILE, _ref.reach_of(cap, window), float(hd ** -0.5),
         stream)
     _build.check(status, "chunk_attention_launch")
-    _build.LAUNCHES["chunk_attention"] += 1
+    _build.count("chunk_attention")
     return out
 
 
@@ -228,7 +228,7 @@ def chunk_attention_paged_cuda(q, k_new, v_new, k_pool, k_scale, v_pool,
         hd, ps, n_pages, PART_SLOTS, ROW_TILE, _ref.reach_of(cap, window),
         float(hd ** -0.5), stream)
     _build.check(status, "chunk_attention_paged_launch")
-    _build.LAUNCHES["chunk_attention_paged"] += 1
+    _build.count("chunk_attention_paged")
     return out
 
 

@@ -84,7 +84,7 @@ def decode_attention_cuda(q, k8, k_scale, v8, v_scale, pos_buf, pos, *,
         counters.data_ptr(), b, s, kv, g, hd, PART_SLOTS, ROW_TILE,
         int(window) if window else s + 1, float(hd ** -0.5), stream)
     _build.check(status, "decode_attention_launch")
-    _build.LAUNCHES["decode_attention"] += 1
+    _build.count("decode_attention")
     return out
 
 

@@ -62,7 +62,7 @@ def ptqtp_search_cuda(w: torch.Tensor, alpha: torch.Tensor,
         w.data_ptr(), alpha.data_ptr(), t1.data_ptr(), t2.data_ptr(), r, g,
         torch.cuda.current_stream(w.device).cuda_stream)
     _build.check(status, "ptqtp_search_launch")
-    _build.LAUNCHES["ptqtp_search"] += 1
+    _build.count("ptqtp_search")
     return t1, t2
 
 

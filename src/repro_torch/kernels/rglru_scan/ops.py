@@ -52,7 +52,7 @@ def rglru_scan_cuda(a: torch.Tensor, gx: torch.Tensor, h: torch.Tensor,
                                    lengths.data_ptr(), hs.data_ptr(), b, s, r,
                                    stream)
     _build.check(status, "rglru_scan_launch")
-    _build.LAUNCHES["rglru_scan"] += 1
+    _build.count("rglru_scan")
     return hs
 
 

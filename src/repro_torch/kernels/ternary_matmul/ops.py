@@ -151,7 +151,7 @@ def _launch(fn_name, counter, x, t1p, t2p, alpha, group_size, out_dtype):
         int(out_dtype == torch.bfloat16), m, n, d, group_size, max(ne, 1),
         stream)
     _build.check(status, fn_name)
-    _build.LAUNCHES[counter + ("_experts" if ne else "")] += 1
+    _build.count(counter + ("_experts" if ne else ""))
     return y
 
 

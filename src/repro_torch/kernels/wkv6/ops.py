@@ -4,9 +4,10 @@
 
 On CUDA tensors it launches the hand-written Hopper kernel of
 ``csrc/wkv6.cu`` (one block per row and head, the head's state in
-registers, every sum in a fixed order: no ``bmm``, ``torch.mean`` or
-``torch.var`` on the card); on CPU tensors it runs the plain loop of
-``ref.py``. It never falls back from a CUDA tensor to it.
+registers, the chunk staged in shared memory in tiles of 32 steps, every
+sum in a fixed order: no ``bmm``, ``torch.mean`` or ``torch.var`` on the
+card); on CPU tensors it runs the plain loop of ``ref.py``. It never falls
+back from a CUDA tensor to it.
 """
 
 from __future__ import annotations
@@ -32,8 +33,9 @@ def wkv6_cuda(r, k, v, w, u, state, lengths, scale,
               eps: float = GROUP_NORM_EPS) -> torch.Tensor:
     """The Hopper kernel. r, k, v (B, S, H, hd) f32 or bf16 and w (B, S, H,
     hd) f32; u (H, hd) and scale (H·hd,) f32 or bf16; state (B, H, hd, hd)
-    f32, updated in place; lengths (B,) int32; all contiguous on one card.
-    Returns (B, S, H·hd) in r's dtype."""
+    f32, updated in place; lengths (B,) int32; all contiguous on one card,
+    r, k, v and w 16-byte aligned (the kernel stages them in 16-byte
+    copies). Returns (B, S, H·hd) in r's dtype."""
     if r.dim() != 4:
         raise ValueError(f"r must be (B, S, H, hd), got {tuple(r.shape)}")
     b, s, nh, hd = r.shape
@@ -64,6 +66,9 @@ def wkv6_cuda(r, k, v, w, u, state, lengths, scale,
             raise ValueError(f"{name} must be a CUDA tensor on {r.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty((b, s, nh * hd), dtype=r.dtype, device=r.device)
     if out.numel() == 0:
         return out
@@ -75,7 +80,7 @@ def wkv6_cuda(r, k, v, w, u, state, lengths, scale,
         out.data_ptr(), int(r.dtype == torch.bfloat16),
         int(u.dtype == torch.bfloat16), b, s, nh, hd, float(eps), stream)
     _build.check(status, "wkv6_launch")
-    _build.LAUNCHES["wkv6"] += 1
+    _build.count("wkv6")
     return out
 
 

@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import dtype_of, resolve_device
+from repro_torch.kernels.rms_norm.ops import add_rms_norm
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import Dense, RMSNorm, rope_tables
 from repro_torch.models.mlp import MLP
@@ -149,28 +150,43 @@ def _embed(model: Transformer, cfg, tokens):
     return model.embed[tokens.long()].to(dtype_of(cfg.activation_dtype))
 
 
-def _mlp_residual(block: Block, cfg, x, valid=None):
-    """x + the block's FFN of its normed x. ``valid`` marks a prefill
-    chunk's real tokens for the MoE (padding never takes capacity); decode
-    passes none, as the reference's ``_block_decode``."""
-    h = block.mlp_norm(x, cfg.norm_eps)
+def _add_norm(norm: RMSNorm, x, delta, eps):
+    """The residual stream after its pending ``delta`` and the norm of it:
+    (x + delta, norm(x + delta)), one ``add_rms_norm`` launch on the card;
+    with no delta (after the embedding) (x, norm(x))."""
+    if delta is None:
+        return x, norm(x, eps)
+    return add_rms_norm(norm.scale, x, delta, eps)
+
+
+def _mlp_block(block: Block, cfg, x, y, valid=None):
+    """The FFN half of a block on the residual stream x + y: returns (x +
+    y, the FFN's output of its normed sum), the stream and its next pending
+    delta. ``valid`` marks a prefill chunk's real tokens for the MoE
+    (padding never takes capacity); decode passes none, as the reference's
+    ``_block_decode``."""
+    x, h = _add_norm(block.mlp_norm, x, y, cfg.norm_eps)
     if block.moe is not None:
-        return x + moe_forward(block.moe, cfg.moe, h, valid)
-    return x + block.mlp(h)
+        return x, moe_forward(block.moe, cfg.moe, h, valid)
+    return x, block.mlp(h)
 
 
-def _recurrent_block(kind: str, block: Block, cfg, cache, x, lengths):
-    """A recurrent block over a right-padded chunk x (B, S, D): row b's
-    first ``lengths[b]`` steps are real. Its cache advances in place."""
+def _recurrent_block(kind: str, block: Block, cfg, cache, x, delta, lengths):
+    """A recurrent block over a right-padded chunk whose input is x + delta
+    (B, S, D) (delta None: x): row b's first ``lengths[b]`` steps are real.
+    Its cache advances in place. Returns (its input, the pending delta that
+    makes its output), as ``_mlp_block``."""
     eps = cfg.norm_eps
     if kind == "rwkv":
-        x = x + rwkv_time_forward(block.time, block.time_norm(x, eps),
-                                  cache["x_time"], cache["wkv"], lengths)
-        return x + rwkv_channel_forward(block.chan, block.chan_norm(x, eps),
-                                        cache["x_chan"], lengths)
-    x = x + rglru_forward(block.rec, block.rec_norm(x, eps), cache["h"],
-                          cache["conv"], lengths)
-    return _mlp_residual(block, cfg, x)
+        x, h = _add_norm(block.time_norm, x, delta, eps)
+        y = rwkv_time_forward(block.time, h, cache["x_time"], cache["wkv"],
+                              lengths)
+        x, h = _add_norm(block.chan_norm, x, y, eps)
+        return x, rwkv_channel_forward(block.chan, h, cache["x_chan"],
+                                       lengths)
+    x, h = _add_norm(block.rec_norm, x, delta, eps)
+    y = rglru_forward(block.rec, h, cache["h"], cache["conv"], lengths)
+    return _mlp_block(block, cfg, x, y)
 
 
 def _recurrent_cache_init(kind: str, cfg, batch: int, dtype, device
@@ -199,16 +215,19 @@ def forward(model: Transformer, cfg, tokens) -> torch.Tensor:
     rope = (rope_tables(positions[None, :], cfg.head_dim, cfg.rope_theta)
             if has_attention(cfg) else None)
     full = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    delta = None  # the residual stream is x + delta (see decode_step)
     for kind, block in zip(cfg.layer_kinds, model.layers):
         if is_recurrent(kind):
             cache = _recurrent_cache_init(kind, cfg, b, x.dtype, x.device)
-            x = _recurrent_block(kind, block, cfg, cache, x, full)
+            x, delta = _recurrent_block(kind, block, cfg, cache, x, delta,
+                                        full)
             continue
-        x = x + attn_mod.attention_forward(
-            block.attn, cfg, block.attn_norm(x, cfg.norm_eps), positions,
-            rope, window=_window(kind, cfg))
-        x = _mlp_residual(block, cfg, x)
-    return model.lm_head(model.final_norm(x, cfg.norm_eps))
+        x, h = _add_norm(block.attn_norm, x, delta, cfg.norm_eps)
+        y = attn_mod.attention_forward(block.attn, cfg, h, positions, rope,
+                                       window=_window(kind, cfg))
+        x, delta = _mlp_block(block, cfg, x, y)
+    _, h = _add_norm(model.final_norm, x, delta, cfg.norm_eps)
+    return model.lm_head(h)
 
 
 def _layer_cache(kind: str, cfg, batch: int, capacity: int, dtype, device):
@@ -324,16 +343,19 @@ def prefill_chunk(model: Transformer, cfg, state, tokens, lengths
              if cfg.moe is not None else None)
     rope = (rope_tables(positions, cfg.head_dim, cfg.rope_theta)
             if has_attention(cfg) else None)
+    delta = None  # the residual stream is x + delta (see decode_step)
     for kind, block, cache in zip(cfg.layer_kinds, model.layers,
                                   state["layers"]):
         if is_recurrent(kind):
-            x = _recurrent_block(kind, block, cfg, cache, x, lengths)
+            x, delta = _recurrent_block(kind, block, cfg, cache, x, delta,
+                                        lengths)
             continue
+        x, h = _add_norm(block.attn_norm, x, delta, cfg.norm_eps)
         y, _ = attn_mod.attention_prefill_chunk(
-            block.attn, cfg, cache, block.attn_norm(x, cfg.norm_eps),
-            positions, lengths, rope, window=_window(kind, cfg))
-        x = _mlp_residual(block, cfg, x + y, valid)
-    x = model.final_norm(x, cfg.norm_eps)
+            block.attn, cfg, cache, h, positions, lengths, rope,
+            window=_window(kind, cfg))
+        x, delta = _mlp_block(block, cfg, x, y, valid)
+    _, x = _add_norm(model.final_norm, x, delta, cfg.norm_eps)
     idx = torch.clamp(lengths - 1, min=0).long()
     x_last = x[torch.arange(b, device=x.device), idx]
     pos0.add_(lengths)
@@ -346,23 +368,32 @@ def decode_step(model: Transformer, cfg, state, tokens,
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step. tokens (B,) int; rows with active=False are frozen:
     their position and cache pass through unchanged (a recurrent layer runs
-    the step with length 0)."""
+    the step with length 0).
+
+    The residual stream is carried as x and a pending delta (the last
+    block's attention, FFN or mixer output): each norm that follows a
+    residual add takes both (``add_rms_norm``, one launch on the card), as
+    ``prefill_chunk`` and ``forward`` do; the sums are the reference's."""
     x = _embed(model, cfg, tokens)
     pos = state["pos"]
     steps = (active.to(torch.int32) if active is not None
              else torch.ones_like(pos))
     rope = (rope_tables(pos, cfg.head_dim, cfg.rope_theta)
             if has_attention(cfg) else None)
+    delta = None
     for kind, block, cache in zip(cfg.layer_kinds, model.layers,
                                   state["layers"]):
         if is_recurrent(kind):
-            x = _recurrent_block(kind, block, cfg, cache, x[:, None],
-                                 steps)[:, 0]
+            x, delta = _recurrent_block(
+                kind, block, cfg, cache, x[:, None],
+                None if delta is None else delta[:, None], steps)
+            x, delta = x[:, 0], delta[:, 0]
             continue
+        x, h = _add_norm(block.attn_norm, x, delta, cfg.norm_eps)
         y, _ = attn_mod.attention_decode(
-            block.attn, cfg, cache, block.attn_norm(x, cfg.norm_eps), pos,
-            rope, window=_window(kind, cfg), active=active)
-        x = _mlp_residual(block, cfg, x + y)
-    x = model.final_norm(x, cfg.norm_eps)
+            block.attn, cfg, cache, h, pos, rope, window=_window(kind, cfg),
+            active=active)
+        x, delta = _mlp_block(block, cfg, x, y)
+    _, x = _add_norm(model.final_norm, x, delta, cfg.norm_eps)
     pos.add_(steps)
     return model.lm_head(x), state

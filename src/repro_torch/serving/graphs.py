@@ -21,9 +21,11 @@ cache, positions) keeps its storage between calls (``models.transformer``).
     with one non-blocking copy from pinned memory, replays the graph on the
     current stream (the engine's) and returns ``out``, which the next
     replay overwrites;
-  * ``launches``, the kernel launches the capture recorded, leave
-    ``kernels._build.LAUNCHES`` at the capture and are added back at every
-    replay, so the counts stay "launches executed".
+  * ``launches``, the kernel launches the capture recorded (counted on
+    the capturing thread alone: other threads' eager launches meanwhile
+    are not the graph's), leave ``kernels._build.LAUNCHES`` at the capture
+    and are added back at every replay, so the counts stay "launches
+    executed".
 
 ``EagerDispatch`` runs the same body without a graph: on the CPU (where it
 is the only path), and on the card when the engine's capture is switched
@@ -190,7 +192,7 @@ class GraphDispatch:
             (warm or body)(upload(idle, dev))
             self.graph = torch.cuda.CUDAGraph()
             with CAPTURE_LOCK:
-                before = _build.launch_counts()
+                before = _build.thread_launch_counts()
                 t0 = rtclock.now()
                 # no automatic garbage collection while capturing: a dead
                 # engine (an engine and its metrics registry hold each

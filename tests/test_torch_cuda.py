@@ -16,7 +16,8 @@ decode and prefill matmul kernels give bit-identical rows, also for
 windows of x off the kernels' 8-token grid and at ragged m and n, the paged
 attention kernel equals the ring kernel on the gathered ring, the trit
 search equals its plain version, the norm kernel's rows do not depend on
-how many rows share the call, and the engine's greedy streams do not
+how many rows share the call, the fused add and norm gives PyTorch's add
+and the norm kernel's result of it, and the engine's greedy streams do not
 depend on the fleet, for the ring and the paged layout. The split-KV
 attention kernel gives a row the same bits alone and in a batch of 8 with
 other fills, in an L = 1 call and at l = 0 of an L = 64 call with length 1,
@@ -42,7 +43,8 @@ The recurrences (``rglru_scan``, ``wkv6``) equal their plain versions
 (the scans' states exactly: a product and a sum a step, rounded on their
 own in both; the wkv6 readout f32 within 1e-4, bf16 within one bf16 step
 plus 2^-7: its sums run in another order), give a row the same bits alone
-and in a batch, and a chunk the bits of one step at a time; the recurrent
+and in a batch, and a chunk the bits of one step at a time (wkv6 also over
+several of its 32-step tiles with a ragged last one); the recurrent
 smoke models serve the same streams alone, in the fleet and on the paged
 layout.
 """
@@ -256,6 +258,32 @@ def test_rms_norm_matches_plain_and_is_batch_invariant(cuda, dtype,
                                              1e-6), got[b, l])
 
 
+@pytest.mark.parametrize("d", [64, 1536, 2560, 5376, 16384])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add_rms_norm_equals_add_then_norm(cuda, dtype, scale_dtype, d):
+    """x + delta equals PyTorch's add and h the norm kernel's rms_norm of
+    it, bit for bit, at the models' widths (a lane's registers hold the row
+    up to 8192 bf16 / 4096 f32 values; wider rows take two passes); h is
+    within the norm's tolerance of the plain version, and a row gives the
+    same bits whatever call it sits in."""
+    rng = np.random.default_rng(d)
+    x, y = (torch.from_numpy(rng.standard_normal((8, 16, d)).astype(
+        np.float32)).to(cuda, dtype) for _ in range(2))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, (d,)).astype(
+        np.float32)).to(cuda, scale_dtype)
+    got_sum, got = norm_ops.add_rms_norm(scale, x, y, 1e-6)
+    assert torch.equal(got_sum, x + y)
+    assert torch.equal(got, norm_ops.rms_norm(scale, got_sum, 1e-6))
+    _, want = norm_ref.add_rms_norm_plain(scale, x, y, 1e-6)
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    for b, l in ((slice(None), slice(0, 1)), (slice(3, 4), slice(7, 8))):
+        s2, h2 = norm_ops.add_rms_norm(scale, x[b, l].contiguous(),
+                                       y[b, l].contiguous(), 1e-6)
+        assert torch.equal(s2, got_sum[b, l]) and torch.equal(h2, got[b, l])
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])  # FMA, tensor cores
 def test_engine_runs_kernels_and_is_fleet_invariant(cuda, dtype):
     cfg = dataclasses.replace(configs.get_smoke_config("qwen2-1.5b"),
@@ -282,7 +310,7 @@ def test_engine_runs_kernels_and_is_fleet_invariant(cuda, dtype):
     fleet = serve(prompts, 4)
     counts = launch_counts()
     ring_path = ("ternary_matvec", "ternary_matmul", "chunk_attention",
-                 "rms_norm")
+                 "rms_norm", "add_rms_norm")
     assert all(counts[k] > 0 for k in ring_path), counts
     for i in (2, 3):
         assert serve(prompts[i:i + 1], 1)[0] == fleet[i]
@@ -793,6 +821,36 @@ def test_replays_count_the_launches_they_run(cuda):
     assert counts["chunk_attention"] == 3 * 4 * cfg.n_layers
 
 
+def test_capture_counts_only_the_capturing_threads_launches(cuda):
+    """Another thread launches kernels eagerly all through a capture: the
+    graph's count holds the body's launches alone."""
+    scale = torch.ones(64, device=cuda)
+    x, other_x = (torch.randn(4, 64, device=cuda) for _ in range(2))
+    norm_ops.add_rms_norm(scale, other_x, other_x)  # loaded before the race
+    stop, running = threading.Event(), threading.Event()
+
+    def other():
+        while not stop.is_set():
+            norm_ops.add_rms_norm(scale, other_x, other_x)
+            running.set()
+
+    def body(inp):
+        return norm_ops.rms_norm(scale, norm_ops.rms_norm(scale, x))
+
+    worker = threading.Thread(target=other)
+    worker.start()
+    try:
+        assert running.wait(30)
+        graph = GraphDispatch(body, np.zeros((4,), np.int32), device=cuda,
+                              stream=torch.cuda.Stream(),
+                              pool=torch.cuda.graph_pool_handle())
+    finally:
+        stop.set()
+        worker.join(30)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in graph.launches.items() if n} == {"rms_norm": 2}
+
+
 def test_capture_survives_collecting_dead_engines(cuda):
     """An engine and its metrics registry hold each other, so a dropped
     engine (and its graphs) waits for the garbage collector. A collection
@@ -1041,7 +1099,7 @@ def test_rglru_scan_matches_plain_and_is_invariant(cuda, s):
     assert torch.equal(got, want) and torch.equal(got_h, want_h)
 
 
-@pytest.mark.parametrize("s", [1, 7])
+@pytest.mark.parametrize("s", [1, 7, 70])   # 70: two tiles of 32, a ragged third
 @pytest.mark.parametrize("hd", [16, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wkv6_matches_plain_and_is_invariant(cuda, dtype, hd, s):
@@ -1095,7 +1153,7 @@ def test_recurrent_engines_are_fleet_and_layout_invariant(cuda, arch):
     reset_launch_counts()
     fleet = serve(prompts, 4)
     counts = launch_counts()
-    path = ["ternary_matvec", "rms_norm",
+    path = ["ternary_matvec", "rms_norm", "add_rms_norm",
             "wkv6" if arch == "rwkv6-3b" else "rglru_scan"]
     assert all(counts[k] > 0 for k in path), counts
     for i in (2, 3):

@@ -243,8 +243,9 @@ def test_state_tensors_keep_their_storage(both, layout):
 def test_launch_accounting_of_replays():
     """A capture's launches leave the counts; each replay adds them back."""
     before = _build.launch_counts()
-    _build.LAUNCHES["rms_norm"] += 3
-    delta = _build.launches_since(before)
+    mine = _build.thread_launch_counts()
+    _build.count("rms_norm", 3)
+    delta = _build.launches_since(mine)
     assert delta["rms_norm"] == 3 and sum(delta.values()) == 3
     _build.add_launches(delta, -1)
     assert _build.launch_counts() == before
