@@ -144,7 +144,8 @@ the phases above:
 Since slice 10 (the recurrent decoders), after the phases above:
 
  22. (p) the recurrences' hand kernels against their plain versions at the
-     paths' shapes: ``rglru_scan`` (8 rows of width 2560) and ``wkv6`` (8
+     paths' shapes: ``rglru_scan`` (8 rows of width 2560; since slice 12
+     the fused gate-and-scan, item 30) and ``wkv6`` (8
      rows of 40 heads of 64, bf16 and f32) at decode (S = 1) and prefill
      (S = 64) shapes with ragged and idle rows: the states bit for bit, the
      wkv6 readout within its tolerance; a row alone equals its row in the
@@ -197,6 +198,32 @@ shared memory), within the phases above:
      decode step as ``launch/profile_decode.py`` profiles it (launches
      and device-busy ms a step).
 
+Since slice 12 (the RG-LRU's gate-and-scan in one launch, the
+stub-frontend archs), within and after the phases above:
+
+ 30. (p) ``rglru_scan`` is the RG-LRU's whole gate-and-scan (the gates'
+     biases and sigmoids, a, its input multiplier, the scan, the GELU and
+     the output gate): held against its plain version at 8 rows of 2560
+     in 10 blocks, S = 1, 64 and 200, bf16 and f32, output and h bit for
+     bit, rows alone == batch and a chunk == steps; timed at S = 1 and 64
+     for (m)'s 18 layers beside its plain version and the composition it
+     replaced (the same ops one by one around the scan-alone kernel); and
+     (m)'s graph decode step profiled as ``launch/profile_decode.py
+     --arch recurrentgemma-2b`` profiles it (launches, device-busy ms);
+ 31. (q) musicgen-large at full width and depth (48 layers, d 2048, 32
+     heads of 64, d_ff 8192, GELU, vocab 2048) and phi-3-vision-4.2b at
+     full width, 8 of 32 layers (d 3072, hd 96, vocab 32064), bf16,
+     quantized on the card: 8 rows of 64-600 seeded N(0, 1) frame
+     embeddings through ``prefill_chunk`` in chunks of 64 on a ring of
+     1024, then 32 ``decode_step`` calls on the next embeddings, eager
+     (the engine takes token ids): every kernel of the path launches (B1,
+     B3, B2, the norm), the longest and the shortest row alone give the
+     batch's logits bit for bit, the last decode step's logits agree with
+     one 32-step prefill chunk of the same embeddings (``STUB_TOL``);
+     prefill tok/s, decode ms a step and quantize seconds; B2 at hd 64
+     and 96 (one query head a kv head) against its plain version; B1 and
+     B3 at musicgen-large's layers and B2 at both head dims timed.
+
 Each phase's engines and graph pools are freed before the next; the run's
 total seconds are printed.
 
@@ -208,6 +235,7 @@ checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -2301,9 +2329,9 @@ def time_trit_search(cfg, dev):
 
 
 def graph_step(cfg, model, gpu):
-    """qwen2's decode step as ``launch/profile_decode.py`` profiles it: the
-    engine's K-step decode dispatch (8 requests of 512 tokens, past their
-    prefill) replayed from its CUDA graph under ``torch.profiler``:
+    """A model's decode step as ``launch/profile_decode.py`` profiles it:
+    the engine's K-step decode dispatch (8 requests of 512 tokens, past
+    their prefill) replayed from its CUDA graph under ``torch.profiler``:
     launches, device-busy and host ms a step (its lines are printed), and
     the hand kernels' launches a step from the graph's own count."""
     import argparse
@@ -2316,7 +2344,7 @@ def graph_step(cfg, model, gpu):
         model, cfg, argparse.Namespace(kv_layout="ring", page_size=PAGE),
         True)
     out = pd.profiled(run, pd.DISPATCHES * pd.STEPS, gpu,
-                      "qwen2-1.5b, ring KV, engine decode dispatch (graph "
+                      f"{cfg.name}, ring KV, engine decode dispatch (graph "
                       "replay)")
     graph = max(eng._loop_cache.values(), key=lambda g: g.replays)
     k = next(key[0] for key, g in eng._loop_cache.items() if g is graph)
@@ -3024,8 +3052,10 @@ WKV_LONG = 200
 WKV_TOL = {"float32": (0.0, 1e-4), "bfloat16": (2.0 ** -7, 2.0 ** -7)}
 # how each recurrence kernel's operands are laid out: the state's index,
 # the lengths', the per-step operands (cut per step) and the per-row ones
+# (rglru_scan: the gate products ya, yx as (B, S, R), c, g, h, lengths)
 RECURRENCES = {
-    "rglru_scan": dict(state=2, lengths=3, steps=(0, 1), rows=(0, 1, 2, 3)),
+    "rglru_scan": dict(state=4, lengths=5, steps=(0, 1, 2, 3),
+                       rows=(0, 1, 2, 3, 4, 5)),
     "wkv6": dict(state=5, lengths=6, steps=(0, 1, 2, 3),
                  rows=(0, 1, 2, 3, 5, 6)),
 }
@@ -3036,16 +3066,61 @@ def recurrent_lengths(s):
     return [s, max(s - 3, 0), 0, s, 1, s, s // 2, s]
 
 
-def scan_inputs(b, s, r, gen, dev):
-    """``rglru_scan`` operands: a ∈ (0.01, 0.99), gx ~ 0.1, h ~ 1."""
+# operations of the fused RG-LRU a (row, step, channel), each
+# transcendental one: 2 bias adds, 2 sigmoids (exp, add, divide), -8·sp·r,
+# exp, 2·log a, exp, 1 − ·, max, sqrt, i·c, the product, the scan's product
+# and sum, the tanh-GELU (x³ in 2, an FMA as 2, β·, tanh, 1 +, 2 products)
+# and the output's product
+GATED_OPS = 30
+
+
+def gate_blocks(y, n_blocks):
+    """(B, S, R) → the gates' batched-product layout (n_blocks, B·S, rb),
+    its blocks a 128-row multiple apart, as ``bmm_fixed_rows`` returns."""
     import torch
 
-    a = torch.rand((b, s, r), generator=gen, device=dev) * 0.98 + 0.01
-    gx = torch.randn((b, s, r), generator=gen, device=dev) * 0.1
-    h = torch.randn((b, r), generator=gen, device=dev)
-    lengths = torch.tensor(recurrent_lengths(s), dtype=torch.int32,
-                           device=dev)
-    return [a, gx, h, lengths]
+    b, s, r = y.shape
+    m = b * s
+    buf = torch.zeros((n_blocks, -(-m // 128) * 128, r // n_blocks),
+                      dtype=y.dtype, device=y.device)
+    buf[:, :m] = y.reshape(m, n_blocks, r // n_blocks).transpose(0, 1)
+    return buf[:, :m]
+
+
+def gated_inputs(s, dtype, gen, dev):
+    """The fused ``rglru_scan``'s operands at recurrentgemma-2b's width
+    (8 rows of 2560 in 10 blocks): ya, yx, c, g ~ N(0, 1) as (B, S, R) in
+    ``dtype``, h ~ N(0, 1), the ragged and idle rows' lengths; and
+    ``route(fn)``, which calls the kernel or a plain version on them with
+    the gates in their batched-product layout, biases ~ N(0, 0.1) and Λ
+    as the model initialises it (``route.operands(args)``: those
+    arguments, for timing)."""
+    import torch
+
+    from repro_torch import configs
+
+    cfg = configs.get_config("recurrentgemma-2b")
+    r, nb = cfg.rglru_width, cfg.rglru_blocks
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    ba, bx = rnd(r, std=0.1), rnd(r, std=0.1)
+    lam = torch.linspace(-4.3, -0.7, r, device=dev).to(dtype)
+    args = [rnd(SLOTS, s, r), rnd(SLOTS, s, r), rnd(SLOTS, s, r),
+            rnd(SLOTS, s, r), torch.randn((SLOTS, r), generator=gen,
+                                          device=dev),
+            torch.tensor(recurrent_lengths(s), dtype=torch.int32, device=dev)]
+
+    def operands(ya, yx, c, g, h, lengths):
+        return [gate_blocks(ya, nb), gate_blocks(yx, nb), ba, bx, c, g, lam,
+                h, lengths]
+
+    def route(fn, **kw):
+        return lambda *a: fn(*operands(*a), **kw)
+
+    route.operands = lambda a: operands(*a)
+    return args, route
 
 
 def wkv_inputs(b, s, nh, hd, dtype, gen, dev):
@@ -3104,13 +3179,14 @@ def recurrence_invariance(kern, args, spec, what):
 
 
 def check_recurrences(dev):
-    """(p) ``rglru_scan`` and ``wkv6`` against their plain versions on the
-    card at the (m)/(n) paths' shapes: 8 rows at decode (S = 1) and of a
-    prefill dispatch (S = 64), ragged and idle rows among them;
-    recurrentgemma-2b's RG-LRU width 2560; rwkv6-3b's 40 heads of 64, bf16
-    (the served dtype) and f32 (the smoke artifacts'). Then their batch and
-    chunk invariance (``recurrence_invariance``). Returns the largest
-    errors {kernel: max abs err}."""
+    """(p) ``rglru_scan`` (the fused gate-and-scan) and ``wkv6`` against
+    their plain versions on the card at the (m)/(n) paths' shapes: 8 rows
+    at decode (S = 1), of a prefill dispatch (S = 64) and at S = 200,
+    ragged and idle rows among them; recurrentgemma-2b's RG-LRU width 2560
+    in 10 blocks; rwkv6-3b's 40 heads of 64; bf16 (the served dtype) and
+    f32 (the smoke artifacts'). Then their batch and chunk invariance
+    (``recurrence_invariance``). Returns the largest errors {kernel: max
+    abs err}."""
     import torch
 
     from repro_torch import configs
@@ -3125,21 +3201,22 @@ def check_recurrences(dev):
     nh, hd = rw.d_model // rw.rwkv_head_dim, rw.rwkv_head_dim
     worst = {"rglru_scan": 0.0, "wkv6": 0.0}
     for s in (1, PREFILL_CHUNK, WKV_LONG):
-        if s != WKV_LONG:
-            args = scan_inputs(SLOTS, s, rg.rglru_width, gen, dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            args, route = gated_inputs(s, dtype, gen, dev)
             spec = RECURRENCES["rglru_scan"]
-            got, got_h = run_recurrence(scan_ops.rglru_scan_cuda, args, spec)
-            want, want_h = run_recurrence(scan_ref.rglru_scan_plain, args,
-                                          spec)
+            kern = route(scan_ops.rglru_gated_scan_cuda)
+            got, got_h = run_recurrence(kern, args, spec)
+            want, want_h = run_recurrence(
+                route(scan_ref.rglru_gated_scan_plain), args, spec)
             torch.cuda.synchronize()
-            err = max(float((got - want).abs().max()),
+            err = max(float((got.float() - want.float()).abs().max()),
                       float((got_h - want_h).abs().max()))
             if not err <= SCAN_TOL:
-                raise AssertionError(f"rglru_scan S={s}: max err {err:.3e} "
-                                     f"> {SCAN_TOL}")
+                raise AssertionError(f"rglru_scan S={s} {dtype}: max err "
+                                     f"{err:.3e} > {SCAN_TOL}")
             worst["rglru_scan"] = max(worst["rglru_scan"], err)
-            recurrence_invariance(scan_ops.rglru_scan_cuda, args, spec,
-                                  f"rglru_scan S={s}")
+            recurrence_invariance(kern, args, spec,
+                                  f"rglru_scan S={s} {dtype}")
         for dtype in (torch.bfloat16, torch.float32):
             args = wkv_inputs(SLOTS, s, nh, hd, dtype, gen, dev)
             spec = RECURRENCES["wkv6"]
@@ -3160,21 +3237,24 @@ def check_recurrences(dev):
             worst["wkv6"] = max(worst["wkv6"], float(diff.max()))
             recurrence_invariance(wkv_ops.wkv6_cuda, args, spec,
                                   f"wkv6 S={s} {dtype}")
-    log(f"rglru_scan == plain bit for bit (R {rg.rglru_width}) and wkv6 == "
-        f"plain (max abs err {worst['wkv6']:.2e}: f32 within "
+    log(f"rglru_scan (the fused gate-and-scan, bf16 and f32) == plain bit "
+        f"for bit (R {rg.rglru_width} in {rg.rglru_blocks} blocks) and wkv6 "
+        f"== plain (max abs err {worst['wkv6']:.2e}: f32 within "
         f"{WKV_TOL['float32'][1]}, bf16 within 2^-7·|y| + 2^-7; states bit "
-        f"for bit; {nh} heads of {hd}) at S = 1 and S = {PREFILL_CHUNK} "
-        f"(wkv6 also at S = {WKV_LONG}: six tiles and a ragged seventh) with "
-        "ragged and idle rows; rows bit-identical alone and in the batch of "
-        "8, and a chunk equal to one step at a time")
+        f"for bit; {nh} heads of {hd}) at S = 1, S = {PREFILL_CHUNK} and S "
+        f"= {WKV_LONG} (six 32-step tiles and a ragged seventh) with ragged "
+        "and idle rows; rows bit-identical alone and in the batch of 8, and "
+        "a chunk equal to one step at a time")
     return worst
 
 
 def time_recurrence(name, dev, n_layers):
     """Kernel and plain times of one kernel's calls in one decode step
     (S = 1) and one prefill dispatch (S = 64) of its model: distinct
-    operands per layer (recurrentgemma-2b's 18 RG-LRU layers at width 2560,
-    rwkv6-3b's 32 layers of 40 heads of 64 in bf16), every row full; for
+    operands per layer (recurrentgemma-2b's 18 RG-LRU layers at width 2560
+    in bf16, rwkv6-3b's 32 layers of 40 heads of 64 in bf16), every row
+    full; for rglru_scan also the composition the fused kernel replaced
+    (its plain version's ops around the scan-alone kernel); for
     wkv6 also the kernel alone at S = ``WKV_LONG`` (its plain version's
     graph would hold ~10^5 launches: not timed). No single PyTorch call
     computes either, so library_ms is null. Bound: the bytes each call must
@@ -3194,20 +3274,32 @@ def time_recurrence(name, dev, n_layers):
     if name == "wkv6":
         shapes.append(("long", WKV_LONG, 3))
     for key, s, reps in shapes:
+        composed = None
         if name == "rglru_scan":
             r = configs.get_config("recurrentgemma-2b").rglru_width
-            layers = [scan_inputs(SLOTS, s, r, gen, dev)
-                      for _ in range(n_layers)]
-            kern, plain = scan_ops.rglru_scan_cuda, scan_ref.rglru_scan_plain
+            layers = []
+            for _ in range(n_layers):
+                args, route = gated_inputs(s, torch.bfloat16, gen, dev)
+                args[RECURRENCES[name]["lengths"]].fill_(s)
+                layers.append(route.operands(args))
+            kern = scan_ops.rglru_gated_scan_cuda
+            plain = scan_ref.rglru_gated_scan_plain
+            # the composition the kernel replaced: the same ops one by one
+            # around the scan-alone kernel
+            composed = functools.partial(plain, scan=scan_ops.rglru_scan)
             n = SLOTS * s * r
-            nbytes = 12 * n + 8 * SLOTS * r + 4 * SLOTS
-            flops = 2 * n
+            # ya, yx, c, g read and the output written in bf16; h read and
+            # written; lengths; lam and the two biases
+            nbytes = 5 * 2 * n + 8 * SLOTS * r + 4 * SLOTS + 3 * 2 * r
+            flops = GATED_OPS * n
         else:
             cfg = configs.get_config("rwkv6-3b")
             hd = cfg.rwkv_head_dim
             nh = cfg.d_model // hd
             layers = [wkv_inputs(SLOTS, s, nh, hd, torch.bfloat16, gen, dev)
                       for _ in range(n_layers)]
+            for a in layers:
+                a[RECURRENCES[name]["lengths"]].fill_(s)
             kern, plain = wkv_ops.wkv6_cuda, wkv_ref.wkv6_plain
             n = SLOTS * s * nh * hd
             nbytes = (3 * 2 + 4 + 2) * n + 2 * SLOTS * nh * hd * hd * 4 \
@@ -3215,8 +3307,6 @@ def time_recurrence(name, dev, n_layers):
             # a head and step: y_j = sum_i r_i S_ij + v_j sum_i r_i u_i k_i
             # (2 hd^2), S = w S + k v (3 hd^2), the readout and norm O(hd)
             flops = SLOTS * s * nh * (5 * hd * hd + 12 * hd)
-        for a in layers:
-            a[RECURRENCES[name]["lengths"]].fill_(s)
         bound, by = bound_ms(nbytes * n_layers, flops * n_layers, F32_FLOPS)
         out[key] = dict(
             ms=device_ms(lambda: [kern(*a) for a in layers], reps),
@@ -3224,6 +3314,9 @@ def time_recurrence(name, dev, n_layers):
                 lambda: [plain(*a) for a in layers], max(1, reps // 2)),
             library_ms=None, bound_ms=bound, bound_by=by, S=s,
             bytes=nbytes * n_layers)
+        if composed is not None:
+            out[key]["composition_ms"] = device_ms(
+                lambda: [composed(*a) for a in layers], reps)
         del layers
         gc_free()
     return out
@@ -3420,6 +3513,7 @@ def slice10_phases(gpu, dev):
         f"{time.perf_counter() - t0:.1f}s")
     rfill = [min(len(p), RG_CAPACITY) + MAX_NEW // 2 for p in mp["prompts"]]
     rtern = time_ternary(mp["model"], dev)
+    rstep = graph_step(rcfg, mp["model"], gpu)
     del mp["model"]
     gc_free()
     rattn = time_attention_layers(rcfg, dev, rfill, RG_CAPACITY)
@@ -3487,6 +3581,19 @@ def slice10_phases(gpu, dev):
             f"{plain}, library {lib}, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}) -> "
             f"{t['bound_ms'] / t['ms']:.1%} of bound")
+    for key in ("decode", "prefill"):
+        t = tscan[key]
+        log(f"{gpu} | rglru_scan S={t['S']}: the composition it replaced "
+            f"(the same ops one by one around the scan-alone kernel) "
+            f"{t['composition_ms']:.4f} ms against the fused kernel's "
+            f"{t['ms']:.4f} ms ({n_rec} layers)")
+    log(f"{gpu} | recurrentgemma-2b graph decode step (launch/"
+        f"profile_decode.py's dispatch, K={rstep['K']}): "
+        f"{rstep['launches_per_step']:.0f} launches/step, device busy "
+        f"{rstep['device_busy_ms_per_step']:.3f} ms/step, host "
+        f"{rstep['host_ms_per_step']:.3f} ms/step; by column "
+        f"{rstep['columns_ms']}; the graph's hand-kernel launches a step "
+        f"{rstep['hand']}")
 
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     src = "src/repro_torch/kernels/ternary_matmul/csrc/ternary_matmul.cu"
@@ -3538,14 +3645,28 @@ def slice10_phases(gpu, dev):
             "paged path's; library: SDPA on the gathered ring"),
         dict(name="rglru_scan", route="cuda",
              source="src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
-             replaces="src/repro/models/rglru.py:75",
+             replaces="src/repro/models/rglru.py:117",
              launches=mp["counts"]["rglru_scan"],
              launches_per_decode_step=mp["per_step"]["rglru_scan"],
              max_abs_err=rerr["rglru_scan"],
-             work=f"the {n_rec} RG-LRU scans of one (m) decode step, 8 rows "
-                  "of width 2560, S=1; launches are the (m) ring path's; "
-                  "replaces an XLA-fused lax.scan, not a Pallas kernel; no "
-                  "single PyTorch call computes it, so library_ms is null",
+             work=f"the {n_rec} RG-LRU gate-and-scans of one (m) decode "
+                  "step (the gates' biases and sigmoids, a, its input "
+                  "multiplier, the scan, the GELU and the output gate), 8 "
+                  "rows of width 2560, S=1, bf16; launches are the (m) ring "
+                  "path's; replaces the XLA-fused gates and lax.scan "
+                  "(src/repro/models/rglru.py:117-124, _lru_scan :75), not "
+                  "a Pallas kernel; no single PyTorch call computes it, so "
+                  "library_ms is null; composition_ms: the same ops one by "
+                  "one around the scan-alone kernel (the route before); "
+                  "*_S64: the same 18 layers at S = 64",
+             composition_ms=tscan["decode"]["composition_ms"],
+             ms_S64=tscan["prefill"]["ms"],
+             plain_ms_S64=tscan["prefill"]["plain_ms"],
+             bound_ms_S64=tscan["prefill"]["bound_ms"],
+             composition_ms_S64=tscan["prefill"]["composition_ms"],
+             graph_step=dict((k, rstep[k]) for k in (
+                 "launches_per_step", "device_busy_ms_per_step",
+                 "host_ms_per_step", "columns_ms", "hand")),
              **{k: tscan["decode"][k] for k in timed}),
         dict(name="wkv6", route="cuda",
              source="src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
@@ -3567,6 +3688,236 @@ def slice10_phases(gpu, dev):
                 f"bound_ms_S{WKV_LONG}": twkv["long"]["bound_ms"]},
              **{k: twkv["decode"][k] for k in timed}),
     ]
+
+
+# ------------------------------------------------------ phase (q): slice 12
+# the stub-frontend archs, (arch, layers kept: None is every layer)
+STUB_ARCHS = (("musicgen-large", None), ("phi-3-vision-4.2b", 8))
+STUB_DECODE = 32
+# decode == prefill: the logits after 32 decode steps against one 32-step
+# prefill chunk of the same embeddings from the same state, within
+# STUB_TOL of each row's largest |logit| (8 bf16 steps of it): both run
+# every layer's ternary rows on one program (B1 and B3 bit for bit), but
+# the chunk's attention sums its in-chunk keys in another order than the
+# ring reads of 32 decode steps, and the bf16 activations round the
+# difference at every layer (the bf16 logits alone are a step apart)
+STUB_TOL = 2.0 ** -4
+
+
+def stub_prompts(cfg, dev):
+    """8 prompts of 64-600 seeded N(0, 1) frame embeddings (the first 2·64
+    + 1 long, the second 600) as one (8, 600, D) tensor with their lengths,
+    and the 32 decode steps' embeddings (32, 8, D); bf16 as the model's
+    activations."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 12)
+    lens = rng.integers(64, 601, N_REQUESTS)
+    lens[0], lens[1] = 2 * PREFILL_CHUNK + 1, 600
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    emb = torch.randn((N_REQUESTS, int(lens.max()), cfg.d_model),
+                      generator=gen, device=dev).to(torch.bfloat16)
+    dec = torch.randn((STUB_DECODE, N_REQUESTS, cfg.d_model), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    return emb, [int(n) for n in lens], dec
+
+
+def clone_state(state):
+    return {"pos": state["pos"].clone(),
+            "layers": [{k: v.clone() for k, v in c.items()}
+                       for c in state["layers"]]}
+
+
+def stub_run(model, cfg, emb, lens, dec, rows, dev):
+    """``rows`` of the prompts through ``prefill_chunk`` in chunks of up to
+    64 on a fresh ring of capacity 1024, then 32 ``decode_step`` calls on
+    the next embeddings, eager. Returns each row's prefill logits, the
+    decode logits (32, rows, V), the state after the prefill, and the
+    prefill and decode seconds (synchronised)."""
+    import torch
+
+    from repro_torch.models import decode_step, init_decode_state, prefill_chunk
+
+    lens = [lens[i] for i in rows]
+    emb, dec = emb[rows], dec[:, rows]
+    state = init_decode_state(cfg, len(rows), CAPACITY, device=dev)
+    final = [None] * len(rows)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c0 in range(0, max(lens), PREFILL_CHUNK):
+        take = [max(0, min(PREFILL_CHUNK, n - c0)) for n in lens]
+        width = max(take)
+        logits, state = prefill_chunk(
+            model, cfg, state, emb[:, c0:c0 + width],
+            torch.tensor(take, dtype=torch.int32, device=dev))
+        for i, n in enumerate(lens):
+            if c0 < n <= c0 + PREFILL_CHUNK:
+                final[i] = logits[i]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    after = clone_state(state)
+    out = []
+    t0 = time.perf_counter()
+    for t in range(STUB_DECODE):
+        logits, state = decode_step(model, cfg, state, dec[t])
+        out.append(logits)
+    torch.cuda.synchronize()
+    return (torch.stack(final), torch.stack(out), after, prefill_s,
+            time.perf_counter() - t0)
+
+
+def stub_path(arch, n_layers, dev):
+    """(q) one stub-frontend arch at full width (``n_layers`` of its layers,
+    or all), random weights quantized on the card, served from embeddings
+    eager (the engine takes token ids): the fleet of 8 rows, the launch
+    counts reset just before and read just after; the longest and the
+    shortest row alone give the fleet's logits bit for bit; the last decode
+    step's logits within STUB_TOL of the row's largest |logit| of one
+    32-step prefill chunk of the same embeddings, with equal argmax
+    wherever that chunk's top two logits are more than twice that apart.
+    ``err``: the largest |Δ| over the row's largest |logit|."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import prefill_chunk
+
+    cfg = configs.get_config(arch)
+    if n_layers:
+        cfg = cfg.scaled(n_layers=n_layers)
+    model, report, quant_s, qcounts = quantize_path(cfg, dev)
+    need(qcounts, ("ptqtp_search",), f"(q) {arch}'s quantize path")
+    emb, lens, dec = stub_prompts(cfg, dev)
+    rows = list(range(N_REQUESTS))
+    stub_run(model, cfg, emb, lens, dec, rows[:1], dev)  # loads the kernels
+    reset_launch_counts()
+    first, steps, after, prefill_s, decode_s = stub_run(model, cfg, emb, lens,
+                                                        dec, rows, dev)
+    counts = launch_counts()
+    need(counts, RING_PATH, f"(q) {arch} from embeddings")
+    if not (torch.isfinite(first).all() and torch.isfinite(steps).all()):
+        raise AssertionError(f"(q) {arch}: logits not finite")
+    shortest = min(rows, key=lambda i: lens[i])
+    longest = max(rows, key=lambda i: lens[i])
+    for i in (longest, shortest):
+        f1, s1, _, _, _ = stub_run(model, cfg, emb, lens, dec, [i], dev)
+        if not (torch.equal(f1[0], first[i]) and torch.equal(s1[:, 0],
+                                                             steps[:, i])):
+            raise AssertionError(f"(q) {arch}: row {i} alone gave other "
+                                 "logits than in the batch of 8")
+    chunk, _ = prefill_chunk(
+        model, cfg, after, dec.transpose(0, 1).contiguous(),
+        torch.full((N_REQUESTS,), STUB_DECODE, dtype=torch.int32,
+                   device=dev))
+    want, got = chunk.float(), steps[-1].float()
+    tol = STUB_TOL * want.abs().amax(-1)
+    diff = (got - want).abs().amax(-1)
+    err = float((diff / tol).max()) * STUB_TOL
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    same = got.argmax(-1) == want.argmax(-1)
+    if not bool((diff <= tol).all()) or not bool(same[clear].all()):
+        raise AssertionError(
+            f"(q) {arch}: decode vs prefill max |Δ logit| by row "
+            f"{diff.tolist()} (tolerance {tol.tolist()}), argmax equal in "
+            f"rows {same.tolist()}, clear margins {clear.tolist()}")
+    return dict(cfg=cfg, model=model, report=report, quant_s=quant_s,
+                qcounts=qcounts, counts=counts, lens=lens,
+                prefill_tok_s=sum(lens) / prefill_s,
+                decode_ms=1e3 * decode_s / STUB_DECODE, err=err,
+                same=int(same.sum()), clear=int(clear.sum()),
+                solo=(longest, shortest))
+
+
+def stub_phases(gpu, dev):
+    """(q): musicgen-large (48 layers) and phi-3-vision-4.2b (8 of 32) at
+    full width from embeddings; then the times of B1 and B3 at
+    musicgen-large's layers and of B2 at hd 64 and hd 96. Returns their
+    rows of the ``kernels`` line."""
+    t_all = time.perf_counter()
+    rows, attn = [], {}
+    src = "src/repro_torch/kernels/ternary_matmul/csrc/ternary_matmul.cu"
+    attn_src = ("src/repro_torch/kernels/chunk_attention/csrc/"
+                "chunk_attention.cu")
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for arch, n_layers in STUB_ARCHS:
+        t0 = time.perf_counter()
+        q = stub_path(arch, n_layers, dev)
+        cfg = q["cfg"]
+        tot = q["report"]["__total__"]
+        log(f"{gpu} | (q) {arch} ({cfg.n_layers} layers, d {cfg.d_model}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.head_dim}, d_ff "
+            f"{cfg.d_ff}, {cfg.mlp_type}, vocab {cfg.vocab_size}) from "
+            f"embeddings: quantize {q['quant_s']:.2f}s on B6 "
+            f"({q['qcounts']['ptqtp_search']} launches, {tot['n_quantized']} "
+            f"kernels, {tot['compression']:.2f}x); prefill of "
+            f"{sum(q['lens'])} embeddings ({sorted(q['lens'])}) "
+            f"{q['prefill_tok_s']:.1f} tok/s; decode {q['decode_ms']:.3f} ms "
+            f"a step (eager, 8 rows)")
+        log(f"(q) {arch}: rows {q['solo']} (longest, shortest) alone == the "
+            f"batch bit for bit; the last decode step vs a 32-step prefill "
+            f"chunk: max |Δ logit| {q['err']:.3e} of the row's largest "
+            f"(<= {STUB_TOL}), argmax equal in {q['same']} of {N_REQUESTS} "
+            f"rows ({q['clear']} with a top-2 margin over twice the "
+            f"tolerance); launches {q['counts']}; "
+            f"{time.perf_counter() - t0:.1f}s")
+        fill = [n + STUB_DECODE // 2 for n in q["lens"]]
+        err = check_attention_layers(cfg, dev, CAPACITY)
+        if n_layers is None:
+            tern = time_ternary(q["model"], dev)
+            mm_err = max(tern[k]["max_abs_err"] for k in tern)
+            for key, tpu, work in (
+                    ("ternary_matvec",
+                     "src/repro/kernels/ternary_matmul/kernel.py:175",
+                     f"the {tern['ternary_matvec']['calls']} linear layers "
+                     f"of one {arch} decode step, m=8, bf16"),
+                    ("ternary_matmul",
+                     "src/repro/kernels/ternary_matmul/kernel.py:91",
+                     f"the {tern['ternary_matmul']['calls']} block linear "
+                     f"layers of one {arch} prefill chunk of 8 rows, m=512, "
+                     "bf16")):
+                rows.append(dict(
+                    name=f"{key} ({arch})", route="cuda", source=src,
+                    replaces=tpu, launches=q["counts"][key],
+                    max_abs_err=mm_err,
+                    work=f"{work}; launches are the (q) {arch} fleet's "
+                         "(prefill and 32 decode steps, eager); library: "
+                         "F.linear on the dequantized bf16 weights",
+                    **{k: tern[key][k] for k in timed}))
+        del q["model"]
+        gc_free()
+        t = time_attention_layers(cfg, dev, fill, CAPACITY)
+        attn[arch] = t
+        rows.append(dict(
+            name=f"chunk_attention ({arch}, hd {cfg.head_dim})", route="cuda",
+            source=attn_src,
+            replaces="src/repro/kernels/chunk_attention/kernel.py:197",
+            launches=q["counts"]["chunk_attention"],
+            max_abs_err=max(err, t["decode"]["max_abs_err"]),
+            work=f"the {cfg.n_layers} attention reads of one {arch} decode "
+                 f"step, hd {cfg.head_dim}, {cfg.n_kv_heads} kv heads of one "
+                 "query head, rings of 1024, L=1, bf16; launches are the (q) "
+                 "fleet's; library: SDPA with a boolean mask; *_L64: a "
+                 "64-token prefill chunk of the same layers",
+            ms_L64=t["prefill"]["ms"], plain_ms_L64=t["prefill"]["plain_ms"],
+            bound_ms_L64=t["prefill"]["bound_ms"],
+            library_ms_L64=t["prefill"]["library_ms"],
+            **{k: t["decode"][k] for k in timed}))
+        for key in ("decode", "prefill"):
+            tk = t[key]
+            log(f"{gpu} | (q) {arch} B2 hd {cfg.head_dim} G 1 L={tk['L']}: "
+                f"kernel {tk['ms']:.4f} ms, plain {tk['plain_ms']:.3f} ms, "
+                f"library {tk['library_ms']:.3f} ms, bound "
+                f"{tk['bound_ms']:.4f} ms ({tk['bound_by']}) -> "
+                f"{tk['bound_ms'] / tk['ms']:.1%} of bound")
+    for r in rows[:2]:
+        log(f"{gpu} | (q) {r['name']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) -> "
+            f"{r['bound_ms'] / r['ms']:.1%} of bound")
+    log(f"(q) {time.perf_counter() - t_all:.1f}s")
+    return rows
 
 
 # ------------------------------------------------------------------- main
@@ -3924,6 +4275,8 @@ def main() -> int:
     kernels += slice9_phases(gpu, dev)
     gc_free()
     kernels += slice10_phases(gpu, dev)
+    gc_free()
+    kernels += stub_phases(gpu, dev)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

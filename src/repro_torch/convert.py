@@ -18,6 +18,9 @@ floating-point leaves (conv, gates, ``lam``, token-shift mixes, LoRAs,
 decay, ``u``, ``ln_x``) in the reference's layout, and its dense kernels
 as above.
 
+A stub-frontend arch (``cfg.embed_inputs`` False) has no ``embed`` leaf
+either way, as in the reference's tree.
+
 ``to_reference_tree(model, cfg)`` is the inverse: the reference's paths,
 key order, scan stacking (a leading L under ``blocks/b{i}``) and kernel
 layout, with the model's tensors (on its device) as leaves, so the artifact
@@ -177,7 +180,8 @@ def from_jax_params(tree: Dict[str, Any], cfg, device="cuda") -> Transformer:
     dev = resolve_device(device)
     dtype = dtype_of(cfg.param_dtype)
     model = Transformer(cfg, dtype=dtype, device=dev)
-    model.embed.copy_(_tensor(tree["embed"]["embedding"], dtype, dev))
+    if cfg.embed_inputs:
+        model.embed.copy_(_tensor(tree["embed"]["embedding"], dtype, dev))
     for block, node in zip(model.layers, _layer_nodes(tree, cfg)):
         _load_block(block, node, dev)
     model.final_norm.scale.copy_(_tensor(tree["final_norm"]["scale"], dtype,
@@ -303,7 +307,9 @@ def to_reference_tree(model: Transformer, cfg) -> Dict[str, Any]:
     gives back byte-identical tensors."""
     layers = list(model.layers)
     n_pre = len(cfg.prefix_pattern)
-    tree: Dict[str, Any] = {"embed": {"embedding": model.embed.detach()}}
+    tree: Dict[str, Any] = {}
+    if cfg.embed_inputs:
+        tree["embed"] = {"embedding": model.embed.detach()}
     tree["prefix"] = {f"p{i}": _block_node(layers[i], _insertion)
                       for i in range(n_pre)}
     tree["blocks"] = {

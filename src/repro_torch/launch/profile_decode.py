@@ -1,8 +1,9 @@
 """Where a decode step's time goes on the card.
 
-    python -m repro_torch.launch.profile_decode [--kv-layout paged]
+    python -m repro_torch.launch.profile_decode [--arch ARCH] [--kv-layout paged]
 
-Builds the full-size qwen2-1.5b with random weights from seed 0,
+Builds the full-size model of ``--arch`` (qwen2-1.5b by default; any arch
+of the registry that takes token ids) with random weights from seed 0,
 PTQTP-quantizes it on the card (G = 128, t_max = 20), then profiles two
 things, each on the ring or (``--kv-layout paged``) the paged layout:
 
@@ -23,8 +24,9 @@ For each it prints, beside the card's name and power limit:
   * device-busy milliseconds per step (sum of kernel times under
     ``torch.profiler``; one stream, so kernels do not overlap) and the
     device's idle share of the step;
-  * kernel launches per step, the device ms of B1, B2/B4 and the norm,
-    and the kernels by device time.
+  * kernel launches per step, the device ms of B1, B2/B4, the norm and
+    the recurrences (``rglru_scan``, ``wkv6``), and the kernels by device
+    time.
 
 It needs a CUDA device; it does not fall back to the CPU.
 """
@@ -48,12 +50,15 @@ from repro_torch.models import (decode_step, init_decode_state, init_params,
                                 prefill_chunk)
 from repro_torch.serving import EngineConfig, SamplingParams, ServingEngine
 
-ARCH = "qwen2-1.5b"
 SLOTS, CONTEXT, STEPS, SEED = 8, 512, 8, 0
 DISPATCHES = 4          # timed and profiled engine dispatches of STEPS each
-# the columns of PERF.md's table: kernel name fragment -> column
+# the columns of PERF.md's table: fragment of the CUDA kernels' names (as
+# the profiler reports them) -> column
 COLUMNS = (("ternary_matvec", "B1"), ("chunk_attention", "B2/B4"),
-           ("rms_norm", "norm"))
+           ("norm_kernel", "norm"), ("rglru", "rglru_scan"), ("wkv6", "wkv6"))
+# the archs the engine serves: token ids in (not a stub frontend's)
+ARCHS = tuple(a for a in configs.ARCH_IDS
+              if configs.get_config(a).embed_inputs)
 
 
 def profiled(fn, steps, gpu, what):
@@ -117,6 +122,7 @@ def engine_dispatches(model, cfg, args, capture):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", choices=ARCHS, default="qwen2-1.5b")
     ap.add_argument("--kv-layout", choices=("ring", "paged"), default="ring")
     ap.add_argument("--page-size", type=int, default=16)
     args = ap.parse_args(argv)
@@ -126,7 +132,7 @@ def main(argv=None):
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    cfg = configs.get_config(ARCH)
+    cfg = configs.get_config(args.arch)
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                         device=dev)
     model, _ = quantize_tree(model, PTQTPConfig(group_size=128, t_max=20))
@@ -155,7 +161,8 @@ def main(argv=None):
             decode_step(model, cfg, state, tok, active)
         torch.cuda.synchronize()
 
-    where = f"{ARCH}, {args.kv_layout} KV, {SLOTS} rows at context {CONTEXT}"
+    where = (f"{args.arch}, {args.kv_layout} KV, {SLOTS} rows at context "
+             f"{CONTEXT}")
     out = [profiled(steps, STEPS, gpu, f"{where}, decode_step (eager)")]
     del state
     for capture in (True, False):
@@ -165,7 +172,8 @@ def main(argv=None):
                             f"({'graph replay' if capture else 'eager'})"))
         del eng, run
         torch.cuda.empty_cache()
-    print(json.dumps({"gpu": gpu, "kv_layout": args.kv_layout,
+    print(json.dumps({"gpu": gpu, "arch": args.arch,
+                      "kv_layout": args.kv_layout,
                       "runs": out}))
 
 

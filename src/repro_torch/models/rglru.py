@@ -11,7 +11,10 @@ reference's ``repro/models/rglru.py``:
 ``wx``, ``wgate`` and ``wo`` are the port's ``Dense`` (PTQTP-quantized:
 B1/B3); the block-diagonal gates are floating-point products in row blocks
 of one fixed shape (``bmm_fixed_rows``), so a row's bits do not depend on
-its batch; the recurrence runs on the ``rglru_scan`` kernel.
+its batch. Everything from those products to ``wo``'s input (the gates'
+biases and sigmoids, a and its input multiplier, the scan, the GELU of
+``wgate`` and the output gate) is one ``rglru_gated_scan`` call: one launch
+of the ``rglru_scan`` kernel a layer and call on the card.
 
 The state is (h (B, R) f32, conv (B, W−1, R) in the activation dtype),
 updated in place. A chunk's rows are right-padded: row b's first
@@ -23,12 +26,9 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
-from repro_torch.kernels.rglru_scan.ops import rglru_scan
+from repro_torch.kernels.rglru_scan.ops import rglru_gated_scan
 from repro_torch.models.common import Dense, bmm_fixed_rows
-
-_C = 8.0  # Griffin's recurrence-gate sharpness constant
 
 
 class WB(nn.Module):
@@ -69,13 +69,13 @@ class RGLRU(nn.Module):
         self.gate_x.w.copy_(normal(self.gate_x.w.shape, rb ** -0.5))
 
 
-def _block_diag(gate: WB, x: torch.Tensor, n_blocks: int) -> torch.Tensor:
-    """x (..., R) through the block-diagonal weight (n_blocks, rb, rb)."""
-    *lead, r = x.shape
-    rb = r // n_blocks
+def _block_products(gate: WB, x: torch.Tensor, n_blocks: int
+                    ) -> torch.Tensor:
+    """x (..., R) through the block-diagonal weight (n_blocks, rb, rb),
+    before the bias: (n_blocks, rows of x, rb)."""
+    rb = x.shape[-1] // n_blocks
     xb = x.reshape(-1, n_blocks, rb).transpose(0, 1)          # (n, m, rb)
-    y = bmm_fixed_rows(xb, gate.w.to(x.dtype).transpose(1, 2))  # (n, m, rb)
-    return y.transpose(0, 1).reshape(*lead, r) + gate.b.to(x.dtype)
+    return bmm_fixed_rows(xb, gate.w.to(x.dtype).transpose(1, 2))
 
 
 def rglru_forward(p: RGLRU, x: torch.Tensor, h: torch.Tensor,
@@ -85,7 +85,6 @@ def rglru_forward(p: RGLRU, x: torch.Tensor, h: torch.Tensor,
     Returns y (B, S, D)."""
     b, s, _ = x.shape
     xb = p.wx(x)
-    gb = F.gelu(p.wgate(x), approximate="tanh")
     w = p.conv.w.to(x.dtype)                                   # (W, R)
     width = w.shape[0]
     xp = torch.cat([conv, xb], dim=1)                          # (B, W-1+S, R)
@@ -98,13 +97,8 @@ def rglru_forward(p: RGLRU, x: torch.Tensor, h: torch.Tensor,
            + torch.arange(width - 1, device=x.device)[None, :])
     conv.copy_(torch.gather(xp, 1, idx[..., None].expand(
         b, width - 1, xp.shape[-1])))
-
-    rt = torch.sigmoid(_block_diag(p.gate_a, c, p.n_blocks)).to(torch.float32)
-    it = torch.sigmoid(_block_diag(p.gate_x, c, p.n_blocks)).to(torch.float32)
-    lam = p.lam.to(torch.float32)
-    log_a = -_C * torch.logaddexp(lam, torch.zeros_like(lam)) * rt
-    a = torch.exp(log_a)
-    gated_x = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
-                                     min=1e-12)) * (it * c.to(torch.float32))
-    hs = rglru_scan(a, gated_x, h, lengths)
-    return p.wo((gb.to(torch.float32) * hs).to(x.dtype))
+    y = rglru_gated_scan(_block_products(p.gate_a, c, p.n_blocks),
+                         _block_products(p.gate_x, c, p.n_blocks),
+                         p.gate_a.b, p.gate_x.b, c, p.wgate(x), p.lam, h,
+                         lengths)
+    return p.wo(y)

@@ -16,6 +16,13 @@ Model API:
   prefill_chunk(model, cfg, state, tokens, lengths) -> (logits (B, V), state)
   decode_step(model, cfg, state, tokens, active)   -> (logits (B, V), state)
 
+``tokens`` are token ids, (B, S) or (B,) for ``decode_step``. A
+stub-frontend arch (``cfg.embed_inputs`` False: musicgen-large,
+phi-3-vision-4.2b) has no ``embed`` parameter and takes the frontend's
+float embeddings there instead, (B, S, D) or (B, D), cast to the
+activation dtype: the reference's ``batch["embeddings"]`` and its
+``decode_step`` on (B, D).
+
 The serving functions update ``state`` in place and return it: no tensor of
 the state is ever rebound, so a CUDA graph that captured a dispatch reads
 and writes the same storage at every replay. A recurrent layer's cache is
@@ -106,9 +113,10 @@ class Transformer(nn.Module):
     def __init__(self, cfg, *, dtype, device):
         super().__init__()
         _check_kinds(cfg)
-        self.embed = nn.Parameter(
+        self.embed = (nn.Parameter(
             torch.empty((cfg.vocab_size, cfg.d_model), dtype=dtype,
                         device=device), requires_grad=False)
+            if cfg.embed_inputs else None)
         self.layers = nn.ModuleList(
             Block(cfg, kind, dtype=dtype, device=device)
             for kind in cfg.layer_kinds)
@@ -133,7 +141,8 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
         return (torch.randn(shape, generator=generator, device=dev,
                             dtype=torch.float32) * std).to(dtype)
 
-    model.embed.copy_(normal(model.embed.shape, 0.02))
+    if model.embed is not None:
+        model.embed.copy_(normal(model.embed.shape, 0.02))
     for module in model.modules():
         if isinstance(module, Dense):
             module.weight.copy_(normal(module.weight.shape,
@@ -147,7 +156,16 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
 
 
 def _embed(model: Transformer, cfg, tokens):
-    return model.embed[tokens.long()].to(dtype_of(cfg.activation_dtype))
+    """Token ids through the embedding, or (stub frontend) the given float
+    embeddings, in the activation dtype."""
+    adt = dtype_of(cfg.activation_dtype)
+    if cfg.embed_inputs:
+        return model.embed[tokens.long()].to(adt)
+    if not tokens.is_floating_point() or tokens.shape[-1] != cfg.d_model:
+        raise TypeError(f"{cfg.name} has a stub frontend: it takes float "
+                        f"embeddings (..., {cfg.d_model}), got "
+                        f"{tokens.dtype} {tuple(tokens.shape)}")
+    return tokens.to(adt).contiguous()
 
 
 def _add_norm(norm: RMSNorm, x, delta, eps):
@@ -287,7 +305,8 @@ def prefill(model: Transformer, cfg, tokens, capacity: int,
             chunk: Optional[int] = None, state=None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Process whole prompts into a fresh ring state (the reference's
-    ``prefill``). tokens (B, S), every row S tokens with S <= capacity.
+    ``prefill``). tokens (B, S) (or embeddings (B, S, D)), every row S
+    tokens with S <= capacity.
     Returns (logits at the last position (B, V), state at position S).
 
     The reference computes this in one full-sequence pass; here the prompt
@@ -297,7 +316,7 @@ def prefill(model: Transformer, cfg, tokens, capacity: int,
     engine's rows bit for bit on the card (its kernels are batch-invariant
     and its chunk boundaries the same). ``state`` (B rows, ring layout) is
     reset in place and reused instead of a new one."""
-    b, s = tokens.shape
+    b, s = tokens.shape[:2]
     if not 0 < s <= capacity:
         raise ValueError(f"prompt length {s} must be in [1, {capacity}]")
     if state is None:

@@ -231,10 +231,17 @@ class ServingEngine:
     frozen serving metrics against its counters. ``Observability(
     trace=True)`` also records the lifecycle and phase trace. All of it is
     host-side around the dispatches: tokens are bit-identical with tracing
-    on, off or unconfigured, and no graph-cache axis is added."""
+    on, off or unconfigured, and no graph-cache axis is added.
+
+    It serves token ids: a model whose config has a stub frontend
+    (``embed_inputs`` False) is refused with a ValueError (the reference's
+    engine admits it and fails each request's prefill dispatch)."""
 
     def __init__(self, model, model_cfg, engine_cfg: EngineConfig, *,
                  injector=None, observability: Optional[Observability] = None):
+        if not model_cfg.embed_inputs:
+            raise ValueError(f"{model_cfg.name} has a stub modality "
+                             "frontend; the engine serves token ids")
         self.model = model
         self.cfg = model_cfg
         self.ecfg = engine_cfg

@@ -83,7 +83,9 @@ def test_registry_configs_equal_the_references():
             theirs = dataclasses.asdict(getattr(jconfigs, get)(arch))
             assert ours == theirs, (arch, get)
     assert set(configs.ARCH_IDS) == set(ARCHS) | {
-        "qwen2-1.5b", "recurrentgemma-2b", "rwkv6-3b"}
+        "qwen2-1.5b", "recurrentgemma-2b", "rwkv6-3b", "musicgen-large",
+        "phi-3-vision-4.2b"}
+    assert set(configs.ARCH_IDS) == set(jconfigs.ARCH_IDS)
     assert configs.get_config("gemma3-27b").head_dim == 168
 
 

@@ -46,7 +46,11 @@ plus 2^-7: its sums run in another order), give a row the same bits alone
 and in a batch, and a chunk the bits of one step at a time (wkv6 also over
 several of its 32-step tiles with a ragged last one); the recurrent
 smoke models serve the same streams alone, in the fleet and on the paged
-layout.
+layout. The RG-LRU's fused gate-and-scan equals its plain version (the
+op-by-op composition around the plain scan) bit for bit at S = 1, 64 and
+over ragged tiles, f32 and bf16, with the same row and chunk invariance.
+The attention kernels take the stub-frontend archs' head dims of 64
+(musicgen-large) and 96 (phi-3-vision-4.2b), one query head a kv head.
 """
 
 import dataclasses
@@ -1097,6 +1101,74 @@ def test_rglru_scan_matches_plain_and_is_invariant(cuda, s):
         scan_ops.rglru_scan_cuda, scan_ref.rglru_scan_plain,
         [a, gx, h, lengths], 2, 3, (0, 1), (0, 1, 2, 3))
     assert torch.equal(got, want) and torch.equal(got_h, want_h)
+
+
+def _gate_blocks(y, n_blocks):
+    """(B, S, R) → the gates' batched-product layout (n_blocks, B·S, rb),
+    its blocks a 128-row multiple apart, as ``bmm_fixed_rows`` returns."""
+    b, s, r = y.shape
+    m = b * s
+    buf = torch.zeros((n_blocks, -(-m // 128) * 128, r // n_blocks),
+                      dtype=y.dtype, device=y.device)
+    buf[:, :m] = y.reshape(m, n_blocks, r // n_blocks).transpose(0, 1)
+    return buf[:, :m]
+
+
+@pytest.mark.parametrize("s", [1, 64, 70])   # 70: two tiles of 32, a ragged third
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_gated_scan_matches_plain_and_is_invariant(cuda, dtype, s):
+    """The fused RG-LRU gate-and-scan against its plain version: the
+    output and h bit for bit; a row alone == its batch row; one S-step call
+    == S one-step calls. R = 3 blocks of 34 (off the kernel's 32-channel
+    grid), nonzero biases, ragged and idle rows."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    b, nb, rb = 5, 3, 34
+    r = nb * rb
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device=cuda) * std).to(dtype)
+
+    ba, bx = rnd(r, std=0.1), rnd(r, std=0.1)
+    lam = torch.linspace(-4.3, -0.7, r, device=cuda).to(dtype)
+    h = torch.randn((b, r), generator=g, device=cuda)
+    lengths = torch.tensor([s, 0, 1, s // 2, s], dtype=torch.int32,
+                           device=cuda)
+
+    def route(fn):
+        return lambda ya, yx, c, gw, h, lengths: fn(
+            _gate_blocks(ya, nb), _gate_blocks(yx, nb), ba, bx, c, gw, lam,
+            h, lengths)
+
+    args = [rnd(b, s, r), rnd(b, s, r), rnd(b, s, r), rnd(b, s, r), h,
+            lengths]
+    (got, want), (got_h, want_h) = _recurrence_checks(
+        route(scan_ops.rglru_gated_scan_cuda),
+        route(scan_ref.rglru_gated_scan_plain), args, 4, 5, (0, 1, 2, 3),
+        (0, 1, 2, 3, 4, 5))
+    assert got.dtype == dtype
+    assert torch.equal(got, want) and torch.equal(got_h, want_h)
+
+
+@pytest.mark.parametrize("ring", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L", [1, 40])
+@pytest.mark.parametrize("hd", [64, 96])
+def test_attention_head_dims_of_the_stub_archs(cuda, hd, L, ring):
+    """musicgen-large's hd 64 and phi-3-vision-4.2b's hd 96, one query
+    head a kv head (MHA): B2 within 1e-4 of its plain version, B4 == B2
+    bit for bit, a row alone == its batch row."""
+    rng = np.random.default_rng(L + hd)
+    args = _attention_case(rng, 4, L, 4, 1, hd, 200, ring, cuda)
+    plain = ca_ref.chunk_attention_stream(*args)
+    got = ca_ops.chunk_attention_cuda(*args)
+    paged, gathered = _paged_case(rng, args, 8, cuda)
+    pgot = ca_ops.chunk_attention_paged_cuda(*paged)
+    ring_kernel = ca_ops.chunk_attention_cuda(*gathered)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
+    assert torch.equal(pgot, ring_kernel)
+    for i in (0, 3):
+        assert torch.equal(ca_ops.chunk_attention_cuda(*_row(args, i)),
+                           got[i:i + 1])
 
 
 @pytest.mark.parametrize("s", [1, 7, 70])   # 70: two tiles of 32, a ragged third

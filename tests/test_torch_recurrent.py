@@ -54,7 +54,8 @@ from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.models import (decode_step, forward, init_decode_state,
                                 init_params, prefill, prefill_chunk)
-from repro_torch.models.rglru import rglru_forward
+from repro_torch.models.common import bmm_fixed_rows
+from repro_torch.models.rglru import RGLRU, rglru_forward
 from repro_torch.models.rwkv6 import rwkv_channel_forward, rwkv_time_forward
 from repro_torch.serving import (EngineConfig, SamplingParams,
                                  SerialAdmitEngine, ServingEngine)
@@ -230,6 +231,77 @@ def test_rglru_forward_matches_the_reference(with_state, masked):
     np.testing.assert_allclose(_np(got)[rows], np.asarray(y)[rows], **TOL)
     np.testing.assert_allclose(_np(h), np.asarray(h_last), **TOL)
     np.testing.assert_allclose(_np(c), np.asarray(conv), **TOL)
+
+
+def _composition(p, x, h, conv, lengths):
+    """The RG-LRU layer as the port ran it before its gate-and-scan was one
+    call: PyTorch's ops one by one around the scan alone."""
+    b, s, _ = x.shape
+    xb = p.wx(x)
+    gb = torch.nn.functional.gelu(p.wgate(x), approximate="tanh")
+    w = p.conv.w.to(x.dtype)
+    width = w.shape[0]
+    xp = torch.cat([conv, xb], dim=1)
+    c = xp[:, 0:s] * w[0]
+    for i in range(1, width):
+        c = c + xp[:, i:i + s] * w[i]
+    c = c + p.conv.b.to(x.dtype)
+    idx = (lengths.long()[:, None]
+           + torch.arange(width - 1, device=x.device)[None, :])
+    conv.copy_(torch.gather(xp, 1, idx[..., None].expand(
+        b, width - 1, xp.shape[-1])))
+
+    def block_diag(gate):
+        r = c.shape[-1]
+        rb = r // p.n_blocks
+        xb = c.reshape(-1, p.n_blocks, rb).transpose(0, 1)
+        y = bmm_fixed_rows(xb, gate.w.to(c.dtype).transpose(1, 2))
+        return y.transpose(0, 1).reshape(b, s, r) + gate.b.to(c.dtype)
+
+    rt = torch.sigmoid(block_diag(p.gate_a)).to(torch.float32)
+    it = torch.sigmoid(block_diag(p.gate_x)).to(torch.float32)
+    lam = p.lam.to(torch.float32)
+    log_a = -8.0 * torch.logaddexp(lam, torch.zeros_like(lam)) * rt
+    a = torch.exp(log_a)
+    gated_x = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
+                                     min=1e-12)) * (it * c.to(torch.float32))
+    hs = rglru_scan(a, gated_x, h, lengths)
+    return p.wo((gb.to(torch.float32) * hs).to(x.dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size", ["smoke", "full"])
+def test_gated_scan_equals_the_composition_it_replaced(size, dtype):
+    """``rglru_forward`` through ``rglru_gated_scan`` (on the CPU its plain
+    version) gives the output, h and conv tail of the layer's former op by
+    op composition bit for bit: smoke width (4 rows) and full width (2560
+    in 10 blocks, 3 rows), f32 and bf16, with full, ragged and idle rows,
+    nonzero gate biases and a prior state."""
+    d, r, nb, b, s = ((64, 64, 4, 4, 6) if size == "smoke"
+                      else (2560, 2560, 10, 3, 3))
+    lengths = torch.tensor([s, s - 2, 0, 1][:b], dtype=torch.int32)
+    rng = np.random.default_rng(7)
+
+    def rnd(shape, std):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * std).astype(np.float32)).to(dtype)
+
+    p = RGLRU(d, r, nb, 4, dtype=dtype, device="cpu")
+    with torch.no_grad():
+        for dense in (p.wx, p.wgate, p.wo):
+            dense.weight.copy_(rnd(dense.weight.shape, dense.d_in ** -0.5))
+        p.init_random(rnd)
+        for wb in (p.conv, p.gate_a, p.gate_x):
+            wb.b.copy_(rnd(wb.b.shape, 0.1))
+    x = rnd((b, s, d), 1.0)
+    h0 = torch.from_numpy(rng.standard_normal((b, r)).astype(np.float32))
+    c0 = rnd((b, 3, r), 1.0)
+    h1, h2, c1, c2 = h0.clone(), h0.clone(), c0.clone(), c0.clone()
+    got = rglru_forward(p, x, h1, c1, lengths)
+    want = _composition(p, x, h2, c2, lengths)
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+    assert torch.equal(h1, h2) and torch.equal(c1, c2)
 
 
 @pytest.mark.parametrize("with_state", [False, True])
