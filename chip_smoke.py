@@ -206,8 +206,7 @@ stub-frontend archs), within and after the phases above:
      the output gate): held against its plain version at 8 rows of 2560
      in 10 blocks, S = 1, 64 and 200, bf16 and f32, output and h bit for
      bit, rows alone == batch and a chunk == steps; timed at S = 1 and 64
-     for (m)'s 18 layers beside its plain version and the composition it
-     replaced (the same ops one by one around the scan-alone kernel); and
+     for (m)'s 18 layers beside its plain version; and
      (m)'s graph decode step profiled as ``launch/profile_decode.py
      --arch recurrentgemma-2b`` profiles it (launches, device-busy ms);
  31. (q) musicgen-large at full width and depth (48 layers, d 2048, 32
@@ -225,6 +224,30 @@ stub-frontend archs), within and after the phases above:
      B3 against theirs at every linear layer of both archs; B1, B3 and B2
      timed at both archs' shapes.
 
+Since slice 13 (the engine's last two options, the quantizer's
+remainder and the baselines), within the qwen2-1.5b phases:
+
+ 32. (r) the engine's options on phase 4's quantized model and fleet, each
+     route on one engine through CUDA graphs (the fleet twice: its graphs
+     captured at first use, then every dispatch a replay, one host sync
+     each, nothing captured and the same tokens), then the longest and the
+     bucket-1 request alone on it with their fleet tokens: ``attn_backend``
+     ``pallas`` (phase 4's bits; B2 28 launches a decode step), ``stream``
+     and ``materialized`` on the ring and ``stream`` on the paged layout
+     (B2 and B4 never launched); ``preunpack_decode=True`` (resident planes
+     4× the packed bytes, B1 and B3 never launched, the caller's model
+     still packed). Decode tok/s, TTFT median and the tokens apart from
+     the ``pallas`` fleet, with the first step that differs;
+ 33. (s) ``quantize_with_history`` (G 128, t_max 20; its trit step on B6)
+     and the baselines (PTQTP, RTN at 2, 3 and 4 bits, GPTQ, AWQ at 3 bits,
+     BiLLM) on seeded N(0, 0.02) f32 weights of qwen2-1.5b's shapes: one
+     layer's q, k, o, gate and down and the lm_head, with a seeded N(0, 1)
+     calibration x of 128 rows: the errors never increase, the planes and
+     iterations equal ``ptqtp_quantize``'s, the last error equals
+     ``ptqtp_error``; every result finite and every code in range; the
+     seconds and relative errors, and the reference's ordering tests
+     beside them (printed, not gated: random weights).
+
 Each phase's engines and graph pools are freed before the next; the run's
 total seconds are printed.
 
@@ -236,7 +259,6 @@ checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
-import functools
 import json
 import subprocess
 import sys
@@ -2042,6 +2064,259 @@ def log_recovery(gpu, rp):
         f"{rp['memory'][2]['margin']})")
 
 
+# ------------------------------------------------ phases (r)-(s): slice 13
+def first_apart(got, want):
+    """The first decode step at which any request's tokens differ, or
+    None."""
+    steps = [next((i for i, (a, b) in enumerate(zip(g.tokens, w.tokens))
+                   if a != b), None) for g, w in zip(got, want)]
+    steps = [i for i in steps if i is not None]
+    return min(steps) if steps else None
+
+
+def option_run(model, cfg, prompts, what, **ecfg):
+    """One engine option on one engine: the fleet twice (the first pass
+    captures its graphs at first use, the second replays only: one host
+    sync a decode dispatch, nothing captured, the same tokens; launch
+    counts reset just before it and read just after), then the longest and
+    the bucket-1 request alone with their fleet tokens."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    eng = make_engine(model, cfg, **ecfg)
+    cold = serve_on(eng, prompts)
+    finished(cold, what)
+    compiled = eng.compile_stats()
+    eng.smoke["decode_s"], eng.smoke["in_decode"] = 0.0, dict.fromkeys(
+        launch_counts(), 0)
+    steps0, tok0 = eng.steps, eng.tokens_generated
+    syncs = count_syncs(eng)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = serve_on(eng, prompts)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    same_tokens(results, cold, f"{what}: the second pass")
+    for k in ("n_prefill_compiles", "n_decode_compiles"):
+        if eng.compile_stats()[k] != compiled[k]:
+            raise AssertionError(f"{what}: the second pass captured more")
+    if not syncs or any(n != 1 for _, n in syncs):
+        raise AssertionError(f"{what}: host syncs per replayed decode "
+                             f"dispatch {syncs}, not 1")
+    steps = eng.steps - steps0
+    out = dict(results=results, counts=counts, wall=wall,
+               ttft=sorted(r.ttft for r in results),
+               decode_tok=eng.tokens_generated - tok0 - len(prompts),
+               decode_s=eng.smoke["decode_s"], steps=steps,
+               per_step={k: n / max(steps, 1)
+                         for k, n in eng.smoke["in_decode"].items()},
+               memory=eng.memory_stats(), dispatches=len(syncs))
+    fleet_buckets = final_buckets([len(p) for p in prompts])
+    one = next(i for i in range(len(prompts))
+               if final_buckets([len(prompts[i])])[0] == 1
+               < fleet_buckets[i])
+    longest = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+    for i in (longest, one):
+        solo = serve_on(eng, [prompts[i]])[0]
+        if solo.tokens != results[i].tokens:
+            raise AssertionError(f"{what}: request {i} alone gave "
+                                 f"{solo.tokens}, in the fleet "
+                                 f"{results[i].tokens}")
+    return out
+
+
+def options_path(cfg, dev, model, mp):
+    """(r): the attention backends and ``preunpack_decode`` on phase 4's
+    model and fleet (the module docstring, item 32)."""
+    import torch
+
+    prompts = mp["prompts"]
+    planes = {n: m.t1p.dtype for n, m in model.named_modules()
+              if getattr(m, "t1p", None) is not None}
+    runs = {}
+    for name, ecfg in (("pallas", dict(attn_backend="pallas")),
+                       ("stream", dict(attn_backend="stream")),
+                       ("materialized", dict(attn_backend="materialized")),
+                       ("paged stream", dict(attn_backend="stream",
+                                             kv_layout="paged",
+                                             page_size=PAGE)),
+                       ("preunpack", dict(preunpack_decode=True))):
+        t0 = time.perf_counter()
+        runs[name] = r = option_run(model, cfg, prompts, f"(r) {name}",
+                                    **ecfg)
+        r["phase_s"] = time.perf_counter() - t0
+        gc_free()
+    pal = runs["pallas"]
+    same_tokens(pal["results"], mp["results"], "(r) pallas against auto")
+    if pal["per_step"]["chunk_attention"] != cfg.n_layers:
+        raise AssertionError(f"(r) pallas: {pal['per_step']} launches a "
+                             f"decode step, not {cfg.n_layers} of B2")
+    for name in ("stream", "materialized", "paged stream"):
+        c = runs[name]["counts"]
+        if c["chunk_attention"] or c["chunk_attention_paged"]:
+            raise AssertionError(f"(r) {name} launched an attention "
+                                 f"kernel: {c}")
+    need(runs["paged stream"]["counts"],
+         ("ternary_matvec", "ternary_matmul", "add_rms_norm"),
+         "(r) paged stream")
+    pre = runs["preunpack"]
+    mem = pre["memory"]
+    if not mem["preunpack_decode"] or mem["resident_plane_bytes"] != \
+            4 * mem["packed_plane_bytes"]:
+        raise AssertionError(f"(r) preunpack memory_stats {mem}")
+    if pre["counts"]["ternary_matvec"] or pre["counts"]["ternary_matmul"]:
+        raise AssertionError(f"(r) preunpack launched B1/B3: "
+                             f"{pre['counts']}")
+    need(pre["counts"], ("chunk_attention", "add_rms_norm"), "(r) preunpack")
+    after = {n: m.t1p.dtype for n, m in model.named_modules()
+             if getattr(m, "t1p", None) is not None}
+    if after != planes or set(after.values()) != {torch.uint8}:
+        raise AssertionError("(r) preunpack changed the caller's planes")
+    for r in runs.values():
+        r["apart"] = tokens_apart(r["results"], pal["results"])
+        r["first"] = first_apart(r["results"], pal["results"])
+    for r in runs.values():
+        del r["results"]
+    return runs
+
+
+def log_options(gpu, runs):
+    med = lambda xs: xs[len(xs) // 2]  # noqa: E731
+    for name, r in runs.items():
+        log(f"{gpu} | (r) {name}: decode {r['decode_tok']} tokens in "
+            f"{r['decode_s']:.3f}s = {r['decode_tok'] / r['decode_s']:.1f} "
+            f"tok/s ({1e3 * r['decode_s'] / r['steps']:.3f} ms a decode "
+            f"step, {r['dispatches']} replayed decode dispatches, one host "
+            f"sync each); TTFT median {med(r['ttft']):.3f}s max "
+            f"{r['ttft'][-1]:.3f}s; {r['apart']} tokens apart from the "
+            f"pallas fleet (first at decode step {r['first']}); solo == "
+            f"fleet; the phase {r['phase_s']:.1f}s"
+            + (" (paged: the second pass adopts the first's cached prefix "
+               "pages)" if name.startswith("paged") else ""))
+    log(f"(r) launches a decode step: "
+        + "; ".join(f"{n} {dict((k, v) for k, v in r['per_step'].items() if v)}"
+                    for n, r in runs.items()))
+    m = runs["preunpack"]["memory"]
+    log(f"{gpu} | (r) preunpack_decode: resident planes "
+        f"{m['resident_plane_bytes']} bytes = {m['preunpack_ratio']:.1f}x "
+        f"packed {m['packed_plane_bytes']}; param bytes {m['param_bytes']}")
+
+
+# the matrices of (s): (name, n, d) of one qwen2-1.5b layer and the lm_head
+BASELINE_SHAPES = (("q", 1536, 1536), ("k", 256, 1536), ("o", 1536, 1536),
+                   ("gate", 8960, 1536), ("down", 1536, 8960),
+                   ("lm_head", 151936, 1536))
+
+
+def baselines_path(dev):
+    """(s): ``quantize_with_history`` and the baselines at full shapes (the
+    module docstring, item 33). Returns {matrix: {method: (seconds,
+    relative error)}} and the history's gates."""
+    import torch
+
+    from repro_torch.core import ptqtp
+    from repro_torch.core.baselines import (awq_quantize, billm_quantize,
+                                            gptq_quantize, rtn_quantize)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cfg = ptqtp.PTQTPConfig(group_size=GROUP, t_max=20)
+    table, hist = {}, {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def rel(w, w_hat):
+        if not bool(torch.isfinite(w_hat).all()):
+            raise AssertionError(f"(s) {name}: non-finite values")
+        return float(torch.linalg.norm(w - w_hat) / torch.linalg.norm(w))
+
+    for name, n, d in BASELINE_SHAPES:
+        w = torch.randn((n, d), generator=gen, device=dev) * 0.02
+        x = torch.randn((128, d), generator=gen, device=dev)
+        reset_launch_counts()
+        (q, errs), hs = timed(lambda: ptqtp.quantize_with_history(w, cfg))
+        launches = launch_counts()["ptqtp_search"]
+        need({"ptqtp_search": launches}, ("ptqtp_search",),
+             f"(s) {name} quantize_with_history")
+        e = errs.cpu()
+        if not bool((e[1:] <= e[:-1] + 1e-4 * e[0]).all()):
+            raise AssertionError(f"(s) {name}: the error rose: {e.tolist()}")
+        full, ps = timed(lambda: ptqtp.ptqtp_quantize(w, cfg))
+        if full.iters != q.iters or not torch.equal(full.t1, q.t1) \
+                or not torch.equal(full.t2, q.t2):
+            raise AssertionError(f"(s) {name}: the history's planes or "
+                                 f"iterations ({q.iters}) are not "
+                                 f"ptqtp_quantize's ({full.iters})")
+        err = float(ptqtp.ptqtp_error(w, q))
+        last = float(e[-1] / torch.linalg.norm(w).cpu())
+        if abs(last - err) > 1e-5 * err:
+            raise AssertionError(f"(s) {name}: last error {last}, "
+                                 f"ptqtp_error {err}")
+        hist[name] = dict(s=hs, iters=q.iters, b6=launches, first=float(e[0]),
+                          last=float(e[-1]), err=err)
+        row = {"PTQTP": (ps, rel(w, ptqtp.ptqtp_dequantize(full)))}
+        del q, errs, full
+        for bits in (2, 3, 4):
+            (w_hat, meta), t = timed(lambda: rtn_quantize(w, bits=bits,
+                                                          group_size=GROUP))
+            codes = meta["q"]
+            if int(codes.min()) < 0 or int(codes.max()) > 2 ** bits - 1:
+                raise AssertionError(f"(s) {name} RTN{bits}: codes out of "
+                                     f"range")
+            row[f"RTN{bits}"] = (t, rel(w, w_hat))
+            del w_hat, meta, codes
+        (w_hat, meta), t = timed(lambda: gptq_quantize(w, x, bits=3,
+                                                       group_size=GROUP))
+        steps = w_hat / meta["scale"].repeat_interleave(GROUP, dim=1)
+        codes = steps.round()
+        if (steps - codes).abs().max() > 1e-3 or codes.min() < -4 \
+                or codes.max() > 3:
+            raise AssertionError(f"(s) {name} GPTQ: codes out of range")
+        row["GPTQ3"] = (t, rel(w, w_hat), float(torch.linalg.norm(
+            x @ (w - w_hat).T)))
+        del w_hat, meta, steps, codes
+        (w_hat, meta), t = timed(lambda: awq_quantize(w, x, bits=3,
+                                                      group_size=GROUP))
+        row["AWQ3"] = (t, rel(w, w_hat), float(meta["ratio"]))
+        del w_hat, meta
+        (w_hat, meta), t = timed(lambda: billm_quantize(w, x))
+        row["BiLLM"] = (t, rel(w, w_hat))
+        del w_hat, meta
+        w_rtn = rtn_quantize(w, bits=3, group_size=GROUP)[0]
+        row["RTN3 x-weighted"] = float(torch.linalg.norm(x @ (w - w_rtn).T))
+        table[name] = row
+        del w, x, w_rtn
+        gc_free()
+    return table, hist
+
+
+def log_baselines(gpu, table, hist):
+    for name, h in hist.items():
+        log(f"{gpu} | (s) {name} quantize_with_history: {h['iters']} "
+            f"iterations in {h['s']:.3f}s ({h['b6']} B6 launches), error "
+            f"{h['first']:.4f} -> {h['last']:.4f} (never rose), "
+            f"ptqtp_error {h['err']:.6f}; planes and iterations "
+            f"ptqtp_quantize's")
+    for name, row in table.items():
+        log(f"{gpu} | (s) {name} seconds / relative error: "
+            + "; ".join(f"{k} {v[0]:.3f}s {v[1]:.5f}"
+                        for k, v in row.items() if isinstance(v, tuple))
+            + f"; AWQ ratio {row['AWQ3'][2]:.4f}")
+        order = dict(
+            ptqtp_beats_billm=row["PTQTP"][1] < row["BiLLM"][1],
+            ptqtp_beats_rtn2=row["PTQTP"][1] < row["RTN2"][1],
+            rtn4_beats_ptqtp=row["RTN4"][1] < row["PTQTP"][1],
+            ptqtp_within_1_35_of_rtn3=row["PTQTP"][1] < 1.35 * row["RTN3"][1],
+            gptq_x_weighted_within_1_02_of_rtn3=row["GPTQ3"][2]
+            <= 1.02 * row["RTN3 x-weighted"])
+        log(f"(s) {name} the reference's ordering tests (printed, not "
+            f"gated): {order}")
+
+
 # -------------------------------------------------------- phase 4: timings
 def time_ternary(model, dev):
     """Kernel, plain and library times of the quantized linear layers (the
@@ -3254,8 +3529,7 @@ def time_recurrence(name, dev, n_layers):
     (S = 1) and one prefill dispatch (S = 64) of its model: distinct
     operands per layer (recurrentgemma-2b's 18 RG-LRU layers at width 2560
     in bf16, rwkv6-3b's 32 layers of 40 heads of 64 in bf16), every row
-    full; for rglru_scan also the composition the fused kernel replaced
-    (its plain version's ops around the scan-alone kernel); for
+    full; for
     wkv6 also the kernel alone at S = ``WKV_LONG`` (its plain version's
     graph would hold ~10^5 launches: not timed). No single PyTorch call
     computes either, so library_ms is null. Bound: the bytes each call must
@@ -3275,7 +3549,6 @@ def time_recurrence(name, dev, n_layers):
     if name == "wkv6":
         shapes.append(("long", WKV_LONG, 3))
     for key, s, reps in shapes:
-        composed = None
         if name == "rglru_scan":
             r = configs.get_config("recurrentgemma-2b").rglru_width
             layers = []
@@ -3285,9 +3558,6 @@ def time_recurrence(name, dev, n_layers):
                 layers.append(route.operands(args))
             kern = scan_ops.rglru_gated_scan_cuda
             plain = scan_ref.rglru_gated_scan_plain
-            # the composition the kernel replaced: the same ops one by one
-            # around the scan-alone kernel
-            composed = functools.partial(plain, scan=scan_ops.rglru_scan)
             n = SLOTS * s * r
             # ya, yx, c, g read and the output written in bf16; h read and
             # written; lengths; lam and the two biases
@@ -3315,9 +3585,6 @@ def time_recurrence(name, dev, n_layers):
                 lambda: [plain(*a) for a in layers], max(1, reps // 2)),
             library_ms=None, bound_ms=bound, bound_by=by, S=s,
             bytes=nbytes * n_layers)
-        if composed is not None:
-            out[key]["composition_ms"] = device_ms(
-                lambda: [composed(*a) for a in layers], reps)
         del layers
         gc_free()
     return out
@@ -3582,12 +3849,6 @@ def slice10_phases(gpu, dev):
             f"{plain}, library {lib}, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}) -> "
             f"{t['bound_ms'] / t['ms']:.1%} of bound")
-    for key in ("decode", "prefill"):
-        t = tscan[key]
-        log(f"{gpu} | rglru_scan S={t['S']}: the composition it replaced "
-            f"(the same ops one by one around the scan-alone kernel) "
-            f"{t['composition_ms']:.4f} ms against the fused kernel's "
-            f"{t['ms']:.4f} ms ({n_rec} layers)")
     log(f"{gpu} | recurrentgemma-2b graph decode step (launch/"
         f"profile_decode.py's dispatch, K={rstep['K']}): "
         f"{rstep['launches_per_step']:.0f} launches/step, device busy "
@@ -3657,14 +3918,10 @@ def slice10_phases(gpu, dev):
                   "path's; replaces the XLA-fused gates and lax.scan "
                   "(src/repro/models/rglru.py:117-124, _lru_scan :75), not "
                   "a Pallas kernel; no single PyTorch call computes it, so "
-                  "library_ms is null; composition_ms: the same ops one by "
-                  "one around the scan-alone kernel (the route before); "
-                  "*_S64: the same 18 layers at S = 64",
-             composition_ms=tscan["decode"]["composition_ms"],
+                  "library_ms is null; *_S64: the same 18 layers at S = 64",
              ms_S64=tscan["prefill"]["ms"],
              plain_ms_S64=tscan["prefill"]["plain_ms"],
              bound_ms_S64=tscan["prefill"]["bound_ms"],
-             composition_ms_S64=tscan["prefill"]["composition_ms"],
              graph_step=dict((k, rstep[k]) for k in (
                  "launches_per_step", "device_busy_ms_per_step",
                  "host_ms_per_step", "columns_ms", "hand")),
@@ -4112,6 +4369,12 @@ def qwen2_phases(gpu, dev):
         f"{time.perf_counter() - t0:.1f}s")
 
     gc_free()
+    t0 = time.perf_counter()
+    opts = options_path(cfg, dev, model, mp)
+    log_options(gpu, opts)
+    log(f"(r) {time.perf_counter() - t0:.1f}s")
+
+    gc_free()
     dcounts, dlayers = decode_attention_path(cfg, dev)
     need(dcounts, ("decode_attention",), "the decode-attention op")
 
@@ -4128,6 +4391,10 @@ def qwen2_phases(gpu, dev):
     del dlayers
     search = time_trit_search(cfg, dev)
     draw = time_sampling(cfg, dev)
+    gc_free()
+    t0 = time.perf_counter()
+    log_baselines(gpu, *baselines_path(dev))
+    log(f"(s) {time.perf_counter() - t0:.1f}s")
     for name, t in list(tern.items()) + [("chunk_attention/" + k, v)
                                          for k, v in attn.items()] + [
             ("rms_norm", norm["rms_norm"]),

@@ -34,7 +34,8 @@ from repro_torch.kernels.ptqtp_search import ops as search_ops
 from repro_torch.kernels.ptqtp_search.ref import CANDIDATES
 
 __all__ = ["CANDIDATES", "PTQTPConfig", "QuantizedTensor", "ptqtp_quantize",
-           "ptqtp_quantize_stack", "ptqtp_dequantize"]
+           "ptqtp_quantize_stack", "ptqtp_dequantize", "ptqtp_error",
+           "quantize_with_history"]
 
 # Group-rows per search chunk: 2^20 rows of G = 128 is 512 MiB of f32.
 _CHUNK_ELEMS = 1 << 27
@@ -195,3 +196,66 @@ def ptqtp_dequantize(q: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
     a = q.alpha.to(torch.float32)
     return (t1 * a[..., 0:1] + t2 * a[..., 1:2]).reshape(n, d).to(dtype)
 
+
+def ptqtp_error(w: torch.Tensor, q: QuantizedTensor) -> torch.Tensor:
+    """Relative Frobenius error ||W − Ŵ||_F / max(||W||_F, 1e-30), a 0-d
+    f32 tensor on w's device."""
+    w = w.to(torch.float32)
+    return torch.linalg.norm(w - ptqtp_dequantize(q)) / torch.clamp(
+        torch.linalg.norm(w), min=1e-30)
+
+
+def quantize_with_history(w: torch.Tensor,
+                          cfg: Optional[PTQTPConfig] = None):
+    """The quantizer's iterations, recording the error after each (the
+    reference's unrolled variant: its monotonicity test and the Fig. 3
+    ablation). Returns (q, errors (t + 1,)): errors[0] is ||W − Ŵ||_F after
+    the sign init with α = [1, 1], errors[i] after iteration i (the ridge
+    solves, then the trit search, measured with that iteration's α).
+
+    The iterations, their stop (one host sync each) and the planes are
+    ``ptqtp_quantize``'s; unlike it, no final α refit: ``q.alpha`` is the
+    last iteration's α. On the card the trit step is the search kernel
+    (B6)."""
+    cfg = cfg or PTQTPConfig()
+    if w.dim() != 2:
+        raise ValueError(f"quantize_with_history expects a 2-D matrix, got "
+                         f"{tuple(w.shape)}")
+    n, d = w.shape
+    g = cfg.group_size
+    if d % g:
+        raise ValueError(f"last dim {d} not divisible by group size {g}")
+    wg = w.to(torch.float32).reshape(n * (d // g), g).contiguous()
+    rows = wg.shape[0]
+    t1 = torch.where(wg >= 0.0, 1.0, -1.0)
+    t2 = t1.clone()
+    alpha = torch.ones((rows, 2), dtype=torch.float32, device=wg.device)
+    lam = torch.full((rows,), cfg.lambda_init, dtype=torch.float32,
+                     device=wg.device)
+
+    def err(alpha):
+        return torch.linalg.norm(
+            wg - (t1 * alpha[:, 0:1] + t2 * alpha[:, 1:2]))
+
+    errors = [err(alpha)]
+    iters = 0
+    for _ in range(cfg.t_max):
+        sums = _ridge_sums(t1, t2, wg)
+        _, kappa = _ridge_solve(sums, lam)
+        lam = torch.where(
+            kappa >= cfg.cond_bound,
+            torch.clamp(lam * torch.sqrt(kappa / cfg.cond_bound),
+                        max=cfg.lambda_max),
+            lam)
+        alpha_new, _ = _ridge_solve(sums, lam)
+        _trit_search(wg, alpha_new, t1, t2)
+        errors.append(err(alpha_new))
+        delta = torch.sqrt(((alpha_new - alpha) ** 2).sum(-1)).amax()
+        alpha = alpha_new
+        iters += 1
+        if bool(delta < cfg.eps):
+            break
+    q = QuantizedTensor(t1.to(torch.int8).reshape(n, d),
+                        t2.to(torch.int8).reshape(n, d),
+                        alpha.reshape(n, d // g, 2), g, iters)
+    return q, torch.stack(errors)

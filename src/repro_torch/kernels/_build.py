@@ -51,8 +51,7 @@ LAUNCHES: Dict[str, int] = {"ternary_matvec": 0, "ternary_matmul": 0,
                             "chunk_attention": 0, "rms_norm": 0,
                             "add_rms_norm": 0,
                             "chunk_attention_paged": 0, "decode_attention": 0,
-                            "ptqtp_search": 0, "rglru_scan": 0,
-                            "rglru_scan_alone": 0, "wkv6": 0}
+                            "ptqtp_search": 0, "rglru_scan": 0, "wkv6": 0}
 
 _LIBS: Dict[tuple, ctypes.CDLL] = {}
 _LOCK = threading.Lock()        # guards LAUNCHES: threads launch at once

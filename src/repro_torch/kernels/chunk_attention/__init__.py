@@ -1,6 +1,8 @@
 from repro_torch.kernels.chunk_attention.ops import (
-    chunk_attention, chunk_attention_cuda, chunk_attention_paged,
-    chunk_attention_paged_cuda)
+    BACKENDS, chunk_attention, chunk_attention_cuda, chunk_attention_paged,
+    chunk_attention_paged_cuda, peak_tracked_bytes, reset_tracking,
+    tracked_block_bytes)
 
-__all__ = ["chunk_attention", "chunk_attention_cuda", "chunk_attention_paged",
-           "chunk_attention_paged_cuda"]
+__all__ = ["BACKENDS", "chunk_attention", "chunk_attention_cuda",
+           "chunk_attention_paged", "chunk_attention_paged_cuda",
+           "peak_tracked_bytes", "reset_tracking", "tracked_block_bytes"]

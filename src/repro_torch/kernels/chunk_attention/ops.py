@@ -8,12 +8,30 @@ the reference's op contract (see ``ref.py`` for shapes and the mask rule);
 pos_pool, table, positions, lengths, *, window=None)`` is the same op over
 the virtual ring ``ring[b, p·ps + o] = pool[table[b, p], o]``.
 
-On CUDA tensors they launch the hand-written Hopper kernel of
-``csrc/chunk_attention.cu`` (B2 replacing ``chunk_attention_pallas``, B4
-replacing ``chunk_attention_paged_pallas``): split-KV over the parts of
-``split_ranges`` with one fixed combine order per row; on CPU tensors they
-run the plain online-softmax walk of ``ref.py`` (the paged one over the
-gathered ring).
+``backend`` takes the reference's names, mapped onto the port's routes:
+
+  * ``auto`` (the default): ``pallas`` on a CUDA tensor, ``stream`` on a
+    CPU one;
+  * ``pallas``: the hand-written Hopper kernel of ``csrc/chunk_attention.cu``
+    (B2 replacing ``chunk_attention_pallas``, B4 replacing
+    ``chunk_attention_paged_pallas``): split-KV over the parts of
+    ``split_ranges`` with one fixed combine order per row. A CPU tensor
+    raises (no interpreter);
+  * ``stream``: the plain online-softmax walk of ``ref.py`` (the paged one
+    over the gathered ring);
+  * ``materialized``: ``ref.chunk_attention_materialized`` (paged: over the
+    gathered ring), the reference's full-score-block oracle.
+
+The plain twins run on either device; on a CUDA tensor they walk the chunk
+in blocks of ``PLAIN_ROW_BLOCK`` query rows (``ref.py``), so their rows are
+batch-invariant as the kernel's are. They make no host sync and take no
+shape from data, so the engine captures them into its CUDA graphs too.
+
+``tracked_block_bytes`` / ``peak_tracked_bytes`` are the reference's
+analytic footprint of one call: the f32 score block for ``stream`` and
+``materialized`` (the reference's formula at the call's shapes; the card's
+padded row blocks are not counted), the split-KV workspace
+(``_workspace_size``) for ``pallas``.
 """
 
 from __future__ import annotations
@@ -39,6 +57,9 @@ _SIGNATURES = {
         _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]}
 
+BACKENDS = ("auto", "pallas", "stream", "materialized")
+#: query rows a block of the plain twins on a CUDA tensor (``ref.py``)
+PLAIN_ROW_BLOCK = 64
 MAX_HEAD_DIM = 256  # and a multiple of 8 (csrc MAX_HD)
 PART_SLOTS = 128  # key slots per part of the split-KV walk (csrc MAX_PART)
 ROW_TILE = 32     # query rows per block (csrc RT)
@@ -65,6 +86,56 @@ def _workspace_size(b: int, kv: int, rows: int, hd: int, n_parts: int):
     """(scratch floats, arrival counters) of a call."""
     n_idx = b * kv * -(-rows // ROW_TILE)
     return n_idx * n_parts * ROW_TILE * (hd + 2), n_idx
+
+
+def tracked_block_bytes(b: int, kv: int, g: int, L: int, cap: int, *,
+                        backend: str, hd: Optional[int] = None) -> int:
+    """Analytic peak bytes of one call: the f32 score block of ``stream``
+    (L × ``_select_tile(cap, L)``) and ``materialized`` (L × (cap + L)),
+    as the reference counts them; the
+    split-KV workspace of ``pallas`` (its f32 scratch and int32 arrival
+    counters; needs ``hd``). ``cap`` is the ring's (paged: the virtual
+    ring's) slots."""
+    if backend == "pallas":
+        floats, n_idx = _workspace_size(
+            b, kv, L * g, hd, len(split_ranges(cap)) + len(split_ranges(L)))
+        return 4 * (floats + n_idx)
+    width = cap + L if backend == "materialized" else _ref._select_tile(cap, L)
+    return 4 * b * kv * g * L * width
+
+
+_TRACK = {"peak_bytes": 0}
+
+
+def reset_tracking() -> None:
+    _TRACK["peak_bytes"] = 0
+
+
+def peak_tracked_bytes() -> int:
+    """Largest footprint ``tracked_block_bytes`` gave a call since the
+    last ``reset_tracking()``."""
+    return _TRACK["peak_bytes"]
+
+
+def resolve_chunk_backend(backend: Optional[str], device) -> str:
+    """``auto``/None → ``pallas`` on a CUDA device, ``stream`` elsewhere;
+    another name of ``BACKENDS`` as given; anything else raises the
+    reference's ValueError."""
+    if backend in (None, "auto"):
+        return "pallas" if torch.device(device).type == "cuda" else "stream"
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown chunk-attention backend {backend!r}")
+    return backend
+
+
+def _route(backend, q, cap):
+    """Resolve ``backend`` for q, record the call's footprint; returns the
+    backend and the plain twins' ``row_block``."""
+    b, L, kv, g, hd = q.shape
+    backend = resolve_chunk_backend(backend, q.device)
+    _TRACK["peak_bytes"] = max(_TRACK["peak_bytes"], tracked_block_bytes(
+        b, kv, g, L, cap, backend=backend, hd=hd))
+    return backend, (PLAIN_ROW_BLOCK if q.is_cuda else None)
 
 
 def _ensure(dev, stream: int, need: int, n_idx: int):
@@ -234,30 +305,37 @@ def chunk_attention_paged_cuda(q, k_new, v_new, k_pool, k_scale, v_pool,
 
 def chunk_attention(q, k_new, v_new, k_cache, k_scale, v_cache, v_scale,
                     pos_buf, positions, lengths, *,
-                    window: Optional[int] = None):
+                    window: Optional[int] = None, backend: str = "auto"):
     """Chunk attention vs (pre-write ring ∪ in-chunk keys); returns
     (B, L, KV, G, hd) float32. ``k_scale``/``v_scale`` are None for float
-    rings."""
-    if q.device.type == "cpu":
-        return _ref.chunk_attention_stream(
-            q, k_new, v_new, k_cache, k_scale, v_cache, v_scale, pos_buf,
-            positions, lengths, window=window)
-    return chunk_attention_cuda(q, k_new, v_new, k_cache, k_scale, v_cache,
-                                v_scale, pos_buf, positions, lengths,
-                                window=window)
+    rings. ``backend``: the module docstring."""
+    backend, rows = _route(backend, q, k_cache.shape[1])
+    args = (q, k_new, v_new, k_cache, k_scale, v_cache, v_scale, pos_buf,
+            positions, lengths)
+    if backend == "pallas":
+        return chunk_attention_cuda(*args, window=window)
+    if backend == "stream":
+        return _ref.chunk_attention_stream(*args, window=window,
+                                           row_block=rows)
+    return _ref.chunk_attention_materialized(*args, window=window,
+                                             row_block=rows)
 
 
 def chunk_attention_paged(q, k_new, v_new, k_pool, k_scale, v_pool, v_scale,
                           pos_pool, table, positions, lengths, *,
-                          window: Optional[int] = None):
+                          window: Optional[int] = None, backend: str = "auto"):
     """Chunk attention over a paged ring: pools (P, ps, KV, hd) (int8 with
     (P, ps, KV) f32 scales, or float with scales None), pos_pool (P, ps)
     int32, table (B, n_pages) int32; page 0 is the null page (pos ≡ -1).
-    Returns (B, L, KV, G, hd) float32."""
-    if q.device.type == "cpu":
-        return _ref.chunk_attention_paged_stream(
-            q, k_new, v_new, k_pool, k_scale, v_pool, v_scale, pos_pool,
-            table, positions, lengths, window=window)
-    return chunk_attention_paged_cuda(q, k_new, v_new, k_pool, k_scale,
-                                      v_pool, v_scale, pos_pool, table,
-                                      positions, lengths, window=window)
+    Returns (B, L, KV, G, hd) float32. ``backend``: the module docstring
+    (``stream`` and ``materialized`` over the gathered ring)."""
+    backend, rows = _route(backend, q, table.shape[1] * k_pool.shape[1])
+    args = (q, k_new, v_new, k_pool, k_scale, v_pool, v_scale, pos_pool,
+            table, positions, lengths)
+    if backend == "pallas":
+        return chunk_attention_paged_cuda(*args, window=window)
+    if backend == "stream":
+        return _ref.chunk_attention_paged_stream(*args, window=window,
+                                                 row_block=rows)
+    return _ref.chunk_attention_paged_materialized(*args, window=window,
+                                                   row_block=rows)

@@ -12,8 +12,7 @@ roundings). ``h`` (B, R) is updated in place to the last step's state.
 block-diagonal products to ``wo``'s input: the reference's
 ``rglru_forward`` between ``_conv1d`` and ``dense(p["wo"], ...)``, op for
 op as PyTorch runs it (each op's result in its own dtype), with the
-scan as ``scan`` (``rglru_scan_plain`` unless the caller passes another
-route of the same function).
+scan as ``rglru_scan_plain``.
 
 They are what the wrappers run for CPU tensors, and what the CUDA kernel
 is held against on the card.
@@ -47,8 +46,7 @@ def rglru_gated_scan_plain(ya: torch.Tensor, yx: torch.Tensor,
                            ba: torch.Tensor, bx: torch.Tensor,
                            c: torch.Tensor, g: torch.Tensor,
                            lam: torch.Tensor, h: torch.Tensor,
-                           lengths: torch.Tensor,
-                           scan=rglru_scan_plain) -> torch.Tensor:
+                           lengths: torch.Tensor) -> torch.Tensor:
     """ya, yx (n_blocks, B·S, R / n_blocks): the products of c through the
     block-diagonal gates a and x, before their biases ba, bx (R,); c (B,
     S, R) the conv output and g (B, S, R) the wgate product, before its
@@ -58,7 +56,7 @@ def rglru_gated_scan_plain(ya: torch.Tensor, yx: torch.Tensor,
 
       r = σ(ya + ba), i = σ(yx + bx)      (in c's dtype, then f32)
       a = exp(−8·softplus(Λ)·r),  gx = √max(1 − a², 1e-12) · (i·c)
-      h_t = a·h_{t−1} + gx  (``scan``);   y = gelu(g) · h_t
+      h_t = a·h_{t−1} + gx;   y = gelu(g) · h_t
     """
     b, s, r = c.shape
 
@@ -72,6 +70,6 @@ def rglru_gated_scan_plain(ya: torch.Tensor, yx: torch.Tensor,
     a = torch.exp(log_a)
     gated_x = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
                                      min=1e-12)) * (it * c.to(torch.float32))
-    hs = scan(a, gated_x, h, lengths)
+    hs = rglru_scan_plain(a, gated_x, h, lengths)
     gb = F.gelu(g, approximate="tanh")
     return (gb.to(torch.float32) * hs).to(c.dtype)

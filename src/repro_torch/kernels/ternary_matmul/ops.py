@@ -19,6 +19,15 @@ row lands never changes its result. On a CPU tensor the wrapper runs the
 plain grouped formula of ``ref.py``; it never falls back from a CUDA
 tensor to it.
 
+The plane dtype tags the storage, as in the reference: uint8 planes are
+packed and every route takes them; int8 planes hold raw trits (the
+engine's ``preunpack_decode`` copy) and only the plain grouped route
+serves them, on the card in row blocks of ``models.common.DENSE_ROW_BLOCK``
+(one product shape whatever m: batch-invariant). ``backend`` takes the
+reference's names: ``auto`` (the kernels on a CUDA tensor with packed
+planes, else the plain route), ``pallas`` (the kernels: a CPU tensor or
+int8 planes raise) and ``grouped`` (the plain route).
+
 ``NIBBLE_BF16X2``, ``a_fragment`` and ``trit_pairs`` state in Python how
 the tensor-core kernels turn packed trits into the A operand of
 ``mma.sync.m16n8k16`` (the part of those kernels that the CPU tests hold
@@ -38,6 +47,7 @@ from repro_torch.kernels.ternary_matmul import ref as _ref
 
 SMALL_M_THRESHOLD = 128
 MATVEC_GROUP_SIZES = (32, 64, 128)
+BACKENDS = ("auto", "pallas", "grouped")
 
 _SOURCE = Path(__file__).parent / "csrc" / "ternary_matmul.cu"
 _P = ctypes.c_void_p
@@ -184,17 +194,45 @@ def ternary_matmul_tiled(x, t1p, t2p, alpha, group_size: int = 128,
                    alpha, group_size, out_dtype)
 
 
+def _plain_route(backend: str, x, t1p) -> bool:
+    """Whether the plain grouped formula serves this call (module
+    docstring); raises the reference's ValueError for an unknown backend
+    or for int8 planes asked of the kernels."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
+    if t1p.dtype != torch.uint8:
+        if backend == "pallas":
+            raise ValueError(
+                f"backend {backend!r} requires packed uint8 trit-planes; "
+                "pre-unpacked int8 planes are served by the grouped backend")
+        return True
+    if backend == "pallas" and not x.is_cuda:
+        raise ValueError("backend 'pallas' runs the CUDA kernels: x must be "
+                         "a CUDA tensor")
+    return backend == "grouped" or not x.is_cuda
+
+
+def _row_block(x):
+    """Row block of the plain route: one product shape on the card."""
+    if not x.is_cuda:
+        return None
+    # models.common imports this module: import it at the call
+    from repro_torch.models.common import DENSE_ROW_BLOCK
+    return DENSE_ROW_BLOCK
+
+
 def ternary_matmul_experts(x, t1p, t2p, alpha, *, group_size: int = 128,
-                           out_dtype=None):
+                           out_dtype=None, backend: str = "auto"):
     """E stacked products y[e] = x[e] @ Ŵ[e]ᵀ: x (E, m, d); planes (E, n,
-    d//4) uint8; alpha (E, n, d//G, 2) f32. Returns (E, m, n) in
-    ``out_dtype`` (f32 if None). On the card one launch of the matvec (m <
-    128) or the tiled kernel with the expert on the grid's z axis; on the
-    CPU the plain grouped formula, expert by expert."""
+    d//4) uint8 (or (E, n, d) int8); alpha (E, n, d//G, 2) f32. Returns
+    (E, m, n) in ``out_dtype`` (f32 if None). On the card one launch of the
+    matvec (m < 128) or the tiled kernel with the expert on the grid's z
+    axis; on the CPU, and for int8 planes, the plain grouped formula,
+    expert by expert. ``backend``: the module docstring."""
     out_dtype = out_dtype or torch.float32
-    if x.device.type == "cpu":
-        return _ref.ternary_matmul_experts(x, t1p, t2p, alpha,
-                                           group_size).to(out_dtype)
+    if _plain_route(backend, x, t1p):
+        return _ref.ternary_matmul_experts(x, t1p, t2p, alpha, group_size,
+                                           _row_block(x)).to(out_dtype)
     direct = out_dtype in (torch.float32, x.dtype)
     kern = (ternary_matvec if x.shape[1] < SMALL_M_THRESHOLD
             else ternary_matmul_tiled)
@@ -204,12 +242,14 @@ def ternary_matmul_experts(x, t1p, t2p, alpha, *, group_size: int = 128,
 
 
 def ternary_matmul(x, t1p, t2p, alpha, *, group_size: int = 128,
-                   out_dtype=None):
-    """y = x @ Ŵᵀ. x (..., d); packed planes (n, d//4) uint8; alpha
-    (n, d//G, 2) f32. Returns (..., n) in ``out_dtype`` (f32 if None)."""
+                   out_dtype=None, backend: str = "auto"):
+    """y = x @ Ŵᵀ. x (..., d); packed planes (n, d//4) uint8 (or raw (n, d)
+    int8); alpha (n, d//G, 2) f32. Returns (..., n) in ``out_dtype`` (f32
+    if None). ``backend``: the module docstring."""
     out_dtype = out_dtype or torch.float32
-    if x.device.type == "cpu":
-        y = _ref.ternary_matmul_grouped(x, t1p, t2p, alpha, group_size)
+    if _plain_route(backend, x, t1p):
+        y = _ref.ternary_matmul_grouped(x, t1p, t2p, alpha, group_size,
+                                        _row_block(x))
         return y.to(out_dtype)
     *lead, d = x.shape
     x2 = x.reshape(-1, d).contiguous()

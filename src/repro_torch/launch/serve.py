@@ -8,8 +8,7 @@ quantization), then serve a batch of requests through the v1 request API.
 ``python -m repro_torch.launch.serve --scheduler serial --trace-out t.json``
 ``python -m repro_torch.launch.serve --http 127.0.0.1:8000 --supervise``
 
-``repro.launch.serve`` with the same defaults and flags (its
-``--attn-backend`` excepted).
+``repro.launch.serve`` with the same defaults and flags.
 With ``--artifact`` the model and its config come from the artifact's
 manifest and shards (written by either package): no floating-point weights
 are built and nothing is quantized; the boot time is printed by phase.
@@ -26,6 +25,13 @@ the pool and the prefix cache is off (printed at boot), as in the
 reference. A model with a stub modality frontend
 (``embed_inputs=False``) is refused, as the reference's launcher refuses
 it.
+
+``--attn-backend`` picks the attention route of every dispatch
+(``kernels.chunk_attention``): ``auto`` the hand-written kernel on the card
+and the plain streaming walk on the CPU, ``pallas`` the kernel (the card
+only), ``stream`` and ``materialized`` the plain twins. On the CPU the
+engine serves pre-unpacked int8 trit-planes (``preunpack_decode``), and
+their resident bytes are printed, as the reference prints them.
 
 ``--warmup`` captures every dispatch before serving (CUDA graphs on the
 card; their capture seconds are printed). ``--scheduler serial`` serves on
@@ -313,6 +319,15 @@ def main(argv=None):
                     help="bucketed/chunked admission (default) or the "
                          "serial-admit baseline (one dispatch per prompt "
                          "length)")
+    ap.add_argument("--attn-backend",
+                    choices=("auto", "pallas", "stream", "materialized"),
+                    default="auto",
+                    help="attention route (repro_torch.kernels."
+                         "chunk_attention): auto = the hand-written CUDA "
+                         "kernel on the card, the plain streaming online-"
+                         "softmax walk on the CPU; pallas = the CUDA kernel; "
+                         "stream / materialized = the plain twins (the "
+                         "materialized one: the full score block)")
     ap.add_argument("--kv-layout", choices=("ring", "paged"), default="ring",
                     help="KV-cache storage: 'ring' = contiguous per slot; "
                          "'paged' = fixed-size pages from a shared pool "
@@ -449,21 +464,30 @@ def main(argv=None):
     cls = ServingEngine if args.scheduler == "bucketed" else SerialAdmitEngine
     ecfg = EngineConfig(
         max_slots=args.slots, capacity=args.capacity,
-        prefill_chunk=args.prefill_chunk, max_queue=args.max_queue,
+        prefill_chunk=args.prefill_chunk, attn_backend=args.attn_backend,
+        max_queue=args.max_queue,
         max_resident_tokens=args.max_resident_tokens,
         admission_policy=args.admission_policy,
         kv_layout=args.kv_layout, page_size=args.page_size,
         max_pages=args.max_pages, prefix_cache=args.prefix_cache)
     with _boot_phase(obs, boot, "engine_init", scheduler=args.scheduler):
         engine = cls(model, cfg, ecfg, observability=obs)
+    mem = engine.memory_stats()
     if engine.paged:
-        mem = engine.memory_stats()
         why = ("" if engine._prefix_reuse or not args.prefix_cache else
                " (a recurrent mixer's state cannot skip a shared prefix)")
         print(f"[serve] paged KV: pool {engine.alloc.n_pages} pages x "
               f"{args.page_size} tokens ({mem['kv_pool_bytes'] / 1e6:.2f} MB"
               f", {mem['kv_page_bytes'] / 1e3:.1f} KB/page across layers), "
               f"prefix cache {'on' if engine._prefix_reuse else 'off'}{why}")
+    if mem["preunpack_decode"]:
+        # pre-unpacked planes are int8 trits, 4x the packed bytes
+        print(f"[serve] resident planes "
+              f"{mem['resident_plane_bytes'] / 1e6:.2f} MB "
+              f"({mem['preunpack_ratio']:.1f}x packed "
+              f"{mem['packed_plane_bytes'] / 1e6:.2f} MB, preunpack_decode); "
+              f"decode state {mem['decode_state_bytes'] / 1e6:.2f} MB; "
+              f"total resident {mem['resident_total_bytes'] / 1e6:.2f} MB")
 
     def engine_factory():
         # a supervised rebuild: reload the artifact (no checksum pass; it

@@ -16,7 +16,8 @@ never written), so unmapped logical pages read as empty; the host-side
 Every serving-time attention read — chunk prefill and single-token decode
 (its L = 1 case) — goes through ``repro_torch.kernels.chunk_attention``
 (``chunk_attention_paged`` for the paged layout) against (pre-write ring ∪
-in-chunk keys) under one mask rule, then the chunk's keys are written.
+in-chunk keys) under one mask rule, on the route ``cfg.attn_backend``
+names, then the chunk's keys are written.
 
 Unlike the reference, caches are updated in place: a serving step would
 otherwise copy every layer's cache. A ring write that the reference drops
@@ -252,18 +253,19 @@ def _write(cache, slots, keep, k, v, positions):
         scatter(names[2], v)
 
 
-def _attend(cache, q, k, v, positions, lengths, window):
+def _attend(cfg, cache, q, k, v, positions, lengths, window):
     """Chunk attention of q against (``cache`` before the write ∪ k/v),
-    through the ring or the paged kernel."""
+    through the ring or the paged op, on ``cfg.attn_backend``."""
     if "table" in cache:
         return chunk_attention_paged(
             q, k, v, cache["pages_k"], cache.get("pages_ks"),
             cache["pages_v"], cache.get("pages_vs"), cache["pages_pos"],
-            cache["table"], positions, lengths, window=window)
+            cache["table"], positions, lengths, window=window,
+            backend=cfg.attn_backend)
     return chunk_attention(
         q, k, v, cache["k"], cache.get("k_scale"), cache["v"],
         cache.get("v_scale"), cache["pos"], positions, lengths,
-        window=window)
+        window=window, backend=cfg.attn_backend)
 
 
 def _capacity(cache) -> int:
@@ -287,7 +289,7 @@ def attention_prefill_chunk(attn: Attention, cfg, cache, x, positions,
     kv, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     cap = _capacity(cache)
     q, k, v = _qkv(attn, cfg, x, rope)
-    y = _attend(cache, q.reshape(b, L, kv, g, hd).contiguous(),
+    y = _attend(cfg, cache, q.reshape(b, L, kv, g, hd).contiguous(),
                 k.contiguous(), v.contiguous(), positions, lengths, window)
     y = attn.wo(y.reshape(b, L, cfg.n_heads * hd).to(x.dtype))
 
@@ -317,7 +319,7 @@ def attention_decode(attn: Attention, cfg, cache, x_t, pos, rope, *,
     k_t = apply_rope(k_t, rope)
     lengths = (active.to(torch.int32) if active is not None
                else torch.ones((b,), dtype=torch.int32, device=x_t.device))
-    y = _attend(cache, q.reshape(b, 1, kv, g, hd).contiguous(),
+    y = _attend(cfg, cache, q.reshape(b, 1, kv, g, hd).contiguous(),
                 k_t[:, None].contiguous(), v_t[:, None].contiguous(),
                 pos[:, None].to(torch.int32).contiguous(), lengths, window)
     y = attn.wo(y.reshape(b, cfg.n_heads * hd).to(x_t.dtype))

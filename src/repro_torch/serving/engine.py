@@ -77,22 +77,33 @@ thread at its next dispatch, and on the card each engine holds a stream no
 other live engine has, so even a thread that is mid-dispatch never
 launches onto a newer generation's stream.
 
-Not ported yet, and rejected when set: pre-unpacked planes and an
-attention-backend override.
+``EngineConfig.attn_backend`` replaces the model config's attention route
+for every dispatch (``kernels.chunk_attention``: auto | pallas | stream |
+materialized). ``preunpack_decode`` serves from a copy of the model whose
+trit-planes are raw int8 trits, unpacked once at init (the plain grouped
+route reads them with the same bits as the packed form); None turns it on
+where the plain route serves the matmuls anyway (the CPU) and off on the
+card, where the ternary kernels unpack in the kernel. The caller's model
+keeps its packed planes either way.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import functools
+import itertools
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.chunk_attention.ops import reserve_workspace
+from repro_torch.core.packing import unpack_trits
+from repro_torch.kernels.chunk_attention.ops import (BACKENDS,
+                                                     reserve_workspace,
+                                                     resolve_chunk_backend)
 from repro_torch.models import (decode_step, init_decode_state, prefill,
                                 prefill_chunk)
 from repro_torch.models.transformer import has_attention, is_recurrent
@@ -145,7 +156,12 @@ class EngineFault(RuntimeError):
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Engine-wide knobs; per-request behavior lives in ``SamplingParams``."""
+    """Engine-wide knobs; per-request behavior lives in ``SamplingParams``.
+
+    ``attn_backend`` (None: the model config's) overrides the attention
+    route of every dispatch; ``preunpack_decode`` (None: on where the plain
+    grouped matmul serves, the CPU) serves raw int8 trit-planes (module
+    docstring)."""
 
     max_slots: int = 4
     capacity: int = 256          # KV-cache length per slot
@@ -171,11 +187,6 @@ class EngineConfig:
     # footprint; lower overcommits against prefix sharing)
     max_pages: Optional[int] = None
     prefix_cache: bool = True    # copy-on-write prefix reuse (paged)
-
-    # fields of the reference this port does not implement yet, with the
-    # only values it accepts
-    _UNPORTED = {"attn_backend": (None, "auto"),
-                 "preunpack_decode": (None, False)}
 
     def __post_init__(self):
         if self.max_slots < 1 or self.capacity < 1:
@@ -205,15 +216,33 @@ class EngineConfig:
                                  f"{self.page_size})")
             if self.max_pages is not None and self.max_pages < 1:
                 raise ValueError("max_pages must be >= 1")
-        for name, allowed in self._UNPORTED.items():
-            if getattr(self, name) not in allowed:
-                raise NotImplementedError(
-                    f"EngineConfig.{name}={getattr(self, name)!r} is not "
-                    f"ported yet (accepted: {allowed})")
+        if self.attn_backend is not None and self.attn_backend not in BACKENDS:
+            raise ValueError(f"unknown chunk-attention backend "
+                             f"{self.attn_backend!r} (one of {BACKENDS})")
 
 
 def _pow2ceil(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
+
+
+def _preunpacked(model):
+    """A copy of ``model``'s module tree that shares every tensor but the
+    trit-planes, which it holds unpacked: int8 trits (n, d) where the
+    model has packed uint8 (n, d/4). The model itself is left as it was."""
+    shared = itertools.chain(
+        model.parameters(), model.buffers(),
+        (v for m in model.modules() for v in vars(m).values()
+         if isinstance(v, torch.Tensor)))
+    serve = copy.deepcopy(model, {id(t): t for t in shared})
+    for m in serve.modules():
+        if getattr(m, "t1p", None) is not None:
+            m.t1p, m.t2p = unpack_trits(m.t1p), unpack_trits(m.t2p)
+    return serve
+
+
+def _plane_bytes(model) -> int:
+    return sum(int(m.t1p.nbytes) + int(m.t2p.nbytes) for m in model.modules()
+               if getattr(m, "t1p", None) is not None)
 
 
 class ServingEngine:
@@ -243,9 +272,18 @@ class ServingEngine:
             raise ValueError(f"{model_cfg.name} has a stub modality "
                              "frontend; the engine serves token ids")
         self.model = model
+        if engine_cfg.attn_backend is not None:
+            model_cfg = dataclasses.replace(
+                model_cfg, attn_backend=engine_cfg.attn_backend)
         self.cfg = model_cfg
         self.ecfg = engine_cfg
         self.device = model.embed.device
+        pre = engine_cfg.preunpack_decode
+        if pre is None:  # the plain grouped matmul serves on the CPU only
+            pre = self.device.type == "cpu"
+        self.preunpack_decode = pre
+        # what every dispatch reads: built before anything is captured
+        self._serve_model = _preunpacked(model) if pre else model
         nb = engine_cfg.max_slots
         self.queue: deque[RequestHandle] = deque()
         self.slots: List[Optional[RequestHandle]] = [None] * nb
@@ -300,7 +338,9 @@ class ServingEngine:
             self._pool = torch.cuda.graph_pool_handle()
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
             kv = model_cfg.n_kv_heads
-            if has_attention(model_cfg):  # rwkv6 reads no KV
+            # rwkv6 reads no KV; the plain attention twins need no scratch
+            if has_attention(model_cfg) and resolve_chunk_backend(
+                    model_cfg.attn_backend, self.device) == "pallas":
                 reserve_workspace(self.device, self._stream, nb, kv,
                                   model_cfg.n_heads // kv,
                                   model_cfg.head_dim, engine_cfg.capacity,
@@ -669,21 +709,22 @@ class ServingEngine:
                 "capture_s": sum(r["capture_s"] for r in out)}
 
     def memory_stats(self) -> Dict[str, Any]:
-        """Resident serving-state bytes (the reference's fields). The port
-        keeps the packed planes (``preunpack_decode`` is not ported), so
-        resident and packed plane bytes are equal. ``decode_state_bytes``
-        is the live batch state (KV rings or pool, positions, page table)."""
-        planes = sum(int(m.t1p.nbytes) + int(m.t2p.nbytes)
-                     for m in self.model.modules()
-                     if getattr(m, "t1p", None) is not None)
-        param_bytes = sum(int(t.nbytes) for t in self.model.parameters()) \
-            + sum(int(t.nbytes) for t in self.model.buffers())
+        """Resident serving-state bytes (the reference's fields). With
+        ``preunpack_decode`` the served planes are int8 trits, so
+        ``resident_plane_bytes`` is 4× ``packed_plane_bytes`` (the model's);
+        ``param_bytes`` counts the served copy. ``decode_state_bytes`` is
+        the live batch state (KV rings or pool, positions, page table)."""
+        packed = _plane_bytes(self.model)
+        resident = _plane_bytes(self._serve_model)
+        serve = self._serve_model
+        param_bytes = sum(int(t.nbytes) for t in serve.parameters()) \
+            + sum(int(t.nbytes) for t in serve.buffers())
         state_bytes = sum(int(t.nbytes) for t in self._state_leaves())
         out = {
-            "preunpack_decode": False,
-            "packed_plane_bytes": planes,
-            "resident_plane_bytes": planes,
-            "preunpack_ratio": 1.0,
+            "preunpack_decode": self.preunpack_decode,
+            "packed_plane_bytes": packed,
+            "resident_plane_bytes": resident,
+            "preunpack_ratio": (resident / packed) if packed else 1.0,
             "param_bytes": param_bytes,
             "decode_state_bytes": state_bytes,
             "resident_total_bytes": param_bytes + state_bytes,
@@ -775,7 +816,7 @@ class ServingEngine:
         token (B, V) out."""
         nb = len(self.slots)
         off = nb + -nb % 4
-        logits, _ = prefill_chunk(self.model, self.cfg, self.state,
+        logits, _ = prefill_chunk(self._serve_model, self.cfg, self.state,
                                   inp[off:].view(nb, length), inp[:nb])
         return logits
 
@@ -1356,8 +1397,8 @@ class ServingEngine:
         stops = inp[8 * nb:].view(nb, stop_w)
         out = []
         for _ in range(n_steps):
-            logits, _ = decode_step(self.model, self.cfg, self.state, tok,
-                                    active)
+            logits, _ = decode_step(self._serve_model, self.cfg, self.state,
+                                    tok, active)
             if use_poison:
                 logits = torch.where(((gen == poison) & active)[:, None],
                                      float("nan"), logits)
@@ -1470,7 +1511,7 @@ class SerialAdmitEngine(ServingEngine):
         return self._prefill_cache[length]
 
     def _serial_body(self, inp: torch.Tensor, *, length: int):
-        logits, _ = prefill(self.model, self.cfg, inp.view(1, length),
+        logits, _ = prefill(self._serve_model, self.cfg, inp.view(1, length),
                             self.ecfg.capacity, chunk=self.ecfg.prefill_chunk,
                             state=self._one)
         return logits

@@ -68,7 +68,7 @@ from repro_torch.artifacts import (ArtifactWriter, format as afmt,
                                    load_model)
 from repro_torch.convert import to_reference_tree
 from repro_torch.core.quantize_model import QuantizedKernel
-from repro_torch.core.packing import pack_trits
+from repro_torch.core.packing import pack_trits, unpack_trits
 from repro_torch.core.ptqtp import PTQTPConfig
 from repro_torch.core.quantize_model import quantize_tree
 from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -228,6 +228,53 @@ def _attention_case(rng, b, L, kv, g, hd, cap, ring, dev):
     lengths = np.asarray([L, 0, 1, L][:b], np.int32)
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     return [q, kn, vn, kc, ks, vc, vs, t(pb), t(positions), t(lengths)]
+
+
+@pytest.mark.parametrize("backend", ["stream", "materialized"])
+def test_plain_attention_twins_rows_do_not_depend_on_the_chunk_length(
+        cuda, backend):
+    """The ``stream`` and ``materialized`` routes on the card (their fixed
+    row blocks): within 1e-4 of the kernel, a row's bits equal at L = 1 and
+    as l = 0 of an L = 64 chunk with length 1, and the backend launches no
+    attention kernel."""
+    rng = np.random.default_rng(23)
+    args = _attention_case(rng, 4, 64, 2, 6, 128, 256, "bfloat16", cuda)
+    args[9] = torch.tensor([64, 1, 1, 40], dtype=torch.int32, device=cuda)
+    reset_launch_counts()
+    full = ca_ops.chunk_attention(*args, backend=backend)
+    one = list(args)
+    for i in (0, 1, 2, 8):
+        one[i] = args[i][:, :1].contiguous()
+    one[9] = torch.ones_like(args[9])
+    first = ca_ops.chunk_attention(*one, backend=backend)
+    assert not launch_counts()["chunk_attention"]
+    assert torch.equal(first[1:3], full[1:3, :1])
+    kern = ca_ops.chunk_attention(*args, backend="pallas")
+    assert (full - kern).abs().max() <= 1e-4
+
+
+def test_int8_plane_route_rows_do_not_depend_on_m(cuda):
+    """Raw int8 planes on the card: the plain grouped route in 128-row
+    blocks, a row's bits equal alone and among 300 rows, within the
+    ternary tolerance of the kernel on the packed planes, and a request
+    for the kernel raises."""
+    rng = np.random.default_rng(24)
+    t1p, t2p, alpha = _planes(rng, 256, 512, 128, cuda)
+    t1, t2 = unpack_trits(t1p), unpack_trits(t2p)
+    x = torch.from_numpy(rng.standard_normal((300, 512)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    reset_launch_counts()
+    y = tm_ops.ternary_matmul(x, t1, t2, alpha, group_size=128)
+    assert not launch_counts()["ternary_matvec"] + launch_counts()[
+        "ternary_matmul"]
+    for lo, hi in ((0, 1), (5, 13), (127, 129), (250, 300)):
+        assert torch.equal(tm_ops.ternary_matmul(x[lo:hi], t1, t2, alpha,
+                                                 group_size=128), y[lo:hi])
+    kern = tm_ops.ternary_matmul(x, t1p, t2p, alpha, group_size=128)
+    assert (y - kern).abs().max() <= 1e-4 * max(1.0, float(y.abs().max()))
+    with pytest.raises(ValueError, match="requires packed uint8"):
+        tm_ops.ternary_matmul(x, t1, t2, alpha, group_size=128,
+                              backend="pallas")
 
 
 @pytest.mark.parametrize("ring", ["float32", "bfloat16", "int8"])
@@ -1088,21 +1135,6 @@ def _recurrence_checks(kern, plain, args, state_at, lengths_at, steps, rows):
     return (got, want), (got_s, want_s)
 
 
-@pytest.mark.parametrize("s", [1, 9])
-def test_rglru_scan_matches_plain_and_is_invariant(cuda, s):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    b, r = 5, 300   # r off the 256-thread grid
-    a = torch.rand((b, s, r), generator=g, device=cuda) * 0.98 + 0.01
-    gx = torch.randn((b, s, r), generator=g, device=cuda)
-    h = torch.randn((b, r), generator=g, device=cuda)
-    lengths = torch.tensor([s, 0, 1, s // 2, s], dtype=torch.int32,
-                           device=cuda)
-    (got, want), (got_h, want_h) = _recurrence_checks(
-        scan_ops.rglru_scan_cuda, scan_ref.rglru_scan_plain,
-        [a, gx, h, lengths], 2, 3, (0, 1), (0, 1, 2, 3))
-    assert torch.equal(got, want) and torch.equal(got_h, want_h)
-
-
 def _gate_blocks(y, n_blocks):
     """(B, S, R) → the gates' batched-product layout (n_blocks, B·S, rb),
     its blocks a 128-row multiple apart, as ``bmm_fixed_rows`` returns."""
@@ -1114,16 +1146,13 @@ def _gate_blocks(y, n_blocks):
     return buf[:, :m]
 
 
-@pytest.mark.parametrize("s", [1, 64, 70])   # 70: two tiles of 32, a ragged third
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_rglru_gated_scan_matches_plain_and_is_invariant(cuda, dtype, s):
-    """The fused RG-LRU gate-and-scan against its plain version: the
-    output and h bit for bit; a row alone == its batch row; one S-step call
-    == S one-step calls. R = 3 blocks of 34 (off the kernel's 32-channel
-    grid), nonzero biases, ragged and idle rows."""
-    g = torch.Generator(device=cuda).manual_seed(2)
-    b, nb, rb = 5, 3, 34
-    r = nb * rb
+def _gated_scan_case(cuda, dtype, s, nb, rb, seed):
+    """The fused RG-LRU gate-and-scan against its plain version on five
+    rows (ragged and idle lengths, nonzero biases), R = nb blocks of rb:
+    the output and h bit for bit; a row alone == its batch row; one S-step
+    call == S one-step calls."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    b, r = 5, nb * rb
 
     def rnd(*shape, std=1.0):
         return (torch.randn(shape, generator=g, device=cuda) * std).to(dtype)
@@ -1147,6 +1176,23 @@ def test_rglru_gated_scan_matches_plain_and_is_invariant(cuda, dtype, s):
         (0, 1, 2, 3, 4, 5))
     assert got.dtype == dtype
     assert torch.equal(got, want) and torch.equal(got_h, want_h)
+
+
+@pytest.mark.parametrize("s", [1, 9])
+def test_rglru_scan_matches_plain_and_is_invariant(cuda, s):
+    """The case the scan alone was held to, on the fused kernel: f32, R =
+    300 as 3 blocks of 100 (a ragged last 32-channel block), S = 1 and 9."""
+    _gated_scan_case(cuda, torch.float32, s, 3, 100, 0)
+
+
+@pytest.mark.parametrize("s", [1, 64, 70])   # 70: two tiles of 32, a ragged third
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_gated_scan_matches_plain_and_is_invariant(cuda, dtype, s):
+    """The fused RG-LRU gate-and-scan against its plain version: the
+    output and h bit for bit; a row alone == its batch row; one S-step call
+    == S one-step calls. R = 3 blocks of 34 (off the kernel's 32-channel
+    grid), nonzero biases, ragged and idle rows."""
+    _gated_scan_case(cuda, dtype, s, 3, 34, 2)
 
 
 @pytest.mark.parametrize("ring", ["float32", "bfloat16"])

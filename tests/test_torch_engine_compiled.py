@@ -119,14 +119,16 @@ def test_warmup_covers_every_dispatch_and_changes_no_token(both):
         assert after[field] == before[field]
 
 
+@pytest.mark.parametrize("preunpack", [None, False, True])
 @pytest.mark.parametrize("layout", ["ring", "paged"])
-def test_memory_stats_count_the_reference_bytes(both, layout):
+def test_memory_stats_count_the_reference_bytes(both, layout, preunpack):
+    """Plane, parameter and KV bytes equal the reference engine's; None
+    pre-unpacks on the CPU in both (resident planes 4× the packed ones),
+    and the caller's model keeps its packed planes."""
     (params, jcfg), (model, cfg) = both
-    kw = dict(ENGINE, kv_layout=layout, page_size=8)
-    # the port keeps the packed planes; the reference pre-unpacks them on
-    # the CPU unless told not to
-    ref = jserving.ServingEngine(params, jcfg, jserving.EngineConfig(
-        **kw, preunpack_decode=False))
+    kw = dict(ENGINE, kv_layout=layout, page_size=8,
+              preunpack_decode=preunpack)
+    ref = jserving.ServingEngine(params, jcfg, jserving.EngineConfig(**kw))
     eng = ServingEngine(model, cfg, EngineConfig(**kw))
     for e, SP in ((ref, jserving.SamplingParams), (eng, SamplingParams)):
         e.submit(list(range(1, 20)), SP(max_new_tokens=30))
@@ -137,6 +139,9 @@ def test_memory_stats_count_the_reference_bytes(both, layout):
                   "kv_layout"):
         assert got[field] == want[field], field
     assert got["packed_plane_bytes"] > 0
+    assert got["preunpack_decode"] == (preunpack is not False)
+    assert got["preunpack_ratio"] == (1.0 if preunpack is False else 4.0)
+    assert model.layers[0].attn.wq.t1p.dtype == torch.uint8
     if layout == "ring":
         for field in ("kv_pool_bytes", "kv_resident_bytes",
                       "decode_state_bytes", "resident_total_bytes"):

@@ -50,7 +50,7 @@ from repro_torch.artifacts import format as pfmt
 from repro_torch.convert import from_jax_params, to_reference_tree
 from repro_torch.core.ptqtp import PTQTPConfig
 from repro_torch.core.quantize_model import QuantizedKernel, quantize_tree
-from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_plain
 from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.models import (decode_step, forward, init_decode_state,
                                 init_params, prefill, prefill_chunk)
@@ -130,9 +130,9 @@ def test_rglru_scan_plain_matches_the_reference_scan(split):
     outs = []
     for lo, hi in parts:
         part_len = np.clip(lengths - lo, 0, hi - lo).astype(np.int32)
-        outs.append(rglru_scan(torch.from_numpy(a[:, lo:hi].copy()),
-                               torch.from_numpy(gx[:, lo:hi].copy()), h,
-                               torch.from_numpy(part_len)))
+        outs.append(rglru_scan_plain(torch.from_numpy(a[:, lo:hi].copy()),
+                                     torch.from_numpy(gx[:, lo:hi].copy()),
+                                     h, torch.from_numpy(part_len)))
     np.testing.assert_allclose(_np(torch.cat(outs, 1)), np.asarray(want),
                                **TOL)
     np.testing.assert_allclose(_np(h), np.asarray(want_h), **TOL)
@@ -265,7 +265,7 @@ def _composition(p, x, h, conv, lengths):
     a = torch.exp(log_a)
     gated_x = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
                                      min=1e-12)) * (it * c.to(torch.float32))
-    hs = rglru_scan(a, gated_x, h, lengths)
+    hs = rglru_scan_plain(a, gated_x, h, lengths)
     return p.wo((gb.to(torch.float32) * hs).to(x.dtype))
 
 

@@ -133,16 +133,6 @@ def test_stop_ids_and_cancel(quantized):
     assert h.result().tokens == first[:first.index(first[2]) + 1]
 
 
-@pytest.mark.parametrize("option", ["attn_backend", "preunpack_decode"])
-def test_unported_options_raise(quantized, option):
-    """What the port still lacks raises where it is asked for (admission
-    caps, deadlines and quarantine are ported: tests/test_torch_faults.py;
-    observability: tests/test_torch_observability.py)."""
-    value = {"attn_backend": "pallas", "preunpack_decode": True}[option]
-    with pytest.raises(NotImplementedError, match=option):
-        EngineConfig(**{option: value})
-
-
 def test_sampled_streams_equal_reference_engine(quantized):
     """Temperature 0.8, one request also top-k/top-p truncated, one greedy
     beside them: every stream equals the reference engine's."""
