@@ -236,7 +236,8 @@ remainder and the baselines), within the qwen2-1.5b phases:
      and ``materialized`` on the ring and ``stream`` on the paged layout
      (B2 and B4 never launched); ``preunpack_decode=True`` (resident planes
      4× the packed bytes, B1 and B3 never launched, the caller's model
-     still packed). Decode tok/s, TTFT median and the tokens apart from
+     still packed; int8 planes under ``backend="auto"`` on the card
+     raise, the served copy names ``grouped``). Decode tok/s, TTFT median and the tokens apart from
      the ``pallas`` fleet, with the first step that differs;
  33. (s) ``quantize_with_history`` (G 128, t_max 20; its trit step on B6)
      and the baselines (PTQTP, RTN at 2, 3 and 4 bits, GPTQ, AWQ at 3 bits,
@@ -2171,6 +2172,21 @@ def options_path(cfg, dev, model, mp):
              if getattr(m, "t1p", None) is not None}
     if after != planes or set(after.values()) != {torch.uint8}:
         raise AssertionError("(r) preunpack changed the caller's planes")
+    # raw int8 planes reach the plain route on the card only by name: the
+    # served copy asks for "grouped", and ``auto`` refuses them
+    from repro_torch.core.packing import unpack_trits
+    from repro_torch.kernels.ternary_matmul import ops
+    lin = next(m for m in model.modules() if getattr(m, "t1p", None)
+               is not None)
+    x = torch.zeros((1, lin.d_in), device=dev, dtype=torch.bfloat16)
+    try:
+        ops.ternary_matmul(x, unpack_trits(lin.t1p), unpack_trits(lin.t2p),
+                           lin.alpha, group_size=lin.group_size)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("(r) int8 planes under backend 'auto' were "
+                             "served on the card")
     for r in runs.values():
         r["apart"] = tokens_apart(r["results"], pal["results"])
         r["first"] = first_apart(r["results"], pal["results"])

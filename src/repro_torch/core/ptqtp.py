@@ -102,13 +102,19 @@ def _trit_search(w, alpha, t1, t2):
         search_ops.ptqtp_search(w[sl], alpha[sl], out=(t1[sl], t2[sl]))
 
 
-def _quantize_grouped(wg: torch.Tensor, cfg: PTQTPConfig):
+def _quantize_grouped(wg: torch.Tensor, cfg: PTQTPConfig, *,
+                      errors: Optional[list] = None, refit: bool = True):
     """Alg. 1/2 on the group-rows wg (S, R, G) of S matrices at once, each
     matrix stopping on its own (the reference vmaps its quantizer over a
     stack's leading axes, and a batched ``while_loop`` freezes a finished
     matrix's carry): a matrix's iterations, sums and searches are those of
     a call on it alone, and once it stops its planes, α and λ stay as they
     were. One host sync an iteration for the whole stack.
+
+    ``errors`` (a list) receives each matrix's ||W − Ŵ||_F (S,) after the
+    sign init with α = [1, 1] and after each iteration's search, measured
+    with that iteration's α. ``refit=False`` skips the final α refit: α is
+    the last iteration's.
 
     Returns (t1, t2, alpha, iters (S,))."""
     wg = wg.to(torch.float32).contiguous()
@@ -122,6 +128,14 @@ def _quantize_grouped(wg: torch.Tensor, cfg: PTQTPConfig):
     active = torch.ones((S,), dtype=torch.bool, device=dev)
     iters = torch.zeros((S,), dtype=torch.int64, device=dev)
     n_active, spare = S, None
+
+    def record(alpha):
+        if errors is not None:
+            diff = wg - (t1 * alpha[..., 0:1] + t2 * alpha[..., 1:2])
+            errors.append(torch.linalg.vector_norm(diff.reshape(S, -1),
+                                                   dim=-1))
+
+    record(alpha)
     for _ in range(cfg.t_max):
         sums = _ridge_sums(t1, t2, wg)
         _, kappa = _ridge_solve(sums, lam)
@@ -143,6 +157,7 @@ def _quantize_grouped(wg: torch.Tensor, cfg: PTQTPConfig):
             on = active[:, None, None]
             t1 = torch.where(on, out[0], t1)
             t2 = torch.where(on, out[1], t2)
+        record(alpha_new)
         alpha = torch.where(active[:, None, None], alpha_new, alpha)
         lam = torch.where(active[:, None], lam_new, lam)
         iters += active
@@ -150,7 +165,8 @@ def _quantize_grouped(wg: torch.Tensor, cfg: PTQTPConfig):
         n_active = int(active.sum())
         if not n_active:
             break
-    alpha, _ = _ridge_solve(_ridge_sums(t1, t2, wg), lam)
+    if refit:
+        alpha, _ = _ridge_solve(_ridge_sums(t1, t2, wg), lam)
     return t1.to(torch.int8), t2.to(torch.int8), alpha, iters
 
 
@@ -214,9 +230,9 @@ def quantize_with_history(w: torch.Tensor,
     solves, then the trit search, measured with that iteration's α).
 
     The iterations, their stop (one host sync each) and the planes are
-    ``ptqtp_quantize``'s; unlike it, no final α refit: ``q.alpha`` is the
-    last iteration's α. On the card the trit step is the search kernel
-    (B6)."""
+    ``ptqtp_quantize``'s (the same loop); unlike it, no final α refit:
+    ``q.alpha`` is the last iteration's α. On the card the trit step is
+    the search kernel (B6)."""
     cfg = cfg or PTQTPConfig()
     if w.dim() != 2:
         raise ValueError(f"quantize_with_history expects a 2-D matrix, got "
@@ -225,37 +241,9 @@ def quantize_with_history(w: torch.Tensor,
     g = cfg.group_size
     if d % g:
         raise ValueError(f"last dim {d} not divisible by group size {g}")
-    wg = w.to(torch.float32).reshape(n * (d // g), g).contiguous()
-    rows = wg.shape[0]
-    t1 = torch.where(wg >= 0.0, 1.0, -1.0)
-    t2 = t1.clone()
-    alpha = torch.ones((rows, 2), dtype=torch.float32, device=wg.device)
-    lam = torch.full((rows,), cfg.lambda_init, dtype=torch.float32,
-                     device=wg.device)
-
-    def err(alpha):
-        return torch.linalg.norm(
-            wg - (t1 * alpha[:, 0:1] + t2 * alpha[:, 1:2]))
-
-    errors = [err(alpha)]
-    iters = 0
-    for _ in range(cfg.t_max):
-        sums = _ridge_sums(t1, t2, wg)
-        _, kappa = _ridge_solve(sums, lam)
-        lam = torch.where(
-            kappa >= cfg.cond_bound,
-            torch.clamp(lam * torch.sqrt(kappa / cfg.cond_bound),
-                        max=cfg.lambda_max),
-            lam)
-        alpha_new, _ = _ridge_solve(sums, lam)
-        _trit_search(wg, alpha_new, t1, t2)
-        errors.append(err(alpha_new))
-        delta = torch.sqrt(((alpha_new - alpha) ** 2).sum(-1)).amax()
-        alpha = alpha_new
-        iters += 1
-        if bool(delta < cfg.eps):
-            break
-    q = QuantizedTensor(t1.to(torch.int8).reshape(n, d),
-                        t2.to(torch.int8).reshape(n, d),
-                        alpha.reshape(n, d // g, 2), g, iters)
-    return q, torch.stack(errors)
+    errors: list = []
+    t1, t2, alpha, iters = _quantize_grouped(
+        w.reshape(1, n * (d // g), g), cfg, errors=errors, refit=False)
+    q = QuantizedTensor(t1.reshape(n, d), t2.reshape(n, d),
+                        alpha.reshape(n, d // g, 2), g, int(iters[0]))
+    return q, torch.cat(errors)

@@ -27,17 +27,21 @@ in blocks of ``PLAIN_ROW_BLOCK`` query rows (``ref.py``), so their rows are
 batch-invariant as the kernel's are. They make no host sync and take no
 shape from data, so the engine captures them into its CUDA graphs too.
 
-``tracked_block_bytes`` / ``peak_tracked_bytes`` are the reference's
-analytic footprint of one call: the f32 score block for ``stream`` and
-``materialized`` (the reference's formula at the call's shapes; the card's
-padded row blocks are not counted), the split-KV workspace
-(``_workspace_size``) for ``pallas``.
+``tracked_block_bytes`` is the reference's analytic footprint of one
+call: the f32 score block for ``stream`` and ``materialized`` (the
+reference's formula and tile at the call's shapes: ``_select_tile`` over
+the ring, ``paged_tile`` over a page; the card's padded row blocks are not
+counted), the split-KV workspace (``_workspace_size``) for ``pallas``.
+``peak_tracked_bytes`` records it for the plain routes only, whose
+footprint the reference's formula describes; the kernel route does no
+bookkeeping.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -88,11 +92,23 @@ def _workspace_size(b: int, kv: int, rows: int, hd: int, n_parts: int):
     return n_idx * n_parts * ROW_TILE * (hd + 2), n_idx
 
 
+@functools.lru_cache(maxsize=None)
+def paged_tile(page_size: int, L: int) -> int:
+    """Largest divisor of ``page_size`` with L·tile <= the reference's
+    tile target: the reference's tile over a page (one tile never spans
+    two pages)."""
+    target = max(1, _ref._TILE_ELEMS // max(L, 1))
+    if page_size <= target:
+        return page_size
+    return max(d for d in range(1, target + 1) if page_size % d == 0)
+
+
 def tracked_block_bytes(b: int, kv: int, g: int, L: int, cap: int, *,
-                        backend: str, hd: Optional[int] = None) -> int:
+                        backend: str, tile: Optional[int] = None,
+                        hd: Optional[int] = None) -> int:
     """Analytic peak bytes of one call: the f32 score block of ``stream``
-    (L × ``_select_tile(cap, L)``) and ``materialized`` (L × (cap + L)),
-    as the reference counts them; the
+    (L × ``tile``, by default ``_select_tile(cap, L)``) and
+    ``materialized`` (L × (cap + L)), as the reference counts them; the
     split-KV workspace of ``pallas`` (its f32 scratch and int32 arrival
     counters; needs ``hd``). ``cap`` is the ring's (paged: the virtual
     ring's) slots."""
@@ -100,20 +116,25 @@ def tracked_block_bytes(b: int, kv: int, g: int, L: int, cap: int, *,
         floats, n_idx = _workspace_size(
             b, kv, L * g, hd, len(split_ranges(cap)) + len(split_ranges(L)))
         return 4 * (floats + n_idx)
-    width = cap + L if backend == "materialized" else _ref._select_tile(cap, L)
+    if backend == "materialized":
+        width = cap + L
+    else:
+        width = tile if tile is not None else _ref._select_tile(cap, L)
     return 4 * b * kv * g * L * width
 
 
 _TRACK = {"peak_bytes": 0}
+_TRACK_LOCK = threading.Lock()
 
 
 def reset_tracking() -> None:
-    _TRACK["peak_bytes"] = 0
+    with _TRACK_LOCK:
+        _TRACK["peak_bytes"] = 0
 
 
 def peak_tracked_bytes() -> int:
-    """Largest footprint ``tracked_block_bytes`` gave a call since the
-    last ``reset_tracking()``."""
+    """Largest footprint ``tracked_block_bytes`` gave a call of a plain
+    route since the last ``reset_tracking()``."""
     return _TRACK["peak_bytes"]
 
 
@@ -128,13 +149,17 @@ def resolve_chunk_backend(backend: Optional[str], device) -> str:
     return backend
 
 
-def _route(backend, q, cap):
-    """Resolve ``backend`` for q, record the call's footprint; returns the
-    backend and the plain twins' ``row_block``."""
+def _route(backend, q, cap, tile=None):
+    """Resolve ``backend`` for q and, on a plain route, record the call's
+    footprint (the reference's ``tile``); returns the backend and the
+    plain twins' ``row_block``."""
     b, L, kv, g, hd = q.shape
     backend = resolve_chunk_backend(backend, q.device)
-    _TRACK["peak_bytes"] = max(_TRACK["peak_bytes"], tracked_block_bytes(
-        b, kv, g, L, cap, backend=backend, hd=hd))
+    if backend != "pallas":
+        used = tracked_block_bytes(b, kv, g, L, cap, backend=backend,
+                                   tile=tile)
+        with _TRACK_LOCK:
+            _TRACK["peak_bytes"] = max(_TRACK["peak_bytes"], used)
     return backend, (PLAIN_ROW_BLOCK if q.is_cuda else None)
 
 
@@ -329,7 +354,9 @@ def chunk_attention_paged(q, k_new, v_new, k_pool, k_scale, v_pool, v_scale,
     int32, table (B, n_pages) int32; page 0 is the null page (pos ≡ -1).
     Returns (B, L, KV, G, hd) float32. ``backend``: the module docstring
     (``stream`` and ``materialized`` over the gathered ring)."""
-    backend, rows = _route(backend, q, table.shape[1] * k_pool.shape[1])
+    ps = k_pool.shape[1]
+    backend, rows = _route(backend, q, table.shape[1] * ps,
+                           paged_tile(ps, q.shape[1]))
     args = (q, k_new, v_new, k_pool, k_scale, v_pool, v_scale, pos_pool,
             table, positions, lengths)
     if backend == "pallas":

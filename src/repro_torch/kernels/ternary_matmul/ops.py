@@ -24,9 +24,11 @@ packed and every route takes them; int8 planes hold raw trits (the
 engine's ``preunpack_decode`` copy) and only the plain grouped route
 serves them, on the card in row blocks of ``models.common.DENSE_ROW_BLOCK``
 (one product shape whatever m: batch-invariant). ``backend`` takes the
-reference's names: ``auto`` (the kernels on a CUDA tensor with packed
-planes, else the plain route), ``pallas`` (the kernels: a CPU tensor or
-int8 planes raise) and ``grouped`` (the plain route).
+reference's names: ``auto`` (the kernels on a CUDA tensor, the plain
+route on a CPU one; int8 planes on a CUDA tensor raise, so that no card
+path leaves the kernels unasked), ``pallas`` (the kernels: a CPU tensor
+or int8 planes raise) and ``grouped`` (the plain route, which the
+engine's pre-unpacked copy names).
 
 ``NIBBLE_BF16X2``, ``a_fragment`` and ``trit_pairs`` state in Python how
 the tensor-core kernels turn packed trits into the A operand of
@@ -197,11 +199,12 @@ def ternary_matmul_tiled(x, t1p, t2p, alpha, group_size: int = 128,
 def _plain_route(backend: str, x, t1p) -> bool:
     """Whether the plain grouped formula serves this call (module
     docstring); raises the reference's ValueError for an unknown backend
-    or for int8 planes asked of the kernels."""
+    or for int8 planes asked of the kernels, and for int8 planes on a
+    CUDA tensor that do not name the grouped route."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     if t1p.dtype != torch.uint8:
-        if backend == "pallas":
+        if backend == "pallas" or (backend == "auto" and x.is_cuda):
             raise ValueError(
                 f"backend {backend!r} requires packed uint8 trit-planes; "
                 "pre-unpacked int8 planes are served by the grouped backend")

@@ -43,6 +43,9 @@ class Dense(nn.Module):
         self.register_buffer("t2p", None)
         self.register_buffer("alpha", None)
         self.group_size: Optional[int] = None
+        #: route of the ternary product (``ternary_matmul``'s ``backend``);
+        #: a pre-unpacked serving copy asks for "grouped" by name
+        self.matmul_backend = "auto"
 
     @property
     def quant(self) -> Optional[QuantizedKernel]:
@@ -70,7 +73,8 @@ DENSE_ROW_BLOCK = 128
 def dense(layer: Dense, x: torch.Tensor) -> torch.Tensor:
     if layer.t1p is not None:
         y = ternary_matmul(x, layer.t1p, layer.t2p, layer.alpha,
-                           group_size=layer.group_size, out_dtype=x.dtype)
+                           group_size=layer.group_size, out_dtype=x.dtype,
+                           backend=layer.matmul_backend)
     else:
         y = linear_fixed_rows(x, layer.weight.to(x.dtype))
     if layer.bias is not None:

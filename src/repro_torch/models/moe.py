@@ -60,6 +60,8 @@ class ExpertDense(nn.Module):
         self.register_buffer("t2p", None)
         self.register_buffer("alpha", None)
         self.group_size: Optional[int] = None
+        #: route of the ternary product, as ``Dense.matmul_backend``
+        self.matmul_backend = "auto"
 
     @property
     def quant(self) -> Optional[QuantizedKernel]:
@@ -82,7 +84,8 @@ class ExpertDense(nn.Module):
         if self.t1p is not None:
             return ternary_matmul_experts(x, self.t1p, self.t2p, self.alpha,
                                           group_size=self.group_size,
-                                          out_dtype=x.dtype)
+                                          out_dtype=x.dtype,
+                                          backend=self.matmul_backend)
         return bmm_fixed_rows(x, self.weight.to(x.dtype))
 
 

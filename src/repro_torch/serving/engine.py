@@ -228,7 +228,9 @@ def _pow2ceil(n: int) -> int:
 def _preunpacked(model):
     """A copy of ``model``'s module tree that shares every tensor but the
     trit-planes, which it holds unpacked: int8 trits (n, d) where the
-    model has packed uint8 (n, d/4). The model itself is left as it was."""
+    model has packed uint8 (n, d/4), served by the plain grouped route,
+    which each copied layer asks for by name. The model itself is left as
+    it was."""
     shared = itertools.chain(
         model.parameters(), model.buffers(),
         (v for m in model.modules() for v in vars(m).values()
@@ -237,6 +239,7 @@ def _preunpacked(model):
     for m in serve.modules():
         if getattr(m, "t1p", None) is not None:
             m.t1p, m.t2p = unpack_trits(m.t1p), unpack_trits(m.t2p)
+            m.matmul_backend = "grouped"
     return serve
 
 

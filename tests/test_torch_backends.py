@@ -177,24 +177,42 @@ def test_row_blocks_keep_the_result_and_make_rows_invariant(twin):
 
 def test_tracked_block_bytes_equal_the_reference():
     """The analytic footprint of ``stream`` and ``materialized`` calls is
-    the reference's formula; ``pallas`` counts the split-KV workspace."""
+    the reference's formula, with its ring and page tiles; ``pallas``
+    counts the split-KV workspace."""
     for b, kv, g, L, cap in ((8, 2, 6, 1, 1024), (8, 2, 6, 64, 1024),
                              (3, 4, 1, 16, 4096), (2, 1, 8, 5, 97)):
         for backend in ("stream", "materialized"):
             assert tca_ops.tracked_block_bytes(
                 b, kv, g, L, cap, backend=backend) == \
                 jca_ops.tracked_block_bytes(b, kv, g, L, cap, backend=backend)
+            for ps in (8, 16, 12):
+                t = jca_ops.paged_tile(ps, L)
+                assert tca_ops.paged_tile(ps, L) == t
+                assert tca_ops.tracked_block_bytes(
+                    b, kv, g, L, cap, backend=backend, tile=t) == \
+                    jca_ops.tracked_block_bytes(b, kv, g, L, cap,
+                                                backend=backend, tile=t)
+    for ps, L in ((64, 256), (96, 100), (16, 1024), (7, 4096)):
+        assert tca_ops.paged_tile(ps, L) == jca_ops.paged_tile(ps, L)
     floats, counters = tca_ops._workspace_size(8, 2, 64 * 6, 128, 8 + 1)
     assert tca_ops.tracked_block_bytes(8, 2, 6, 64, 1024, backend="pallas",
                                        hd=128) == 4 * (floats + counters)
-    # the ops record each call's footprint, as the reference's do
-    case = _case("ring", 8, None, False, 1)
-    for backend in ("stream", "materialized"):
+    # the ops record each plain call's footprint, ring and paged, as the
+    # reference's do; the kernel route records nothing
+    for layout in ("ring", "paged"):
+        port, ref = _ops(layout)
+        case = _case(layout, 8, None, False, 1)
+        for backend in ("stream", "materialized"):
+            tca_ops.reset_tracking()
+            jca_ops.reset_tracking()
+            port(*map(_t, case), backend=backend)
+            ref(*map(_j, case), backend=backend)
+            assert tca_ops.peak_tracked_bytes() == \
+                jca_ops.peak_tracked_bytes() > 0
         tca_ops.reset_tracking()
-        jca_ops.reset_tracking()
-        tca_ops.chunk_attention(*map(_t, case), backend=backend)
-        jca_ops.chunk_attention(*map(_j, case), backend=backend)
-        assert tca_ops.peak_tracked_bytes() == jca_ops.peak_tracked_bytes() > 0
+        with pytest.raises(ValueError, match="CUDA"):
+            port(*map(_t, case), backend="pallas")
+        assert tca_ops.peak_tracked_bytes() == 0
 
 
 # ---------------------------------------------------------------- refusals
@@ -350,6 +368,7 @@ def test_preunpacked_engine_serves_the_packed_streams(both):
     assert _serve(on, SamplingParams) == want == _serve(off, SamplingParams)
     served, kept = on._serve_model.layers[0].mlp.wi, model.layers[0].mlp.wi
     assert served.t1p.dtype == torch.int8 and kept.t1p.dtype == torch.uint8
+    assert (served.matmul_backend, kept.matmul_backend) == ("grouped", "auto")
     assert torch.equal(unpack_trits(kept.t1p), served.t1p)
     assert served.alpha is kept.alpha
     assert on._serve_model.embed is model.embed

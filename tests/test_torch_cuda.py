@@ -256,25 +256,33 @@ def test_plain_attention_twins_rows_do_not_depend_on_the_chunk_length(
 def test_int8_plane_route_rows_do_not_depend_on_m(cuda):
     """Raw int8 planes on the card: the plain grouped route in 128-row
     blocks, a row's bits equal alone and among 300 rows, within the
-    ternary tolerance of the kernel on the packed planes, and a request
-    for the kernel raises."""
+    ternary tolerance of the kernel on the packed planes; a request for
+    the kernel, or ``auto``, raises: only ``grouped`` by name serves them
+    on the card."""
     rng = np.random.default_rng(24)
     t1p, t2p, alpha = _planes(rng, 256, 512, 128, cuda)
     t1, t2 = unpack_trits(t1p), unpack_trits(t2p)
     x = torch.from_numpy(rng.standard_normal((300, 512)).astype(
         np.float32)).to(cuda, torch.bfloat16)
     reset_launch_counts()
-    y = tm_ops.ternary_matmul(x, t1, t2, alpha, group_size=128)
+    y = tm_ops.ternary_matmul(x, t1, t2, alpha, group_size=128,
+                              backend="grouped")
     assert not launch_counts()["ternary_matvec"] + launch_counts()[
         "ternary_matmul"]
     for lo, hi in ((0, 1), (5, 13), (127, 129), (250, 300)):
-        assert torch.equal(tm_ops.ternary_matmul(x[lo:hi], t1, t2, alpha,
-                                                 group_size=128), y[lo:hi])
+        assert torch.equal(tm_ops.ternary_matmul(
+            x[lo:hi], t1, t2, alpha, group_size=128, backend="grouped"),
+            y[lo:hi])
     kern = tm_ops.ternary_matmul(x, t1p, t2p, alpha, group_size=128)
     assert (y - kern).abs().max() <= 1e-4 * max(1.0, float(y.abs().max()))
-    with pytest.raises(ValueError, match="requires packed uint8"):
-        tm_ops.ternary_matmul(x, t1, t2, alpha, group_size=128,
-                              backend="pallas")
+    for backend in ("pallas", "auto"):
+        with pytest.raises(ValueError, match="requires packed uint8"):
+            tm_ops.ternary_matmul(x, t1, t2, alpha, group_size=128,
+                                  backend=backend)
+        with pytest.raises(ValueError, match="requires packed uint8"):
+            tm_ops.ternary_matmul_experts(x[None], t1[None], t2[None],
+                                          alpha[None], group_size=128,
+                                          backend=backend)
 
 
 @pytest.mark.parametrize("ring", ["float32", "bfloat16", "int8"])
