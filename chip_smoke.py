@@ -249,6 +249,33 @@ remainder and the baselines), within the qwen2-1.5b phases:
      seconds and relative errors, and the reference's ordering tests
      beside them (printed, not gated: random weights).
 
+Since slice 14 (training on the card), after every other phase:
+
+ 34. (t) the norm's backward kernels (``rms_norm_bwd``, and
+     ``add_rms_norm_bwd`` with the residual stream's gradient) against the
+     plain backward written out at every width of ``check_add_rms_norm``
+     (1536, 5376, 2560, 16384), bf16 and f32, on 8 x 512 rows (tolerances
+     ``NORM_BWD_TOL``), the same bits at a second call; qwen2-1.5b at full
+     width and depth (bf16, remat full) trained through ``Trainer`` for 6
+     steps of 8 x 512 tokens of the synthetic corpus (AdamW, lr 1e-3): the
+     loss falls, every loss finite, the norms' forward and backward
+     kernels launched (counts reset just before, read just after); step
+     seconds, tokens/s, peak memory, the hand kernels' launches, and one
+     more step under the profiler (kernels a step, device busy ms). The
+     step's norm backwards timed against their bound, the plain backward
+     and ``aten._fused_rms_norm_backward``; the dense layers' 128-row
+     blocks (y, dx and dw, dw one f32-accumulated product) held against
+     the f32 product at every distinct dense shape (``FIXED_ROWS_TOL``),
+     beside one ``F.linear``'s errors, and timed against one ``F.linear``
+     (forward and backward). Then a
+     2-layer full-width copy (free disk checked first) trained 4 steps
+     straight, and again preempted after step 2 (``guard.request()``) and
+     resumed from its checkpoint: losses and every state tensor equal bit
+     for bit; its last checkpoint through ``launch/quantize.py
+     --from-checkpoint`` on the card (B6; FP leaves equal the trained
+     model's), and 8 greedy requests served from that artifact (B1, B3,
+     B2 launched; two alone with their fleet tokens).
+
 Each phase's engines and graph pools are freed before the next; the run's
 total seconds are printed.
 
@@ -261,6 +288,7 @@ checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -4206,6 +4234,528 @@ def stub_phases(gpu, dev):
     return rows
 
 
+# ---------------------------------------------------- phase (t): slice 14
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 512, 6, 1e-3
+RESUME_LAYERS, RESUME_STEPS, RESUME_AT = 2, 4, 2
+# stated tolerances of the norm's backward kernels against the plain
+# backward, each relative to the tensor's largest |value|: f32 1e-5 (dx;
+# dscale 1e-4: 64-row tiles summed in another order than torch.sum's), bf16
+# one bf16 step (2^-7)
+NORM_BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+NORM_BWD_DSCALE_F32 = 1e-4
+# stated tolerance of the dense layers' 128-row blocks (y, dx, dw) against
+# the f32 product of the same bf16 inputs, relative to its element (plus
+# 1e-5 of the largest for the f32 sums' order): one bf16 rounding (8
+# significand bits) moves an element by at most 2^-8 of it
+FIXED_ROWS_TOL = 2.0 ** -8
+# hand kernels the training path must launch: the norms forward (twice, with
+# remat) and backward
+TRAIN_PATH = ("rms_norm", "add_rms_norm", "rms_norm_bwd", "add_rms_norm_bwd")
+# operations of the norm's backward an element: x², ĝ = dy·s and ĝ·x
+# (2 FMAs as 2 each, 1), then x·r, ·mean, −, ·r (4), dscale's dy·(x·r) and
+# its sum (3), the residual add (1)
+NORM_BWD_OPS = 13
+
+
+def check_norm_backward(dev):
+    """The norm's backward kernels, alone and with add_rms_norm's residual
+    gradient, against the plain backward written out at every width of
+    ``FUSED_NORM_WIDTHS`` (16384: the forward's two-pass width), bf16 and
+    f32, on the training shape's 8 x 512 rows; a second call gives the same
+    bits. Returns the largest abs err."""
+    import torch
+
+    from repro_torch.kernels.rms_norm import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    worst = 0.0
+    for d in FUSED_NORM_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            x, dy, dres = (torch.randn((TRAIN_BATCH, TRAIN_SEQ, d),
+                                       generator=gen, device=dev).to(dtype)
+                           for _ in range(3))
+            scale = (1 + 0.1 * torch.randn((d,), generator=gen,
+                                           device=dev)).to(dtype)
+            for res in (None, dres):
+                got = ops.rms_norm_backward(scale, x, dy, 1e-6, res)
+                want = ref.rms_norm_backward_plain(scale, x, dy, 1e-6, res)
+                again = ops.rms_norm_backward(scale, x, dy, 1e-6, res)
+                torch.cuda.synchronize()
+                what = (f"{'add_' if res is not None else ''}rms_norm "
+                        f"backward d={d} {name}")
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"{what}: a second call gave other "
+                                         "bits")
+                for part, g, w in (("dx", got[0], want[0]),
+                                   ("dscale", got[1], want[1])):
+                    g, w = g.float(), w.float()
+                    err = float((g - w).abs().max()
+                                / w.abs().max().clamp_min(1e-30))
+                    tol = NORM_BWD_TOL[name]
+                    if part == "dscale" and dtype == torch.float32:
+                        tol = NORM_BWD_DSCALE_F32
+                    if not err <= tol:
+                        raise AssertionError(f"{what}: {part} err {err:.3e} "
+                                             f"of the largest > {tol}")
+                    worst = max(worst, float((g - w).abs().max()))
+    log(f"(t) norm backward at d {FUSED_NORM_WIDTHS}, bf16 and f32, "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ} rows, alone and with the residual "
+        f"gradient: == plain backward (max abs err {worst:.2e}; tolerances "
+        f"{NORM_BWD_TOL} of the largest, f32 dscale {NORM_BWD_DSCALE_F32}); "
+        "a second call gives the same bits")
+    return worst
+
+
+def make_trainer(cfg, dev, steps, ckpt=None, log_fn=None):
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamW
+    from repro_torch.training import Trainer, TrainerConfig
+
+    return Trainer(cfg, AdamW(lr=TRAIN_LR),
+                   DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                              seed=SEED),
+                   TrainerConfig(total_steps=steps, log_interval=1,
+                                 ckpt_dir=ckpt, ckpt_interval=10 ** 9,
+                                 seed=SEED),
+                   log_fn=log_fn or (lambda msg: None), device=dev)
+
+
+def event_ms(fn, reps):
+    """Milliseconds per call of ``fn`` between two CUDA events around
+    ``reps`` calls (after one warm call): for work whose kernels run long
+    beside the host's launches (autograd through large products)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def train_full(cfg, dev):
+    """(t): qwen2-1.5b at full width and depth trained on the card through
+    ``Trainer`` (B 8, S 512, remat full, bf16), the launch counts reset just
+    before and read just after; then one more step under the profiler
+    (kernels launched and device-busy ms a step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build, launch_counts, reset_launch_counts
+
+    trainer = make_trainer(cfg, dev, TRAIN_STEPS)
+    state = trainer.init_state()
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state = trainer.fit(state=state)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in trainer.history]
+    times = [h["time_s"] for h in trainer.history]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"(t) non-finite losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"(t) the loss did not fall: {losses}")
+    batch = trainer._batch(trainer.loader.batch_at(TRAIN_STEPS))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer._step_fn(state, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and _build.device_us(e) > 0]
+    busy = sum(_build.device_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=_build.device_us, reverse=True)[:6]
+    return dict(losses=losses, times=times, wall=wall, counts=counts,
+                peak=peak, n_params=n_params, state=state,
+                launches=sum(e.count for e in kernels), busy_ms=busy,
+                top=[(e.key[:60], _build.device_us(e) / 1e3, e.count)
+                     for e in top])
+
+
+def time_norm_backward(cfg, dev, per_step):
+    """The norm backwards of one training step at the training shape
+    (8 x 512 rows of d 1536, bf16), as many of each as a step launches
+    (``per_step``): those with no residual gradient (``rms_norm_bwd``: the
+    norm after the embedding, and the last norm, whose residual stream is
+    unused) and those with it (``add_rms_norm_bwd``); beside each the
+    plain backward, the bound and PyTorch's own backward of ``F.rms_norm``
+    (``aten._fused_rms_norm_backward``, plus the residual add)."""
+    import torch
+
+    from repro_torch.kernels.rms_norm import ops, ref
+
+    d, eps = cfg.d_model, cfg.norm_eps
+    gen = torch.Generator(device=dev).manual_seed(15)
+    x, dy, dres = (torch.randn((TRAIN_BATCH * TRAIN_SEQ, d), generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+    w = (1 + 0.1 * torch.randn((d,), generator=gen, device=dev)).to(
+        torch.bfloat16)
+    aten = torch.ops.aten
+    lib = getattr(aten, "_fused_rms_norm_backward", None)
+    rstd = (aten._fused_rms_norm(x, [d], w, eps)[1] if lib is not None
+            else None)
+    n = x.numel()
+
+    def lib_call(add):
+        dx, dw = lib(dy, x, [d], rstd, w, [True, True])
+        return (dx + dres if add else dx), dw
+
+    out = {}
+    for name, res in (("rms_norm_bwd", None), ("add_rms_norm_bwd", dres)):
+        calls = per_step[name]
+        nbytes = calls * ((4 if res is not None else 3) * n * 2 + 2 * d * 2)
+        b = bound_ms(nbytes, calls * NORM_BWD_OPS * n, F32_FLOPS)
+        out[name] = dict(
+            ms=device_ms(lambda: [ops.rms_norm_backward(w, x, dy, eps, res)
+                                  for _ in range(calls)], 5),
+            plain_ms=device_ms(lambda: [ref.rms_norm_backward_plain(
+                w, x, dy, eps, res) for _ in range(calls)], 3),
+            library_ms=(None if lib is None else device_ms(
+                lambda: [lib_call(res is not None) for _ in range(calls)],
+                5)),
+            bound_ms=b[0], bound_by=b[1], calls=calls)
+    return out
+
+
+def fixed_rows_grads(cfg, dev):
+    """The dense layers' fixed 128-row blocks in a training step, at every
+    distinct dense shape of ``cfg`` and 8 x 512 rows, bf16: y, dx and dw
+    of ``linear_fixed_rows`` (y and dx by the blocks, dw by one product
+    over all rows) held against the f32 product of the same inputs, each
+    element within ``FIXED_ROWS_TOL`` of it plus 1e-5 of the largest (one
+    bf16 rounding of an f32-accumulated sum). Beside them, as a share of
+    the largest, the worst error of the blocks, of one ``F.linear`` and,
+    for dw, of the blocks' 32 dw summed in bf16 (what autograd of the
+    blocked forward gave before dw became one product), and the share of
+    one ``F.linear``'s elements beyond the tolerance. Then forward +
+    backward timed (CUDA events; these products run long beside the
+    host's launches) for the lm_head and the MLP's down projection."""
+    import torch
+
+    from repro_torch.models.common import DENSE_ROW_BLOCK, linear_fixed_rows
+
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(16)
+    hd = cfg.head_dim
+    shapes = {"lm_head": (cfg.vocab_size, cfg.d_model),
+              "attn_q": (cfg.n_heads * hd, cfg.d_model),
+              "attn_kv": (cfg.n_kv_heads * hd, cfg.d_model),
+              "attn_o": (cfg.d_model, cfg.n_heads * hd),
+              "mlp_wi": (cfg.d_ff, cfg.d_model),
+              "mlp_wo": (cfg.d_model, cfg.d_ff)}
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    out, errs = {}, {}
+    for name, (n_out, d_in) in shapes.items():
+        x = torch.randn((rows, d_in), generator=gen,
+                        device=dev).to(torch.bfloat16).requires_grad_()
+        w = (torch.randn((n_out, d_in), generator=gen, device=dev)
+             * d_in ** -0.5).to(torch.bfloat16).requires_grad_()
+        dy = torch.randn((rows, n_out), generator=gen,
+                         device=dev).to(torch.bfloat16)
+
+        def step(f, with_y=False):
+            y = f(x, w)
+            grads = torch.autograd.grad(y, (x, w), dy)
+            return (y.detach(),) + grads if with_y else grads
+
+        got = step(linear_fixed_rows, True)
+        one = step(F.linear, True)
+        errs[name] = {}
+        with torch.no_grad():
+            xf, wf, dyf = x.float(), w.float(), dy.float()
+            for part, g, o, f32 in zip(
+                    ("y", "dx", "dw"), got, one,
+                    (lambda: xf @ wf.t(), lambda: dyf @ wf,
+                     lambda: dyf.t() @ xf)):
+                exact = f32()
+                big = exact.abs().max()
+                tol = FIXED_ROWS_TOL * exact.abs() + 1e-5 * big
+                bad = int(((g.float() - exact).abs() > tol).sum())
+                if bad:
+                    raise AssertionError(
+                        f"(t) {name} {part}: {bad} elements of the 128-row "
+                        "blocks' product differ from the f32 product by "
+                        f"more than {FIXED_ROWS_TOL} of it")
+                e = errs[name][part] = {
+                    "blocks": float((g.float() - exact).abs().max() / big),
+                    "one": float((o.float() - exact).abs().max() / big),
+                    "one_beyond": float(((o.float() - exact).abs() > tol)
+                                        .float().mean())}
+                if part == "dw":
+                    blocked = None
+                    for i in range(0, rows, DENSE_ROW_BLOCK):
+                        blk = slice(i, i + DENSE_ROW_BLOCK)
+                        term = dy[blk].t() @ x[blk]
+                        blocked = term if blocked is None else blocked + term
+                    e["bf16_sum"] = float((blocked.float() - exact).abs()
+                                          .max() / big)
+                    del blocked
+                del exact, tol
+            del xf, wf, dyf
+        del got, one
+        if name in ("lm_head", "mlp_wo"):
+            out[name] = dict(
+                fixed_ms=event_ms(lambda: step(linear_fixed_rows), 3),
+                one_ms=event_ms(lambda: step(F.linear), 3))
+        del x, w, dy
+    return out, errs
+
+
+def resume_path(cfg, dev, tmp):
+    """(t): the 2-layer full-width copy trained 4 steps straight, and again
+    preempted (``guard.request()``) after step 2, resumed from its
+    checkpoint to step 4: the losses and every tensor of the state equal
+    the uninterrupted run's bit for bit. Returns the run's numbers; the
+    step-4 checkpoint stays in ``tmp``."""
+    import torch
+
+    from repro_torch.artifacts.format import iter_tree_leaves
+    from repro_torch.runtime import PreemptionGuard, latest_step
+    from repro_torch.training import state_tree
+
+    small = cfg.scaled(n_layers=RESUME_LAYERS)
+    whole = make_trainer(small, dev, RESUME_STEPS)
+    s_whole = whole.fit(state=whole.init_state())
+    guard = PreemptionGuard(signals=())
+    first = make_trainer(small, dev, RESUME_STEPS, str(tmp),
+                         lambda m: f"step {RESUME_AT} " in m
+                         and guard.request())
+    saves, loads = [], []
+
+    def timed(fn, into):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            into.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    first.ckpt.save = timed(first.ckpt.save, saves)
+    first.fit(state=first.init_state(), guard=guard)
+    if latest_step(tmp) != RESUME_AT or len(first.history) != RESUME_AT:
+        raise AssertionError(f"(t) preemption: {len(first.history)} steps, "
+                             f"checkpoint {latest_step(tmp)}")
+    second = make_trainer(small, dev, RESUME_STEPS, str(tmp))
+    second.ckpt.save = timed(second.ckpt.save, saves)
+    second.ckpt.restore_latest = timed(second.ckpt.restore_latest, loads)
+    s_res = second.fit()
+    steps = [h["step"] for h in first.history + second.history]
+    losses = [h["loss"] for h in first.history + second.history]
+    want = [h["loss"] for h in whole.history]
+    if steps != list(range(1, RESUME_STEPS + 1)) or losses != want:
+        raise AssertionError(f"(t) resumed losses {losses} (steps {steps}) "
+                             f"!= uninterrupted {want}")
+    a, b = (dict(iter_tree_leaves(state_tree(s, small)))
+            for s in (s_whole, s_res))
+    apart = [k for k in a if not torch.equal(a[k], b[k])]
+    if apart or sorted(a) != sorted(b):
+        raise AssertionError(f"(t) resumed state differs from the "
+                             f"uninterrupted run's at {apart[:5]}")
+    nbytes = sum(p.stat().st_size for p in Path(tmp).rglob("*.npz"))
+    n = sum(p.numel() for p in s_res["params"].parameters())
+    return dict(cfg=small, losses=losses, saves=saves, loads=loads,
+                leaves=len(a), ckpt_bytes=nbytes // 2, n_params=n,
+                params=s_res["params"])
+
+
+def quantize_serve_path(rp, dev, tmp):
+    """(t): the resumed run's last checkpoint through ``launch/quantize.py
+    --from-checkpoint`` on the card (B6; the config from the checkpoint's
+    manifest), its FP leaves byte-equal to the trained model's; then 8
+    greedy requests served from the artifact on warmed graphs (B1, B3, B2
+    launched), two of them alone with their fleet tokens."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.artifacts import load_artifact, load_model
+    from repro_torch.artifacts.format import iter_tree_leaves
+    from repro_torch.convert import to_reference_tree
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import quantize as quantize_launch
+
+    art = Path(tmp) / "artifact"
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        quantize_launch.main(["--from-checkpoint", str(tmp), "--out",
+                              str(art), "--device", str(dev)])
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    qcounts = launch_counts()
+    need(qcounts, ("ptqtp_search",), "(t) quantize --from-checkpoint")
+    tree, manifest = load_artifact(art)
+    stored = dict(iter_tree_leaves(tree))
+    trained = dict(iter_tree_leaves(to_reference_tree(rp["params"],
+                                                      rp["cfg"])))
+    fp = [p for p, r in manifest["tensors"].items() if r["kind"] == "fp"]
+    for path in fp:
+        if not torch.equal(stored[path], trained[path].cpu()):
+            raise AssertionError(f"(t) artifact leaf {path} differs from the "
+                                 "trained model's")
+    model, cfg, _ = load_model(art, device=dev)
+    if cfg.n_layers != RESUME_LAYERS:
+        raise AssertionError(f"(t) the artifact's config has {cfg.n_layers} "
+                             "layers")
+    prompts = make_prompts(cfg)
+    results, counts, eng, wall = fleet_run(model, cfg, prompts)
+    need(counts, ("ternary_matvec", "ternary_matmul", "chunk_attention"),
+         "(t) serving the checkpoint's artifact")
+    finished(results, "(t) serving the checkpoint's artifact")
+    stats = fleet_stats(eng, results, wall)
+    del eng
+    longest, one = solo_gates(model, cfg, prompts, results,
+                              "(t) serving the checkpoint's artifact")
+    return dict(quant_s=quant_s, qcounts=qcounts, counts=counts,
+                stats=stats, solo=(longest, one), fp=len(fp),
+                n_quantized=manifest["stats"]["n_quantized"],
+                nbytes=manifest["stats"]["total_bytes"],
+                printed=printed.getvalue().count("[quantize] #"))
+
+
+def training_phases(gpu, dev):
+    """(t): training on the card (the module docstring). Returns its rows
+    of the ``kernels`` line."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import configs
+
+    t_all = time.perf_counter()
+    cfg = configs.get_config("qwen2-1.5b")
+    err = check_norm_backward(dev)
+    log(f"(t) {time.perf_counter() - t_all:.1f}s in")
+    gc_free()
+    tr = train_full(cfg, dev)
+    need(tr["counts"], TRAIN_PATH, "(t) the training path")
+    steady = tr["times"][1:]
+    step_s = sum(steady) / len(steady)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"{gpu} | (t) qwen2-1.5b trained at full width and depth "
+        f"({tr['n_params']} params, bf16, remat full, B {TRAIN_BATCH} x S "
+        f"{TRAIN_SEQ}, AdamW lr {TRAIN_LR}): losses "
+        f"{[round(v, 4) for v in tr['losses']]}; step seconds "
+        f"{[round(v, 3) for v in tr['times']]} (the first builds and "
+        f"warms); steady {step_s:.3f} s a step = {tokens / step_s:.0f} "
+        f"tokens/s; peak memory {tr['peak']} bytes; fit {tr['wall']:.1f}s")
+    log(f"{gpu} | (t) launches of the {TRAIN_STEPS} steps: "
+        f"{ {k: v for k, v in tr['counts'].items() if v} }; one more step "
+        f"under the profiler: {tr['launches']} kernels, device busy "
+        f"{tr['busy_ms']:.1f} ms; top: "
+        + "; ".join(f"{k} {ms:.1f} ms x{c}" for k, ms, c in tr["top"])
+        + f"; (t) {time.perf_counter() - t_all:.1f}s in")
+    state = tr.pop("state")
+    del state
+    gc_free()
+    per_step = {k: tr["counts"][k] // TRAIN_STEPS
+                for k in ("rms_norm_bwd", "add_rms_norm_bwd")}
+    norm = time_norm_backward(cfg, dev, per_step)
+    fixed, fixed_errs = fixed_rows_grads(cfg, dev)
+    for name, t in norm.items():
+        lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+        log(f"{gpu} | (t) {name} x {t['calls']} (8 x 512 rows of "
+            f"{cfg.d_model}, bf16): kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.3f} ms, library {lib} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}) -> "
+            f"{t['bound_ms'] / t['ms']:.1%} of bound")
+    log(f"(t) dense layers at 4096 rows, bf16: the 128-row blocks' y, dx "
+        f"and dw within {FIXED_ROWS_TOL} of the f32 product (+ 1e-5 of the "
+        f"largest) at {list(fixed_errs)}; worst error of the largest, "
+        "blocks / one F.linear (its share beyond the tolerance) / the "
+        "blocks' dw summed in bf16: "
+        + "; ".join(
+            f"{k} " + ", ".join(
+                f"{part} {e['blocks']:.2e} / {e['one']:.2e} "
+                f"({e['one_beyond']:.1e})"
+                + (f" / {e['bf16_sum']:.2e}" if part == "dw" else "")
+                for part, e in v.items())
+            for k, v in fixed_errs.items()))
+    log(f"{gpu} | (t) forward + backward at 4096 rows, bf16 (CUDA events): "
+        + "; ".join(f"{k}: 128-row blocks {v['fixed_ms']:.3f} ms, one "
+                    f"F.linear {v['one_ms']:.3f} ms"
+                    for k, v in fixed.items())
+        + f"; (t) {time.perf_counter() - t_all:.1f}s in")
+    gc_free()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        from repro_torch.models.transformer import Transformer
+        n = sum(p.numel() for p in Transformer(
+            cfg.scaled(n_layers=RESUME_LAYERS), dtype=torch.bfloat16,
+            device="meta").parameters())
+        # two checkpoints (bf16 params, f32 moments: 10 bytes a param) and
+        # the artifact (under 2 bytes a param)
+        need_bytes = 2 * 10 * n + 2 * n
+        free = shutil.disk_usage(tmp).free
+        if free < need_bytes:
+            raise AssertionError(f"(t) {free} bytes free under {tmp}; the "
+                                 f"resume gate needs {need_bytes}")
+        t0 = time.perf_counter()
+        rp = resume_path(cfg, dev, tmp)
+        log(f"{gpu} | (t) {RESUME_LAYERS}-layer full-width copy "
+            f"({rp['n_params']} params): preempted after step {RESUME_AT}, "
+            f"resumed to {RESUME_STEPS}: losses "
+            f"{[round(v, 4) for v in rp['losses']]} and all {rp['leaves']} "
+            f"state tensors equal the uninterrupted run's bit for bit; "
+            f"checkpoint {rp['ckpt_bytes']} bytes, saves "
+            f"{[round(s, 2) for s in rp['saves']]} s, load "
+            f"{[round(s, 2) for s in rp['loads']]} s; "
+            f"{time.perf_counter() - t0:.1f}s")
+        gc_free()
+        t0 = time.perf_counter()
+        qs = quantize_serve_path(rp, dev, tmp)
+        del rp
+        st = qs["stats"]
+        log(f"{gpu} | (t) launch/quantize.py --from-checkpoint: "
+            f"{qs['n_quantized']} kernels on B6 "
+            f"({qs['qcounts']['ptqtp_search']} launches) in "
+            f"{qs['quant_s']:.2f}s, {qs['nbytes']} bytes; {qs['fp']} FP "
+            f"leaves equal the trained model's; served {N_REQUESTS} "
+            f"requests from it: launches {qs['counts']}; requests "
+            f"{qs['solo']} alone == fleet; TTFT median "
+            f"{st['ttft'][len(st['ttft']) // 2]:.3f}s; decode "
+            f"{st['decode_tok'] / st['decode_s']:.1f} tok/s; "
+            f"{time.perf_counter() - t0:.1f}s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"(t) {time.perf_counter() - t_all:.1f}s")
+    src = "src/repro_torch/kernels/rms_norm/csrc/rms_norm.cu"
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    work = {"rms_norm_bwd": f"the {per_step['rms_norm_bwd']} norm "
+                            "backwards with no residual gradient (after "
+                            "the embedding; the last norm)",
+            "add_rms_norm_bwd": f"the {per_step['add_rms_norm_bwd']} "
+                                "norm backwards with the residual stream's "
+                                "gradient"}
+    return [dict(
+        name=name, route="cuda", source=src,
+        replaces="src/repro/models/common.py:78",
+        launches=tr["counts"][name],
+        launches_per_train_step=tr["counts"][name] / TRAIN_STEPS,
+        max_abs_err=err,
+        work=f"{work[name]} of one qwen2-1.5b training step (8 x 512 rows "
+             "of 1536, bf16), backward; replaces jax.grad of the "
+             "reference's rms_norm (XLA, no Pallas kernel); launches are "
+             "the full-depth training run's; library: "
+             "aten._fused_rms_norm_backward (F.rms_norm's backward), plus "
+             "the residual gradient's add for the fused ones",
+        **{k: norm[name][k] for k in timed}) for name in work]
+
+
 # ------------------------------------------------------------------- main
 def qwen2_phases(gpu, dev):
     """Phases 2-17 and (e)-(i) on full-width qwen2-1.5b (the module
@@ -4573,6 +5123,8 @@ def main() -> int:
     kernels += slice10_phases(gpu, dev)
     gc_free()
     kernels += stub_phases(gpu, dev)
+    gc_free()
+    kernels += training_phases(gpu, dev)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

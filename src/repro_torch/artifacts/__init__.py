@@ -53,10 +53,13 @@ from repro_torch.artifacts.reader import (VERIFY_MODES, check_shard_sizes,
                                           load_artifact, load_model,
                                           load_model_config, read_manifest,
                                           verify_artifact)
-from repro_torch.artifacts.writer import ArtifactWriter, write_artifact
+from repro_torch.artifacts.writer import (ArtifactWriter,
+                                          iter_checkpoint_leaves,
+                                          write_artifact)
 
 __all__ = [
     "ArtifactError", "ArtifactWriter", "VERIFY_MODES", "check_shard_sizes",
+    "iter_checkpoint_leaves",
     "load_artifact", "load_model", "load_model_config", "read_manifest",
     "verify_artifact", "write_artifact",
 ]

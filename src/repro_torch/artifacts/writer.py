@@ -351,3 +351,25 @@ def write_artifact(out_dir: str | Path, *, arch: str, model_cfg, ptqtp_cfg,
             progress and progress(dict(info, action="fp"))
     return writer.finalize()
 
+
+def iter_checkpoint_leaves(ckpt_dir: str | Path, subtree: str = "params",
+                           device="cpu") -> Iterable[Tuple[str, Any]]:
+    """Stream the leaves of ``subtree`` out of a ``runtime/checkpoint.py``
+    checkpoint of either package (its LATEST step), one at a time, as
+    tensors on ``device``: (path, leaf) with the artifact's ``/a/b`` paths.
+    A bf16 leaf (stored as raw ``|V2`` bytes) is read by the manifest's
+    dtype. ``np.load`` on an npz reads an array on access, so this holds
+    one tensor at a time."""
+    from repro_torch.runtime.checkpoint import _SEP, leaf_tensor, step_dir
+
+    _, d, manifest = step_dir(ckpt_dir)
+    leaves = manifest["leaves"]
+    prefix = f"{subtree}{_SEP}"
+    for shard in sorted(d.glob("host*.npz")):
+        with np.load(shard) as z:
+            for key in z.files:
+                if not key.startswith(prefix):
+                    continue
+                path = "/" + key[len(prefix):].replace(_SEP, "/")
+                yield path, leaf_tensor(z[key], leaves[key]["dtype"]).to(
+                    device)

@@ -28,11 +28,20 @@ writer can store a port model in the reference's format, byte for byte.
 The reference's ``init_params`` builds the unstacked ``prefix``/``suffix``
 blocks in insertion order and the stacked ``blocks`` with sorted keys
 (``jax.tree.map`` sorts them); the tree here follows both.
+
+Training keeps one tensor a parameter for each of the gradients, the
+optimizer's moments and the compression error, in the order of
+``model.parameters()``. ``reference_tree_of(model, cfg, values)`` lays
+such a list out as the reference lays out the tree of the same leaves
+(kernels transposed, layers stacked), and ``values_from_tree(tree, cfg,
+dtype, device)`` reads one back: a checkpoint's ``opt/m``, ``opt/v`` and
+``err`` are those trees.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+import contextlib
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -323,3 +332,63 @@ def to_reference_tree(model: Transformer, cfg) -> Dict[str, Any]:
     tree["final_norm"] = {"scale": model.final_norm.scale.detach()}
     tree["lm_head"] = _dense_node(model.lm_head)
     return tree
+
+
+# ---------------------------------------------------------------------------
+# per-parameter tensors (gradients, moments) <-> reference layout
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _parameters_replaced(model: Transformer, values: Sequence[torch.Tensor]):
+    """``model`` with ``values[i]`` in the slot of its i-th parameter (in
+    ``model.parameters()`` order) for the duration of the block."""
+    slots = []
+    for name, _ in model.named_parameters():
+        owner, attr = model, name
+        if "." in name:
+            path, attr = name.rsplit(".", 1)
+            owner = model.get_submodule(path)
+        slots.append((owner, attr, owner._parameters[attr]))
+    if len(slots) != len(values):
+        raise ValueError(f"{len(values)} tensors for {len(slots)} parameters")
+    try:
+        for (owner, attr, _), v in zip(slots, values):
+            owner._parameters[attr] = v
+        yield model
+    finally:
+        for owner, attr, p in slots:
+            owner._parameters[attr] = p
+
+
+def reference_tree_of(model: Transformer, cfg,
+                      values: Sequence[torch.Tensor]) -> Dict[str, Any]:
+    """The reference's tree of one tensor a parameter of ``model`` (in
+    ``model.parameters()`` order, each of its parameter's shape): the
+    tree ``to_reference_tree`` gives for the parameters themselves, with
+    these tensors in their places."""
+    with _parameters_replaced(model, values):
+        return to_reference_tree(model, cfg)
+
+
+def reference_ndims(model: Transformer, cfg) -> List[int]:
+    """Each parameter's ndim in the reference's tree (``parameters()``
+    order): its own, plus one in a layer of the scan-stacked ``blocks``."""
+    n_pre = len(cfg.prefix_pattern)
+    stacked = range(n_pre, n_pre + cfg.n_periods * cfg.period)
+    out = []
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        layer = int(parts[1]) if parts[0] == "layers" else None
+        out.append(p.dim() + (layer in stacked))
+    return out
+
+
+def values_from_tree(tree: Dict[str, Any], cfg, dtype, device="cuda"
+                     ) -> List[torch.Tensor]:
+    """The inverse of ``reference_tree_of``: one ``dtype`` tensor a
+    parameter of ``cfg``'s model, in ``parameters()`` order, from a tree in
+    the reference's layout (every leaf widened to f32 on the way, which is
+    exact, then rounded to ``dtype``)."""
+    model = from_jax_params(tree, cfg.scaled(param_dtype="float32"),
+                            device=device)
+    return [p.detach().to(dtype) for p in model.parameters()]

@@ -45,6 +45,29 @@
 //     scale's 16-byte vectors too, are issued before the first sum;
 //   * wider rows (llama3-405b's 16384) take a second pass, which reads the
 //     row again (x_new as this lane wrote it, or x) from L1/L2.
+//
+// The backward (training), for rms_norm and add_rms_norm alike, in f32
+// inside, with r = rsqrt(mean(x²) + eps), x̂ = x·r and ĝ = dy·scale:
+//     dx     = r·(ĝ − x̂·mean(ĝ·x̂))        rounded to x's dtype; with the
+//                                          gradient of add_rms_norm's x_new
+//                                          (res), rounded again after + res
+//     dscale = Σ_rows dy·x̂                 rounded to scale's dtype
+// x is the norm's input (add_rms_norm's x_new). Three launches a call, no
+// float atomics, every sum in a fixed order that depends on (rows, d)
+// only, so a training run is bit-reproducible:
+//   * norm_bwd_rows: one warp a row (as the forward); lane l walks the
+//     row's 16-byte vectors l, l+32, ... twice: the first pass sums x² and
+//     ĝ·x (two xor butterflies), the second writes dx; it also writes r of
+//     the row. The row is read twice (the second time from L1/L2) at every
+//     width, so one program covers every d the forward takes, 16384 too;
+//   * norm_bwd_scale_partials: dy·x̂ summed over tiles of 64 rows, one
+//     thread a 16-byte column vector of a tile (rows in order), into an f32
+//     partial per (tile, column);
+//   * norm_bwd_scale_sum: each column's partials summed over the tiles in
+//     order, rounded to scale's dtype.
+// Bound: memory (x and dy read once, res read once, dx written once; the
+// scale and the partials are small beside them). A simple kernel: it
+// reads x and dy twice and makes two more launches for dscale.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -296,6 +319,162 @@ int dispatch(const void* x, const void* delta, int x_bf16, const void* scale,
   return static_cast<int>(e);
 }
 
+// ------------------------------------------------------------- backward
+constexpr int BWD_TILE_ROWS = 64;  // rows of one dscale partial
+
+template <typename TS>
+__device__ __forceinline__ TS from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// dx of one row a warp (RES: + res, after dx is rounded to T), and r of
+// the row into rstd.
+template <typename T, typename TS, bool RES>
+__global__ void __launch_bounds__(NTHREADS)
+    norm_bwd_rows(const T* __restrict__ x, const T* __restrict__ dy,
+                  const T* __restrict__ res, const TS* __restrict__ scale,
+                  T* __restrict__ dx, float* __restrict__ rstd, int rows,
+                  int d, float eps) {
+  constexpr int EPV = Vec<T>::N;
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
+  if (row >= rows) return;  // whole warps exit together
+  const int nvec = d / EPV;
+  const size_t off = (size_t)row * d;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + off);
+  const uint4* gr = reinterpret_cast<const uint4*>(dy + off);
+  const uint4* rr = RES ? reinterpret_cast<const uint4*>(res + off) : nullptr;
+  uint4* dr = reinterpret_cast<uint4*>(dx + off);
+
+  float ss = 0.0f, gx = 0.0f;  // Σ x², Σ ĝ·x
+  for (int e = lane; e < nvec; e += 32) {
+    float fx[EPV], fg[EPV];
+    Vec<T>::load(__ldg(xr + e), fx);
+    Vec<T>::load(__ldg(gr + e), fg);
+    ScaleVec<TS, EPV> s;
+    s.load(scale, e);
+#pragma unroll
+    for (int c = 0; c < EPV; ++c) {
+      ss = fmaf(fx[c], fx[c], ss);
+      gx = fmaf(__fmul_rn(fg[c], s.at(c)), fx[c], gx);
+    }
+  }
+  const float r = inv_rms(ss, d, eps);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    gx = __fadd_rn(gx, __shfl_xor_sync(0xffffffffu, gx, o));
+  const float mean_gx = __fdiv_rn(__fmul_rn(r, gx), (float)d);  // mean(ĝ·x̂)
+
+  for (int e = lane; e < nvec; e += 32) {
+    float fx[EPV], fg[EPV], out[EPV];
+    Vec<T>::load(__ldg(xr + e), fx);
+    Vec<T>::load(__ldg(gr + e), fg);
+    ScaleVec<TS, EPV> s;
+    s.load(scale, e);
+#pragma unroll
+    for (int c = 0; c < EPV; ++c) {
+      const float g = __fmul_rn(fg[c], s.at(c));
+      const float xh = __fmul_rn(fx[c], r);
+      out[c] = __fmul_rn(r, __fsub_rn(g, __fmul_rn(xh, mean_gx)));
+    }
+    uint4 v = Vec<T>::store(out);  // dx rounded to T
+    if constexpr (RES) {
+      float fr[EPV];
+      Vec<T>::load(v, out);
+      Vec<T>::load(__ldg(rr + e), fr);
+#pragma unroll
+      for (int c = 0; c < EPV; ++c) out[c] = __fadd_rn(out[c], fr[c]);
+      v = Vec<T>::store(out);
+    }
+    dr[e] = v;
+  }
+  if (lane == 0) rstd[row] = r;
+}
+
+// partial[tile][col] = Σ over the tile's rows, in order, of dy·(x·r).
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS)
+    norm_bwd_scale_partials(const T* __restrict__ x, const T* __restrict__ dy,
+                            const float* __restrict__ rstd,
+                            float* __restrict__ partial, int rows, int d) {
+  constexpr int EPV = Vec<T>::N;
+  const int nvec = d / EPV;
+  const int e = blockIdx.x * NTHREADS + threadIdx.x;
+  if (e >= nvec) return;
+  const int r0 = blockIdx.y * BWD_TILE_ROWS;
+  const int r1 = min(rows, r0 + BWD_TILE_ROWS);
+  float acc[EPV];
+#pragma unroll
+  for (int c = 0; c < EPV; ++c) acc[c] = 0.0f;
+  for (int row = r0; row < r1; ++row) {
+    const float r = __ldg(rstd + row);
+    float fx[EPV], fg[EPV];
+    Vec<T>::load(__ldg(reinterpret_cast<const uint4*>(x + (size_t)row * d) + e), fx);
+    Vec<T>::load(__ldg(reinterpret_cast<const uint4*>(dy + (size_t)row * d) + e), fg);
+#pragma unroll
+    for (int c = 0; c < EPV; ++c)
+      acc[c] = __fadd_rn(acc[c], __fmul_rn(fg[c], __fmul_rn(fx[c], r)));
+  }
+  float4* out = reinterpret_cast<float4*>(partial + (size_t)blockIdx.y * d +
+                                          (size_t)e * EPV);
+#pragma unroll
+  for (int q = 0; q < EPV / 4; ++q)
+    out[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+}
+
+// dscale[col] = Σ over the tiles, in order, of partial[tile][col].
+template <typename TS>
+__global__ void __launch_bounds__(NTHREADS)
+    norm_bwd_scale_sum(const float* __restrict__ partial,
+                       TS* __restrict__ dscale, int n_tiles, int d) {
+  const int col = blockIdx.x * NTHREADS + threadIdx.x;
+  if (col >= d) return;
+  float s = 0.0f;
+  for (int t = 0; t < n_tiles; ++t)
+    s = __fadd_rn(s, partial[(size_t)t * d + col]);
+  dscale[col] = from_f32<TS>(s);
+}
+
+template <typename T, typename TS, bool RES>
+cudaError_t launch_bwd(const void* x, const void* dy, const void* res,
+                       const void* scale, void* dx, void* dscale, float* rstd,
+                       float* partial, int rows, int d, float eps,
+                       cudaStream_t s) {
+  const int row_blocks = (rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
+  norm_bwd_rows<T, TS, RES><<<row_blocks, NTHREADS, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy),
+      static_cast<const T*>(res), static_cast<const TS*>(scale),
+      static_cast<T*>(dx), rstd, rows, d, eps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int nvec = d / Vec<T>::N;
+  const int n_tiles = (rows + BWD_TILE_ROWS - 1) / BWD_TILE_ROWS;
+  const dim3 grid((nvec + NTHREADS - 1) / NTHREADS, n_tiles);
+  norm_bwd_scale_partials<T><<<grid, NTHREADS, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), rstd, partial,
+      rows, d);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  norm_bwd_scale_sum<TS><<<(d + NTHREADS - 1) / NTHREADS, NTHREADS, 0, s>>>(
+      partial, static_cast<TS*>(dscale), n_tiles, d);
+  return cudaGetLastError();
+}
+
+template <typename T, typename TS>
+cudaError_t launch_bwd_res(const void* x, const void* dy, const void* res,
+                           const void* scale, void* dx, void* dscale,
+                           float* rstd, float* partial, int rows, int d,
+                           float eps, cudaStream_t s) {
+  return res ? launch_bwd<T, TS, true>(x, dy, res, scale, dx, dscale, rstd,
+                                       partial, rows, d, eps, s)
+             : launch_bwd<T, TS, false>(x, dy, res, scale, dx, dscale, rstd,
+                                        partial, rows, d, eps, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -317,5 +496,35 @@ int add_rms_norm_launch(const void* x, const void* delta, int x_bf16,
   return dispatch<true>(x, delta, x_bf16, scale, scale_bf16, x_out, y, rows, d,
                         eps, stream);
 }
+
+// Backward of rms_norm (res null) or add_rms_norm (res: the gradient of
+// x_new, added to dx after its rounding): x the norm's input, dy the
+// gradient of its output, both (rows, d) like dx; dscale (d,) in scale's
+// dtype. Workspaces: rstd (rows,) f32 and partial (ceil(rows / tile
+// rows), d) f32, tile rows from rms_norm_bwd_tile_rows(). rows >= 1.
+int rms_norm_bwd_launch(const void* x, const void* dy, const void* res,
+                        int x_bf16, const void* scale, int scale_bf16, void* dx,
+                        void* dscale, void* rstd, void* partial, int rows,
+                        int d, float eps, void* stream) {
+  const int epv = x_bf16 ? 8 : 4;
+  if (d <= 0 || d % epv || rows <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* rs = static_cast<float*>(rstd);
+  float* pt = static_cast<float*>(partial);
+  using bf = __nv_bfloat16;
+  cudaError_t e;
+  if (x_bf16)
+    e = scale_bf16
+            ? launch_bwd_res<bf, bf>(x, dy, res, scale, dx, dscale, rs, pt, rows, d, eps, s)
+            : launch_bwd_res<bf, float>(x, dy, res, scale, dx, dscale, rs, pt, rows, d, eps, s);
+  else
+    e = scale_bf16
+            ? launch_bwd_res<float, bf>(x, dy, res, scale, dx, dscale, rs, pt, rows, d, eps, s)
+            : launch_bwd_res<float, float>(x, dy, res, scale, dx, dscale, rs, pt, rows, d, eps, s);
+  return static_cast<int>(e);
+}
+
+int rms_norm_bwd_tile_rows(void) { return BWD_TILE_ROWS; }
 
 }  // extern "C"

@@ -8,6 +8,16 @@ determinism contract; ``torch.mean`` on the card does not give that), and
 ``add_rms_norm``'s norm equals ``rms_norm`` of its sum bit for bit. On CPU
 tensors they run the plain versions of ``ref.py``; they never fall back
 from a CUDA tensor to them.
+
+Both are differentiable (training): where grad mode is on and x, delta
+or scale requires grad, they run through ``torch.autograd.Function``s
+whose backward is the kernel's backward (``rms_norm_backward_cuda``:
+dx, and dscale summed in a fixed order, no float atomics, so a training
+run is bit-reproducible) on a CUDA tensor and the plain backward written
+out (``ref.rms_norm_backward_plain``) on a CPU one. ``add_rms_norm``'s
+backward takes the gradients of both its outputs (either may be None:
+the last norm's residual stream is unused) and returns one dsum for x
+and delta.
 """
 
 from __future__ import annotations
@@ -26,7 +36,10 @@ _I = ctypes.c_int
 _SIGNATURES = {"rms_norm_launch": [_P, _I, _P, _I, _P, _I, _I,
                                    ctypes.c_float, _P],
                "add_rms_norm_launch": [_P, _P, _I, _P, _I, _P, _P, _I, _I,
-                                       ctypes.c_float, _P]}
+                                       ctypes.c_float, _P],
+               "rms_norm_bwd_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _P,
+                                       _P, _I, _I, ctypes.c_float, _P],
+               "rms_norm_bwd_tile_rows": []}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -99,8 +112,51 @@ def add_rms_norm_cuda(scale: torch.Tensor, x: torch.Tensor,
     return x_new, y
 
 
-def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5):
-    """RMSNorm of x (..., d) with ``scale`` (d,); returns x's dtype."""
+def rms_norm_backward_cuda(scale: torch.Tensor, x: torch.Tensor,
+                           dy: torch.Tensor, eps: float = 1e-5,
+                           dres=None):
+    """The Hopper backward kernel: x (the norm's input) and dy (its
+    output's gradient) (rows, d) contiguous on the card in one dtype, f32
+    or bf16; scale (d,); ``dres`` (x's shape and dtype) the gradient of
+    add_rms_norm's x + delta, or None. Returns (dx (+ dres) in x's dtype,
+    dscale in scale's dtype)."""
+    more = {"dy": dy} if dres is None else {"dy": dy, "dres": dres}
+    rows, d = _check(scale, x, **more)
+    dx = torch.empty_like(x)
+    if rows == 0:
+        return dx, torch.zeros_like(scale)
+    lib = _build.load(_SOURCE, _SIGNATURES)
+    tile = lib.rms_norm_bwd_tile_rows()
+    dscale = torch.empty_like(scale)
+    rstd = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    partial = torch.empty((-(-rows // tile), d), dtype=torch.float32,
+                          device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    status = lib.rms_norm_bwd_launch(
+        x.data_ptr(), dy.data_ptr(), 0 if dres is None else dres.data_ptr(),
+        _bf16(x), scale.data_ptr(), _bf16(scale), dx.data_ptr(),
+        dscale.data_ptr(), rstd.data_ptr(), partial.data_ptr(), rows, d,
+        float(eps), stream)
+    _build.check(status, "rms_norm_bwd_launch")
+    _build.count("rms_norm_bwd" if dres is None else "add_rms_norm_bwd")
+    return dx, dscale
+
+
+def rms_norm_backward(scale: torch.Tensor, x: torch.Tensor, dy: torch.Tensor,
+                      eps: float = 1e-5, dres=None):
+    """(dx (+ dres), dscale) of the norm of x (..., d) for its output's
+    gradient dy: the kernel on a CUDA tensor, the plain backward on a CPU
+    one."""
+    if x.device.type == "cpu":
+        return _ref.rms_norm_backward_plain(scale, x, dy, eps, dres)
+    *lead, d = x.shape
+    flat = lambda t: t.reshape(-1, d).contiguous()  # noqa: E731
+    dx, dscale = rms_norm_backward_cuda(
+        scale, flat(x), flat(dy), eps, None if dres is None else flat(dres))
+    return dx.reshape(*lead, d), dscale
+
+
+def _rms_norm_forward(scale, x, eps):
     if x.device.type == "cpu":
         return _ref.rms_norm_plain(scale, x, eps)
     *lead, d = x.shape
@@ -108,14 +164,63 @@ def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5):
         *lead, d)
 
 
-def add_rms_norm(scale: torch.Tensor, x: torch.Tensor, delta: torch.Tensor,
-                 eps: float = 1e-5):
-    """The residual add and the RMSNorm after it: (x + delta, RMSNorm of
-    x + delta with ``scale``), x and delta (..., d) of one shape and dtype;
-    both in x's dtype."""
+def _add_rms_norm_forward(scale, x, delta, eps):
     if x.device.type == "cpu":
         return _ref.add_rms_norm_plain(scale, x, delta, eps)
     *lead, d = x.shape
     x_new, y = add_rms_norm_cuda(scale, x.reshape(-1, d).contiguous(),
                                  delta.reshape(-1, d).contiguous(), eps)
     return x_new.reshape(*lead, d), y.reshape(*lead, d)
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, scale, x, eps):
+        ctx.save_for_backward(scale, x)
+        ctx.eps = eps
+        return _rms_norm_forward(scale, x, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        scale, x = ctx.saved_tensors
+        dx, dscale = rms_norm_backward(scale, x, dy, ctx.eps)
+        return dscale, dx, None
+
+
+class _AddRMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, scale, x, delta, eps):
+        ctx.set_materialize_grads(False)
+        x_new, y = _add_rms_norm_forward(scale, x, delta, eps)
+        ctx.save_for_backward(scale, x_new)
+        ctx.eps = eps
+        return x_new, y
+
+    @staticmethod
+    def backward(ctx, dres, dy):
+        if dy is None:  # the norm's output unused: the add's gradient alone
+            return None, dres, dres, None
+        scale, x_new = ctx.saved_tensors
+        dsum, dscale = rms_norm_backward(scale, x_new, dy, ctx.eps, dres)
+        return dscale, dsum, dsum, None
+
+
+def _tracked(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5):
+    """RMSNorm of x (..., d) with ``scale`` (d,); returns x's dtype."""
+    if _tracked(scale, x):
+        return _RMSNorm.apply(scale, x, eps)
+    return _rms_norm_forward(scale, x, eps)
+
+
+def add_rms_norm(scale: torch.Tensor, x: torch.Tensor, delta: torch.Tensor,
+                 eps: float = 1e-5):
+    """The residual add and the RMSNorm after it: (x + delta, RMSNorm of
+    x + delta with ``scale``), x and delta (..., d) of one shape and dtype;
+    both in x's dtype."""
+    if _tracked(scale, x, delta):
+        return _AddRMSNorm.apply(scale, x, delta, eps)
+    return _add_rms_norm_forward(scale, x, delta, eps)

@@ -13,8 +13,14 @@ skipping what is committed. Serve the result with
 ``python -m repro_torch.launch.serve --artifact DIR``. Either package reads
 the artifact.
 
-Weight source: the port's random initialisation from ``--seed``.
-``--from-checkpoint`` (a training checkpoint) is not ported yet.
+Weight sources: the port's random initialisation from ``--seed``, or
+``--from-checkpoint DIR``: a training checkpoint of either package
+(``runtime/checkpoint.py``'s layout), its params streamed one leaf at a
+time out of the npz onto ``--device`` (bf16 leaves by the manifest's
+dtype), so the floating-point tree is never held whole. A checkpoint the
+port's trainer wrote records its model config (``extra["model_config"]``),
+which then stands for ``--arch``/``--config`` (a cut model quantizes as
+what it is); one of the reference's records none.
 """
 
 from __future__ import annotations
@@ -24,12 +30,15 @@ import argparse
 import torch
 
 from repro_torch import configs
-from repro_torch.artifacts import read_manifest, verify_artifact, write_artifact
+from repro_torch.artifacts import (iter_checkpoint_leaves, read_manifest,
+                                   verify_artifact, write_artifact)
+from repro_torch.artifacts.format import model_config_from_json
 from repro_torch.convert import to_reference_tree
 from repro_torch.core.ptqtp import PTQTPConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
 from repro_torch.runtime import clock as rtclock
+from repro_torch.runtime.checkpoint import step_dir
 
 
 def _progress_printer(every: int = 1):
@@ -55,14 +64,16 @@ def _progress_printer(every: int = 1):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", choices=configs.ARCH_IDS, default="qwen2-1.5b")
+    ap.add_argument("--arch", choices=configs.ARCH_IDS, default=None,
+                    help="model (default qwen2-1.5b; with --from-checkpoint, "
+                         "the checkpoint's own where it records one)")
     ap.add_argument("--out", required=True, help="artifact directory to write")
     ap.add_argument("--config", choices=("smoke", "full"), default="smoke",
                     help="model size: smoke (default) or the published "
                          "full-width config")
     ap.add_argument("--from-checkpoint", default=None, metavar="DIR",
                     help="stream FP weights out of a training checkpoint "
-                         "(not ported yet)")
+                         "instead of --seed initialization")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--group-size", type=int, default=0,
                     help="PTQTP group size G (0 → min(128, d_model))")
@@ -82,27 +93,40 @@ def main(argv=None):
                     help="torch device to quantize on (cuda, or cpu for the "
                          "plain PyTorch version of the search)")
     args = ap.parse_args(argv)
-    if args.from_checkpoint:
-        raise NotImplementedError(
-            "--from-checkpoint needs runtime/checkpoint.py, which the port "
-            "does not have yet (ROADMAP A.6)")
 
     dev = resolve_device(args.device)
-    cfg = (configs.get_smoke_config(args.arch) if args.config == "smoke"
-           else configs.get_config(args.arch))
+    arch = args.arch or "qwen2-1.5b"
+    cfg = (configs.get_smoke_config(arch) if args.config == "smoke"
+           else configs.get_config(arch))
+    if args.from_checkpoint:
+        extra = step_dir(args.from_checkpoint)[2].get("extra", {})
+        if "model_config" in extra:
+            # the run's own config labels the artifact; an --arch that
+            # names another model is a mistake, not an override
+            cfg = model_config_from_json(extra["model_config"])
+            if args.arch is not None and args.arch != cfg.name:
+                raise ValueError(
+                    f"--arch {args.arch} but the checkpoint at "
+                    f"{args.from_checkpoint} is a {cfg.name} run")
+            arch = cfg.name
     gs = args.group_size or min(128, cfg.d_model)
     pcfg = PTQTPConfig(group_size=gs, t_max=args.t_max)
-    model = init_params(cfg, torch.Generator(device=dev).manual_seed(
-        args.seed), device=dev)
+    if args.from_checkpoint:
+        params = iter_checkpoint_leaves(args.from_checkpoint, device=dev)
+        src = f"checkpoint {args.from_checkpoint}"
+    else:
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(
+            args.seed), device=dev)
+        params = to_reference_tree(model, cfg)
+        src = f"seed {args.seed}"
 
-    print(f"[quantize] {args.arch} ({args.config}) from seed {args.seed} on "
-          f"{dev} → {args.out}  G={gs} t_max={args.t_max}", flush=True)
+    print(f"[quantize] {arch} ({args.config}) from {src} on {dev} → "
+          f"{args.out}  G={gs} t_max={args.t_max}", flush=True)
     progress = _progress_printer()
     t0 = rtclock.now()
     out = write_artifact(
-        args.out, arch=args.arch, model_cfg=cfg, ptqtp_cfg=pcfg,
-        params=to_reference_tree(model, cfg),
-        compute_error=not args.no_error_stats, progress=progress,
+        args.out, arch=arch, model_cfg=cfg, ptqtp_cfg=pcfg,
+        params=params, compute_error=not args.no_error_stats, progress=progress,
         resume=not args.no_resume, overwrite=args.overwrite,
         commit_every=args.commit_every)
     dt = rtclock.now() - t0

@@ -82,6 +82,47 @@ def dense(layer: Dense, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _by_row_blocks(x: torch.Tensor, fn) -> torch.Tensor:
+    """``fn`` on each block of ``DENSE_ROW_BLOCK`` rows of x (rows on dim
+    -2, the last block zero-padded), concatenated and cut back to x's
+    rows: every row sees one GEMM shape whatever its batch."""
+    m, rows = x.shape[-2], DENSE_ROW_BLOCK
+    pad = -m % rows
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    y = torch.cat([fn(x[..., i:i + rows, :]) for i in range(0, m + pad, rows)],
+                  dim=-2)
+    return y[..., :m, :]
+
+
+class _FixedRows(torch.autograd.Function):
+    """y = x @ wᵀ in fixed-row blocks, x (m, d) and w (n, d), or batched
+    over experts, x (E, m, d) and w (E, n, d). Its backward keeps dx in the
+    same fixed-row blocks but takes dw as ONE GEMM over all m rows, so dw
+    is accumulated in f32 and rounded once to w's dtype, as the reference's
+    einsum gradient is. (Autograd of the blocked forward would add the
+    blocks' dw in w's dtype: m/128 − 1 extra bf16 roundings a weight.)"""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.dim() == 2:
+            return _by_row_blocks(
+                x, lambda b: torch.nn.functional.linear(b, w))
+        wt = w.transpose(1, 2)
+        return _by_row_blocks(x, lambda b: torch.bmm(b, wt))
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _by_row_blocks(dy, lambda b: b @ w)
+        if ctx.needs_input_grad[1]:
+            dw = dy.transpose(-1, -2) @ x
+        return dx, dw
+
+
 def linear_fixed_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ wᵀ in GEMMs of one shape. cuBLAS picks its kernel, and with it a
     row's summation order, by the product's m, so a row's bits would depend
@@ -89,16 +130,9 @@ def linear_fixed_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     fleet gave other tokens). So x is cut into blocks of
     ``DENSE_ROW_BLOCK`` rows, the last zero-padded, and each block goes
     through ``F.linear`` alone: every row sees the same GEMM whatever its
-    batch."""
+    batch. Differentiable through ``_FixedRows``."""
     *lead, d = x.shape
-    x2 = x.reshape(-1, d)
-    m, rows = x2.shape[0], DENSE_ROW_BLOCK
-    pad = -m % rows
-    if pad:
-        x2 = torch.nn.functional.pad(x2, (0, 0, 0, pad))
-    y = torch.cat([torch.nn.functional.linear(x2[i:i + rows], w)
-                   for i in range(0, m + pad, rows)])
-    return y[:m].reshape(*lead, w.shape[0])
+    return _FixedRows.apply(x.reshape(-1, d), w).reshape(*lead, w.shape[0])
 
 
 def bmm_fixed_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -107,15 +141,7 @@ def bmm_fixed_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``DENSE_ROW_BLOCK``, as ``linear_fixed_rows``): a row's bits do not
     depend on m. The floating-point MoE expert stacks (the reference leaves
     this product to XLA's einsum)."""
-    e, m, d = x.shape
-    rows = DENSE_ROW_BLOCK
-    pad = -m % rows
-    if pad:
-        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
-    wt = w.transpose(1, 2)
-    y = torch.cat([torch.bmm(x[:, i:i + rows], wt)
-                   for i in range(0, m + pad, rows)], dim=1)
-    return y[:, :m]
+    return _FixedRows.apply(x, w)
 
 
 class RMSNorm(nn.Module):

@@ -11,6 +11,7 @@ The reference stacks layers for ``lax.scan``; here they are a
 Model API:
   init_params(cfg, generator=None, device="cuda")  -> Transformer
   forward(model, cfg, tokens)                      -> logits (B, S, V)
+  loss_fn(model, cfg, batch)                       -> scalar f32 xent
   init_decode_state(cfg, batch, capacity, device, kv_spec=None) -> state
   prefill(model, cfg, tokens, capacity, chunk=None) -> (logits (B, V), state)
   prefill_chunk(model, cfg, state, tokens, lengths) -> (logits (B, V), state)
@@ -23,9 +24,19 @@ float embeddings there instead, (B, S, D) or (B, D), cast to the
 activation dtype: the reference's ``batch["embeddings"]`` and its
 ``decode_step`` on (B, D).
 
-The serving functions update ``state`` in place and return it: no tensor of
-the state is ever rebound, so a CUDA graph that captured a dispatch reads
-and writes the same storage at every replay. A recurrent layer's cache is
+``forward`` and ``loss_fn`` are differentiable (training): parameters
+are created with ``requires_grad`` False and the trainer turns it on.
+Every norm runs through the norm kernel's autograd Function (its backward
+a hand kernel on the card); ``cfg.remat == "full"`` recomputes each layer
+in the backward (``torch.utils.checkpoint``, as the reference's
+``jax.checkpoint`` of its scan body). Training the recurrent kinds needs
+backward kernels of ``rglru_scan`` and ``wkv6``, which the port does not
+have yet: ``check_trainable`` raises for them.
+
+The serving functions (``prefill``, ``prefill_chunk``, ``decode_step``)
+run under ``torch.no_grad``. They update ``state`` in place and return it:
+no tensor of the state is ever rebound, so a CUDA graph that captured a
+dispatch reads and writes the same storage at every replay. A recurrent layer's cache is
 its per-row state (rwkv: ``x_time``, ``wkv``, ``x_chan``; rglru: ``h``,
 ``conv``); a chunk's right padding and a decode step's inactive rows
 (length 0) leave it as it was, as the reference's masks and
@@ -38,6 +49,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import dtype_of, resolve_device
 from repro_torch.kernels.rms_norm.ops import add_rms_norm
@@ -155,12 +167,25 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
     return model
 
 
+def check_trainable(cfg) -> None:
+    """Raise unless every block kind of ``cfg`` can be trained: the
+    recurrent mixers' hand kernels have no backward yet (the rule is never
+    to differentiate a hand kernel's plain version in its place)."""
+    recurrent = sorted({k for k in cfg.layer_kinds if is_recurrent(k)})
+    if recurrent:
+        raise NotImplementedError(
+            f"training {cfg.name} ({recurrent} blocks) needs backward "
+            "kernels of rglru_scan and wkv6, which the port does not have "
+            "yet (ROADMAP A.6b)")
+
+
 def _embed(model: Transformer, cfg, tokens):
     """Token ids through the embedding, or (stub frontend) the given float
-    embeddings, in the activation dtype."""
+    embeddings, in the activation dtype. The gather is ``F.embedding``,
+    whose backward on the card sums a row's gradients in a fixed order."""
     adt = dtype_of(cfg.activation_dtype)
     if cfg.embed_inputs:
-        return model.embed[tokens.long()].to(adt)
+        return nn.functional.embedding(tokens.long(), model.embed).to(adt)
     if not tokens.is_floating_point() or tokens.shape[-1] != cfg.d_model:
         raise TypeError(f"{cfg.name} has a stub frontend: it takes float "
                         f"embeddings (..., {cfg.d_model}), got "
@@ -224,28 +249,56 @@ def _recurrent_cache_init(kind: str, cfg, batch: int, dtype, device
                                 device=device)}
 
 
-@torch.no_grad()
+def _attention_layer(kind: str, block: Block, cfg, x, delta, positions,
+                     rope):
+    """One attention block of the full-sequence forward on the stream x +
+    delta: returns (its input, the pending delta of its output)."""
+    x, h = _add_norm(block.attn_norm, x, delta, cfg.norm_eps)
+    y = attn_mod.attention_forward(block.attn, cfg, h, positions, rope,
+                                   window=_window(kind, cfg))
+    return _mlp_block(block, cfg, x, y)
+
+
 def forward(model: Transformer, cfg, tokens) -> torch.Tensor:
-    """Full-sequence forward. tokens (B, S) -> logits (B, S, V)."""
+    """Full-sequence forward. tokens (B, S) -> logits (B, S, V).
+    Differentiable; with grad mode on, a parameter that requires grad and
+    ``cfg.remat == "full"``, each attention layer is recomputed in the
+    backward."""
     x = _embed(model, cfg, tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
     rope = (rope_tables(positions[None, :], cfg.head_dim, cfg.rope_theta)
             if has_attention(cfg) else None)
     full = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    remat = (cfg.remat == "full" and torch.is_grad_enabled()
+             and any(p.requires_grad for p in model.parameters()))
     delta = None  # the residual stream is x + delta (see decode_step)
     for kind, block in zip(cfg.layer_kinds, model.layers):
         if is_recurrent(kind):
             cache = _recurrent_cache_init(kind, cfg, b, x.dtype, x.device)
             x, delta = _recurrent_block(kind, block, cfg, cache, x, delta,
                                         full)
-            continue
-        x, h = _add_norm(block.attn_norm, x, delta, cfg.norm_eps)
-        y = attn_mod.attention_forward(block.attn, cfg, h, positions, rope,
-                                       window=_window(kind, cfg))
-        x, delta = _mlp_block(block, cfg, x, y)
+        elif remat:
+            x, delta = checkpoint(_attention_layer, kind, block, cfg, x,
+                                  delta, positions, rope,
+                                  use_reentrant=False)
+        else:
+            x, delta = _attention_layer(kind, block, cfg, x, delta,
+                                        positions, rope)
     _, h = _add_norm(model.final_norm, x, delta, cfg.norm_eps)
     return model.lm_head(h)
+
+
+def loss_fn(model: Transformer, cfg, batch) -> torch.Tensor:
+    """Mean next-token cross-entropy over f32 logits (the reference's
+    ``loss_fn``: logsumexp − gold). batch: {"tokens" or (stub frontend)
+    "embeddings", "labels" (B, S)}."""
+    inputs = batch["tokens"] if cfg.embed_inputs else batch["embeddings"]
+    logits = forward(model, cfg, inputs).to(torch.float32)
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.mean(logz - gold)
 
 
 def _layer_cache(kind: str, cfg, batch: int, capacity: int, dtype, device):

@@ -51,6 +51,14 @@ op-by-op composition around the plain scan) bit for bit at S = 1, 64 and
 over ragged tiles, f32 and bf16, with the same row and chunk invariance.
 The attention kernels take the stub-frontend archs' head dims of 64
 (musicgen-large) and 96 (phi-3-vision-4.2b), one query head a kv head.
+Training: the norm's backward kernels (alone and with add_rms_norm's
+residual gradient) against the plain backward written out, f32 within
+1e-5 of the tensor's largest |value| (dscale 1e-4: its 64-row tiles sum
+in another order than torch.sum), bf16 within one bf16 step of it, at
+every width the forward takes, and the same bits at a second call;
+autograd through both wrappers launches them; the smoke qwen2 trained on
+the card, preempted and resumed from its checkpoint, equals the
+uninterrupted run bit for bit.
 """
 
 import dataclasses
@@ -1285,3 +1293,143 @@ def test_recurrent_engines_are_fleet_and_layout_invariant(cuda, arch):
     for i in (2, 3):
         assert serve(prompts[i:i + 1], 1)[0] == fleet[i]
     assert serve(prompts, 4, kv_layout="paged", page_size=4) == fleet
+
+
+# ------------------------------------------------------- training (slice 14)
+def _norm_bwd_close(got, want, dtype, what):
+    """Within the stated tolerance of the tensor's largest |value|: f32
+    1e-5 (dscale 1e-4: 64-row tiles summed in another order than
+    torch.sum's), bf16 one bf16 step (2^-7)."""
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    if what == "dscale" and dtype == torch.float32:
+        tol = 1e-4
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+    assert err <= tol, (what, err)
+
+
+@pytest.mark.parametrize("res", [False, True])
+@pytest.mark.parametrize("d", [64, 1536, 2560, 5376, 16384])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_backward_matches_plain_and_repeats(cuda, dtype, scale_dtype,
+                                                     d, res):
+    """The norm's backward kernel (with and without add_rms_norm's residual
+    gradient) against the plain backward written out, at the models'
+    widths (16384: the forward's two-pass width) and 8 x 130 rows (ragged
+    against the 64-row dscale tiles); a second call gives the same bits
+    (no float atomics)."""
+    rng = np.random.default_rng(d + 7 * res)
+    x, dy, dres = (torch.from_numpy(rng.standard_normal((8, 130, d)).astype(
+        np.float32)).to(cuda, dtype) for _ in range(3))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, (d,)).astype(
+        np.float32)).to(cuda, scale_dtype)
+    dres = dres if res else None
+    before = launch_counts()
+    dx, dscale = norm_ops.rms_norm_backward(scale, x, dy, 1e-6, dres)
+    name = "add_rms_norm_bwd" if res else "rms_norm_bwd"
+    assert launch_counts()[name] == before[name] + 1
+    want_dx, want_ds = norm_ref.rms_norm_backward_plain(scale, x, dy, 1e-6,
+                                                        dres)
+    assert dx.dtype == dtype and dscale.dtype == scale_dtype
+    _norm_bwd_close(dx, want_dx, dtype, "dx")
+    _norm_bwd_close(dscale, want_ds, scale_dtype, "dscale")
+    dx2, dscale2 = norm_ops.rms_norm_backward(scale, x, dy, 1e-6, dres)
+    assert torch.equal(dx, dx2) and torch.equal(dscale, dscale2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_autograd_on_the_card_runs_the_backward_kernels(cuda, dtype):
+    """Through autograd, ``rms_norm`` and ``add_rms_norm`` launch their
+    backward kernels and give the plain backward's gradients (the
+    kernel's tolerance); an unused residual stream (the last norm's)
+    passes no residual gradient."""
+    rng = np.random.default_rng(11)
+    d = 1536
+    x, delta, dy, dres = (torch.from_numpy(rng.standard_normal(
+        (4, 33, d)).astype(np.float32)).to(cuda, dtype) for _ in range(4))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, (d,)).astype(
+        np.float32)).to(cuda, dtype)
+    xa, da, sa = (t.clone().requires_grad_() for t in (x, delta, scale))
+    reset_launch_counts()
+    gx, gd, gs = torch.autograd.grad(norm_ops.add_rms_norm(sa, xa, da),
+                                     (xa, da, sa), (dres, dy))
+    assert launch_counts()["add_rms_norm_bwd"] == 1
+    assert torch.equal(gx, gd)
+    want_dx, want_ds = norm_ref.rms_norm_backward_plain(scale, x + delta, dy,
+                                                        1e-5, dres)
+    _norm_bwd_close(gx, want_dx, dtype, "dx")
+    _norm_bwd_close(gs, want_ds, dtype, "dscale")
+    gx, gs = torch.autograd.grad(norm_ops.rms_norm(sa, xa), (xa, sa), dy)
+    assert launch_counts()["rms_norm_bwd"] == 1
+    want_dx, want_ds = norm_ref.rms_norm_backward_plain(scale, x, dy)
+    _norm_bwd_close(gx, want_dx, dtype, "dx")
+    _norm_bwd_close(gs, want_ds, dtype, "dscale")
+    _, h = norm_ops.add_rms_norm(sa, xa, da)
+    gx, = torch.autograd.grad(h, (xa,), dy)
+    assert launch_counts()["rms_norm_bwd"] == 2  # no residual gradient
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+def test_fixed_rows_gradients_on_the_card_are_rounded_once(cuda, stacked):
+    """bf16 at 1000 rows (8 blocks of 128): dx and dw of
+    ``linear_fixed_rows``/``bmm_fixed_rows`` each lie within one bf16
+    rounding (2^-8 relative, plus 1e-5 of the largest) of the f32 product
+    of the same inputs (dw is one f32-accumulated product, not the
+    blocks' dw summed in bf16); the same bits at a second call."""
+    from repro_torch.models.common import bmm_fixed_rows, linear_fixed_rows
+
+    rng = np.random.default_rng(4)
+    lead = (2,) if stacked else ()
+    x, w, dy = (torch.from_numpy(rng.standard_normal(lead + s).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+        for s in ((1000, 320), (448, 320), (1000, 448)))
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    fn = bmm_fixed_rows if stacked else linear_fixed_rows
+    got = torch.autograd.grad(fn(xg, wg), (xg, wg), dy)
+    again = torch.autograd.grad(fn(xg, wg), (xg, wg), dy)
+    xf, wf, dyf = x.float(), w.float(), dy.float()
+    for g, a, want in zip(got, again, (dyf @ wf, dyf.transpose(-1, -2) @ xf)):
+        assert torch.equal(g, a)
+        tol = 2.0 ** -8 * want.abs() + 1e-5 * want.abs().max()
+        assert bool(((g.float() - want).abs() <= tol).all())
+
+
+def test_smoke_training_on_the_card_is_reproducible(cuda, tmp_path):
+    """The smoke qwen2 trains on the card through the norm's backward
+    kernels; a run preempted after step 2 and resumed from its checkpoint
+    gives the losses and parameters of an uninterrupted 4-step run bit
+    for bit (the backward has no float atomics; ``F.embedding``'s
+    backward sums in a fixed order)."""
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import PreemptionGuard
+    from repro_torch.training import Trainer, TrainerConfig, state_tree
+
+    cfg = configs.get_smoke_config("qwen2-1.5b").scaled(remat="full")
+
+    def trainer(ckpt=None, log_fn=lambda m: None):
+        return Trainer(cfg, AdamW(lr=3e-3), DataConfig(seq_len=64,
+                                                       global_batch=8),
+                       TrainerConfig(total_steps=4, log_interval=1,
+                                     ckpt_dir=ckpt), log_fn=log_fn,
+                       device=cuda)
+
+    reset_launch_counts()
+    whole = trainer()
+    s_whole = whole.fit()
+    counts = launch_counts()
+    assert counts["add_rms_norm_bwd"] > 0 and counts["rms_norm_bwd"] > 0
+    guard = PreemptionGuard(signals=())
+    first = trainer(str(tmp_path),
+                    lambda m: "step 2 " in m and guard.request())
+    first.fit(guard=guard)
+    second = trainer(str(tmp_path))
+    s_res = second.fit()
+    losses = [h["loss"] for h in first.history + second.history]
+    assert losses == [h["loss"] for h in whole.history]
+    assert all(np.isfinite(losses))
+    a, b = (dict(afmt.iter_tree_leaves(state_tree(s, cfg)))
+            for s in (s_whole, s_res))
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
