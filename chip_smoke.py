@@ -276,6 +276,34 @@ Since slice 14 (training on the card), after every other phase:
      model's), and 8 greedy requests served from that artifact (B1, B3,
      B2 launched; two alone with their fleet tokens).
 
+Since slice 15 (training the recurrent archs), after (t):
+
+ 35. (u) the recurrences' backward kernels (``rglru_scan_bwd``,
+     ``wkv6_bwd``) against their plain backwards written out: the RG-LRU at
+     recurrentgemma-2b's 8 x 2560 in 10 blocks, the WKV at rwkv6-3b's 40
+     heads of 64 and the smoke config's 4 heads of 16, at S = 64, 200 (a
+     ragged tile) and 512, bf16 and f32, ragged and idle rows, a random
+     prior state (``RECURRENT_BWD_TOL``); the same bits at a second call,
+     the reduced gradients (dba, dbx, dlam; du, dscale) included; the
+     forwards that write the backward's tile checkpoints equal those that
+     do not, bit for bit. recurrentgemma-2b and rwkv6-3b at full width and
+     depth (bf16, remat full, B 8 x S 512 of the synthetic corpus, 4 steps
+     through ``Trainer``): every loss finite, the loss falls, the
+     recurrences' forward and backward kernels and the norm's launched and
+     their plain versions called no time (counts reset just before, read
+     just after); step seconds, tokens/s, peak memory, and one profiled
+     step's kernels and device-busy ms. The backward kernels timed as a
+     training step runs them, against their bound and plain backwards.
+     deepseek-moe-16b's 2-layer full-width copy trained 2 steps twice from
+     one seed: losses, every state tensor and every gradient of a further
+     batch equal bit for bit. Each arch's copy (recurrentgemma-2b's first
+     period of 3 layers, so that it holds an attention layer; rwkv6-3b's 2
+     layers) preempted after step 2 and resumed: losses and every state
+     tensor equal bit for bit; recurrentgemma-2b's checkpoint through
+     ``launch/quantize.py --from-checkpoint`` (B6) and 8 greedy requests
+     served from the artifact (B1, B3, B2 launched; two alone with their
+     fleet tokens).
+
 Each phase's engines and graph pools are freed before the next; the run's
 total seconds are printed.
 
@@ -4338,17 +4366,18 @@ def event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def train_full(cfg, dev):
+def train_full(cfg, dev, steps=TRAIN_STEPS, tag="(t)"):
     """(t): qwen2-1.5b at full width and depth trained on the card through
     ``Trainer`` (B 8, S 512, remat full, bf16), the launch counts reset just
     before and read just after; then one more step under the profiler
-    (kernels launched and device-busy ms a step)."""
+    (kernels launched and device-busy ms a step). (u) trains the recurrent
+    archs the same way."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import _build, launch_counts, reset_launch_counts
 
-    trainer = make_trainer(cfg, dev, TRAIN_STEPS)
+    trainer = make_trainer(cfg, dev, steps)
     state = trainer.init_state()
     n_params = sum(p.numel() for p in state["params"].parameters())
     torch.cuda.synchronize()
@@ -4362,10 +4391,10 @@ def train_full(cfg, dev):
     losses = [h["loss"] for h in trainer.history]
     times = [h["time_s"] for h in trainer.history]
     if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"(t) non-finite losses {losses}")
+        raise AssertionError(f"{tag} non-finite losses {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"(t) the loss did not fall: {losses}")
-    batch = trainer._batch(trainer.loader.batch_at(TRAIN_STEPS))
+        raise AssertionError(f"{tag} the loss did not fall: {losses}")
+    batch = trainer._batch(trainer.loader.batch_at(steps))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         trainer._step_fn(state, batch)
@@ -4512,19 +4541,20 @@ def fixed_rows_grads(cfg, dev):
     return out, errs
 
 
-def resume_path(cfg, dev, tmp):
+def resume_path(cfg, dev, tmp, layers=RESUME_LAYERS, tag="(t)"):
     """(t): the 2-layer full-width copy trained 4 steps straight, and again
     preempted (``guard.request()``) after step 2, resumed from its
     checkpoint to step 4: the losses and every tensor of the state equal
     the uninterrupted run's bit for bit. Returns the run's numbers; the
-    step-4 checkpoint stays in ``tmp``."""
+    step-4 checkpoint stays in ``tmp``. (u) runs it on the recurrent archs
+    (``layers`` of them)."""
     import torch
 
     from repro_torch.artifacts.format import iter_tree_leaves
     from repro_torch.runtime import PreemptionGuard, latest_step
     from repro_torch.training import state_tree
 
-    small = cfg.scaled(n_layers=RESUME_LAYERS)
+    small = cfg.scaled(n_layers=layers)
     whole = make_trainer(small, dev, RESUME_STEPS)
     s_whole = whole.fit(state=whole.init_state())
     guard = PreemptionGuard(signals=())
@@ -4545,7 +4575,7 @@ def resume_path(cfg, dev, tmp):
     first.ckpt.save = timed(first.ckpt.save, saves)
     first.fit(state=first.init_state(), guard=guard)
     if latest_step(tmp) != RESUME_AT or len(first.history) != RESUME_AT:
-        raise AssertionError(f"(t) preemption: {len(first.history)} steps, "
+        raise AssertionError(f"{tag} preemption: {len(first.history)} steps, "
                              f"checkpoint {latest_step(tmp)}")
     second = make_trainer(small, dev, RESUME_STEPS, str(tmp))
     second.ckpt.save = timed(second.ckpt.save, saves)
@@ -4555,13 +4585,13 @@ def resume_path(cfg, dev, tmp):
     losses = [h["loss"] for h in first.history + second.history]
     want = [h["loss"] for h in whole.history]
     if steps != list(range(1, RESUME_STEPS + 1)) or losses != want:
-        raise AssertionError(f"(t) resumed losses {losses} (steps {steps}) "
+        raise AssertionError(f"{tag} resumed losses {losses} (steps {steps}) "
                              f"!= uninterrupted {want}")
     a, b = (dict(iter_tree_leaves(state_tree(s, small)))
             for s in (s_whole, s_res))
     apart = [k for k in a if not torch.equal(a[k], b[k])]
     if apart or sorted(a) != sorted(b):
-        raise AssertionError(f"(t) resumed state differs from the "
+        raise AssertionError(f"{tag} resumed state differs from the "
                              f"uninterrupted run's at {apart[:5]}")
     nbytes = sum(p.stat().st_size for p in Path(tmp).rglob("*.npz"))
     n = sum(p.numel() for p in s_res["params"].parameters())
@@ -4570,7 +4600,7 @@ def resume_path(cfg, dev, tmp):
                 params=s_res["params"])
 
 
-def quantize_serve_path(rp, dev, tmp):
+def quantize_serve_path(rp, dev, tmp, tag="(t)"):
     """(t): the resumed run's last checkpoint through ``launch/quantize.py
     --from-checkpoint`` on the card (B6; the config from the checkpoint's
     manifest), its FP leaves byte-equal to the trained model's; then 8
@@ -4596,7 +4626,7 @@ def quantize_serve_path(rp, dev, tmp):
     torch.cuda.synchronize()
     quant_s = time.perf_counter() - t0
     qcounts = launch_counts()
-    need(qcounts, ("ptqtp_search",), "(t) quantize --from-checkpoint")
+    need(qcounts, ("ptqtp_search",), f"{tag} quantize --from-checkpoint")
     tree, manifest = load_artifact(art)
     stored = dict(iter_tree_leaves(tree))
     trained = dict(iter_tree_leaves(to_reference_tree(rp["params"],
@@ -4604,21 +4634,21 @@ def quantize_serve_path(rp, dev, tmp):
     fp = [p for p, r in manifest["tensors"].items() if r["kind"] == "fp"]
     for path in fp:
         if not torch.equal(stored[path], trained[path].cpu()):
-            raise AssertionError(f"(t) artifact leaf {path} differs from the "
+            raise AssertionError(f"{tag} artifact leaf {path} differs from the "
                                  "trained model's")
     model, cfg, _ = load_model(art, device=dev)
-    if cfg.n_layers != RESUME_LAYERS:
-        raise AssertionError(f"(t) the artifact's config has {cfg.n_layers} "
-                             "layers")
+    if cfg.n_layers != rp["cfg"].n_layers:
+        raise AssertionError(f"{tag} the artifact's config has "
+                             f"{cfg.n_layers} layers")
     prompts = make_prompts(cfg)
     results, counts, eng, wall = fleet_run(model, cfg, prompts)
     need(counts, ("ternary_matvec", "ternary_matmul", "chunk_attention"),
-         "(t) serving the checkpoint's artifact")
-    finished(results, "(t) serving the checkpoint's artifact")
+         f"{tag} serving the checkpoint's artifact")
+    finished(results, f"{tag} serving the checkpoint's artifact")
     stats = fleet_stats(eng, results, wall)
     del eng
     longest, one = solo_gates(model, cfg, prompts, results,
-                              "(t) serving the checkpoint's artifact")
+                              f"{tag} serving the checkpoint's artifact")
     return dict(quant_s=quant_s, qcounts=qcounts, counts=counts,
                 stats=stats, solo=(longest, one), fp=len(fp),
                 n_quantized=manifest["stats"]["n_quantized"],
@@ -4754,6 +4784,465 @@ def training_phases(gpu, dev):
              "aten._fused_rms_norm_backward (F.rms_norm's backward), plus "
              "the residual gradient's add for the fused ones",
         **{k: norm[name][k] for k in timed}) for name in work]
+
+
+# ------------------------------------------- phase (u): slice 15
+# the sequence lengths the backward kernels are held at: (m)'s prefill
+# chunk, a ragged tile (six 32-step tiles and an eighth of 8) and the
+# training shape's 512
+RECURRENT_BWD_S = (PREFILL_CHUNK, WKV_LONG, TRAIN_SEQ)
+# stated tolerances of the recurrences' backward kernels against their
+# plain backwards, each relative to the gradient tensor's largest |value|:
+# f32 sums in other orders (the reverse chains over 512 steps, dlam, du and
+# dscale over 4096 rows and steps); bf16 one rounding of an intermediate
+# that lands on the other side of a bf16 boundary (2^-8 of it) carried
+# through at most two more bf16 roundings
+RECURRENT_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+# the recurrent archs trained at full width and depth, and their copies
+# preempted and resumed (recurrentgemma-2b's copy is its first period, 3
+# layers: with 2 it would hold no attention layer and serving its artifact
+# would launch no B2)
+RECURRENT_TRAIN_STEPS = 4
+RECURRENT_RESUME_LAYERS = {"recurrentgemma-2b": 3, "rwkv6-3b": 2}
+MOE_DET_LAYERS, MOE_DET_STEPS = 2, 2
+# operations of the RG-LRU's backward a (row, step, channel), each
+# transcendental one: the gates again (≈ 20, as in GATED_OPS), the chain's
+# recompute (2) and reverse chain (2), the GELU's backward (≈ 14), the
+# gradients' products and sums (≈ 22)
+GATED_BWD_OPS = 60
+# operations of the WKV's backward that the function needs, an element of a
+# head's state and step: the state's recompute (k·v, then w·S + kv: 3), dr
+# (2), the carried gradient of the state (w·D + r·dy: 3), dw (2), dk (2)
+# and dv (2). The u-bonus terms are rank 1 (r_i k_i dy_j v_j), so they and
+# the group norm's backward cost a channel, not an element, a head and
+# step: the u-terms (dy·v, Σ r·u·k, du and the shares of dr, dk and dv: 15)
+# and the norm (its statistics again 4, x̂ 2, dscale 2, the input's
+# gradient 8)
+WKV_BWD_OPS = 14
+WKV_BWD_VEC_OPS = 31
+
+
+def plain_calls():
+    """Count the calls of the recurrences' plain versions, forward and
+    backward (the ops modules call them through their ``ref`` module): a
+    dict of counts, and a function that puts the originals back."""
+    from repro_torch.kernels.rglru_scan import ref as scan_ref
+    from repro_torch.kernels.wkv6 import ref as wkv_ref
+
+    calls, saved = {}, []
+    for mod, name in ((scan_ref, "rglru_gated_scan_plain"),
+                      (scan_ref, "rglru_gated_scan_backward_plain"),
+                      (wkv_ref, "wkv6_plain"),
+                      (wkv_ref, "wkv6_backward_plain")):
+        fn = getattr(mod, name)
+        calls[name] = 0
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, counted)
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+    return calls, restore
+
+
+def _rel_err(got, want):
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def _bwd_gate(what, names, got, again, want, dtype, reduced):
+    """Each gradient within ``RECURRENT_BWD_TOL`` of the plain backward's
+    (relative to its largest); a second call gives the same bits, the
+    ``reduced`` ones (summed over rows and steps) included. Returns the
+    largest abs err and the worst relative one."""
+    import torch
+
+    tol = RECURRENT_BWD_TOL[str(dtype).split(".")[-1]]
+    worst_abs = worst_rel = 0.0
+    for name, g, a, w in zip(names, got, again, want):
+        if not torch.equal(g, a):
+            raise AssertionError(f"{what}: {name} differs at a second call"
+                                 + (" (a reduced gradient)" if name in reduced
+                                    else ""))
+        err = _rel_err(g, w)
+        if not err <= tol:
+            raise AssertionError(f"{what}: {name} err {err:.3e} of the "
+                                 f"largest > {tol}")
+        worst_rel = max(worst_rel, err)
+        worst_abs = max(worst_abs, float((g.float() - w.float()).abs().max()))
+    return worst_abs, worst_rel
+
+
+def check_recurrent_backward(dev):
+    """(u) ``rglru_scan_bwd`` and ``wkv6_bwd`` against their plain
+    backwards written out: recurrentgemma-2b's RG-LRU (8 rows of 2560 in
+    10 blocks) and rwkv6-3b's WKV (8 rows, 40 heads of 64), at S =
+    ``RECURRENT_BWD_S`` with ragged and idle rows, bf16 and f32, from a
+    random state; the forward kernel writes the checkpoints the backward
+    reads, and its output is held bit for bit against the forward without
+    them. A second call gives the same bits, the reduced gradients (dba,
+    dbx, dlam; du, dscale) too. Returns {kernel: (max abs err, worst
+    relative err)}."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
+    from repro_torch.kernels.rglru_scan import ref as scan_ref
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.kernels.wkv6 import ref as wkv_ref
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    heads = [(c.d_model // c.rwkv_head_dim, c.rwkv_head_dim)
+             for c in (configs.get_config("rwkv6-3b"),
+                       configs.get_smoke_config("rwkv6-3b"))]
+    worst = {"rglru_scan_bwd": (0.0, 0.0), "wkv6_bwd": (0.0, 0.0)}
+
+    def fold(name, e):
+        worst[name] = tuple(max(a, b) for a, b in zip(worst[name], e))
+
+    for s in RECURRENT_BWD_S:
+        for dtype in (torch.bfloat16, torch.float32):
+            what = f"(u) rglru_scan_bwd S={s} {str(dtype).split('.')[-1]}"
+            args, route = gated_inputs(s, dtype, gen, dev)
+            ops_args = route.operands(args)
+            ya, yx, ba, bx, c, g, lam, h, lengths = ops_args
+            b, _, r = c.shape
+            ckpt = torch.empty((b, -(-s // 32), r), dtype=torch.float32,
+                               device=dev)
+            out = scan_ops.rglru_gated_scan_cuda(ya, yx, ba, bx, c, g, lam,
+                                                 h.clone(), lengths, ckpt)
+            plain_out = scan_ops.rglru_gated_scan_cuda(
+                ya, yx, ba, bx, c, g, lam, h.clone(), lengths)
+            if not torch.equal(out, plain_out):
+                raise AssertionError(f"{what}: the forward with checkpoints "
+                                     "differs from the forward without")
+            dout = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
+            got, again = (scan_ops.rglru_gated_scan_backward_cuda(
+                ya, yx, ba, bx, c, g, lam, ckpt, lengths, dout)
+                for _ in range(2))
+            want = scan_ref.rglru_gated_scan_backward_plain(
+                ya, yx, ba, bx, c, g, lam, h, lengths, dout)
+            torch.cuda.synchronize()
+            fold("rglru_scan_bwd", _bwd_gate(
+                what, ("dya", "dyx", "dba", "dbx", "dc", "dg", "dlam"), got,
+                again, want, dtype, ("dba", "dbx", "dlam")))
+            del args, ops_args, got, again, want
+        for dtype, (nh, hd) in ((d, h) for d in (torch.bfloat16,
+                                                 torch.float32)
+                                for h in heads):
+            what = (f"(u) wkv6_bwd S={s} {str(dtype).split('.')[-1]} "
+                    f"{nh} heads of {hd}")
+            r_, k_, v_, w_, u_, st, lengths, sc = wkv_inputs(
+                SLOTS, s, nh, hd, dtype, gen, dev)
+            ckpt = torch.empty((SLOTS, nh, -(-s // 32), hd, hd),
+                               dtype=torch.float32, device=dev)
+            yraw = torch.empty((SLOTS, s, nh * hd), dtype=dtype, device=dev)
+            out = wkv_ops.wkv6_cuda(r_, k_, v_, w_, u_, st.clone(), lengths,
+                                    sc, ckpt=ckpt, yraw=yraw)
+            if not torch.equal(out, wkv_ops.wkv6_cuda(
+                    r_, k_, v_, w_, u_, st.clone(), lengths, sc)):
+                raise AssertionError(f"{what}: the forward with checkpoints "
+                                     "differs from the forward without")
+            dout = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
+            got, again = (wkv_ops.wkv6_backward_cuda(
+                r_, k_, v_, w_, u_, lengths, sc, ckpt, yraw, dout)
+                for _ in range(2))
+            want = wkv_ref.wkv6_backward_plain(r_, k_, v_, w_, u_, st,
+                                               lengths, sc, dout)
+            torch.cuda.synchronize()
+            fold("wkv6_bwd", _bwd_gate(
+                what, ("dr", "dk", "dv", "dw", "du", "dscale"), got, again,
+                want, dtype, ("du", "dscale")))
+            del got, again, want, ckpt, yraw
+            gc_free()
+    log(f"(u) rglru_scan_bwd (R 2560 in 10 blocks) and wkv6_bwd "
+        f"({' and '.join(f'{n} heads of {d}' for n, d in heads)}) == their "
+        f"plain backwards at S = {RECURRENT_BWD_S}, bf16 "
+        f"and f32, 8 rows with ragged and idle ones, from a random state "
+        f"(worst abs / relative errors: rglru_scan_bwd "
+        f"{worst['rglru_scan_bwd'][0]:.2e} / {worst['rglru_scan_bwd'][1]:.2e}, "
+        f"wkv6_bwd {worst['wkv6_bwd'][0]:.2e} / {worst['wkv6_bwd'][1]:.2e}; "
+        f"tolerances {RECURRENT_BWD_TOL} of each tensor's largest); a second "
+        "call gives the same bits, the reduced gradients too; the forwards "
+        "with checkpoints equal those without bit for bit")
+    return worst
+
+
+def time_recurrent_backward(dev, per_step):
+    """The recurrences' backward kernels as one training step of (u) runs
+    them (``per_step`` calls each, at B 8 × S 512, bf16, every row full):
+    kernel ms (the calls captured into a graph), the plain backward's ms
+    (CUDA events, one layer's call times the calls: its graph would hold
+    thousands of launches and every state), and the bound (bytes: every
+    input read once, every gradient written once; operations: f32 at 67
+    TFLOP/s). No single PyTorch call computes either: library none."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
+    from repro_torch.kernels.rglru_scan import ref as scan_ref
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.kernels.wkv6 import ref as wkv_ref
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    s, bf16 = TRAIN_SEQ, torch.bfloat16
+    out = {}
+    # the RG-LRU: ya, yx, c, g and dout read, dya, dyx, dc and dg written
+    # (bf16), the checkpoints read
+    calls = per_step["rglru_scan_bwd"]
+    args, route = gated_inputs(s, bf16, gen, dev)
+    args[RECURRENCES["rglru_scan"]["lengths"]].fill_(s)
+    ya, yx, ba, bx, c, g, lam, h, lengths = route.operands(args)
+    b, _, r = c.shape
+    ckpt = torch.empty((b, -(-s // 32), r), dtype=torch.float32, device=dev)
+    scan_ops.rglru_gated_scan_cuda(ya, yx, ba, bx, c, g, lam, h.clone(),
+                                   lengths, ckpt)
+    dout = torch.randn(c.shape, generator=gen, device=dev).to(bf16)
+    n = b * s * r
+    nbytes = 9 * 2 * n + ckpt.numel() * 4 + 6 * 2 * r
+    bound, by = bound_ms(calls * nbytes, calls * GATED_BWD_OPS * n,
+                         F32_FLOPS)
+    out["rglru_scan_bwd"] = dict(
+        ms=device_ms(lambda: [scan_ops.rglru_gated_scan_backward_cuda(
+            ya, yx, ba, bx, c, g, lam, ckpt, lengths, dout)
+            for _ in range(calls)], 3),
+        plain_ms=calls * event_ms(lambda: scan_ref.
+                                  rglru_gated_scan_backward_plain(
+                                      ya, yx, ba, bx, c, g, lam, h, lengths,
+                                      dout), 1),
+        library_ms=None, bound_ms=bound, bound_by=by, calls=calls,
+        bytes=calls * nbytes)
+    del args, ya, yx, c, g, dout, ckpt
+    gc_free()
+    # the WKV: r, k, v, dout and the readout read in bf16, w f32, the
+    # checkpoints f32; dr, dk, dv written in bf16, dw f32
+    calls = per_step["wkv6_bwd"]
+    rw = configs.get_config("rwkv6-3b")
+    nh, hd = rw.d_model // rw.rwkv_head_dim, rw.rwkv_head_dim
+    r_, k_, v_, w_, u_, st, lengths, sc = wkv_inputs(SLOTS, s, nh, hd, bf16,
+                                                     gen, dev)
+    lengths.fill_(s)
+    ckpt = torch.empty((SLOTS, nh, -(-s // 32), hd, hd), dtype=torch.float32,
+                       device=dev)
+    yraw = torch.empty((SLOTS, s, nh * hd), dtype=bf16, device=dev)
+    wkv_ops.wkv6_cuda(r_, k_, v_, w_, u_, st.clone(), lengths, sc,
+                      ckpt=ckpt, yraw=yraw)
+    dout = torch.randn(yraw.shape, generator=gen, device=dev).to(bf16)
+    n = SLOTS * s * nh * hd
+    nbytes = (5 * 2 + 4) * n + (3 * 2 + 4) * n + ckpt.numel() * 4 \
+        + 4 * 2 * nh * hd
+    flops = SLOTS * s * nh * (WKV_BWD_OPS * hd * hd + WKV_BWD_VEC_OPS * hd)
+    bound, by = bound_ms(calls * nbytes, calls * flops, F32_FLOPS)
+    out["wkv6_bwd"] = dict(
+        ms=device_ms(lambda: [wkv_ops.wkv6_backward_cuda(
+            r_, k_, v_, w_, u_, lengths, sc, ckpt, yraw, dout)
+            for _ in range(calls)], 3),
+        plain_ms=calls * event_ms(lambda: wkv_ref.wkv6_backward_plain(
+            r_, k_, v_, w_, u_, st, lengths, sc, dout), 1),
+        library_ms=None, bound_ms=bound, bound_by=by, calls=calls,
+        bytes=calls * nbytes)
+    del r_, k_, v_, w_, ckpt, yraw, dout
+    gc_free()
+    return out
+
+
+def train_recurrent(arch, dev, gpu):
+    """(u): ``arch`` at full width and depth trained through ``Trainer``
+    (``train_full``: bf16, remat full, B 8 × S 512 of the synthetic corpus,
+    ``RECURRENT_TRAIN_STEPS`` steps): every loss finite, the loss falls,
+    the recurrence's forward and backward kernels and the norm's launched
+    (counts reset just before, read just after) and its plain versions,
+    forward and backward, called no time."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    kern = "rglru_scan" if arch == "recurrentgemma-2b" else "wkv6"
+    calls, restore = plain_calls()
+    try:
+        tr = train_full(cfg, dev, RECURRENT_TRAIN_STEPS, "(u)")
+    finally:
+        restore()
+    need(tr["counts"], TRAIN_PATH + (kern, kern + "_bwd"),
+         f"(u) training {arch}")
+    if any(calls.values()):
+        raise AssertionError(f"(u) training {arch} called plain versions: "
+                             f"{calls}")
+    steady = tr["times"][1:]
+    step_s = sum(steady) / len(steady)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"{gpu} | (u) {arch} trained at full width and depth "
+        f"({tr['n_params']} params, bf16, remat full, B {TRAIN_BATCH} x S "
+        f"{TRAIN_SEQ}, AdamW lr {TRAIN_LR}): losses "
+        f"{[round(v, 4) for v in tr['losses']]}; step seconds "
+        f"{[round(v, 3) for v in tr['times']]} (the first builds and "
+        f"warms); steady {step_s:.3f} s a step = {tokens / step_s:.0f} "
+        f"tokens/s; peak memory {tr['peak']} bytes; fit {tr['wall']:.1f}s; "
+        f"plain versions called: {calls}")
+    log(f"{gpu} | (u) {arch}: launches of the {RECURRENT_TRAIN_STEPS} "
+        f"steps: { {k: v for k, v in tr['counts'].items() if v} }; one more "
+        f"step under the profiler: {tr['launches']} kernels, device busy "
+        f"{tr['busy_ms']:.1f} ms; top: "
+        + "; ".join(f"{k} {ms:.1f} ms x{c}" for k, ms, c in tr["top"]))
+    del tr["state"]
+    gc_free()
+    return tr
+
+
+def moe_determinism(dev, gpu):
+    """(u) deepseek-moe-16b's 2-layer full-width copy (a dense layer and an
+    MoE layer of 64 experts) trained 2 steps twice from the same seed: the
+    losses and every state tensor equal bit for bit; then the gradients
+    of one more batch taken twice on the trained model: every gradient
+    equal bit for bit (the dispatch's gathers and the combine's sums run
+    in a fixed order backward)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.artifacts.format import iter_tree_leaves
+    from repro_torch.training import state_tree
+    from repro_torch.training.train_step import grads_of
+
+    cfg = configs.get_config("deepseek-moe-16b").scaled(
+        n_layers=MOE_DET_LAYERS)
+    runs = []
+    for _ in range(2):
+        t = make_trainer(cfg, dev, MOE_DET_STEPS)
+        state = t.fit(state=t.init_state())
+        runs.append(([h["loss"] for h in t.history],
+                     dict(iter_tree_leaves(state_tree(state, cfg))), t,
+                     state))
+    (la, a, t, state), (lb, b, _, _) = runs
+    if la != lb:
+        raise AssertionError(f"(u) deepseek-moe-16b: losses {la} != {lb}")
+    apart = [k for k in a if not torch.equal(a[k], b[k])]
+    if apart:
+        raise AssertionError(f"(u) deepseek-moe-16b: state tensors differ "
+                             f"between two runs at {apart[:5]}")
+    n_state = len(a)
+    del runs, a, b
+    batch = t._batch(t.loader.batch_at(MOE_DET_STEPS))
+    (l1, g1), (l2, g2) = (grads_of(state["params"], cfg, batch)
+                          for _ in range(2))
+    bad = [i for i, (x, y) in enumerate(zip(g1, g2)) if not torch.equal(x, y)]
+    if bad or not torch.equal(l1, l2):
+        names = [n for n, _ in state["params"].named_parameters()]
+        raise AssertionError(f"(u) deepseek-moe-16b: gradients differ "
+                             f"between two calls at "
+                             f"{[names[i] for i in bad[:5]]}")
+    n = sum(p.numel() for p in state["params"].parameters())
+    log(f"{gpu} | (u) deepseek-moe-16b {MOE_DET_LAYERS}-layer full-width "
+        f"copy ({n} params, {cfg.moe.n_experts} experts): two "
+        f"{MOE_DET_STEPS}-step runs from one seed gave losses "
+        f"{[round(v, 4) for v in la]} and all {n_state} state tensors bit "
+        f"for bit; all {len(g1)} gradients of a further batch "
+        "equal bit for bit at a second call")
+    del state, t, g1, g2
+    gc_free()
+
+
+def recurrent_training_phases(gpu, dev):
+    """(u): the recurrent archs' training on the card (the module
+    docstring). Returns its rows of the ``kernels`` line."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models.transformer import Transformer
+
+    t_all = time.perf_counter()
+    bwd_err = check_recurrent_backward(dev)
+    log(f"(u) {time.perf_counter() - t_all:.1f}s in")
+    gc_free()
+    trained = {arch: train_recurrent(arch, dev, gpu)
+               for arch in ("recurrentgemma-2b", "rwkv6-3b")}
+    log(f"(u) {time.perf_counter() - t_all:.1f}s in")
+    counts = {"rglru_scan_bwd": trained["recurrentgemma-2b"]["counts"],
+              "wkv6_bwd": trained["rwkv6-3b"]["counts"]}
+    per_step = {k: c[k] // RECURRENT_TRAIN_STEPS for k, c in counts.items()}
+    timing = time_recurrent_backward(dev, per_step)
+    for name, t in timing.items():
+        log(f"{gpu} | (u) {name} x {t['calls']} (a training step's, 8 x 512, "
+            f"bf16): kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.1f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}; {t['bytes']} "
+            f"bytes) -> {t['bound_ms'] / t['ms']:.1%} of bound; library: "
+            "none")
+    moe_determinism(dev, gpu)
+    log(f"(u) {time.perf_counter() - t_all:.1f}s in")
+    for arch, layers in RECURRENT_RESUME_LAYERS.items():
+        cfg = configs.get_config(arch)
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_u_"))
+        try:
+            n = sum(p.numel() for p in Transformer(
+                cfg.scaled(n_layers=layers), dtype=torch.bfloat16,
+                device="meta").parameters())
+            need_bytes = 2 * 10 * n + 2 * n
+            free = shutil.disk_usage(tmp).free
+            if free < need_bytes:
+                raise AssertionError(f"(u) {free} bytes free under {tmp}; "
+                                     f"the resume gate needs {need_bytes}")
+            t0 = time.perf_counter()
+            rp = resume_path(cfg, dev, tmp, layers, "(u)")
+            log(f"{gpu} | (u) {arch}: {layers}-layer full-width copy "
+                f"({rp['n_params']} params): preempted after step "
+                f"{RESUME_AT}, resumed to {RESUME_STEPS}: losses "
+                f"{[round(v, 4) for v in rp['losses']]} and all "
+                f"{rp['leaves']} state tensors equal the uninterrupted run's "
+                f"bit for bit; checkpoint {rp['ckpt_bytes']} bytes, saves "
+                f"{[round(s, 2) for s in rp['saves']]} s, load "
+                f"{[round(s, 2) for s in rp['loads']]} s; "
+                f"{time.perf_counter() - t0:.1f}s")
+            gc_free()
+            if arch == "recurrentgemma-2b":
+                t0 = time.perf_counter()
+                qs = quantize_serve_path(rp, dev, tmp, "(u)")
+                st = qs["stats"]
+                log(f"{gpu} | (u) {arch}: launch/quantize.py "
+                    f"--from-checkpoint: {qs['n_quantized']} kernels on B6 "
+                    f"({qs['qcounts']['ptqtp_search']} launches) in "
+                    f"{qs['quant_s']:.2f}s, {qs['nbytes']} bytes; {qs['fp']} "
+                    f"FP leaves equal the trained model's; served "
+                    f"{N_REQUESTS} requests from it: launches {qs['counts']}; "
+                    f"requests {qs['solo']} alone == fleet; TTFT median "
+                    f"{st['ttft'][len(st['ttft']) // 2]:.3f}s; decode "
+                    f"{st['decode_tok'] / st['decode_s']:.1f} tok/s; "
+                    f"{time.perf_counter() - t0:.1f}s")
+            del rp
+            gc_free()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    log(f"(u) {time.perf_counter() - t_all:.1f}s")
+    sources = {"rglru_scan_bwd": ("src/repro_torch/kernels/rglru_scan/csrc/"
+                                  "rglru_scan.cu",
+                                  "src/repro/models/rglru.py:117"),
+               "wkv6_bwd": ("src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+                            "src/repro/models/rwkv6.py:128")}
+    work = {"rglru_scan_bwd": "the RG-LRU's gate-and-scan backward (gates, "
+                              "reverse chain from the tile checkpoints, "
+                              "output gate; dba, dbx and dlam summed in row "
+                              "order), recurrentgemma-2b's",
+            "wkv6_bwd": "the WKV scan's and group norm's backward (states "
+                        "recomputed from the tile checkpoints; du and "
+                        "dscale summed in row order), rwkv6-3b's"}
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return [dict(
+        name=name, route="cuda", source=sources[name][0],
+        replaces=sources[name][1], launches=counts[name][name],
+        launches_per_train_step=per_step[name],
+        max_abs_err=bwd_err[name][0], max_rel_err=bwd_err[name][1],
+        work=f"{work[name]} {per_step[name]} calls of one training step (8 "
+             "x 512, bf16); replaces jax.grad of the reference's layer (XLA, "
+             "no Pallas kernel); launches are the full-depth training run's; "
+             "no single PyTorch call computes it (library null)",
+        **{k: timing[name][k] for k in timed}) for name in work]
 
 
 # ------------------------------------------------------------------- main
@@ -5125,6 +5614,8 @@ def main() -> int:
     kernels += stub_phases(gpu, dev)
     gc_free()
     kernels += training_phases(gpu, dev)
+    gc_free()
+    kernels += recurrent_training_phases(gpu, dev)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

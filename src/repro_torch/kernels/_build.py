@@ -52,7 +52,8 @@ LAUNCHES: Dict[str, int] = {"ternary_matvec": 0, "ternary_matmul": 0,
                             "add_rms_norm": 0, "rms_norm_bwd": 0,
                             "add_rms_norm_bwd": 0,
                             "chunk_attention_paged": 0, "decode_attention": 0,
-                            "ptqtp_search": 0, "rglru_scan": 0, "wkv6": 0}
+                            "ptqtp_search": 0, "rglru_scan": 0,
+                            "rglru_scan_bwd": 0, "wkv6": 0, "wkv6_bwd": 0}
 
 _LIBS: Dict[tuple, ctypes.CDLL] = {}
 _LOCK = threading.Lock()        # guards LAUNCHES: threads launch at once

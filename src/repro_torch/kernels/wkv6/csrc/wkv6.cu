@@ -216,7 +216,8 @@ __global__ void __launch_bounds__(Geo<HD>::NT, 3)
                 const T* __restrict__ v, const float* __restrict__ w,
                 const TP* __restrict__ u, float* __restrict__ state,
                 const int* __restrict__ lengths, const TP* __restrict__ scale,
-                T* __restrict__ out, int S, int H, int tile, float eps) {
+                T* __restrict__ out, float* __restrict__ ckpt,
+                T* __restrict__ yraw, int S, int H, int tile, float eps) {
   using Gm = Geo<HD>;
   constexpr int QI = Gm::QI;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -271,6 +272,12 @@ __global__ void __launch_bounds__(Geo<HD>::NT, 3)
       kf[t * Gm::RS + Gm::pad(i)] = to_f32(tl.k[e]);
     }
     __syncthreads();
+    if (ckpt != nullptr) {  // the state before this tile, for the backward
+      float* cp = ckpt + (((size_t)b * H + h) * ntiles + n) * HD * HD +
+                  (size_t)q * QI * HD + j;
+#pragma unroll
+      for (int i = 0; i < QI; ++i) cp[(size_t)i * HD] = col[i];
+    }
     int live = len - t0;
     live = live < 0 ? 0 : (live > nt ? nt : live);
     int t = 0;
@@ -299,9 +306,10 @@ __global__ void __launch_bounds__(Geo<HD>::NT, 3)
     __syncthreads();  // the tile's means and scales
     for (int e = tid; e < nt * HD; e += Gm::NT) {  // coalesced rows of hd
       const int s = e / HD, c = e % HD;
-      st(out, row0 + (size_t)(t0 + s) * step_stride + c,
-         __fmul_rn(__fmul_rn(__fsub_rn(y_s[s * (HD + 1) + c], mean_s[s]), rs_s[s]),
-                   sc_s[c]));
+      const size_t o = row0 + (size_t)(t0 + s) * step_stride + c;
+      st(out, o, __fmul_rn(__fmul_rn(__fsub_rn(y_s[s * (HD + 1) + c], mean_s[s]), rs_s[s]),
+                           sc_s[c]));
+      if (yraw != nullptr) st(yraw, o, y_s[s * (HD + 1) + c]);  // already in T
     }
     // the next tile's first barrier orders these reads before the buffers
     // are rewritten
@@ -321,8 +329,8 @@ size_t smem_bytes(int tile) {
 template <int HD, typename T, typename TP>
 cudaError_t launch(const void* r, const void* k, const void* v, const void* w,
                    const void* u, void* state, const void* lengths,
-                   const void* scale, void* out, int B, int S, int H, float eps,
-                   cudaStream_t s) {
+                   const void* scale, void* out, void* ckpt, void* yraw, int B,
+                   int S, int H, float eps, cudaStream_t s) {
   auto kern = wkv6_kernel<HD, T, TP>;
   const int tile = S < TILE ? S : TILE;
   const int smem = static_cast<int>(smem_bytes<HD, T>(tile));
@@ -344,20 +352,274 @@ cudaError_t launch(const void* r, const void* k, const void* v, const void* w,
       static_cast<const T*>(v), static_cast<const float*>(w),
       static_cast<const TP*>(u), static_cast<float*>(state),
       static_cast<const int*>(lengths), static_cast<const TP*>(scale),
-      static_cast<T*>(out), S, H, tile, eps);
+      static_cast<T*>(out), static_cast<float*>(ckpt), static_cast<T*>(yraw),
+      S, H, tile, eps);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t dispatch(int x_bf16, int p_bf16, const void* r, const void* k,
                      const void* v, const void* w, const void* u, void* state,
-                     const void* lengths, const void* scale, void* out, int B,
-                     int S, int H, float eps, cudaStream_t s) {
+                     const void* lengths, const void* scale, void* out,
+                     void* ckpt, void* yraw, int B, int S, int H, float eps,
+                     cudaStream_t s) {
   if (x_bf16)
-    return p_bf16 ? launch<HD, __nv_bfloat16, __nv_bfloat16>(r, k, v, w, u, state, lengths, scale, out, B, S, H, eps, s)
-                  : launch<HD, __nv_bfloat16, float>(r, k, v, w, u, state, lengths, scale, out, B, S, H, eps, s);
-  return p_bf16 ? launch<HD, float, __nv_bfloat16>(r, k, v, w, u, state, lengths, scale, out, B, S, H, eps, s)
-                : launch<HD, float, float>(r, k, v, w, u, state, lengths, scale, out, B, S, H, eps, s);
+    return p_bf16 ? launch<HD, __nv_bfloat16, __nv_bfloat16>(r, k, v, w, u, state, lengths, scale, out, ckpt, yraw, B, S, H, eps, s)
+                  : launch<HD, __nv_bfloat16, float>(r, k, v, w, u, state, lengths, scale, out, ckpt, yraw, B, S, H, eps, s);
+  return p_bf16 ? launch<HD, float, __nv_bfloat16>(r, k, v, w, u, state, lengths, scale, out, ckpt, yraw, B, S, H, eps, s)
+                : launch<HD, float, float>(r, k, v, w, u, state, lengths, scale, out, ckpt, yraw, B, S, H, eps, s);
+}
+
+// ---------------------------------------------------------------- backward
+//
+// The gradients of the forward above for its output's gradient dout, in
+// the formulas of PyTorch's autograd of the plain version
+// (ref.wkv6_backward_plain). The group norm's, per step and head, from the
+// readout y (yraw, in T) and its mean and rstd recomputed as the forward
+// did:
+//     yn = (y - mean)·rstd,  dyn = dout·scale,  dscale = Σ dout·yn
+//     dy = T(rstd·((dyn - mean(dyn)) - yn·mean(dyn·yn)))
+// then the scan's, backwards over the steps, with D the gradient of the
+// state after step t (zero after the last step) and S the state before it:
+//     dr_i = Σ_j dy_j (S_ij + u_i k_i v_j),   du_i += Σ_j r_i dy_j k_i v_j
+//     dkv_ij = r_i dy_j u_i + D_ij (live),    dw_i = Σ_j D_ij S_ij (live)
+//     dk_i = Σ_j dkv_ij v_j,   dv_j = Σ_i dkv_ij k_i
+//     D_ij <- r_i dy_j + (w_i D_ij (live) or D_ij (padding))
+// The states before each step are recomputed forward, a tile of 32 steps
+// at a time, from the state the forward wrote at the tile's start (ckpt),
+// into a scratch of the block's own (ws): no division by w.
+//
+// Design: one block a (row, head), a thread a row i of the state (hd
+// threads), holding row i of D in registers for the whole call and row i
+// of S for the recompute; the tiles run last to first. A tile stages r, k,
+// v, w, dout and the readout in shared memory (f32), the group norm's
+// backward runs a thread a step (sums over j in order), then the thread's
+// rows of the tile's states go to ws, and the steps run backwards: the
+// sums over j are the thread's own (in order); dv's sum over i goes
+// through a padded shared tile (a barrier pair a step) and thread j adds
+// column j in order of i. du and dscale add in f32 in each thread in step
+// order; a second launch adds the blocks' partials over the rows in row
+// order: no float atomics, so every bit is reproducible. Correct first:
+// 64 threads a block, ≈ 6·hd² operations a step on them.
+
+template <int HD>
+struct BwdSmem {  // floats of the backward's shared memory
+  static constexpr int TS = TILE * HD;
+  static constexpr size_t floats = 7 * (size_t)TS + HD * (HD + 1) + HD;
+};
+
+struct BwdArgs {
+  const void *r, *k, *v, *w, *u, *ckpt, *yraw, *lengths, *scale, *dout;
+  void *dr, *dk, *dv, *dw, *ws, *part, *du, *dscale;
+  int B, S, H;
+  float eps;
+};
+
+template <int HD, typename T, typename TP>
+__global__ void __launch_bounds__(HD)
+    wkv6_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                    const T* __restrict__ v, const float* __restrict__ w,
+                    const TP* __restrict__ u, const float* __restrict__ ckpt,
+                    const T* __restrict__ yraw, const int* __restrict__ lengths,
+                    const TP* __restrict__ scale, const T* __restrict__ dout,
+                    T* __restrict__ dr, T* __restrict__ dk, T* __restrict__ dv,
+                    float* __restrict__ dw, float* __restrict__ ws,
+                    float* __restrict__ part, int S, int H, float eps) {
+  using Sm = BwdSmem<HD>;
+  extern __shared__ __align__(16) float sm[];
+  float* r_s = sm;             // (TILE, HD) each
+  float* k_s = r_s + Sm::TS;
+  float* v_s = k_s + Sm::TS;
+  float* w_s = v_s + Sm::TS;
+  float* do_s = w_s + Sm::TS;  // dout
+  float* yn_s = do_s + Sm::TS;  // the readout, then yn
+  float* dy_s = yn_s + Sm::TS;
+  float* tr_s = dy_s + Sm::TS;  // (HD, HD + 1): dkv_ij·k_i
+  float* sc_s = tr_s + HD * (HD + 1);
+  const int i = threadIdx.x;
+  const int h = blockIdx.x, b = blockIdx.y, B = gridDim.y;
+  int len = lengths[b];
+  len = len < 0 ? 0 : (len > S ? S : len);
+  const int ntiles = (S + TILE - 1) / TILE;
+  const size_t step_stride = (size_t)H * HD;
+  const size_t row0 = ((size_t)b * S * H + h) * HD;
+  const float ui = ld(u, (size_t)h * HD + i);
+  sc_s[i] = ld(scale, (size_t)h * HD + i);
+  float* wsb = ws + ((size_t)b * H + h) * (S < TILE ? S : TILE) * HD * HD;
+  const float* cpb = ckpt + ((size_t)b * H + h) * ntiles * HD * HD;
+  float D[HD], Srow[HD];
+#pragma unroll
+  for (int j = 0; j < HD; ++j) D[j] = 0.0f;
+  float du_acc = 0.0f, dsc_acc = 0.0f;
+
+  for (int n = ntiles - 1; n >= 0; --n) {
+    const int t0 = n * TILE;
+    const int nt = S - t0 < TILE ? S - t0 : TILE;
+    __syncthreads();  // the previous tile's reads of the buffers are done
+    for (int e = i; e < nt * HD; e += HD) {
+      const size_t g = row0 + (size_t)(t0 + e / HD) * step_stride + e % HD;
+      r_s[e] = ld(r, g);
+      k_s[e] = ld(k, g);
+      v_s[e] = ld(v, g);
+      w_s[e] = __ldg(w + g);
+      do_s[e] = ld(dout, g);
+      yn_s[e] = ld(yraw, g);
+    }
+    __syncthreads();
+    for (int s = i; s < nt; s += HD) {  // the group norm's backward of step s
+      float* ys = yn_s + s * HD;
+      const float* dos = do_s + s * HD;
+      float sum = 0.0f;
+      for (int j = 0; j < HD; ++j) sum = __fadd_rn(sum, ys[j]);
+      const float mean = __fdiv_rn(sum, (float)HD);
+      float sq = 0.0f;
+      for (int j = 0; j < HD; ++j) {
+        const float d = __fsub_rn(ys[j], mean);
+        sq = __fadd_rn(sq, __fmul_rn(d, d));
+      }
+      const float rs = rsqrtf(__fadd_rn(__fdiv_rn(sq, (float)HD), eps));
+      float m1 = 0.0f, m2 = 0.0f;
+      for (int j = 0; j < HD; ++j) {
+        const float yn = __fmul_rn(__fsub_rn(ys[j], mean), rs);
+        const float dyn = __fmul_rn(dos[j], sc_s[j]);
+        m1 = __fadd_rn(m1, dyn);
+        m2 = __fadd_rn(m2, __fmul_rn(dyn, yn));
+      }
+      m1 = __fdiv_rn(m1, (float)HD);
+      m2 = __fdiv_rn(m2, (float)HD);
+      for (int j = 0; j < HD; ++j) {
+        const float yn = __fmul_rn(__fsub_rn(ys[j], mean), rs);
+        const float dyn = __fmul_rn(dos[j], sc_s[j]);
+        dy_s[s * HD + j] = round_to(
+            __fmul_rn(rs, __fsub_rn(__fsub_rn(dyn, m1), __fmul_rn(yn, m2))), (T*)nullptr);
+        ys[j] = yn;
+      }
+    }
+    __syncthreads();
+    for (int s = 0; s < nt; ++s)  // dscale of channel i, in step order
+      dsc_acc = __fadd_rn(dsc_acc, __fmul_rn(do_s[s * HD + i], yn_s[s * HD + i]));
+    // the tile's states before each step, row i, into ws
+    {
+      const float4* src = reinterpret_cast<const float4*>(cpb + (size_t)n * HD * HD + (size_t)i * HD);
+#pragma unroll
+      for (int j4 = 0; j4 < HD / 4; ++j4) {
+        const float4 x = src[j4];
+        Srow[4 * j4] = x.x; Srow[4 * j4 + 1] = x.y; Srow[4 * j4 + 2] = x.z; Srow[4 * j4 + 3] = x.w;
+      }
+    }
+    for (int s = 0; s < nt; ++s) {
+      float4* dst = reinterpret_cast<float4*>(wsb + ((size_t)s * HD + i) * HD);
+#pragma unroll
+      for (int j4 = 0; j4 < HD / 4; ++j4)
+        dst[j4] = make_float4(Srow[4 * j4], Srow[4 * j4 + 1], Srow[4 * j4 + 2], Srow[4 * j4 + 3]);
+      if (t0 + s < len) {
+        const float ki = k_s[s * HD + i], wi = w_s[s * HD + i];
+#pragma unroll
+        for (int j = 0; j < HD; ++j)
+          Srow[j] = __fadd_rn(__fmul_rn(wi, Srow[j]), __fmul_rn(ki, v_s[s * HD + j]));
+      }
+    }
+    for (int s = nt - 1; s >= 0; --s) {  // the steps backwards
+      const bool live = t0 + s < len;
+      {
+        const float4* src = reinterpret_cast<const float4*>(wsb + ((size_t)s * HD + i) * HD);
+#pragma unroll
+        for (int j4 = 0; j4 < HD / 4; ++j4) {
+          const float4 x = src[j4];
+          Srow[4 * j4] = x.x; Srow[4 * j4 + 1] = x.y; Srow[4 * j4 + 2] = x.z; Srow[4 * j4 + 3] = x.w;
+        }
+      }
+      const float ri = r_s[s * HD + i], ki = k_s[s * HD + i], wi = w_s[s * HD + i];
+      float dri = 0.0f, dki = 0.0f, dwi = 0.0f, dui = 0.0f;
+#pragma unroll
+      for (int j = 0; j < HD; ++j) {
+        const float vj = v_s[s * HD + j], dyj = dy_s[s * HD + j];
+        const float kv = __fmul_rn(ki, vj);
+        dri = __fadd_rn(dri, __fmul_rn(dyj, __fadd_rn(Srow[j], __fmul_rn(ui, kv))));
+        const float dz = __fmul_rn(ri, dyj);
+        dui = __fadd_rn(dui, __fmul_rn(dz, kv));
+        float dkv = __fmul_rn(dz, ui);
+        if (live) {
+          dkv = __fadd_rn(dkv, D[j]);
+          dwi = __fadd_rn(dwi, __fmul_rn(D[j], Srow[j]));
+          D[j] = __fadd_rn(dz, __fmul_rn(wi, D[j]));
+        } else {
+          D[j] = __fadd_rn(dz, D[j]);
+        }
+        dki = __fadd_rn(dki, __fmul_rn(dkv, vj));
+        tr_s[i * (HD + 1) + j] = __fmul_rn(dkv, ki);
+      }
+      du_acc = __fadd_rn(du_acc, dui);
+      const size_t g = row0 + (size_t)(t0 + s) * step_stride + i;
+      st(dr, g, dri);
+      st(dk, g, dki);
+      dw[g] = dwi;
+      __syncthreads();
+      float dvj = 0.0f;
+      for (int ii = 0; ii < HD; ++ii) dvj = __fadd_rn(dvj, tr_s[ii * (HD + 1) + i]);
+      st(dv, g, dvj);
+      __syncthreads();
+    }
+  }
+  part[(size_t)b * H * HD + (size_t)h * HD + i] = du_acc;
+  part[((size_t)B + b) * H * HD + (size_t)h * HD + i] = dsc_acc;
+}
+
+// du and dscale: the blocks' partials (2, B, D) summed over rows in row
+// order, a thread a channel
+template <typename TP>
+__global__ void wkv6_bwd_reduce_kernel(const float* __restrict__ part,
+                                       TP* __restrict__ du,
+                                       TP* __restrict__ dscale, int B, int D) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= D) return;
+  float s0 = 0.0f, s1 = 0.0f;
+  for (int b = 0; b < B; ++b) {
+    s0 = __fadd_rn(s0, part[(size_t)b * D + c]);
+    s1 = __fadd_rn(s1, part[((size_t)B + b) * D + c]);
+  }
+  st(du, c, s0);
+  st(dscale, c, s1);
+}
+
+template <int HD, typename T, typename TP>
+cudaError_t bwd_launch(const BwdArgs& a, cudaStream_t s) {
+  auto kern = wkv6_bwd_kernel<HD, T, TP>;
+  const int smem = static_cast<int>(BwdSmem<HD>::floats * sizeof(float));
+  static int allowed[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (smem > 48 * 1024 && (dev >= 64 || allowed[dev] < smem)) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    if (dev < 64) allowed[dev] = smem;
+  }
+  kern<<<dim3(a.H, a.B), HD, smem, s>>>(
+      static_cast<const T*>(a.r), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const float*>(a.w),
+      static_cast<const TP*>(a.u), static_cast<const float*>(a.ckpt),
+      static_cast<const T*>(a.yraw), static_cast<const int*>(a.lengths),
+      static_cast<const TP*>(a.scale), static_cast<const T*>(a.dout),
+      static_cast<T*>(a.dr), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+      static_cast<float*>(a.dw), static_cast<float*>(a.ws),
+      static_cast<float*>(a.part), a.S, a.H, a.eps);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int d = a.H * HD;
+  wkv6_bwd_reduce_kernel<TP><<<(d + 127) / 128, 128, 0, s>>>(
+      static_cast<const float*>(a.part), static_cast<TP*>(a.du),
+      static_cast<TP*>(a.dscale), a.B, d);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t bwd_dispatch(int x_bf16, int p_bf16, const BwdArgs& a, cudaStream_t s) {
+  if (x_bf16)
+    return p_bf16 ? bwd_launch<HD, __nv_bfloat16, __nv_bfloat16>(a, s)
+                  : bwd_launch<HD, __nv_bfloat16, float>(a, s);
+  return p_bf16 ? bwd_launch<HD, float, __nv_bfloat16>(a, s)
+                : bwd_launch<HD, float, float>(a, s);
 }
 
 }  // namespace
@@ -367,17 +629,43 @@ extern "C" {
 // r, k, v, out: (B, S, H, hd) row-major in the activation dtype (x_bf16: 0
 // f32, 1 bf16); w: (B, S, H, hd) f32; r, k, v and w 16-byte aligned; u:
 // (H, hd) and scale: (H·hd,) in the parameter dtype (p_bf16); state: (B,
-// H, hd, hd) f32, in place; lengths: (B,) int32, clamped to [0, S]. hd is
-// 16 or 64 (the configs' head dims).
+// H, hd, hd) f32, in place; lengths: (B,) int32, clamped to [0, S]; ckpt
+// and yraw: null, or (B, H, ceil(S/32), hd, hd) f32, the state at the start
+// of each tile of 32 steps, and (B, S, H, hd) in the activation dtype, the
+// readout before its norm (the backward's inputs). hd is 16 or 64 (the
+// configs' head dims).
 int wkv6_launch(const void* r, const void* k, const void* v, const void* w,
                 const void* u, void* state, const void* lengths,
-                const void* scale, void* out, int x_bf16, int p_bf16, int B,
-                int S, int H, int hd, float eps, void* stream) {
+                const void* scale, void* out, void* ckpt, void* yraw,
+                int x_bf16, int p_bf16, int B, int S, int H, int hd, float eps,
+                void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return static_cast<int>(dispatch<16>(x_bf16, p_bf16, r, k, v, w, u, state, lengths, scale, out, B, S, H, eps, s));
-    case 64: return static_cast<int>(dispatch<64>(x_bf16, p_bf16, r, k, v, w, u, state, lengths, scale, out, B, S, H, eps, s));
+    case 16: return static_cast<int>(dispatch<16>(x_bf16, p_bf16, r, k, v, w, u, state, lengths, scale, out, ckpt, yraw, B, S, H, eps, s));
+    case 64: return static_cast<int>(dispatch<64>(x_bf16, p_bf16, r, k, v, w, u, state, lengths, scale, out, ckpt, yraw, B, S, H, eps, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The backward: the forward's inputs, ckpt and yraw as its forward wrote
+// them, dout (B, S, H, hd) in the activation dtype; writes dr, dk, dv in
+// the activation dtype and dw f32 (B, S, H, hd), du (H, hd) and dscale
+// (H·hd,) in the parameter dtype; ws: (B·H, min(S, 32), hd, hd) f32 and
+// part: (2, B, H·hd) f32 scratch. Two launches on the stream.
+int wkv6_bwd_launch(const void* r, const void* k, const void* v, const void* w,
+                    const void* u, const void* ckpt, const void* yraw,
+                    const void* lengths, const void* scale, const void* dout,
+                    void* dr, void* dk, void* dv, void* dw, void* ws,
+                    void* part, void* du, void* dscale, int x_bf16, int p_bf16,
+                    int B, int S, int H, int hd, float eps, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BwdArgs a{r, k, v, w, u, ckpt, yraw, lengths, scale, dout, dr, dk, dv,
+                  dw, ws, part, du, dscale, B, S, H, eps};
+  switch (hd) {
+    case 16: return static_cast<int>(bwd_dispatch<16>(x_bf16, p_bf16, a, s));
+    case 64: return static_cast<int>(bwd_dispatch<64>(x_bf16, p_bf16, a, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

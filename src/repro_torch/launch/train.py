@@ -4,13 +4,14 @@
 Runs training with the full substrate: the deterministic sharded data,
 the microbatched train step, atomic checkpointing with resume, preemption
 handling and heartbeats. Smoke size by default (``--full`` for the
-published widths); on the card unless ``--device cpu``. The recurrent
-archs (recurrentgemma-2b, rwkv6-3b) raise NotImplementedError: their
-hand kernels have no backward yet.
+published widths); on the card unless ``--device cpu``. Every arch of
+the registry trains, the recurrent ones (recurrentgemma-2b, rwkv6-3b)
+through the backward kernels of ``rglru_scan`` and ``wkv6``.
 
     python -m repro_torch.launch.train --device cpu --steps 20
     python -m repro_torch.launch.train --full --steps 4 --seq-len 512 \\
         --ckpt-dir runs/qwen2     # on the card; resumes from runs/qwen2
+    python -m repro_torch.launch.train --arch rwkv6-3b --device cpu --steps 5
 """
 
 from __future__ import annotations

@@ -17,9 +17,11 @@ biases and sigmoids, a and its input multiplier, the scan, the GELU of
 of the ``rglru_scan`` kernel a layer and call on the card.
 
 The state is (h (B, R) f32, conv (B, W−1, R) in the activation dtype),
-updated in place. A chunk's rows are right-padded: row b's first
-``lengths[b]`` steps are real; later steps leave h unchanged and the conv
-tail is gathered at each row's length (length 0 keeps the prior state).
+updated in place; it never joins the autograd graph (a training forward
+differentiates the output, not the state). A chunk's rows are
+right-padded: row b's first ``lengths[b]`` steps are real; later steps
+leave h unchanged and the conv tail is gathered at each row's length
+(length 0 keeps the prior state).
 """
 
 from __future__ import annotations
@@ -95,7 +97,7 @@ def rglru_forward(p: RGLRU, x: torch.Tensor, h: torch.Tensor,
     # the W-1 inputs ending at each row's length (0: the prior tail)
     idx = (lengths.long()[:, None]
            + torch.arange(width - 1, device=x.device)[None, :])
-    conv.copy_(torch.gather(xp, 1, idx[..., None].expand(
+    conv.copy_(torch.gather(xp.detach(), 1, idx[..., None].expand(
         b, width - 1, xp.shape[-1])))
     y = rglru_gated_scan(_block_products(p.gate_a, c, p.n_blocks),
                          _block_products(p.gate_x, c, p.n_blocks),

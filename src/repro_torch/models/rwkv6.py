@@ -19,10 +19,12 @@ bits do not depend on its batch; the WKV and its group norm run on the
 ``wkv6`` kernel.
 
 The state is (x_time (B, D), wkv (B, H, hd, hd) f32) for the time mix and
-x_chan (B, D) for the channel mix, updated in place. A chunk's rows are
-right-padded: row b's first ``lengths[b]`` steps are real; later steps
-leave the WKV state unchanged, and the shift states are taken at each
-row's last real step (length 0 keeps the prior state).
+x_chan (B, D) for the channel mix, updated in place; it never joins the
+autograd graph (a training forward differentiates the output, not the
+state). A chunk's rows are right-padded: row b's first ``lengths[b]``
+steps are real; later steps leave the WKV state unchanged, and the shift
+states are taken at each row's last real step (length 0 keeps the prior
+state).
 """
 
 from __future__ import annotations
@@ -147,7 +149,7 @@ def rwkv_time_forward(p: RWKVTime, x: torch.Tensor, x_time: torch.Tensor,
     g = F.silu(p.wg(m["g"]))
     w = _decay(p, m["w"]).reshape(b, s, h, hd)
     y = wkv6(r, k, v, w, p.u, wkv_state, lengths, p.ln_x.scale) * g
-    x_time.copy_(masked_last(x, x_time, lengths))
+    x_time.copy_(masked_last(x.detach(), x_time, lengths))
     return p.wo(y)
 
 
@@ -161,5 +163,5 @@ def rwkv_channel_forward(p: RWKVChannel, x: torch.Tensor,
     xr = x + sx * p.mu_r.to(x.dtype)
     k = torch.square(torch.relu(p.wk(xk)))
     y = torch.sigmoid(p.wr(xr)) * p.wv(k)
-    x_chan.copy_(masked_last(x, x_chan, lengths))
+    x_chan.copy_(masked_last(x.detach(), x_chan, lengths))
     return y

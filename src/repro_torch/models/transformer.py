@@ -29,9 +29,11 @@ are created with ``requires_grad`` False and the trainer turns it on.
 Every norm runs through the norm kernel's autograd Function (its backward
 a hand kernel on the card); ``cfg.remat == "full"`` recomputes each layer
 in the backward (``torch.utils.checkpoint``, as the reference's
-``jax.checkpoint`` of its scan body). Training the recurrent kinds needs
-backward kernels of ``rglru_scan`` and ``wkv6``, which the port does not
-have yet: ``check_trainable`` raises for them.
+``jax.checkpoint`` of its scan body), recurrent layers included: such a
+layer's zeroed state is made inside the recomputed function, so the
+recompute starts from the same zero state and advances a state of its
+own. The recurrent mixers' hand kernels (``rglru_scan``, ``wkv6``) have
+hand-written backward kernels too.
 
 The serving functions (``prefill``, ``prefill_chunk``, ``decode_step``)
 run under ``torch.no_grad``. They update ``state`` in place and return it:
@@ -167,18 +169,6 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
     return model
 
 
-def check_trainable(cfg) -> None:
-    """Raise unless every block kind of ``cfg`` can be trained: the
-    recurrent mixers' hand kernels have no backward yet (the rule is never
-    to differentiate a hand kernel's plain version in its place)."""
-    recurrent = sorted({k for k in cfg.layer_kinds if is_recurrent(k)})
-    if recurrent:
-        raise NotImplementedError(
-            f"training {cfg.name} ({recurrent} blocks) needs backward "
-            "kernels of rglru_scan and wkv6, which the port does not have "
-            "yet (ROADMAP A.6b)")
-
-
 def _embed(model: Transformer, cfg, tokens):
     """Token ids through the embedding, or (stub frontend) the given float
     embeddings, in the activation dtype. The gather is ``F.embedding``,
@@ -259,11 +249,18 @@ def _attention_layer(kind: str, block: Block, cfg, x, delta, positions,
     return _mlp_block(block, cfg, x, y)
 
 
+def _recurrent_layer(kind: str, block: Block, cfg, x, delta, lengths):
+    """One recurrent block of the full-sequence forward on the stream x +
+    delta, from a zeroed state made here (so a recompute starts from the
+    same state): returns (its input, the pending delta of its output)."""
+    cache = _recurrent_cache_init(kind, cfg, x.shape[0], x.dtype, x.device)
+    return _recurrent_block(kind, block, cfg, cache, x, delta, lengths)
+
+
 def forward(model: Transformer, cfg, tokens) -> torch.Tensor:
     """Full-sequence forward. tokens (B, S) -> logits (B, S, V).
     Differentiable; with grad mode on, a parameter that requires grad and
-    ``cfg.remat == "full"``, each attention layer is recomputed in the
-    backward."""
+    ``cfg.remat == "full"``, each layer is recomputed in the backward."""
     x = _embed(model, cfg, tokens)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
@@ -275,16 +272,14 @@ def forward(model: Transformer, cfg, tokens) -> torch.Tensor:
     delta = None  # the residual stream is x + delta (see decode_step)
     for kind, block in zip(cfg.layer_kinds, model.layers):
         if is_recurrent(kind):
-            cache = _recurrent_cache_init(kind, cfg, b, x.dtype, x.device)
-            x, delta = _recurrent_block(kind, block, cfg, cache, x, delta,
-                                        full)
-        elif remat:
-            x, delta = checkpoint(_attention_layer, kind, block, cfg, x,
-                                  delta, positions, rope,
+            layer, args = _recurrent_layer, (full,)
+        else:
+            layer, args = _attention_layer, (positions, rope)
+        if remat:
+            x, delta = checkpoint(layer, kind, block, cfg, x, delta, *args,
                                   use_reentrant=False)
         else:
-            x, delta = _attention_layer(kind, block, cfg, x, delta,
-                                        positions, rope)
+            x, delta = layer(kind, block, cfg, x, delta, *args)
     _, h = _add_norm(model.final_norm, x, delta, cfg.norm_eps)
     return model.lm_head(h)
 

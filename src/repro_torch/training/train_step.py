@@ -29,7 +29,7 @@ import torch
 from repro_torch.convert import (from_jax_params, reference_ndims,
                                  reference_tree_of, to_reference_tree,
                                  values_from_tree)
-from repro_torch.models.transformer import check_trainable, loss_fn
+from repro_torch.models.transformer import loss_fn
 from repro_torch.optim.adamw import AdamW
 
 
@@ -52,7 +52,6 @@ def _split(batch: Dict[str, torch.Tensor], m: int):
 
 
 def make_train_step(cfg, opt: AdamW):
-    check_trainable(cfg)
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         model = state["params"]
@@ -81,7 +80,6 @@ def make_train_step(cfg, opt: AdamW):
 def init_train_state(cfg, model, opt: AdamW) -> Dict[str, Any]:
     """The state of a fresh run on ``model``'s device; its parameters start
     requiring grad here."""
-    check_trainable(cfg)
     params = list(model.parameters())
     for p in params:
         p.requires_grad_(True)
@@ -116,7 +114,6 @@ def state_from_tree(tree: Dict[str, Any], cfg, device="cuda"
     """A train state on ``device`` from the reference's state tree (a
     checkpoint of either package). The moments and the error keep the
     dtype they were stored in."""
-    check_trainable(cfg)
     model = from_jax_params(tree["params"], cfg, device=device)
     for p in model.parameters():
         p.requires_grad_(True)

@@ -31,7 +31,7 @@ from repro_torch.artifacts.format import model_config_to_json
 from repro_torch.convert import reference_ndims
 from repro_torch.data.pipeline import DataConfig, ShardedLoader
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import check_trainable, init_params
+from repro_torch.models.transformer import init_params
 from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.compress import compress_decompress, init_error_feedback
 from repro_torch.runtime import clock as rtclock
@@ -59,7 +59,6 @@ class Trainer:
     def __init__(self, model_cfg, opt: AdamW, data_cfg: DataConfig,
                  tcfg: TrainerConfig,
                  log_fn: Callable[[str], None] = print, device="cuda"):
-        check_trainable(model_cfg)
         self.cfg = model_cfg
         self.opt = opt
         self.tcfg = tcfg

@@ -1433,3 +1433,144 @@ def test_smoke_training_on_the_card_is_reproducible(cuda, tmp_path):
             for s in (s_whole, s_res))
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+# tolerances of the recurrences' backward kernels against their plain
+# backwards, relative to each gradient's largest |value| (sums in other
+# orders; bf16: an intermediate rounded to the other side of a bf16 step,
+# carried through at most two more roundings)
+RECURRENT_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
+
+
+def _recurrent_bwd_close(got, again, want, dtype, names):
+    for name, g, a, w in zip(names, got, again, want):
+        assert torch.equal(g, a), name
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        err = float((g.float() - w.float()).abs().max()
+                    / w.float().abs().max().clamp_min(1e-30))
+        assert err <= RECURRENT_BWD_TOL[dtype], (name, err)
+
+
+@pytest.mark.parametrize("s", [7, 70])   # 70: two tiles of 32, a ragged third
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_backward_kernel_matches_plain_and_repeats(cuda, dtype, s):
+    """``rglru_scan_bwd`` (from the forward kernel's tile checkpoints)
+    against the plain backward written out, ragged and idle rows, a prior
+    state; the same bits at a second call (dba, dbx, dlam summed in row
+    order); the forward with checkpoints equals the forward without."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    b, r, nb = 4, 96, 3
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device=cuda) * std).to(dtype)
+
+    ya, yx = rnd(nb, b * s, r // nb), rnd(nb, b * s, r // nb)
+    ba, bx, c, gg = rnd(r, std=0.1), rnd(r, std=0.1), rnd(b, s, r), \
+        rnd(b, s, r)
+    lam = torch.linspace(-4.3, -0.7, r, device=cuda).to(dtype)
+    h = torch.randn((b, r), generator=g, device=cuda)
+    lengths = torch.tensor([s, 0, 1, s // 2], dtype=torch.int32, device=cuda)
+    ckpt = torch.empty((b, -(-s // 32), r), dtype=torch.float32, device=cuda)
+    args = (ya, yx, ba, bx, c, gg, lam)
+    out = scan_ops.rglru_gated_scan_cuda(*args, h.clone(), lengths, ckpt)
+    assert torch.equal(out, scan_ops.rglru_gated_scan_cuda(*args, h.clone(),
+                                                           lengths))
+    dout = rnd(b, s, r)
+    got, again = (scan_ops.rglru_gated_scan_backward_cuda(
+        *args, ckpt, lengths, dout) for _ in range(2))
+    want = scan_ref.rglru_gated_scan_backward_plain(*args, h, lengths, dout)
+    _recurrent_bwd_close(got, again, want, dtype,
+                         ("dya", "dyx", "dba", "dbx", "dc", "dg", "dlam"))
+
+
+@pytest.mark.parametrize("s", [7, 70])
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_backward_kernel_matches_plain_and_repeats(cuda, dtype, hd, s):
+    """``wkv6_bwd`` (the states recomputed from the forward kernel's tile
+    checkpoints, the group norm's backward from its saved readout) against
+    the plain backward written out, ragged and idle rows, a prior state;
+    the same bits at a second call (du, dscale summed in row order)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    b, nh = 4, 3
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device=cuda) * std
+
+    r, k, v = (rnd(b, s, nh, hd, std=0.5).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(rnd(b, s, nh, hd, std=0.5) - 1.0))
+    u = rnd(nh, hd, std=0.1).to(dtype)
+    state = rnd(b, nh, hd, hd, std=0.1)
+    lengths = torch.tensor([s, 0, 1, s // 2], dtype=torch.int32, device=cuda)
+    scale = (1.0 + rnd(nh * hd, std=0.1)).to(dtype)
+    ckpt = torch.empty((b, nh, -(-s // 32), hd, hd), dtype=torch.float32,
+                       device=cuda)
+    yraw = torch.empty((b, s, nh * hd), dtype=dtype, device=cuda)
+    out = wkv_ops.wkv6_cuda(r, k, v, w, u, state.clone(), lengths, scale,
+                            ckpt=ckpt, yraw=yraw)
+    assert torch.equal(out, wkv_ops.wkv6_cuda(r, k, v, w, u, state.clone(),
+                                              lengths, scale))
+    dout = rnd(b, s, nh * hd).to(dtype)
+    got, again = (wkv_ops.wkv6_backward_cuda(r, k, v, w, u, lengths, scale,
+                                             ckpt, yraw, dout)
+                  for _ in range(2))
+    want = wkv_ref.wkv6_backward_plain(r, k, v, w, u, state, lengths, scale,
+                                       dout)
+    _recurrent_bwd_close(got, again, want, dtype,
+                         ("dr", "dk", "dv", "dw", "du", "dscale"))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b"])
+def test_recurrent_smoke_training_on_the_card_is_reproducible(cuda, arch,
+                                                              tmp_path):
+    """A recurrent smoke arch trains on the card through the recurrences'
+    backward kernels (never their plain versions); a run preempted after
+    step 2 and resumed from its checkpoint gives the losses and state of
+    an uninterrupted 4-step run bit for bit."""
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import PreemptionGuard
+    from repro_torch.training import Trainer, TrainerConfig, state_tree
+
+    cfg = configs.get_smoke_config(arch).scaled(remat="full")
+    kern = "rglru_scan" if arch == "recurrentgemma-2b" else "wkv6"
+    ref = scan_ref if arch == "recurrentgemma-2b" else wkv_ref
+    plain = ("rglru_gated_scan_plain", "rglru_gated_scan_backward_plain") \
+        if arch == "recurrentgemma-2b" else ("wkv6_plain",
+                                             "wkv6_backward_plain")
+
+    def trainer(ckpt=None, log_fn=lambda m: None):
+        return Trainer(cfg, AdamW(lr=3e-3), DataConfig(seq_len=64,
+                                                       global_batch=8),
+                       TrainerConfig(total_steps=4, log_interval=1,
+                                     ckpt_dir=ckpt), log_fn=log_fn,
+                       device=cuda)
+
+    def refuse(*a, **kw):
+        raise AssertionError("a plain version ran on the card")
+
+    saved = {n: getattr(ref, n) for n in plain}
+    for n in plain:
+        setattr(ref, n, refuse)
+    try:
+        reset_launch_counts()
+        whole = trainer()
+        s_whole = whole.fit()
+        counts = launch_counts()
+        assert counts[kern] > 0 and counts[kern + "_bwd"] > 0
+        guard = PreemptionGuard(signals=())
+        first = trainer(str(tmp_path),
+                        lambda m: "step 2 " in m and guard.request())
+        first.fit(guard=guard)
+        second = trainer(str(tmp_path))
+        s_res = second.fit()
+    finally:
+        for n, fn in saved.items():
+            setattr(ref, n, fn)
+    losses = [h["loss"] for h in first.history + second.history]
+    assert losses == [h["loss"] for h in whole.history]
+    assert all(np.isfinite(losses))
+    a, b = (dict(afmt.iter_tree_leaves(state_tree(s, cfg)))
+            for s in (s_whole, s_res))
+    for k in a:
+        assert torch.equal(a[k], b[k]), k

@@ -50,7 +50,9 @@ from repro_torch.artifacts import format as pfmt
 from repro_torch.convert import from_jax_params, to_reference_tree
 from repro_torch.core.ptqtp import PTQTPConfig
 from repro_torch.core.quantize_model import QuantizedKernel, quantize_tree
+from repro_torch.kernels.rglru_scan import ref as rglru_ref
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_plain
+from repro_torch.kernels.wkv6 import ref as wkv6_ref
 from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.models import (decode_step, forward, init_decode_state,
                                 init_params, prefill, prefill_chunk)
@@ -187,6 +189,164 @@ def test_wkv6_plain_matches_the_reference_scan(split):
     np.testing.assert_allclose(_np(torch.cat(outs, 1)), np.asarray(want),
                                **TOL)
     np.testing.assert_allclose(_np(state), np.asarray(want_s), **TOL)
+
+
+# ------------------------------------------------------ the backwards
+# Tolerances of the plain backwards, relative to each gradient's largest
+# |value|: against PyTorch's autograd of the plain forward (the same ops in
+# the same dtypes: f32 sums over rows and steps in another order), f32 1e-5
+# (seen 4.3e-7) and bf16 one bf16 step (2^-7; seen 0); against ``jax.grad``
+# of the reference's function, f32 1e-4 (seen 5.4e-7: the reference's sums
+# in XLA's order, carried through the reverse chains) and bf16 2^-5 (seen
+# 1.2e-2 on the RG-LRU's dbx and 8.5e-3 on the WKV's du: XLA rounds its
+# bf16 intermediates elsewhere than PyTorch's ops do, a sigmoid's or a
+# product's one bf16 step apart, and a gradient is a chain of them).
+BWD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0 ** -7,
+                                                          2.0 ** -5)}
+
+
+def _close_rel(got, want, tol, what):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    err = np.max(np.abs(got - want)) / max(np.max(np.abs(want)), 1e-30)
+    assert err <= tol, (what, err, tol)
+
+
+def _t2j(t):
+    """A torch tensor as a jax array of its dtype (bf16 through f32)."""
+    x = jnp.asarray(t.detach().float().numpy())
+    return x.astype(jnp.bfloat16) if t.dtype == torch.bfloat16 else x
+
+
+def _jax_gated(ya, yx, ba, bx, c, g, lam, h0, mask):
+    """The reference's RG-LRU from the gates' products to ``wo``'s input
+    (``rglru.py:117-124``: ``_block_diag``'s bias add, the gates, a and
+    its input multiplier, ``_lru_scan``, the GELU's output gate), on (B, S,
+    R) products before their biases."""
+    rt = jax.nn.sigmoid(ya + ba.astype(c.dtype)).astype(jnp.float32)
+    it = jax.nn.sigmoid(yx + bx.astype(c.dtype)).astype(jnp.float32)
+    log_a = -jrglru._C * jax.nn.softplus(lam.astype(jnp.float32)) * rt
+    a = jnp.exp(log_a)
+    gated_x = jnp.sqrt(jnp.maximum(1.0 - jnp.exp(2.0 * log_a), 1e-12)) * (
+        it * c.astype(jnp.float32))
+    h, _ = jrglru._lru_scan(a, gated_x, h0, mask)
+    return (jax.nn.gelu(g).astype(jnp.float32) * h).astype(c.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [(64, 4), (2560, 10)])
+def test_rglru_backward_plain_matches_autograd_and_jax_grad(width, dtype):
+    """``rglru_gated_scan_backward_plain`` (what the autograd Function runs
+    on a CPU tensor) against PyTorch's autograd of the plain forward and
+    ``jax.vjp`` of the reference's gates and ``_lru_scan``: every gradient
+    (dya, dyx in the gates' product layout, dba, dbx, dc, dg, dlam), at the
+    smoke and the full RG-LRU widths, f32 and bf16, with ragged and idle
+    rows and a prior state."""
+    r, nb = width
+    b, s, rb = 3, 6, r // nb
+    lengths = torch.tensor([s, 2, 0], dtype=torch.int32)
+    gen = torch.Generator().manual_seed(5)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen) * std).to(dtype)
+
+    yb, xb = rnd(b, s, r), rnd(b, s, r)
+    ba, bx = rnd(r, std=0.1), rnd(r, std=0.1)
+    c, g = rnd(b, s, r), rnd(b, s, r)
+    lam = torch.linspace(-4.3, -0.7, r).to(dtype)
+    h0 = torch.randn((b, r), generator=gen)
+    dout = rnd(b, s, r)
+
+    def blocks(y):  # (B, S, R) -> the product layout (n, B·S, rb)
+        return y.reshape(b * s, nb, rb).transpose(0, 1).contiguous()
+
+    leaves = [blocks(yb), blocks(xb), ba, bx, c, g, lam]
+    for t in leaves:
+        t.requires_grad_(True)
+    out = rglru_ref.rglru_gated_scan_plain(*leaves, h0.clone(), lengths)
+    auto = torch.autograd.grad(out, leaves, dout)
+    got = rglru_ref.rglru_gated_scan_backward_plain(
+        *(t.detach() for t in leaves), h0, lengths, dout)
+    mask = jnp.asarray(_lengths_mask(lengths.numpy(), s))
+    _, vjp = jax.vjp(lambda *a: _jax_gated(*a, jnp.asarray(h0.numpy()),
+                                           mask),
+                     *(_t2j(t) for t in (yb, xb, ba, bx, c, g, lam)))
+    want = list(vjp(_t2j(dout)))
+    want[0], want[1] = (blocks(torch.from_numpy(np.array(w, np.float32)))
+                        for w in want[:2])
+    tol_auto, tol_jax = BWD_TOL[dtype]
+    names = ("dya", "dyx", "dba", "dbx", "dc", "dg", "dlam")
+    for name, g_, a_, w_ in zip(names, got, auto, want):
+        assert g_.dtype == dtype and g_.shape == a_.shape, name
+        _close_rel(g_.float().numpy(), a_.float().numpy(), tol_auto,
+                   (name, "autograd"))
+        _close_rel(g_.float().numpy(), w_, tol_jax, (name, "jax"))
+
+
+def _jax_wkv_typed(r, k, v, w, u, s0, mask, scale, h):
+    """The reference's WKV step over operands in their own dtypes, as
+    ``rwkv_time_forward`` runs it (r, k, v widened to f32, y rounded to
+    their dtype before ``_group_norm``)."""
+    f32 = jnp.float32
+
+    def step(st, inp):
+        rt, kt, vt, wt, mt = inp
+        kv = jnp.einsum("bhi,bhj->bhij", kt, vt)
+        yt = jnp.einsum("bhi,bhij->bhj", rt,
+                        st + u.astype(f32)[None, :, :, None] * kv)
+        st_new = wt[..., None] * st + kv
+        return jnp.where(mt[:, None, None, None], st_new, st), yt
+
+    xs = (jnp.moveaxis(r, 1, 0).astype(f32), jnp.moveaxis(k, 1, 0).astype(f32),
+          jnp.moveaxis(v, 1, 0).astype(f32), jnp.moveaxis(w, 1, 0),
+          jnp.moveaxis(mask, 1, 0))
+    _, ys = jax.lax.scan(step, s0, xs)
+    b, s = r.shape[:2]
+    y = jnp.moveaxis(ys, 0, 1).reshape(b, s, -1).astype(r.dtype)
+    return jrwkv._group_norm(scale, y, h)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 64])
+def test_wkv6_backward_plain_matches_autograd_and_jax_grad(hd, dtype):
+    """``wkv6_backward_plain`` (what the autograd Function runs on a CPU
+    tensor) against PyTorch's autograd of the plain forward and ``jax.vjp``
+    of the reference's scan and ``_group_norm``: dr, dk, dv, dw, du and
+    dscale at both configs' head dims, f32 and bf16, with ragged and idle
+    rows and a prior state."""
+    b, s, nh = 3, 7, 2
+    lengths = torch.tensor([s, 3, 0], dtype=torch.int32)
+    gen = torch.Generator().manual_seed(6)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=gen) * std
+
+    r, k, v = (rnd(b, s, nh, hd, std=0.5).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(rnd(b, s, nh, hd, std=0.5) - 1.0))
+    u = rnd(nh, hd, std=0.1).to(dtype)
+    s0 = rnd(b, nh, hd, hd, std=0.1)
+    scale = (1.0 + rnd(nh * hd, std=0.1)).to(dtype)
+    dout = rnd(b, s, nh * hd).to(dtype)
+    leaves = [r, k, v, w, u]
+    for t in leaves + [scale]:
+        t.requires_grad_(True)
+    out = wkv6_ref.wkv6_plain(*leaves, s0.clone(), lengths, scale)
+    auto = torch.autograd.grad(out, leaves + [scale], dout)
+    got = wkv6_ref.wkv6_backward_plain(*(t.detach() for t in leaves), s0,
+                                       lengths, scale.detach(), dout)
+    mask = jnp.asarray(_lengths_mask(lengths.numpy(), s))
+    _, vjp = jax.vjp(
+        lambda r_, k_, v_, w_, u_, sc_: _jax_wkv_typed(
+            r_, k_, v_, w_, u_, jnp.asarray(s0.numpy()), mask, sc_, nh),
+        *(_t2j(t) for t in (r, k, v, w, u, scale)))
+    want = vjp(_t2j(dout))
+    tol_auto, tol_jax = BWD_TOL[dtype]
+    for name, g_, a_, w_ in zip(("dr", "dk", "dv", "dw", "du", "dscale"),
+                                got, auto, want):
+        assert g_.dtype == a_.dtype and g_.shape == a_.shape, name
+        _close_rel(g_.float().numpy(), a_.float().numpy(), tol_auto,
+                   (name, "autograd"))
+        _close_rel(g_.float().numpy(), w_, tol_jax, (name, "jax"))
 
 
 # ------------------------------------------------------------ the blocks

@@ -133,11 +133,17 @@ def _losses(t):
 # ------------------------------------------------------------ loss and grads
 @pytest.mark.parametrize("arch,remat", [
     ("qwen2-1.5b", "none"), ("qwen2-1.5b", "full"), ("gemma3-27b", "none"),
-    ("deepseek-moe-16b", "none"), ("musicgen-large", "none")])
+    ("deepseek-moe-16b", "none"), ("musicgen-large", "none"),
+    ("recurrentgemma-2b", "none"), ("recurrentgemma-2b", "full"),
+    ("rwkv6-3b", "none"), ("rwkv6-3b", "full")])
 def test_loss_and_every_gradient_match_the_reference(arch, remat):
     """``loss_fn`` and the gradient of every leaf against
     ``jax.value_and_grad`` of the reference's; with ``remat="full"`` both
-    recompute each layer (``jax.checkpoint``, ``torch.utils.checkpoint``)."""
+    recompute each layer (``jax.checkpoint``, ``torch.utils.checkpoint``),
+    the recurrent ones included. rwkv6's leaves are held at the recurrent
+    tests' 2e-4 (seen 1e-4, on u): the WKV readout sums in another order
+    than XLA's einsum, and the group norm divides each head's 16 values by
+    their spread, which scales those roundings up."""
     jcfg = jconfigs.get_smoke_config(arch).scaled(remat=remat)
     cfg = configs.get_smoke_config(arch).scaled(remat=remat)
     jb, pb = _batches(cfg, np.random.default_rng(1))
@@ -156,7 +162,7 @@ def test_loss_and_every_gradient_match_the_reference(arch, remat):
     assert sorted(got) == sorted(want)
     for k, w in want.items():
         err = np.max(np.abs(got[k] - w)) / max(np.max(np.abs(w)), 1e-30)
-        assert err <= 2e-5, (k, err)
+        assert err <= (2e-4 if arch == "rwkv6-3b" else 2e-5), (k, err)
 
 
 @pytest.mark.parametrize("stacked", [False, True])
@@ -355,19 +361,34 @@ def test_microbatched_step_matches_the_reference():
                                        atol=1e-7, err_msg=k)
 
 
-def test_trainer_loss_history_matches_the_jax_trainer():
-    """Six steps of the port's trainer from the JAX trainer's initial
+def _check_history(arch, steps):
+    """``steps`` steps of the port's trainer from the JAX trainer's initial
     params, on the same batches, against the JAX trainer's history."""
-    jt = _jtrainer(steps=6)
+    jt = _jtrainer(steps=steps, arch=arch)
     jstate = jt.init_state()
     p0 = jax.tree.map(np.asarray, jstate["params"])
     jt.fit(state=jstate)
-    t = _trainer(steps=6)
+    t = _trainer(steps=steps, arch=arch)
     t.fit(state=t.init_state(params=from_jax_params(
-        p0, configs.get_smoke_config("qwen2-1.5b"), device="cpu")))
-    got, want = _losses(t), _losses(jt)
-    assert [h["step"] for h in t.history] == list(range(1, 7))
-    np.testing.assert_allclose(got, want, rtol=2e-5)
+        p0, configs.get_smoke_config(arch), device="cpu")))
+    assert [h["step"] for h in t.history] == list(range(1, steps + 1))
+    np.testing.assert_allclose(_losses(t), _losses(jt), rtol=2e-5)
+
+
+def test_trainer_loss_history_matches_the_jax_trainer():
+    """Six steps of qwen2's trainer against the JAX trainer's history."""
+    _check_history("qwen2-1.5b", 6)
+
+
+RECURRENT = ("recurrentgemma-2b", "rwkv6-3b")
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_trainer_loss_history_matches_the_jax_trainer(arch):
+    """Four steps of a recurrent arch's trainer (the RG-LRU's and the
+    WKV's backwards written out on the CPU) against the JAX trainer's
+    history, at the trainers' rtol 2e-5 (seen 4.6e-6 and 6.7e-6)."""
+    _check_history(arch, 4)
 
 
 # --------------------------------------- the reference's trainer cases, port
@@ -436,35 +457,54 @@ class TestFaultTolerance:
         """Preempted after step 3, resumed from its checkpoint to step 6:
         the losses and every tensor of the state equal those of an
         uninterrupted 6-step run bit for bit."""
-        whole = _trainer(steps=6, grad_compress=grad_compress)
-        s_whole = whole.fit()
-        guard = PreemptionGuard(signals=())
-        first = _trainer(tmp_path, steps=6, grad_compress=grad_compress,
-                         log_fn=lambda m: "step 3 " in m and guard.request())
-        first.tcfg.log_interval = 1
-        first.fit(guard=guard)
-        assert latest_step(tmp_path) == 3
-        second = _trainer(tmp_path, steps=6, grad_compress=grad_compress)
-        s_resumed = second.fit()
-        np.testing.assert_array_equal(
-            np.concatenate([_losses(first), _losses(second)]), _losses(whole))
-        cfg = configs.get_smoke_config("qwen2-1.5b")
-        a, b = _flat(state_tree(s_whole, cfg)), \
-            _flat(state_tree(s_resumed, cfg))
-        assert sorted(a) == sorted(b)
-        for k in a:
-            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        _check_resume(tmp_path, "qwen2-1.5b", 3, 6, grad_compress)
+
+
+def _check_resume(tmp_path, arch, at, steps, grad_compress=False):
+    """Preempted after step ``at`` and resumed from its checkpoint to
+    ``steps``: the losses and every tensor of the state equal an
+    uninterrupted run's bit for bit."""
+    kw = dict(steps=steps, arch=arch, grad_compress=grad_compress)
+    whole = _trainer(**kw)
+    s_whole = whole.fit()
+    guard = PreemptionGuard(signals=())
+    first = _trainer(tmp_path, **kw,
+                     log_fn=lambda m: f"step {at} " in m and guard.request())
+    first.tcfg.log_interval = 1
+    first.fit(guard=guard)
+    assert latest_step(tmp_path) == at
+    second = _trainer(tmp_path, **kw)
+    s_resumed = second.fit()
+    np.testing.assert_array_equal(
+        np.concatenate([_losses(first), _losses(second)]), _losses(whole))
+    cfg = configs.get_smoke_config(arch)
+    a, b = _flat(state_tree(s_whole, cfg)), _flat(state_tree(s_resumed, cfg))
+    assert sorted(a) == sorted(b)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_preempted_and_resumed_equals_uninterrupted(tmp_path,
+                                                              arch):
+    """A recurrent arch preempted after step 2 and resumed to step 4, bit
+    for bit: the RG-LRU's (L, R) Λ and block-diagonal gates, the WKV's u
+    and LoRAs, and their AdamW moments included."""
+    _check_resume(tmp_path, arch, 2, 4)
 
 
 # ----------------------------------------------------- checkpoints crossing
-def test_port_resumes_a_jax_checkpoint(tmp_path):
-    """The JAX trainer (with gradient compression) checkpoints at step 3;
-    the port's state read back holds the checkpoint's bytes, and the port
-    resumes to step 6 with the JAX trainer's own continuation (the
-    trainers' tolerance)."""
-    _jtrainer(tmp_path / "a", steps=3, grad_compress=True).fit()
+def _check_port_resumes_jax(tmp_path, arch, at, steps, grad_compress):
+    """The JAX trainer checkpoints at step ``at``; the port's state read
+    back holds the checkpoint's bytes and dtypes, and the port resumes to
+    ``steps`` with the JAX trainer's own continuation (the trainers'
+    tolerance)."""
+    import shutil
+
+    kw = dict(arch=arch, grad_compress=grad_compress)
+    _jtrainer(tmp_path / "a", steps=at, **kw).fit()
     _, tree, _ = jckpt.load_checkpoint(tmp_path / "a")
-    cfg = configs.get_smoke_config("qwen2-1.5b")
+    cfg = configs.get_smoke_config(arch)
     state = state_from_tree(
         load_checkpoint(tmp_path / "a")[1], cfg, device="cpu")
     got, want = _flat(state_tree(state, cfg)), _flat(tree)
@@ -472,35 +512,58 @@ def test_port_resumes_a_jax_checkpoint(tmp_path):
     for k in want:
         assert got[k].dtype == want[k].dtype and \
             got[k].tobytes() == want[k].tobytes(), k
-    import shutil
     shutil.copytree(tmp_path / "a", tmp_path / "b")
-    jt = _jtrainer(tmp_path / "a", steps=6, grad_compress=True)
+    jt = _jtrainer(tmp_path / "a", steps=steps, **kw)
     jt.fit()
-    t = _trainer(tmp_path / "b", steps=6, grad_compress=True)
+    t = _trainer(tmp_path / "b", steps=steps, **kw)
     t.fit()
-    assert [h["step"] for h in t.history] == [4, 5, 6]
+    assert [h["step"] for h in t.history] == list(range(at + 1, steps + 1))
     np.testing.assert_allclose(_losses(t), _losses(jt), rtol=2e-5)
+
+
+def _check_jax_resumes_port(tmp_path, arch, at, steps):
+    """The port's trainer checkpoints at step ``at``; the reference reads
+    the checkpoint's params with the port's bytes, and its trainer resumes
+    to ``steps`` with the port's own continuation (the trainers'
+    tolerance)."""
+    import shutil
+
+    s_at = _trainer(tmp_path / "a", steps=at, arch=arch).fit()
+    shutil.copytree(tmp_path / "a", tmp_path / "b")
+    _, tree, _ = jckpt.load_checkpoint(tmp_path / "a")
+    cfg = configs.get_smoke_config(arch)
+    for k, v in _flat(to_reference_tree(s_at["params"], cfg)).items():
+        assert v.tobytes() == _flat(tree["params"])[k].tobytes(), k
+    jt = _jtrainer(tmp_path / "a", steps=steps, arch=arch)
+    jt.fit()
+    t = _trainer(tmp_path / "b", steps=steps, arch=arch)
+    t.fit()
+    assert [h["step"] for h in jt.history] == list(range(at + 1, steps + 1))
+    np.testing.assert_allclose(_losses(t), _losses(jt), rtol=2e-5)
+
+
+def test_port_resumes_a_jax_checkpoint(tmp_path):
+    """qwen2 with gradient compression, checkpointed at step 3 by the JAX
+    trainer and resumed by the port to step 6."""
+    _check_port_resumes_jax(tmp_path, "qwen2-1.5b", 3, 6, True)
 
 
 def test_jax_resumes_a_port_checkpoint(tmp_path):
-    """The port's trainer checkpoints at step 3; the reference's trainer
-    resumes it to step 6 with the port's own continuation (the trainers'
-    tolerance), and the reference reads the checkpoint's params with the
-    port's bytes."""
-    t0 = _trainer(tmp_path / "a", steps=3)
-    s3 = t0.fit()
-    import shutil
-    shutil.copytree(tmp_path / "a", tmp_path / "b")
-    _, tree, _ = jckpt.load_checkpoint(tmp_path / "a")
-    cfg = configs.get_smoke_config("qwen2-1.5b")
-    for k, v in _flat(to_reference_tree(s3["params"], cfg)).items():
-        assert v.tobytes() == _flat(tree["params"])[k].tobytes(), k
-    jt = _jtrainer(tmp_path / "a", steps=6)
-    jt.fit()
-    t = _trainer(tmp_path / "b", steps=6)
-    t.fit()
-    assert [h["step"] for h in jt.history] == [4, 5, 6]
-    np.testing.assert_allclose(_losses(t), _losses(jt), rtol=2e-5)
+    """qwen2, checkpointed at step 3 by the port and resumed by the
+    reference to step 6."""
+    _check_jax_resumes_port(tmp_path, "qwen2-1.5b", 3, 6)
+
+
+@pytest.mark.parametrize("way", ["port-resumes-jax", "jax-resumes-port"])
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_checkpoint_crosses(tmp_path, arch, way):
+    """A recurrent arch's checkpoint at step 2 resumed to step 4 by the
+    other package: the bytes of the (L, R) Λ, the stacked block-diagonal
+    gates and the moments of every recurrent leaf cross unchanged."""
+    if way == "port-resumes-jax":
+        _check_port_resumes_jax(tmp_path, arch, 2, 4, False)
+    else:
+        _check_jax_resumes_port(tmp_path, arch, 2, 4)
 
 
 def test_values_from_tree_inverts_reference_tree_of():
@@ -602,42 +665,45 @@ def test_from_checkpoint_labels_the_artifact_with_the_runs_arch(tmp_path):
                                      "--arch", "qwen2-1.5b"])
 
 
-def test_launchers_train_quantize_and_serve_on_cpu(tmp_path, capsys):
-    """``launch/train.py --device cpu`` trains and resumes; its
-    checkpoint quantizes with ``--from-checkpoint`` and serves."""
+def _check_launchers(tmp_path, arch_args, at, steps):
+    """``launch/train.py --device cpu`` trains to ``at`` and resumes to
+    ``steps``; its checkpoint quantizes with ``--from-checkpoint`` and
+    serves. Returns the artifact's directory."""
     from repro_torch.launch import serve as serve_launch
 
-    common = ["--device", "cpu", "--seq-len", "32", "--batch", "4",
-              "--ckpt-dir", str(tmp_path / "ck")]
-    state, trainer = train_launch.main(["--steps", "3"] + common)
-    assert int(state["step"]) == 3
-    state, trainer = train_launch.main(["--steps", "5"] + common)
-    assert [h["step"] for h in trainer.history] == [4, 5]
-    assert "[train] done: step 5" in capsys.readouterr().out
-    quantize_launch.main(["--device", "cpu", "--from-checkpoint",
-                          str(tmp_path / "ck"), "--out", str(tmp_path / "a"),
-                          "--t-max", "5"])
+    common = arch_args + ["--device", "cpu", "--seq-len", "32", "--batch",
+                          "4", "--ckpt-dir", str(tmp_path / "ck")]
+    state, trainer = train_launch.main(["--steps", str(at)] + common)
+    assert int(state["step"]) == at
+    state, trainer = train_launch.main(["--steps", str(steps)] + common)
+    assert [h["step"] for h in trainer.history] == list(range(at + 1,
+                                                              steps + 1))
+    assert all(np.isfinite(_losses(trainer)))
+    out = quantize_launch.main(["--device", "cpu", "--from-checkpoint",
+                                str(tmp_path / "ck"), "--out",
+                                str(tmp_path / "a"), "--t-max", "5"])
     results = serve_launch.main(["--device", "cpu", "--artifact",
                                  str(tmp_path / "a"), "--requests", "2",
                                  "--max-new", "4"])
     assert len(results) == 2
+    return out
 
 
-# ------------------------------------------------------------- refusals
-@pytest.mark.parametrize("device", ["cpu", "cuda"])
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b"])
-def test_recurrent_archs_raise(arch, device):
-    """Training a recurrent arch raises on either device (its mixers' hand
-    kernels have no backward yet), before any device is touched."""
-    cfg = configs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="rglru_scan and wkv6"):
-        Trainer(cfg, AdamW(), DataConfig(**DATA), TrainerConfig(),
-                device=device)
-    with pytest.raises(NotImplementedError):
-        make_train_step(cfg, AdamW())
-    with pytest.raises(NotImplementedError):
-        train_launch.main(["--arch", arch, "--device", device, "--steps",
-                           "1"])
+def test_launchers_train_quantize_and_serve_on_cpu(tmp_path, capsys):
+    """The default arch through the launchers, 3 steps resumed to 5."""
+    _check_launchers(tmp_path, [], 3, 5)
+    assert "[train] done: step 5" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_launchers_train_quantize_and_serve_on_cpu(tmp_path, arch):
+    """``--arch`` of a recurrent arch through the launchers, 2 steps
+    resumed to 3; the artifact is labelled with the arch from the
+    checkpoint's manifest."""
+    from repro_torch.artifacts import read_manifest
+
+    out = _check_launchers(tmp_path, ["--arch", arch], 2, 3)
+    assert read_manifest(out)["arch"] == arch
 
 
 def test_cuda_is_never_swapped_for_the_cpu():
