@@ -4267,7 +4267,7 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 512, 6, 1e-3
 RESUME_LAYERS, RESUME_STEPS, RESUME_AT = 2, 4, 2
 # stated tolerances of the norm's backward kernels against the plain
 # backward, each relative to the tensor's largest |value|: f32 1e-5 (dx;
-# dscale 1e-4: 64-row tiles summed in another order than torch.sum's), bf16
+# dscale 1e-4: 32-row tiles summed in another order than torch.sum's), bf16
 # one bf16 step (2^-7)
 NORM_BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 NORM_BWD_DSCALE_F32 = 1e-4
@@ -4411,6 +4411,17 @@ def train_full(cfg, dev, steps=TRAIN_STEPS, tag="(t)"):
                      for e in top])
 
 
+def kernels_a_call(fn, most, what):
+    """The kernels one call of ``fn`` launches (``_build.graph_kernels``:
+    its CUDA graph's kernel nodes); fails above ``most``."""
+    from repro_torch.kernels import _build
+
+    n = _build.graph_kernels(fn)
+    if not 0 < n <= most:
+        raise AssertionError(f"{what}: {n} kernels a call, not 1..{most}")
+    return n
+
+
 def time_norm_backward(cfg, dev, per_step):
     """The norm backwards of one training step at the training shape
     (8 x 512 rows of d 1536, bf16), as many of each as a step launches
@@ -4453,7 +4464,9 @@ def time_norm_backward(cfg, dev, per_step):
             library_ms=(None if lib is None else device_ms(
                 lambda: [lib_call(res is not None) for _ in range(calls)],
                 5)),
-            bound_ms=b[0], bound_by=b[1], calls=calls)
+            bound_ms=b[0], bound_by=b[1], calls=calls,
+            kernels_a_call=kernels_a_call(
+                lambda: ops.rms_norm_backward(w, x, dy, eps, res), 2, name))
     return out
 
 
@@ -4702,7 +4715,8 @@ def training_phases(gpu, dev):
             f"{cfg.d_model}, bf16): kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.3f} ms, library {lib} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}) -> "
-            f"{t['bound_ms'] / t['ms']:.1%} of bound")
+            f"{t['bound_ms'] / t['ms']:.1%} of bound; "
+            f"{t['kernels_a_call']} kernels a call")
     log(f"(t) dense layers at 4096 rows, bf16: the 128-row blocks' y, dx "
         f"and dw within {FIXED_ROWS_TOL} of the f32 product (+ 1e-5 of the "
         f"largest) at {list(fixed_errs)}; worst error of the largest, "
@@ -4783,6 +4797,7 @@ def training_phases(gpu, dev):
              "the full-depth training run's; library: "
              "aten._fused_rms_norm_backward (F.rms_norm's backward), plus "
              "the residual gradient's add for the fused ones",
+        kernels_a_call=norm[name]["kernels_a_call"],
         **{k: norm[name][k] for k in timed}) for name in work]
 
 
@@ -5018,7 +5033,10 @@ def time_recurrent_backward(dev, per_step):
                                       ya, yx, ba, bx, c, g, lam, h, lengths,
                                       dout), 1),
         library_ms=None, bound_ms=bound, bound_by=by, calls=calls,
-        bytes=calls * nbytes)
+        bytes=calls * nbytes, kernels_a_call=kernels_a_call(
+            lambda: scan_ops.rglru_gated_scan_backward_cuda(
+                ya, yx, ba, bx, c, g, lam, ckpt, lengths, dout), 2,
+            "rglru_scan_bwd"))
     del args, ya, yx, c, g, dout, ckpt
     gc_free()
     # the WKV: r, k, v, dout and the readout read in bf16, w f32, the
@@ -5047,7 +5065,10 @@ def time_recurrent_backward(dev, per_step):
         plain_ms=calls * event_ms(lambda: wkv_ref.wkv6_backward_plain(
             r_, k_, v_, w_, u_, st, lengths, sc, dout), 1),
         library_ms=None, bound_ms=bound, bound_by=by, calls=calls,
-        bytes=calls * nbytes)
+        bytes=calls * nbytes, kernels_a_call=kernels_a_call(
+            lambda: wkv_ops.wkv6_backward_cuda(
+                r_, k_, v_, w_, u_, lengths, sc, ckpt, yraw, dout), 2,
+            "wkv6_bwd"))
     del r_, k_, v_, w_, ckpt, yraw, dout
     gc_free()
     return out
@@ -5173,8 +5194,8 @@ def recurrent_training_phases(gpu, dev):
         log(f"{gpu} | (u) {name} x {t['calls']} (a training step's, 8 x 512, "
             f"bf16): kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.1f} ms, "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}; {t['bytes']} "
-            f"bytes) -> {t['bound_ms'] / t['ms']:.1%} of bound; library: "
-            "none")
+            f"bytes) -> {t['bound_ms'] / t['ms']:.1%} of bound; "
+            f"{t['kernels_a_call']} kernels a call; library: none")
     moe_determinism(dev, gpu)
     log(f"(u) {time.perf_counter() - t_all:.1f}s in")
     for arch, layers in RECURRENT_RESUME_LAYERS.items():
@@ -5230,8 +5251,8 @@ def recurrent_training_phases(gpu, dev):
                               "output gate; dba, dbx and dlam summed in row "
                               "order), recurrentgemma-2b's",
             "wkv6_bwd": "the WKV scan's and group norm's backward (states "
-                        "recomputed from the tile checkpoints; du and "
-                        "dscale summed in row order), rwkv6-3b's"}
+                        "recomputed on chip from the tile checkpoints; du "
+                        "and dscale summed in row order), rwkv6-3b's"}
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return [dict(
         name=name, route="cuda", source=sources[name][0],
@@ -5242,6 +5263,7 @@ def recurrent_training_phases(gpu, dev):
              "x 512, bf16); replaces jax.grad of the reference's layer (XLA, "
              "no Pallas kernel); launches are the full-depth training run's; "
              "no single PyTorch call computes it (library null)",
+        kernels_a_call=timing[name]["kernels_a_call"],
         **{k: timing[name][k] for k in timed}) for name in work]
 
 

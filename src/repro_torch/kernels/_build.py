@@ -15,7 +15,8 @@ here runs at import time, so the package imports on machines without
 
 Every wrapper counts the launches of its kernel with ``count`` (one per
 launch, nowhere else), so a run can show which kernels the path went
-through; ``device_us`` reads a kernel's device time from ``torch.profiler``.
+through; ``device_us`` reads a kernel's device time from ``torch.profiler``,
+``graph_kernels`` the kernels one call launches.
 ``count`` adds to the process-wide ``LAUNCHES`` and to a tally of the
 calling thread. A CUDA graph replays its launches without calling a
 wrapper, and its capture calls the wrappers without launching anything:
@@ -113,6 +114,49 @@ def device_us(evt) -> float:
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
+
+
+def graph_kernels(fn) -> int:
+    """The kernels one call of ``fn`` launches on the card: after a warm
+    call, ``fn`` is captured into a CUDA graph on a side stream and the
+    capture's kernel nodes are counted through the CUDA driver API
+    (``cuStreamGetCaptureInfo_v2``, ``cuGraphGetNodes``,
+    ``cuGraphNodeGetType``). Unlike ``torch.profiler``, whose kernel events
+    thin out late in a long process, the count is exact."""
+    import torch
+
+    drv = ctypes.CDLL("libcuda.so.1")
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+        status, gid = ctypes.c_int(), ctypes.c_uint64()
+        cgraph, deps, ndeps = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_size_t()
+        rc = drv.cuStreamGetCaptureInfo_v2(
+            ctypes.c_void_p(side.cuda_stream), ctypes.byref(status),
+            ctypes.byref(gid), ctypes.byref(cgraph), ctypes.byref(deps),
+            ctypes.byref(ndeps))
+        n = ctypes.c_size_t()
+        if rc == 0:
+            rc = drv.cuGraphGetNodes(cgraph, None, ctypes.byref(n))
+        nodes = (ctypes.c_void_p * n.value)()
+        if rc == 0 and n.value:
+            rc = drv.cuGraphGetNodes(cgraph, nodes, ctypes.byref(n))
+        kinds = []
+        for node in nodes:
+            kind = ctypes.c_int()
+            if rc == 0:
+                rc = drv.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                            ctypes.byref(kind))
+            kinds.append(kind.value)
+    del graph
+    if rc != 0 or status.value != 1:  # CU_STREAM_CAPTURE_STATUS_ACTIVE
+        raise RuntimeError(f"graph_kernels: CUDA driver error {rc}, capture "
+                           f"status {status.value}")
+    return sum(k == 0 for k in kinds)  # CU_GRAPH_NODE_TYPE_KERNEL
 
 
 def _nvcc() -> str:

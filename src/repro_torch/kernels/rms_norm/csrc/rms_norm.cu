@@ -52,22 +52,38 @@
 //                                          gradient of add_rms_norm's x_new
 //                                          (res), rounded again after + res
 //     dscale = Σ_rows dy·x̂                 rounded to scale's dtype
-// x is the norm's input (add_rms_norm's x_new). Three launches a call, no
-// float atomics, every sum in a fixed order that depends on (rows, d)
-// only, so a training run is bit-reproducible:
-//   * norm_bwd_rows: one warp a row (as the forward); lane l walks the
-//     row's 16-byte vectors l, l+32, ... twice: the first pass sums x² and
-//     ĝ·x (two xor butterflies), the second writes dx; it also writes r of
-//     the row. The row is read twice (the second time from L1/L2) at every
-//     width, so one program covers every d the forward takes, 16384 too;
-//   * norm_bwd_scale_partials: dy·x̂ summed over tiles of 64 rows, one
-//     thread a 16-byte column vector of a tile (rows in order), into an f32
-//     partial per (tile, column);
-//   * norm_bwd_scale_sum: each column's partials summed over the tiles in
-//     order, rounded to scale's dtype.
-// Bound: memory (x and dy read once, res read once, dx written once; the
-// scale and the partials are small beside them). A simple kernel: it
-// reads x and dy twice and makes two more launches for dscale.
+// x is the norm's input (add_rms_norm's x_new). No float atomics, every sum
+// in a fixed order that depends on (rows, d) only, so a training run is
+// bit-reproducible. Bound on an H100 SXM: memory (x, dy and res read once,
+// dx written once; the scale and the dscale partials are small beside
+// them): 50 MB, 15 µs, a call at the training shape (4096 rows of 1536,
+// bf16, with res). Two launches a call:
+//   * norm_bwd_kernel: a block of W warps (W·32 threads) takes a fixed
+//     tile of `tile_rows` consecutive rows; warp w takes the tile's rows
+//     w, w + W, ... in order, one row at a time, as the forward: lane l
+//     holds the row's 16-byte vectors l, l + 32, ... of x and dy (and, for
+//     up to 6 vectors a lane, res) in registers (NV of them, a template
+//     bound, for rows of up to 12 vectors a lane: d <= 3072 in bf16, d <=
+//     1536 in f32), all loads issued before the first sum; r and mean(ĝ·x̂)
+//     are summed lane-strided (fmaf) and reduced by the xor butterfly; dx
+//     is computed per element, each product rounded alone, and written
+//     from registers. Wider rows take a second pass over the row (from L1/L2),
+//     as the forward does. Each warp adds dy·x̂ of its rows, in row order,
+//     into a row of d f32 of shared memory of its own (a lane touches only
+//     its own vectors' columns: no barrier); after the tile the block sums
+//     its W rows in warp order into one f32 partial row per block;
+//   * norm_bwd_scale_sum: each column's partials summed over the blocks in
+//     block order, rounded to scale's dtype.
+// The host picks W and the tile (repro_torch.kernels.rms_norm.ops.
+// backward_tiling): tiles of 32 rows (4096 rows are 128 blocks on the 132
+// SMs, one block an SM), W = 8 where 8 rows of d f32 fit in 128 KB of
+// shared memory (d <= 4096), fewer above (16384: 2). At (t)'s shape a
+// block is 8 warps, 48 KB of shared memory and NV = 6: nvcc -Xptxas -v
+// (sm_90a) gives 122 registers a thread with res, 105 without, so two
+// blocks an SM would fit, but the 128 blocks take one each. Every
+// instantiation: 64-203 registers (NV = 12 the most), no spills. Tiles of
+// 16 rows, 16 warps a block, and loading the next row while this one is
+// computed were each no faster at (t)'s shape.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -320,7 +336,10 @@ int dispatch(const void* x, const void* delta, int x_bf16, const void* scale,
 }
 
 // ------------------------------------------------------------- backward
-constexpr int BWD_TILE_ROWS = 64;  // rows of one dscale partial
+constexpr int BWD_MAX_WARPS = 8;
+constexpr int BWD_MAX_NV = 12;     // vectors a lane holds in registers
+constexpr int BWD_RES_NV = 6;      // ... with res's vectors beside them
+constexpr int BWD_MAX_SMEM = 227 * 1024;
 
 template <typename TS>
 __device__ __forceinline__ TS from_f32(float v);
@@ -331,99 +350,167 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// dx of one row a warp (RES: + res, after dx is rounded to T), and r of
-// the row into rstd.
+// dx of one vector (EPV elements) from x, dy, the scale, r and mean(ĝ·x̂),
+// res added after dx is rounded to T (RES); dy·x̂ added into acc (the
+// warp's dscale row at the vector's columns).
 template <typename T, typename TS, bool RES>
-__global__ void __launch_bounds__(NTHREADS)
-    norm_bwd_rows(const T* __restrict__ x, const T* __restrict__ dy,
-                  const T* __restrict__ res, const TS* __restrict__ scale,
-                  T* __restrict__ dx, float* __restrict__ rstd, int rows,
-                  int d, float eps) {
+__device__ __forceinline__ uint4 bwd_vector(const uint4& xv, const uint4& gv,
+                                            const uint4& rv,
+                                            const ScaleVec<TS, Vec<T>::N>& s,
+                                            float r, float mean_gx,
+                                            float* __restrict__ acc) {
   constexpr int EPV = Vec<T>::N;
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
-  if (row >= rows) return;  // whole warps exit together
-  const int nvec = d / EPV;
-  const size_t off = (size_t)row * d;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + off);
-  const uint4* gr = reinterpret_cast<const uint4*>(dy + off);
-  const uint4* rr = RES ? reinterpret_cast<const uint4*>(res + off) : nullptr;
-  uint4* dr = reinterpret_cast<uint4*>(dx + off);
-
-  float ss = 0.0f, gx = 0.0f;  // Σ x², Σ ĝ·x
-  for (int e = lane; e < nvec; e += 32) {
-    float fx[EPV], fg[EPV];
-    Vec<T>::load(__ldg(xr + e), fx);
-    Vec<T>::load(__ldg(gr + e), fg);
-    ScaleVec<TS, EPV> s;
-    s.load(scale, e);
+  float fx[EPV], fg[EPV], out[EPV];
+  Vec<T>::load(xv, fx);
+  Vec<T>::load(gv, fg);
+  float4* a4 = reinterpret_cast<float4*>(acc);
+  float a[EPV];
 #pragma unroll
-    for (int c = 0; c < EPV; ++c) {
-      ss = fmaf(fx[c], fx[c], ss);
-      gx = fmaf(__fmul_rn(fg[c], s.at(c)), fx[c], gx);
-    }
+  for (int q = 0; q < EPV / 4; ++q) {
+    const float4 t = a4[q];
+    a[4 * q] = t.x; a[4 * q + 1] = t.y; a[4 * q + 2] = t.z; a[4 * q + 3] = t.w;
   }
-  const float r = inv_rms(ss, d, eps);
+#pragma unroll
+  for (int c = 0; c < EPV; ++c) {
+    const float g = __fmul_rn(fg[c], s.at(c));
+    const float xh = __fmul_rn(fx[c], r);
+    out[c] = __fmul_rn(r, __fsub_rn(g, __fmul_rn(xh, mean_gx)));
+    a[c] = __fadd_rn(a[c], __fmul_rn(fg[c], xh));
+  }
+#pragma unroll
+  for (int q = 0; q < EPV / 4; ++q)
+    a4[q] = make_float4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
+  uint4 v = Vec<T>::store(out);  // dx rounded to T
+  if constexpr (RES) {
+    float fr[EPV];
+    Vec<T>::load(v, out);
+    Vec<T>::load(rv, fr);
+#pragma unroll
+    for (int c = 0; c < EPV; ++c) out[c] = __fadd_rn(out[c], fr[c]);
+    v = Vec<T>::store(out);
+  }
+  return v;
+}
+
+// Σ x² and Σ ĝ·x of one vector, in element order (fmaf, as the forward).
+template <typename T, typename TS>
+__device__ __forceinline__ void bwd_sums(const uint4& xv, const uint4& gv,
+                                         const ScaleVec<TS, Vec<T>::N>& s,
+                                         float& ss, float& gx) {
+  constexpr int EPV = Vec<T>::N;
+  float fx[EPV], fg[EPV];
+  Vec<T>::load(xv, fx);
+  Vec<T>::load(gv, fg);
+#pragma unroll
+  for (int c = 0; c < EPV; ++c) {
+    ss = fmaf(fx[c], fx[c], ss);
+    gx = fmaf(__fmul_rn(fg[c], s.at(c)), fx[c], gx);
+  }
+}
+
+// r of the row (from Σ x² over the row's lanes) and mean(ĝ·x̂) (from the
+// lane sums of ĝ·x): two xor butterflies.
+__device__ __forceinline__ void bwd_row_stats(float ss, float gx, int d,
+                                              float eps, float& r,
+                                              float& mean_gx) {
+  r = inv_rms(ss, d, eps);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     gx = __fadd_rn(gx, __shfl_xor_sync(0xffffffffu, gx, o));
-  const float mean_gx = __fdiv_rn(__fmul_rn(r, gx), (float)d);  // mean(ĝ·x̂)
-
-  for (int e = lane; e < nvec; e += 32) {
-    float fx[EPV], fg[EPV], out[EPV];
-    Vec<T>::load(__ldg(xr + e), fx);
-    Vec<T>::load(__ldg(gr + e), fg);
-    ScaleVec<TS, EPV> s;
-    s.load(scale, e);
-#pragma unroll
-    for (int c = 0; c < EPV; ++c) {
-      const float g = __fmul_rn(fg[c], s.at(c));
-      const float xh = __fmul_rn(fx[c], r);
-      out[c] = __fmul_rn(r, __fsub_rn(g, __fmul_rn(xh, mean_gx)));
-    }
-    uint4 v = Vec<T>::store(out);  // dx rounded to T
-    if constexpr (RES) {
-      float fr[EPV];
-      Vec<T>::load(v, out);
-      Vec<T>::load(__ldg(rr + e), fr);
-#pragma unroll
-      for (int c = 0; c < EPV; ++c) out[c] = __fadd_rn(out[c], fr[c]);
-      v = Vec<T>::store(out);
-    }
-    dr[e] = v;
-  }
-  if (lane == 0) rstd[row] = r;
+  mean_gx = __fdiv_rn(__fmul_rn(r, gx), (float)d);
 }
 
-// partial[tile][col] = Σ over the tile's rows, in order, of dy·(x·r).
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-    norm_bwd_scale_partials(const T* __restrict__ x, const T* __restrict__ dy,
-                            const float* __restrict__ rstd,
-                            float* __restrict__ partial, int rows, int d) {
+// The rows of one tile: dx of each row (a warp a row), and the tile's
+// partial of dscale, partial[blockIdx.x][col] = Σ over the tile's rows of
+// dy·x̂, summed per warp in row order and over the warps in warp order.
+// NV > 0: the lane's vectors (at most NV) stay in registers; NV == 0: two
+// passes over the row. Dynamic shared memory: W rows of d f32.
+template <typename T, typename TS, int NV, bool RES>
+__global__ void __launch_bounds__(BWD_MAX_WARPS * 32, (NV > 0 && NV <= 8) ? 2 : 1)
+    norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                    const T* __restrict__ res, const TS* __restrict__ scale,
+                    T* __restrict__ dx, float* __restrict__ partial, int rows,
+                    int d, int tile_rows, float eps) {
   constexpr int EPV = Vec<T>::N;
+  extern __shared__ __align__(16) float acc_s[];  // (W, d)
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int warps = blockDim.x / 32;
   const int nvec = d / EPV;
-  const int e = blockIdx.x * NTHREADS + threadIdx.x;
-  if (e >= nvec) return;
-  const int r0 = blockIdx.y * BWD_TILE_ROWS;
-  const int r1 = min(rows, r0 + BWD_TILE_ROWS);
-  float acc[EPV];
+  float* acc = acc_s + (size_t)warp * d;
+  for (int e = lane; e < nvec; e += 32)  // the lane's own columns only
 #pragma unroll
-  for (int c = 0; c < EPV; ++c) acc[c] = 0.0f;
-  for (int row = r0; row < r1; ++row) {
-    const float r = __ldg(rstd + row);
-    float fx[EPV], fg[EPV];
-    Vec<T>::load(__ldg(reinterpret_cast<const uint4*>(x + (size_t)row * d) + e), fx);
-    Vec<T>::load(__ldg(reinterpret_cast<const uint4*>(dy + (size_t)row * d) + e), fg);
+    for (int q = 0; q < EPV / 4; ++q)
+      reinterpret_cast<float4*>(acc + (size_t)e * EPV)[q] =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+  const int r0 = blockIdx.x * tile_rows;
+  const int r1 = min(rows, r0 + tile_rows);
+
+  for (int row = r0 + warp; row < r1; row += warps) {
+    const size_t off = (size_t)row * d;
+    const uint4* xr = reinterpret_cast<const uint4*>(x + off);
+    const uint4* gr = reinterpret_cast<const uint4*>(dy + off);
+    const uint4* rr = RES ? reinterpret_cast<const uint4*>(res + off) : nullptr;
+    uint4* dr = reinterpret_cast<uint4*>(dx + off);
+    float ss = 0.0f, gx = 0.0f, r, mean_gx;
+    if constexpr (NV > 0) {
+      constexpr bool RES_REGS = RES && NV <= BWD_RES_NV;
+      uint4 xv[NV], gv[NV], rv[RES_REGS ? NV : 1];
 #pragma unroll
-    for (int c = 0; c < EPV; ++c)
-      acc[c] = __fadd_rn(acc[c], __fmul_rn(fg[c], __fmul_rn(fx[c], r)));
+      for (int q = 0; q < NV; ++q) {
+        const int e = lane + 32 * q;
+        if (e < nvec) {
+          xv[q] = __ldg(xr + e);
+          gv[q] = __ldg(gr + e);
+          if constexpr (RES_REGS) rv[q] = __ldg(rr + e);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < NV; ++q) {
+        const int e = lane + 32 * q;
+        if (e < nvec) {
+          ScaleVec<TS, EPV> s;
+          s.load(scale, e);
+          bwd_sums<T, TS>(xv[q], gv[q], s, ss, gx);
+        }
+      }
+      bwd_row_stats(ss, gx, d, eps, r, mean_gx);
+#pragma unroll
+      for (int q = 0; q < NV; ++q) {
+        const int e = lane + 32 * q;
+        if (e < nvec) {
+          ScaleVec<TS, EPV> s;
+          s.load(scale, e);
+          uint4 rq = make_uint4(0u, 0u, 0u, 0u);
+          if constexpr (RES_REGS) rq = rv[q];
+          else if constexpr (RES) rq = __ldg(rr + e);
+          dr[e] = bwd_vector<T, TS, RES>(xv[q], gv[q], rq, s, r, mean_gx,
+                                         acc + (size_t)e * EPV);
+        }
+      }
+    } else {
+#pragma unroll 4
+      for (int e = lane; e < nvec; e += 32) {
+        ScaleVec<TS, EPV> s;
+        s.load(scale, e);
+        bwd_sums<T, TS>(__ldg(xr + e), __ldg(gr + e), s, ss, gx);
+      }
+      bwd_row_stats(ss, gx, d, eps, r, mean_gx);
+#pragma unroll 4
+      for (int e = lane; e < nvec; e += 32) {  // the row again, from L1/L2
+        ScaleVec<TS, EPV> s;
+        s.load(scale, e);
+        const uint4 rq = RES ? __ldg(rr + e) : make_uint4(0u, 0u, 0u, 0u);
+        dr[e] = bwd_vector<T, TS, RES>(__ldg(xr + e), __ldg(gr + e), rq, s, r,
+                                       mean_gx, acc + (size_t)e * EPV);
+      }
+    }
   }
-  float4* out = reinterpret_cast<float4*>(partial + (size_t)blockIdx.y * d +
-                                          (size_t)e * EPV);
-#pragma unroll
-  for (int q = 0; q < EPV / 4; ++q)
-    out[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+  __syncthreads();  // every warp's dscale row complete
+  for (int col = threadIdx.x; col < d; col += blockDim.x) {
+    float sum = 0.0f;
+    for (int w = 0; w < warps; ++w) sum = __fadd_rn(sum, acc_s[(size_t)w * d + col]);
+    partial[(size_t)blockIdx.x * d + col] = sum;
+  }
 }
 
 // dscale[col] = Σ over the tiles, in order, of partial[tile][col].
@@ -439,26 +526,55 @@ __global__ void __launch_bounds__(NTHREADS)
   dscale[col] = from_f32<TS>(s);
 }
 
-template <typename T, typename TS, bool RES>
-cudaError_t launch_bwd(const void* x, const void* dy, const void* res,
-                       const void* scale, void* dx, void* dscale, float* rstd,
-                       float* partial, int rows, int d, float eps,
-                       cudaStream_t s) {
-  const int row_blocks = (rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  norm_bwd_rows<T, TS, RES><<<row_blocks, NTHREADS, 0, s>>>(
+// Raise a kernel's dynamic shared-memory limit once per device when a launch
+// needs more than it was given (a benign race at worst repeats the call).
+template <typename K>
+cudaError_t allow_smem(K kern, int smem, int* allowed) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 64 && allowed[dev] >= smem) return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && dev < 64) allowed[dev] = smem;
+  return e;
+}
+
+template <typename T, typename TS, bool RES, int NV>
+cudaError_t launch_bwd_nv(const void* x, const void* dy, const void* res,
+                          const void* scale, void* dx, float* partial,
+                          int rows, int d, int tile_rows, int warps, float eps,
+                          cudaStream_t s) {
+  auto kern = norm_bwd_kernel<T, TS, NV, RES>;
+  static int allowed[64] = {};
+  const int smem = warps * d * (int)sizeof(float);
+  cudaError_t e = allow_smem(kern, smem, allowed);
+  if (e != cudaSuccess) return e;
+  kern<<<(rows + tile_rows - 1) / tile_rows, warps * 32, smem, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy),
       static_cast<const T*>(res), static_cast<const TS*>(scale),
-      static_cast<T*>(dx), rstd, rows, d, eps);
-  cudaError_t e = cudaGetLastError();
+      static_cast<T*>(dx), partial, rows, d, tile_rows, eps);
+  return cudaGetLastError();
+}
+
+template <typename T, typename TS, bool RES>
+cudaError_t launch_bwd(const void* x, const void* dy, const void* res,
+                       const void* scale, void* dx, void* dscale,
+                       float* partial, int rows, int d, int tile_rows,
+                       int warps, float eps, cudaStream_t s) {
+  const int per_lane = (d / Vec<T>::N + 31) / 32;
+  cudaError_t e;
+#define NORM_BWD_NV(n)                                                        \
+  if (per_lane <= n)                                                          \
+    e = launch_bwd_nv<T, TS, RES, n>(x, dy, res, scale, dx, partial, rows, d, \
+                                     tile_rows, warps, eps, s);               \
+  else
+  NORM_BWD_NV(4) NORM_BWD_NV(6) NORM_BWD_NV(8) NORM_BWD_NV(BWD_MAX_NV)
+#undef NORM_BWD_NV
+  e = launch_bwd_nv<T, TS, RES, 0>(x, dy, res, scale, dx, partial, rows, d,
+                                   tile_rows, warps, eps, s);
   if (e != cudaSuccess) return e;
-  const int nvec = d / Vec<T>::N;
-  const int n_tiles = (rows + BWD_TILE_ROWS - 1) / BWD_TILE_ROWS;
-  const dim3 grid((nvec + NTHREADS - 1) / NTHREADS, n_tiles);
-  norm_bwd_scale_partials<T><<<grid, NTHREADS, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), rstd, partial,
-      rows, d);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  const int n_tiles = (rows + tile_rows - 1) / tile_rows;
   norm_bwd_scale_sum<TS><<<(d + NTHREADS - 1) / NTHREADS, NTHREADS, 0, s>>>(
       partial, static_cast<TS*>(dscale), n_tiles, d);
   return cudaGetLastError();
@@ -467,12 +583,12 @@ cudaError_t launch_bwd(const void* x, const void* dy, const void* res,
 template <typename T, typename TS>
 cudaError_t launch_bwd_res(const void* x, const void* dy, const void* res,
                            const void* scale, void* dx, void* dscale,
-                           float* rstd, float* partial, int rows, int d,
-                           float eps, cudaStream_t s) {
-  return res ? launch_bwd<T, TS, true>(x, dy, res, scale, dx, dscale, rstd,
-                                       partial, rows, d, eps, s)
-             : launch_bwd<T, TS, false>(x, dy, res, scale, dx, dscale, rstd,
-                                        partial, rows, d, eps, s);
+                           float* partial, int rows, int d, int tile_rows,
+                           int warps, float eps, cudaStream_t s) {
+  return res ? launch_bwd<T, TS, true>(x, dy, res, scale, dx, dscale, partial,
+                                       rows, d, tile_rows, warps, eps, s)
+             : launch_bwd<T, TS, false>(x, dy, res, scale, dx, dscale, partial,
+                                        rows, d, tile_rows, warps, eps, s);
 }
 
 }  // namespace
@@ -500,31 +616,30 @@ int add_rms_norm_launch(const void* x, const void* delta, int x_bf16,
 // Backward of rms_norm (res null) or add_rms_norm (res: the gradient of
 // x_new, added to dx after its rounding): x the norm's input, dy the
 // gradient of its output, both (rows, d) like dx; dscale (d,) in scale's
-// dtype. Workspaces: rstd (rows,) f32 and partial (ceil(rows / tile
-// rows), d) f32, tile rows from rms_norm_bwd_tile_rows(). rows >= 1.
+// dtype. tile_rows rows a block, warps (1..8) warps a block (warps · d f32
+// of shared memory); partial: (ceil(rows / tile_rows), d) f32 workspace.
+// rows >= 1. Two launches on the stream.
 int rms_norm_bwd_launch(const void* x, const void* dy, const void* res,
                         int x_bf16, const void* scale, int scale_bf16, void* dx,
-                        void* dscale, void* rstd, void* partial, int rows,
-                        int d, float eps, void* stream) {
+                        void* dscale, void* partial, int rows, int d,
+                        int tile_rows, int warps, float eps, void* stream) {
   const int epv = x_bf16 ? 8 : 4;
-  if (d <= 0 || d % epv || rows <= 0)
+  if (d <= 0 || d % epv || rows <= 0 || tile_rows <= 0 || warps <= 0 ||
+      warps > BWD_MAX_WARPS || (long long)warps * d * 4 > BWD_MAX_SMEM)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* rs = static_cast<float*>(rstd);
   float* pt = static_cast<float*>(partial);
   using bf = __nv_bfloat16;
   cudaError_t e;
   if (x_bf16)
     e = scale_bf16
-            ? launch_bwd_res<bf, bf>(x, dy, res, scale, dx, dscale, rs, pt, rows, d, eps, s)
-            : launch_bwd_res<bf, float>(x, dy, res, scale, dx, dscale, rs, pt, rows, d, eps, s);
+            ? launch_bwd_res<bf, bf>(x, dy, res, scale, dx, dscale, pt, rows, d, tile_rows, warps, eps, s)
+            : launch_bwd_res<bf, float>(x, dy, res, scale, dx, dscale, pt, rows, d, tile_rows, warps, eps, s);
   else
     e = scale_bf16
-            ? launch_bwd_res<float, bf>(x, dy, res, scale, dx, dscale, rs, pt, rows, d, eps, s)
-            : launch_bwd_res<float, float>(x, dy, res, scale, dx, dscale, rs, pt, rows, d, eps, s);
+            ? launch_bwd_res<float, bf>(x, dy, res, scale, dx, dscale, pt, rows, d, tile_rows, warps, eps, s)
+            : launch_bwd_res<float, float>(x, dy, res, scale, dx, dscale, pt, rows, d, tile_rows, warps, eps, s);
   return static_cast<int>(e);
 }
-
-int rms_norm_bwd_tile_rows(void) { return BWD_TILE_ROWS; }
 
 }  // extern "C"

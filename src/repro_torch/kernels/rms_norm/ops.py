@@ -38,9 +38,22 @@ _SIGNATURES = {"rms_norm_launch": [_P, _I, _P, _I, _P, _I, _I,
                "add_rms_norm_launch": [_P, _P, _I, _P, _I, _P, _P, _I, _I,
                                        ctypes.c_float, _P],
                "rms_norm_bwd_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _P,
-                                       _P, _I, _I, ctypes.c_float, _P],
-               "rms_norm_bwd_tile_rows": []}
+                                       _I, _I, _I, _I, ctypes.c_float, _P]}
 _DTYPES = (torch.float32, torch.bfloat16)
+# the backward's tiling: rows a block (4096 rows are 128 blocks on the
+# card's 132 SMs), and at most 8 warps a block, as many as fit their rows
+# of d f32 dscale sums in the shared-memory budget
+BWD_TILE_ROWS = 32
+BWD_MAX_WARPS = 8
+BWD_SMEM_BUDGET = 128 * 1024
+
+
+def backward_tiling(rows: int, d: int):
+    """(warps a block, rows a block, blocks) of the backward kernel for
+    ``rows`` rows of width ``d``: the order of its dscale sums depends on
+    these alone, so on (rows, d) only."""
+    warps = max(1, min(BWD_MAX_WARPS, BWD_SMEM_BUDGET // (4 * d)))
+    return warps, BWD_TILE_ROWS, -(-rows // BWD_TILE_ROWS)
 
 
 def _check(scale, x, **more):
@@ -119,23 +132,23 @@ def rms_norm_backward_cuda(scale: torch.Tensor, x: torch.Tensor,
     output's gradient) (rows, d) contiguous on the card in one dtype, f32
     or bf16; scale (d,); ``dres`` (x's shape and dtype) the gradient of
     add_rms_norm's x + delta, or None. Returns (dx (+ dres) in x's dtype,
-    dscale in scale's dtype)."""
+    dscale in scale's dtype). Two launches: the rows in tiles of
+    ``backward_tiling``, x, dy and dres read once, with each tile's f32
+    partial of dscale; then the partials' sum in tile order."""
     more = {"dy": dy} if dres is None else {"dy": dy, "dres": dres}
     rows, d = _check(scale, x, **more)
     dx = torch.empty_like(x)
     if rows == 0:
         return dx, torch.zeros_like(scale)
     lib = _build.load(_SOURCE, _SIGNATURES)
-    tile = lib.rms_norm_bwd_tile_rows()
+    warps, tile, blocks = backward_tiling(rows, d)
     dscale = torch.empty_like(scale)
-    rstd = torch.empty((rows,), dtype=torch.float32, device=x.device)
-    partial = torch.empty((-(-rows // tile), d), dtype=torch.float32,
-                          device=x.device)
+    partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = lib.rms_norm_bwd_launch(
         x.data_ptr(), dy.data_ptr(), 0 if dres is None else dres.data_ptr(),
         _bf16(x), scale.data_ptr(), _bf16(scale), dx.data_ptr(),
-        dscale.data_ptr(), rstd.data_ptr(), partial.data_ptr(), rows, d,
+        dscale.data_ptr(), partial.data_ptr(), rows, d, tile, warps,
         float(eps), stream)
     _build.check(status, "rms_norm_bwd_launch")
     _build.count("rms_norm_bwd" if dres is None else "add_rms_norm_bwd")

@@ -375,194 +375,502 @@ cudaError_t dispatch(int x_bf16, int p_bf16, const void* r, const void* k,
 // The gradients of the forward above for its output's gradient dout, in
 // the formulas of PyTorch's autograd of the plain version
 // (ref.wkv6_backward_plain). The group norm's, per step and head, from the
-// readout y (yraw, in T) and its mean and rstd recomputed as the forward
-// did:
+// readout y (yraw, in T) and its mean and rstd recomputed:
 //     yn = (y - mean)·rstd,  dyn = dout·scale,  dscale = Σ dout·yn
 //     dy = T(rstd·((dyn - mean(dyn)) - yn·mean(dyn·yn)))
 // then the scan's, backwards over the steps, with D the gradient of the
-// state after step t (zero after the last step) and S the state before it:
-//     dr_i = Σ_j dy_j (S_ij + u_i k_i v_j),   du_i += Σ_j r_i dy_j k_i v_j
-//     dkv_ij = r_i dy_j u_i + D_ij (live),    dw_i = Σ_j D_ij S_ij (live)
-//     dk_i = Σ_j dkv_ij v_j,   dv_j = Σ_i dkv_ij k_i
+// state after step t (zero after the last step) and S the state before it.
+// The u-bonus terms are rank 1, so with a_t = Σ_j dy_j v_j and
+// c_t = Σ_i r_i u_i k_i (sums over the head, once a step):
+//     dr_i = Σ_j S_ij dy_j + u_i k_i a_t,   du_i += r_i k_i a_t
+//     dk_i = [live] Σ_j D_ij v_j + r_i u_i a_t,   dw_i = [live] Σ_j D_ij S_ij
+//     dv_j = [live] Σ_i D_ij k_i + c_t dy_j
 //     D_ij <- r_i dy_j + (w_i D_ij (live) or D_ij (padding))
-// The states before each step are recomputed forward, a tile of 32 steps
-// at a time, from the state the forward wrote at the tile's start (ckpt),
-// into a scratch of the block's own (ws): no division by w.
+// The states before each step are recomputed forward from the state the
+// forward wrote at each 32-step tile's start (ckpt), never by dividing by w,
+// and stay on chip.
 //
-// Design: one block a (row, head), a thread a row i of the state (hd
-// threads), holding row i of D in registers for the whole call and row i
-// of S for the recompute; the tiles run last to first. A tile stages r, k,
-// v, w, dout and the readout in shared memory (f32), the group norm's
-// backward runs a thread a step (sums over j in order), then the thread's
-// rows of the tile's states go to ws, and the steps run backwards: the
-// sums over j are the thread's own (in order); dv's sum over i goes
-// through a padded shared tile (a barrier pair a step) and thread j adds
-// column j in order of i. du and dscale add in f32 in each thread in step
-// order; a second launch adds the blocks' partials over the rows in row
-// order: no float atomics, so every bit is reproducible. Correct first:
-// 64 threads a block, ≈ 6·hd² operations a step on them.
+// Design: one block a (row, head) of 256 threads at hd 64 (32 at hd 16),
+// thread (p, q) holding columns 8q .. 8q + 7 (hd 16: 4q ..) of rows 2p and
+// 2p + 1 of D in registers for the whole call; the tiles run last to
+// first. Bound: operations (≈ 14·hd² a head and step, f32), 4.64 ms for
+// (u)'s 32 calls. What sets the time is the shared-memory pipe (every
+// thread reads its columns of v and dy each step, and the shuffles go the
+// same way), latency (each step is a few short chains of sums and
+// shuffles), and the blocks an SM: 201,472 bytes of shared memory a block
+// in bf16 (221,952 in f32), so one block (8 warps) an SM, and (u)'s 320
+// blocks take 3 waves of 132 (2.4 would do). Two rows a thread halve the
+// broadcast reads of v and dy and the shuffles of dv's sum against one row
+// of 16 columns a thread (faster at (u)'s shape; 8 threads a row, 512
+// threads at 128 registers, spilled and was slower). A tile:
+//   * its r, k, v, w, dout and readout arrive in one staging buffer by
+//     cp.async, issued before the previous tile's recompute and steps, so
+//     they land while those run; at the tile's start they are converted to
+//     f32 tiles (the staging buffer is then free for the next tile's
+//     copies: with the f32 tiles, two buffers);
+//   * the group norm's backward, a_t and c_t: a warp a step, a lane one
+//     (hd 16) or two (hd 64) channels, every sum over the head by the xor
+//     butterfly; each lane adds dout·yn of its channels over the steps;
+//   * the states: from ckpt, the tile's states before steps 4, 8, ..., 28
+//     (sub-tile checkpoints, 7·hd² f32 of shared memory, each thread its own
+//     elements, the 16-byte chunks of a row swizzled against bank
+//     conflicts) in one forward pass; then sub-tile by sub-tile from the
+//     last, the 4 states of the sub-tile in registers (recomputed with the
+//     forward's two roundings, w·S then + k·v, so they equal the forward's
+//     bit for bit), and its steps backwards. Recompute: 28 + 24 = 52 state
+//     steps a tile of 32, 1.6× the forward's (≈ 5 of the ≈ 19 operations
+//     an element and step);
+//   * a step: the sums over j of the thread's two rows (Σ S·dy, Σ D·v,
+//     Σ D·S) each in the thread in column order (fmaf), then across the
+//     row pair's 8 threads by one reduce-scatter (xor 4, 2, 1), which
+//     leaves each of 6 threads one of dr, dk, dw of one row; they overwrite
+//     the step's r, k and w in shared memory. dv's sum over i: the thread's
+//     two rows by an fmaf, then a reduce-scatter over the warp's 4 row
+//     pairs (xor 16, 8; each lane left with 2 columns), then through shared
+//     memory (two buffers) over the 8 warps in warp order after the
+//     sub-tile's one barrier; dv overwrites the step's v. The tile's
+//     gradients are written as coalesced rows at its end (writing dr, dk
+//     and dw from the step straight to device memory was slower).
+// du and dscale add in f32 in each thread in step order; a second launch
+// adds the blocks' partials over the rows in row order: no float atomics,
+// so every bit is reproducible. No scratch grows with B·H·hd².
+//
+// nvcc -Xptxas -v (sm_90a): hd 64, 216 registers a thread with bf16
+// activations (198 with f32), hd 16 158 (145); no spills. Shared memory, not
+// registers, holds a block to one an SM.
 
-template <int HD>
-struct BwdSmem {  // floats of the backward's shared memory
+template <int HD, typename T>
+struct Bwd {
+  static constexpr int L = 4;             // steps a sub-tile
+  static constexpr int NSUB = TILE / L;   // sub-tiles a tile
+  static constexpr int CPT = HD == 64 ? 8 : 4;  // columns a thread (of 2 rows)
+  static constexpr int TPR = HD / CPT;    // threads a pair of state rows
+  static constexpr int NT = HD / 2 * TPR;  // threads a block
+  static constexpr int NW = NT / 32;      // warps
+  static constexpr int VPL = (HD + 31) / 32;  // channels a lane (group norm)
   static constexpr int TS = TILE * HD;
-  static constexpr size_t floats = 7 * (size_t)TS + HD * (HD + 1) + HD;
+  // floats: sub-tile checkpoints, r, k, v, w, dy tiles, dv partials (two
+  // buffers), a_t, c_t, u, scale; then the staging buffer's bytes
+  static constexpr size_t floats = (size_t)(NSUB - 1) * HD * HD + 5 * TS +
+                                   2 * (size_t)L * NW * HD + 2 * TILE + 2 * HD;
+  static constexpr size_t raw_bytes = (size_t)TILE * HD * (4 + 5 * sizeof(T));
+  static constexpr size_t smem = floats * sizeof(float) + raw_bytes;
+  // the 16-byte chunk k of a row of a sub-tile checkpoint: at hd 64 the 8
+  // lanes of one shared-memory phase (a row pair's 8 threads, 2 chunks a
+  // row each) land in 8 distinct bank groups
+  __device__ static int chunk(int k) {
+    if constexpr (HD == 64) return k ^ ((k >> 3) & 1);
+    return k;
+  }
 };
 
-struct BwdArgs {
-  const void *r, *k, *v, *w, *u, *ckpt, *yraw, *lengths, *scale, *dout;
-  void *dr, *dk, *dv, *dw, *ws, *part, *du, *dscale;
-  int B, S, H;
-  float eps;
-};
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// Issue the cp.async copies of nt steps of one (row, head) into the staging
+// buffer: w (f32), then r, k, v, dout, yraw (T), each (TILE, HD).
+template <int HD, typename T>
+__device__ __forceinline__ void bwd_stage(unsigned char* raw, const T* r, const T* k,
+                                          const T* v, const float* w,
+                                          const T* dout, const T* yraw,
+                                          size_t base, size_t step_stride, int nt,
+                                          int tid) {
+  using Bw = Bwd<HD, T>;
+  constexpr int EPC = 16 / sizeof(T);
+  constexpr int CR = HD / EPC;
+  float* ws = reinterpret_cast<float*>(raw);
+  T* rs = reinterpret_cast<T*>(ws + Bw::TS);
+  for (int c = tid; c < nt * (HD / 4); c += Bw::NT) {
+    const int t = c / (HD / 4), e = (c % (HD / 4)) * 4;
+    cp_async16(ws + t * HD + e, w + base + (size_t)t * step_stride + e);
+  }
+  for (int c = tid; c < nt * CR; c += Bw::NT) {
+    const int t = c / CR, e = (c % CR) * EPC;
+    const size_t g = base + (size_t)t * step_stride + e;
+    const int o = t * HD + e;
+    cp_async16(rs + o, r + g);
+    cp_async16(rs + Bw::TS + o, k + g);
+    cp_async16(rs + 2 * Bw::TS + o, v + g);
+    cp_async16(rs + 3 * Bw::TS + o, dout + g);
+    cp_async16(rs + 4 * Bw::TS + o, yraw + g);
+  }
+}
+
+// Sums over lanes by recursive halving: x[0..N) of every lane summed over
+// the lane bits HI, HI/2, ..., LO, each lane keeping half of its values
+// while it has more than one (the upper half where its bit is set), then
+// the plain butterfly; returns the index of the first kept value (base);
+// `dup` is set where another lane holds the same sums.
+template <int N, int HI, int LO>
+__device__ __forceinline__ void reduce_scatter(float (&x)[N], int lane, int& base,
+                                               bool& dup) {
+  base = 0;
+  dup = false;
+  int n = N;
+#pragma unroll
+  for (int o = HI; o >= LO; o >>= 1) {
+    if (n > 1) {
+      const int half = n / 2;
+      const bool upper = (lane & o) != 0;
+#pragma unroll
+      for (int c = 0; c < N / 2; ++c) {
+        if (c < half) {
+          const float send = upper ? x[c] : x[c + half];
+          const float keep = upper ? x[c + half] : x[c];
+          x[c] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, o));
+        }
+      }
+      if (upper) base += half;
+      n = half;
+    } else {
+      x[0] = __fadd_rn(x[0], __shfl_xor_sync(0xffffffffu, x[0], o));
+      dup = dup || (lane & o) != 0;
+    }
+  }
+}
+
+// The thread's CPT columns of a state row (16-byte chunks k0.., through
+// `chunk` when swizzled) into dst.
+template <int HD, typename T, int CPT>
+__device__ __forceinline__ void load_row(float (&dst)[CPT], const float* row, int k0,
+                                         bool swizzled) {
+#pragma unroll
+  for (int c4 = 0; c4 < CPT / 4; ++c4) {
+    const int k = swizzled ? Bwd<HD, T>::chunk(k0 + c4) : k0 + c4;
+    const float4 x = reinterpret_cast<const float4*>(row)[k];
+    dst[4 * c4] = x.x; dst[4 * c4 + 1] = x.y; dst[4 * c4 + 2] = x.z; dst[4 * c4 + 3] = x.w;
+  }
+}
+
+template <int HD, typename T, int CPT>
+__device__ __forceinline__ void store_row(float* row, const float (&src)[CPT], int k0) {
+#pragma unroll
+  for (int c4 = 0; c4 < CPT / 4; ++c4)
+    reinterpret_cast<float4*>(row)[Bwd<HD, T>::chunk(k0 + c4)] =
+        make_float4(src[4 * c4], src[4 * c4 + 1], src[4 * c4 + 2], src[4 * c4 + 3]);
+}
+
+// One state update of the thread's two rows, as the forward rounds it:
+// S = w·S, then + k·v (v: the thread's CPT columns of the step's v).
+template <int CPT>
+__device__ __forceinline__ void recompute(float (&dst)[2][CPT], const float (&src)[2][CPT],
+                                          float2 w2, float2 k2, const float* v) {
+#pragma unroll
+  for (int c4 = 0; c4 < CPT / 4; ++c4) {
+    const float4 x = reinterpret_cast<const float4*>(v)[c4];
+    const float vj[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const int c = 4 * c4 + cc;
+      dst[0][c] = __fadd_rn(__fmul_rn(w2.x, src[0][c]), __fmul_rn(k2.x, vj[cc]));
+      dst[1][c] = __fadd_rn(__fmul_rn(w2.y, src[1][c]), __fmul_rn(k2.y, vj[cc]));
+    }
+  }
+}
 
 template <int HD, typename T, typename TP>
-__global__ void __launch_bounds__(HD)
+__global__ void __launch_bounds__(Bwd<HD, T>::NT, 1)
     wkv6_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
                     const T* __restrict__ v, const float* __restrict__ w,
                     const TP* __restrict__ u, const float* __restrict__ ckpt,
                     const T* __restrict__ yraw, const int* __restrict__ lengths,
                     const TP* __restrict__ scale, const T* __restrict__ dout,
                     T* __restrict__ dr, T* __restrict__ dk, T* __restrict__ dv,
-                    float* __restrict__ dw, float* __restrict__ ws,
-                    float* __restrict__ part, int S, int H, float eps) {
-  using Sm = BwdSmem<HD>;
+                    float* __restrict__ dw, float* __restrict__ part, int S,
+                    int H, float eps) {
+  using Bw = Bwd<HD, T>;
+  constexpr int L = Bw::L, TPR = Bw::TPR, CPT = Bw::CPT, NT = Bw::NT, NW = Bw::NW;
+  constexpr int TS = Bw::TS, VPL = Bw::VPL;
   extern __shared__ __align__(16) float sm[];
-  float* r_s = sm;             // (TILE, HD) each
-  float* k_s = r_s + Sm::TS;
-  float* v_s = k_s + Sm::TS;
-  float* w_s = v_s + Sm::TS;
-  float* do_s = w_s + Sm::TS;  // dout
-  float* yn_s = do_s + Sm::TS;  // the readout, then yn
-  float* dy_s = yn_s + Sm::TS;
-  float* tr_s = dy_s + Sm::TS;  // (HD, HD + 1): dkv_ij·k_i
-  float* sc_s = tr_s + HD * (HD + 1);
-  const int i = threadIdx.x;
+  float* sub_s = sm;                              // (NSUB - 1, HD, HD)
+  float* r_s = sub_s + (Bw::NSUB - 1) * HD * HD;  // (TILE, HD) each: r, then dr
+  float* k_s = r_s + TS;                          // k, then dk
+  float* v_s = k_s + TS;                          // v, then dv
+  float* w_s = v_s + TS;                          // w, then dw
+  float* dy_s = w_s + TS;
+  float* dvp = dy_s + TS;                         // (2, L, NW, HD)
+  float* a_s = dvp + 2 * L * NW * HD;             // (TILE,) a_t, then c_t
+  float* c_s = a_s + TILE;
+  float* u_s = c_s + TILE;                        // (HD,)
+  float* sc_s = u_s + HD;
+  unsigned char* raw = reinterpret_cast<unsigned char*>(sc_s + HD);
+  const float* rw = reinterpret_cast<const float*>(raw);
+  const T* rt = reinterpret_cast<const T*>(rw + TS);  // r, k, v, dout, yraw
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int q = tid % TPR, j0 = q * CPT, k0 = j0 / 4;  // the thread's columns
+  const int i0 = 2 * (tid / TPR);                      // its rows i0, i0 + 1
   const int h = blockIdx.x, b = blockIdx.y, B = gridDim.y;
   int len = lengths[b];
   len = len < 0 ? 0 : (len > S ? S : len);
   const int ntiles = (S + TILE - 1) / TILE;
   const size_t step_stride = (size_t)H * HD;
   const size_t row0 = ((size_t)b * S * H + h) * HD;
-  const float ui = ld(u, (size_t)h * HD + i);
-  sc_s[i] = ld(scale, (size_t)h * HD + i);
-  float* wsb = ws + ((size_t)b * H + h) * (S < TILE ? S : TILE) * HD * HD;
-  const float* cpb = ckpt + ((size_t)b * H + h) * ntiles * HD * HD;
-  float D[HD], Srow[HD];
+  const float* cpb = ckpt + ((size_t)b * H + h) * ntiles * HD * HD + (size_t)i0 * HD;
+  for (int e = tid; e < HD; e += NT) {
+    u_s[e] = ld(u, (size_t)h * HD + e);
+    sc_s[e] = ld(scale, (size_t)h * HD + e);
+  }
+  {
+    const int t0 = (ntiles - 1) * TILE;
+    bwd_stage<HD, T>(raw, r, k, v, w, dout, yraw, row0 + (size_t)t0 * step_stride,
+                     step_stride, S - t0, tid);
+    cp_async_commit();
+  }
+  float D[2][CPT];
 #pragma unroll
-  for (int j = 0; j < HD; ++j) D[j] = 0.0f;
-  float du_acc = 0.0f, dsc_acc = 0.0f;
+  for (int c = 0; c < CPT; ++c) D[0][c] = D[1][c] = 0.0f;
+  float du0 = 0.0f, du1 = 0.0f, dsc[VPL];
+#pragma unroll
+  for (int e = 0; e < VPL; ++e) dsc[e] = 0.0f;
 
   for (int n = ntiles - 1; n >= 0; --n) {
     const int t0 = n * TILE;
     const int nt = S - t0 < TILE ? S - t0 : TILE;
-    __syncthreads();  // the previous tile's reads of the buffers are done
-    for (int e = i; e < nt * HD; e += HD) {
-      const size_t g = row0 + (size_t)(t0 + e / HD) * step_stride + e % HD;
-      r_s[e] = ld(r, g);
-      k_s[e] = ld(k, g);
-      v_s[e] = ld(v, g);
-      w_s[e] = __ldg(w + g);
-      do_s[e] = ld(dout, g);
-      yn_s[e] = ld(yraw, g);
-    }
-    __syncthreads();
-    for (int s = i; s < nt; s += HD) {  // the group norm's backward of step s
-      float* ys = yn_s + s * HD;
-      const float* dos = do_s + s * HD;
+    cp_async_wait_all();
+    __syncthreads();  // the tile staged; the previous tile's gradients written
+    // the group norm's backward, a_t and c_t: a warp a step
+    for (int t = warp; t < nt; t += NW) {
+      float y[VPL], dov[VPL], vv[VPL], rr[VPL], kk[VPL];
       float sum = 0.0f;
-      for (int j = 0; j < HD; ++j) sum = __fadd_rn(sum, ys[j]);
-      const float mean = __fdiv_rn(sum, (float)HD);
+#pragma unroll
+      for (int e = 0; e < VPL; ++e) {
+        const int j = lane + 32 * e, o = t * HD + j;
+        const bool in = j < HD;
+        y[e] = in ? to_f32(rt[4 * TS + o]) : 0.0f;
+        dov[e] = in ? to_f32(rt[3 * TS + o]) : 0.0f;
+        rr[e] = in ? to_f32(rt[o]) : 0.0f;
+        kk[e] = in ? to_f32(rt[TS + o]) : 0.0f;
+        vv[e] = in ? to_f32(rt[2 * TS + o]) : 0.0f;
+        if (in) {
+          r_s[o] = rr[e];
+          k_s[o] = kk[e];
+          v_s[o] = vv[e];
+          w_s[o] = rw[o];
+        }
+        sum = __fadd_rn(sum, y[e]);
+      }
+      const float mean = __fdiv_rn(warp_sum(sum), (float)HD);
       float sq = 0.0f;
-      for (int j = 0; j < HD; ++j) {
-        const float d = __fsub_rn(ys[j], mean);
-        sq = __fadd_rn(sq, __fmul_rn(d, d));
+#pragma unroll
+      for (int e = 0; e < VPL; ++e) {
+        const float d = lane + 32 * e < HD ? __fsub_rn(y[e], mean) : 0.0f;
+        sq = fmaf(d, d, sq);
       }
-      const float rs = rsqrtf(__fadd_rn(__fdiv_rn(sq, (float)HD), eps));
-      float m1 = 0.0f, m2 = 0.0f;
-      for (int j = 0; j < HD; ++j) {
-        const float yn = __fmul_rn(__fsub_rn(ys[j], mean), rs);
-        const float dyn = __fmul_rn(dos[j], sc_s[j]);
-        m1 = __fadd_rn(m1, dyn);
-        m2 = __fadd_rn(m2, __fmul_rn(dyn, yn));
+      const float rs = rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(sq), (float)HD), eps));
+      float yn[VPL], dyn[VPL], m1 = 0.0f, m2 = 0.0f;
+#pragma unroll
+      for (int e = 0; e < VPL; ++e) {
+        const int j = lane + 32 * e;
+        const bool in = j < HD;
+        yn[e] = in ? __fmul_rn(__fsub_rn(y[e], mean), rs) : 0.0f;
+        dyn[e] = in ? __fmul_rn(dov[e], sc_s[j]) : 0.0f;
+        m1 = __fadd_rn(m1, dyn[e]);
+        m2 = fmaf(dyn[e], yn[e], m2);
+        dsc[e] = fmaf(dov[e], yn[e], dsc[e]);
       }
-      m1 = __fdiv_rn(m1, (float)HD);
-      m2 = __fdiv_rn(m2, (float)HD);
-      for (int j = 0; j < HD; ++j) {
-        const float yn = __fmul_rn(__fsub_rn(ys[j], mean), rs);
-        const float dyn = __fmul_rn(dos[j], sc_s[j]);
-        dy_s[s * HD + j] = round_to(
-            __fmul_rn(rs, __fsub_rn(__fsub_rn(dyn, m1), __fmul_rn(yn, m2))), (T*)nullptr);
-        ys[j] = yn;
+      m1 = __fdiv_rn(warp_sum(m1), (float)HD);
+      m2 = __fdiv_rn(warp_sum(m2), (float)HD);
+      float a = 0.0f, c = 0.0f;
+#pragma unroll
+      for (int e = 0; e < VPL; ++e) {
+        const int j = lane + 32 * e;
+        if (j < HD) {
+          const float dy = round_to(
+              __fmul_rn(rs, __fsub_rn(__fsub_rn(dyn[e], m1), __fmul_rn(yn[e], m2))),
+              (T*)nullptr);
+          dy_s[t * HD + j] = dy;
+          a = fmaf(dy, vv[e], a);
+          c = fmaf(__fmul_rn(rr[e], u_s[j]), kk[e], c);
+        }
+      }
+      a = warp_sum(a);
+      c = warp_sum(c);
+      if (lane == 0) {
+        a_s[t] = a;
+        c_s[t] = c;
       }
     }
-    __syncthreads();
-    for (int s = 0; s < nt; ++s)  // dscale of channel i, in step order
-      dsc_acc = __fadd_rn(dsc_acc, __fmul_rn(do_s[s * HD + i], yn_s[s * HD + i]));
-    // the tile's states before each step, row i, into ws
-    {
-      const float4* src = reinterpret_cast<const float4*>(cpb + (size_t)n * HD * HD + (size_t)i * HD);
+    __syncthreads();  // the f32 tiles complete; the staging buffer is free
+    if (n > 0) {      // the next tile's copies land while this one runs
+      const int t1 = t0 - TILE;
+      bwd_stage<HD, T>(raw, r, k, v, w, dout, yraw, row0 + (size_t)t1 * step_stride,
+                       step_stride, TILE, tid);
+      cp_async_commit();
+    }
+    const int nsub = (nt + L - 1) / L;
+    {  // the sub-tile checkpoints: the states before steps 4, 8, ... (each
+       // thread its own elements: no barrier)
+      float St[2][CPT];
+      load_row<HD, T, CPT>(St[0], cpb + (size_t)n * HD * HD, k0, false);
+      load_row<HD, T, CPT>(St[1], cpb + (size_t)n * HD * HD + HD, k0, false);
+      for (int m = 1; m < nsub; ++m) {
 #pragma unroll
-      for (int j4 = 0; j4 < HD / 4; ++j4) {
-        const float4 x = src[j4];
-        Srow[4 * j4] = x.x; Srow[4 * j4 + 1] = x.y; Srow[4 * j4 + 2] = x.z; Srow[4 * j4 + 3] = x.w;
+        for (int s = 0; s < L; ++s) {
+          const int t = (m - 1) * L + s;
+          if (t0 + t < len)
+            recompute<CPT>(St, St, *reinterpret_cast<const float2*>(w_s + t * HD + i0),
+                           *reinterpret_cast<const float2*>(k_s + t * HD + i0),
+                           v_s + t * HD + j0);
+        }
+        float* dst = sub_s + (size_t)(m - 1) * HD * HD + (size_t)i0 * HD;
+        store_row<HD, T, CPT>(dst, St[0], k0);
+        store_row<HD, T, CPT>(dst + HD, St[1], k0);
       }
     }
-    for (int s = 0; s < nt; ++s) {
-      float4* dst = reinterpret_cast<float4*>(wsb + ((size_t)s * HD + i) * HD);
-#pragma unroll
-      for (int j4 = 0; j4 < HD / 4; ++j4)
-        dst[j4] = make_float4(Srow[4 * j4], Srow[4 * j4 + 1], Srow[4 * j4 + 2], Srow[4 * j4 + 3]);
-      if (t0 + s < len) {
-        const float ki = k_s[s * HD + i], wi = w_s[s * HD + i];
-#pragma unroll
-        for (int j = 0; j < HD; ++j)
-          Srow[j] = __fadd_rn(__fmul_rn(wi, Srow[j]), __fmul_rn(ki, v_s[s * HD + j]));
-      }
-    }
-    for (int s = nt - 1; s >= 0; --s) {  // the steps backwards
-      const bool live = t0 + s < len;
+    for (int m = nsub - 1; m >= 0; --m) {
+      const int ts = m * L;
+      const int ns = nt - ts < L ? nt - ts : L;
+      float Sr[L][2][CPT];  // the states before steps ts .. ts + ns - 1
       {
-        const float4* src = reinterpret_cast<const float4*>(wsb + ((size_t)s * HD + i) * HD);
+        const float* src = m == 0 ? cpb + (size_t)n * HD * HD
+                                  : sub_s + (size_t)(m - 1) * HD * HD + (size_t)i0 * HD;
+        load_row<HD, T, CPT>(Sr[0][0], src, k0, m != 0);
+        load_row<HD, T, CPT>(Sr[0][1], src + HD, k0, m != 0);
+      }
 #pragma unroll
-        for (int j4 = 0; j4 < HD / 4; ++j4) {
-          const float4 x = src[j4];
-          Srow[4 * j4] = x.x; Srow[4 * j4 + 1] = x.y; Srow[4 * j4 + 2] = x.z; Srow[4 * j4 + 3] = x.w;
+      for (int s = 1; s < L; ++s) {
+        if (s < ns) {
+          const int t = ts + s - 1;
+          if (t0 + t < len) {
+            recompute<CPT>(Sr[s], Sr[s - 1], *reinterpret_cast<const float2*>(w_s + t * HD + i0),
+                           *reinterpret_cast<const float2*>(k_s + t * HD + i0),
+                           v_s + t * HD + j0);
+          } else {
+#pragma unroll
+            for (int c = 0; c < CPT; ++c) {
+              Sr[s][0][c] = Sr[s - 1][0][c];
+              Sr[s][1][c] = Sr[s - 1][1][c];
+            }
+          }
         }
       }
-      const float ri = r_s[s * HD + i], ki = k_s[s * HD + i], wi = w_s[s * HD + i];
-      float dri = 0.0f, dki = 0.0f, dwi = 0.0f, dui = 0.0f;
+      float* dvb = dvp + (m & 1) * L * NW * HD;
 #pragma unroll
-      for (int j = 0; j < HD; ++j) {
-        const float vj = v_s[s * HD + j], dyj = dy_s[s * HD + j];
-        const float kv = __fmul_rn(ki, vj);
-        dri = __fadd_rn(dri, __fmul_rn(dyj, __fadd_rn(Srow[j], __fmul_rn(ui, kv))));
-        const float dz = __fmul_rn(ri, dyj);
-        dui = __fadd_rn(dui, __fmul_rn(dz, kv));
-        float dkv = __fmul_rn(dz, ui);
-        if (live) {
-          dkv = __fadd_rn(dkv, D[j]);
-          dwi = __fadd_rn(dwi, __fmul_rn(D[j], Srow[j]));
-          D[j] = __fadd_rn(dz, __fmul_rn(wi, D[j]));
-        } else {
-          D[j] = __fadd_rn(dz, D[j]);
+      for (int s = L - 1; s >= 0; --s) {  // the sub-tile's steps backwards
+        if (s < ns) {
+          const int t = ts + s;
+          const bool live = t0 + t < len;
+          const float2 r2 = *reinterpret_cast<const float2*>(r_s + t * HD + i0);
+          const float2 k2 = *reinterpret_cast<const float2*>(k_s + t * HD + i0);
+          const float2 w2 = *reinterpret_cast<const float2*>(w_s + t * HD + i0);
+          const float a = a_s[t];
+          float vj[CPT], dyj[CPT];
+#pragma unroll
+          for (int c4 = 0; c4 < CPT / 4; ++c4) {
+            const float4 x = reinterpret_cast<const float4*>(v_s + t * HD + j0)[c4];
+            const float4 g = reinterpret_cast<const float4*>(dy_s + t * HD + j0)[c4];
+            vj[4 * c4] = x.x; vj[4 * c4 + 1] = x.y; vj[4 * c4 + 2] = x.z; vj[4 * c4 + 3] = x.w;
+            dyj[4 * c4] = g.x; dyj[4 * c4 + 1] = g.y; dyj[4 * c4 + 2] = g.z; dyj[4 * c4 + 3] = g.w;
+          }
+          // the rows' sums over the thread's columns, in column order:
+          // Σ S·dy, Σ D·v, Σ D·S of rows i0 and i0 + 1 (two slots unused)
+          float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, pv[CPT];
+#pragma unroll
+          for (int c = 0; c < CPT; ++c) {
+            x[0] = fmaf(Sr[s][0][c], dyj[c], x[0]);
+            x[1] = fmaf(Sr[s][1][c], dyj[c], x[1]);
+          }
+          if (live) {
+#pragma unroll
+            for (int c = 0; c < CPT; ++c) {
+              pv[c] = fmaf(D[1][c], k2.y, __fmul_rn(D[0][c], k2.x));
+              x[2] = fmaf(D[0][c], vj[c], x[2]);
+              x[3] = fmaf(D[1][c], vj[c], x[3]);
+              x[4] = fmaf(D[0][c], Sr[s][0][c], x[4]);
+              x[5] = fmaf(D[1][c], Sr[s][1][c], x[5]);
+              D[0][c] = fmaf(w2.x, D[0][c], __fmul_rn(r2.x, dyj[c]));
+              D[1][c] = fmaf(w2.y, D[1][c], __fmul_rn(r2.y, dyj[c]));
+            }
+          } else {
+#pragma unroll
+            for (int c = 0; c < CPT; ++c) {
+              D[0][c] = __fadd_rn(D[0][c], __fmul_rn(r2.x, dyj[c]));
+              D[1][c] = __fadd_rn(D[1][c], __fmul_rn(r2.y, dyj[c]));
+            }
+          }
+          du0 = fmaf(__fmul_rn(r2.x, k2.x), a, du0);
+          du1 = fmaf(__fmul_rn(r2.y, k2.y), a, du1);
+          int xb;
+          bool xdup;
+          reduce_scatter<8, TPR / 2, 1>(x, lane, xb, xdup);  // over the pair's threads
+          __syncwarp();  // the pair's threads have read r, k, w of step t
+#pragma unroll
+          for (int c = 0; c < 8 / TPR; ++c) {
+            const int idx = xb + c;  // 0, 1: dr; 2, 3: dk; 4, 5: dw of rows i0, i0 + 1
+            const int row = i0 + (idx & 1);
+            const float ri = idx & 1 ? r2.y : r2.x, ki = idx & 1 ? k2.y : k2.x;
+            const float ui = u_s[row];
+            if (idx < 2)
+              r_s[t * HD + row] = fmaf(__fmul_rn(ui, ki), a, x[c]);
+            else if (idx < 4)
+              k_s[t * HD + row] = fmaf(__fmul_rn(ri, ui), a, x[c]);
+            else if (idx < 6)
+              w_s[t * HD + row] = live ? x[c] : 0.0f;
+          }
+          if (live) {  // uniform over the block
+            int base;
+            bool dup;
+            reduce_scatter<CPT, 16, TPR>(pv, lane, base, dup);  // over the warp's row pairs
+            if (!dup) {
+              constexpr int KEPT = (CPT >> (TPR == 8 ? 2 : 3)) > 0 ? (CPT >> (TPR == 8 ? 2 : 3)) : 1;
+#pragma unroll
+              for (int c = 0; c < KEPT; ++c)
+                dvb[(s * NW + warp) * HD + j0 + base + c] = pv[c];
+            }
+          }
         }
-        dki = __fadd_rn(dki, __fmul_rn(dkv, vj));
-        tr_s[i * (HD + 1) + j] = __fmul_rn(dkv, ki);
       }
-      du_acc = __fadd_rn(du_acc, dui);
-      const size_t g = row0 + (size_t)(t0 + s) * step_stride + i;
-      st(dr, g, dri);
-      st(dk, g, dki);
-      dw[g] = dwi;
-      __syncthreads();
-      float dvj = 0.0f;
-      for (int ii = 0; ii < HD; ++ii) dvj = __fadd_rn(dvj, tr_s[ii * (HD + 1) + i]);
-      st(dv, g, dvj);
-      __syncthreads();
+      __syncthreads();  // the sub-tile's dv partials complete
+      for (int e = tid; e < L * HD; e += NT) {  // dv of the sub-tile's steps: (g, j), the warps in order
+        const int g = e / HD, j = e % HD;
+        if (g < ns) {
+          const int t = ts + g;
+          float acc = 0.0f;
+          if (t0 + t < len) {
+#pragma unroll
+            for (int ww = 0; ww < NW; ++ww) acc = __fadd_rn(acc, dvb[(g * NW + ww) * HD + j]);
+          }
+          v_s[t * HD + j] = fmaf(c_s[t], dy_s[t * HD + j], acc);
+        }
+      }
+    }
+    __syncthreads();  // the tile's dr, dk, dv, dw complete
+    for (int e = 4 * tid; e < nt * HD; e += 4 * NT) {  // coalesced rows of hd
+      const int t = e / HD, c = e % HD;
+      const size_t g = row0 + (size_t)(t0 + t) * step_stride + c;
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        st(dr, g + x, r_s[e + x]);
+        st(dk, g + x, k_s[e + x]);
+        st(dv, g + x, v_s[e + x]);
+      }
+      *reinterpret_cast<float4*>(dw + g) = *reinterpret_cast<const float4*>(w_s + e);
     }
   }
-  part[(size_t)b * H * HD + (size_t)h * HD + i] = du_acc;
-  part[((size_t)B + b) * H * HD + (size_t)h * HD + i] = dsc_acc;
+  // du of rows i0, i0 + 1; dscale of the lanes' channels, the warps in order
+  if (q == 0) {
+    part[(size_t)b * H * HD + (size_t)h * HD + i0] = du0;
+    part[(size_t)b * H * HD + (size_t)h * HD + i0 + 1] = du1;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < VPL; ++e)
+    if (lane + 32 * e < HD) dvp[warp * HD + lane + 32 * e] = dsc[e];
+  __syncthreads();
+  for (int j = tid; j < HD; j += NT) {
+    float s = 0.0f;
+#pragma unroll
+    for (int ww = 0; ww < NW; ++ww) s = __fadd_rn(s, dvp[ww * HD + j]);
+    part[((size_t)B + b) * H * HD + (size_t)h * HD + j] = s;
+  }
 }
 
 // du and dscale: the blocks' partials (2, B, D) summed over rows in row
@@ -582,10 +890,17 @@ __global__ void wkv6_bwd_reduce_kernel(const float* __restrict__ part,
   st(dscale, c, s1);
 }
 
+struct BwdArgs {
+  const void *r, *k, *v, *w, *u, *ckpt, *yraw, *lengths, *scale, *dout;
+  void *dr, *dk, *dv, *dw, *part, *du, *dscale;
+  int B, S, H;
+  float eps;
+};
+
 template <int HD, typename T, typename TP>
 cudaError_t bwd_launch(const BwdArgs& a, cudaStream_t s) {
   auto kern = wkv6_bwd_kernel<HD, T, TP>;
-  const int smem = static_cast<int>(BwdSmem<HD>::floats * sizeof(float));
+  const int smem = static_cast<int>(Bwd<HD, T>::smem);
   static int allowed[64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -595,15 +910,14 @@ cudaError_t bwd_launch(const BwdArgs& a, cudaStream_t s) {
     if (e != cudaSuccess) return e;
     if (dev < 64) allowed[dev] = smem;
   }
-  kern<<<dim3(a.H, a.B), HD, smem, s>>>(
+  kern<<<dim3(a.H, a.B), Bwd<HD, T>::NT, smem, s>>>(
       static_cast<const T*>(a.r), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const float*>(a.w),
       static_cast<const TP*>(a.u), static_cast<const float*>(a.ckpt),
       static_cast<const T*>(a.yraw), static_cast<const int*>(a.lengths),
       static_cast<const TP*>(a.scale), static_cast<const T*>(a.dout),
       static_cast<T*>(a.dr), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-      static_cast<float*>(a.dw), static_cast<float*>(a.ws),
-      static_cast<float*>(a.part), a.S, a.H, a.eps);
+      static_cast<float*>(a.dw), static_cast<float*>(a.part), a.S, a.H, a.eps);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int d = a.H * HD;
@@ -651,18 +965,18 @@ int wkv6_launch(const void* r, const void* k, const void* v, const void* w,
 // The backward: the forward's inputs, ckpt and yraw as its forward wrote
 // them, dout (B, S, H, hd) in the activation dtype; writes dr, dk, dv in
 // the activation dtype and dw f32 (B, S, H, hd), du (H, hd) and dscale
-// (H·hd,) in the parameter dtype; ws: (B·H, min(S, 32), hd, hd) f32 and
-// part: (2, B, H·hd) f32 scratch. Two launches on the stream.
+// (H·hd,) in the parameter dtype; part: (2, B, H·hd) f32 scratch; dout,
+// yraw and ckpt 16-byte aligned. Two launches on the stream.
 int wkv6_bwd_launch(const void* r, const void* k, const void* v, const void* w,
                     const void* u, const void* ckpt, const void* yraw,
                     const void* lengths, const void* scale, const void* dout,
-                    void* dr, void* dk, void* dv, void* dw, void* ws,
-                    void* part, void* du, void* dscale, int x_bf16, int p_bf16,
+                    void* dr, void* dk, void* dv, void* dw, void* part,
+                    void* du, void* dscale, int x_bf16, int p_bf16,
                     int B, int S, int H, int hd, float eps, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const BwdArgs a{r, k, v, w, u, ckpt, yraw, lengths, scale, dout, dr, dk, dv,
-                  dw, ws, part, du, dscale, B, S, H, eps};
+                  dw, part, du, dscale, B, S, H, eps};
   switch (hd) {
     case 16: return static_cast<int>(bwd_dispatch<16>(x_bf16, p_bf16, a, s));
     case 64: return static_cast<int>(bwd_dispatch<64>(x_bf16, p_bf16, a, s));

@@ -19,7 +19,9 @@ running it backwards by dividing by w would be inexact, and unstable
 where w is small. So the forward kernel also writes the state at the
 start of each 32-step tile ((B, H, ⌈S/32⌉, hd, hd) f32: 84 MB a layer at 8
 × 512 × 40 heads of 64) and the readout before its norm, and the
-backward recomputes each tile's states from its checkpoint. du and dscale
+backward recomputes each tile's states from its checkpoint on chip
+(sub-tile checkpoints in shared memory, a sub-tile's states in
+registers; no scratch grows with B·H·hd²). du and dscale
 are summed in a fixed order with no float atomics (each block's f32
 partial, then a launch that sums them in row order), so a training run
 is bit-reproducible.
@@ -41,7 +43,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {"wkv6_launch": [_P] * 11 + [_I] * 6 + [_F, _P],
-               "wkv6_bwd_launch": [_P] * 18 + [_I] * 6 + [_F, _P]}
+               "wkv6_bwd_launch": [_P] * 17 + [_I] * 6 + [_F, _P]}
 TILE = 32  # steps between two of the forward's state checkpoints
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 64)  # the configs' rwkv_head_dim: full width and smoke
@@ -142,10 +144,13 @@ def wkv6_backward_cuda(r, k, v, w, u, lengths, scale, ckpt, yraw, dout,
     takes them, with ``ckpt`` and ``yraw`` as its forward wrote them and
     ``dout`` (B, S, H·hd) the output's gradient in r's dtype. Returns (dr,
     dk, dv) (B, S, H, hd) in r's dtype, dw f32, du (H, hd) and dscale
-    (H·hd,) in u's dtype. Two launches: one block a (row, head) walks the
-    tiles backwards, recomputing a tile's states from its checkpoint into
-    a scratch of (B·H, 32, hd, hd) f32, and writes each block's f32
-    partials of du and dscale; then their sum over rows in row order."""
+    (H·hd,) in u's dtype. Two launches: one block a (row, head), a thread
+    two state rows of 8 columns (hd 16: 4), walks the tiles backwards,
+    recomputing a tile's states from its checkpoint on chip (sub-tile
+    checkpoints in shared memory, a sub-tile's states in registers), and
+    writes each block's f32 partials of du and dscale; then their sum over
+    rows in row order. The only scratch is those partials, (2, B, H·hd)
+    f32."""
     b, s, nh, hd = _validate(r, k, v, w, u, None, lengths, scale)
     _check_saved("ckpt", ckpt, _ckpt_shape(b, s, nh, hd), torch.float32,
                  r.device)
@@ -156,8 +161,9 @@ def wkv6_backward_cuda(r, k, v, w, u, lengths, scale, ckpt, yraw, dout,
     du, dscale = torch.empty_like(u), torch.empty_like(scale)
     if dout.numel() == 0:
         return dr, dk, dv, dw, du.zero_(), dscale.zero_()
-    ws = torch.empty((b * nh, min(s, TILE), hd, hd), dtype=torch.float32,
-                     device=r.device)
+    for name, t in (("ckpt", ckpt), ("yraw", yraw), ("dout", dout)):
+        if t.data_ptr() % 16:  # staged and read in 16-byte copies
+            raise ValueError(f"{name} must be 16-byte aligned")
     part = torch.empty((2, b, nh * hd), dtype=torch.float32, device=r.device)
     lib = _build.load(_SOURCE, _SIGNATURES)
     stream = torch.cuda.current_stream(r.device).cuda_stream
@@ -165,7 +171,7 @@ def wkv6_backward_cuda(r, k, v, w, u, lengths, scale, ckpt, yraw, dout,
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         ckpt.data_ptr(), yraw.data_ptr(), lengths.data_ptr(),
         scale.data_ptr(), dout.data_ptr(), dr.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), dw.data_ptr(), ws.data_ptr(), part.data_ptr(),
+        dv.data_ptr(), dw.data_ptr(), part.data_ptr(),
         du.data_ptr(), dscale.data_ptr(), int(r.dtype == torch.bfloat16),
         int(u.dtype == torch.bfloat16), b, s, nh, hd, float(eps), stream)
     _build.check(status, "wkv6_bwd_launch")

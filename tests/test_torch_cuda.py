@@ -53,7 +53,7 @@ The attention kernels take the stub-frontend archs' head dims of 64
 (musicgen-large) and 96 (phi-3-vision-4.2b), one query head a kv head.
 Training: the norm's backward kernels (alone and with add_rms_norm's
 residual gradient) against the plain backward written out, f32 within
-1e-5 of the tensor's largest |value| (dscale 1e-4: its 64-row tiles sum
+1e-5 of the tensor's largest |value| (dscale 1e-4: its 32-row tiles sum
 in another order than torch.sum), bf16 within one bf16 step of it, at
 every width the forward takes, and the same bits at a second call;
 autograd through both wrappers launches them; the smoke qwen2 trained on
@@ -1298,7 +1298,7 @@ def test_recurrent_engines_are_fleet_and_layout_invariant(cuda, arch):
 # ------------------------------------------------------- training (slice 14)
 def _norm_bwd_close(got, want, dtype, what):
     """Within the stated tolerance of the tensor's largest |value|: f32
-    1e-5 (dscale 1e-4: 64-row tiles summed in another order than
+    1e-5 (dscale 1e-4: 32-row tiles summed in another order than
     torch.sum's), bf16 one bf16 step (2^-7)."""
     tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
     if what == "dscale" and dtype == torch.float32:
@@ -1317,7 +1317,7 @@ def test_rms_norm_backward_matches_plain_and_repeats(cuda, dtype, scale_dtype,
     """The norm's backward kernel (with and without add_rms_norm's residual
     gradient) against the plain backward written out, at the models'
     widths (16384: the forward's two-pass width) and 8 x 130 rows (ragged
-    against the 64-row dscale tiles); a second call gives the same bits
+    against the 32-row dscale tiles); a second call gives the same bits
     (no float atomics)."""
     rng = np.random.default_rng(d + 7 * res)
     x, dy, dres = (torch.from_numpy(rng.standard_normal((8, 130, d)).astype(
@@ -1336,6 +1336,43 @@ def test_rms_norm_backward_matches_plain_and_repeats(cuda, dtype, scale_dtype,
     _norm_bwd_close(dscale, want_ds, scale_dtype, "dscale")
     dx2, dscale2 = norm_ops.rms_norm_backward(scale, x, dy, 1e-6, dres)
     assert torch.equal(dx, dx2) and torch.equal(dscale, dscale2)
+
+
+def _device_kernels(fn):
+    """The kernels one call of ``fn`` launches on the card."""
+    from repro_torch.kernels import _build
+
+    return _build.graph_kernels(fn)
+
+
+@pytest.mark.parametrize("res", [False, True])
+@pytest.mark.parametrize("rows", [1, 31, 33, 70])
+@pytest.mark.parametrize("d", [1536, 16384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_backward_tile_edges_and_launches(cuda, dtype, d, rows, res):
+    """The norm's backward at the edges of its 32-row tiles (one row, rows
+    that fill no tile, one more than a tile, two tiles and a ragged
+    third), on the register route (1536) and the two-pass one (16384):
+    within the kernel's tolerance of the plain backward, the same bits at
+    a second call, one count and at most two kernels a call."""
+    rng = np.random.default_rng(rows + 3 * res + d)
+    x, dy, dres = (torch.from_numpy(rng.standard_normal((rows, d)).astype(
+        np.float32)).to(cuda, dtype) for _ in range(3))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, (d,)).astype(
+        np.float32)).to(cuda, dtype)
+    dres = dres if res else None
+    name = "add_rms_norm_bwd" if res else "rms_norm_bwd"
+    before = launch_counts()[name]
+    dx, dscale = norm_ops.rms_norm_backward(scale, x, dy, 1e-6, dres)
+    assert launch_counts()[name] == before + 1
+    want_dx, want_ds = norm_ref.rms_norm_backward_plain(scale, x, dy, 1e-6,
+                                                        dres)
+    _norm_bwd_close(dx, want_dx, dtype, "dx")
+    _norm_bwd_close(dscale, want_ds, dtype, "dscale")
+    again = norm_ops.rms_norm_backward(scale, x, dy, 1e-6, dres)
+    assert torch.equal(dx, again[0]) and torch.equal(dscale, again[1])
+    assert _device_kernels(lambda: norm_ops.rms_norm_backward(
+        scale, x, dy, 1e-6, dres)) <= 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1483,16 +1520,20 @@ def test_rglru_backward_kernel_matches_plain_and_repeats(cuda, dtype, s):
                          ("dya", "dyx", "dba", "dbx", "dc", "dg", "dlam"))
 
 
-@pytest.mark.parametrize("s", [7, 70])
+# 1 step; 31 and 33 about one 32-step tile; 70 two tiles and a ragged
+# third; with rows of lengths s, 0, 1, s // 2 and s - 2 (cut inside a
+# 4-step sub-tile: 70 // 2 = 35, 31 - 2 = 29, 33 - 2 = 31, ...)
+@pytest.mark.parametrize("s", [1, 7, 31, 33, 70])
 @pytest.mark.parametrize("hd", [16, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wkv6_backward_kernel_matches_plain_and_repeats(cuda, dtype, hd, s):
     """``wkv6_bwd`` (the states recomputed from the forward kernel's tile
     checkpoints, the group norm's backward from its saved readout) against
     the plain backward written out, ragged and idle rows, a prior state;
-    the same bits at a second call (du, dscale summed in row order)."""
+    the same bits at a second call (du, dscale summed in row order); one
+    count and two kernels a call."""
     g = torch.Generator(device=cuda).manual_seed(4)
-    b, nh = 4, 3
+    b, nh = 5, 3
 
     def rnd(*shape, std=1.0):
         return torch.randn(shape, generator=g, device=cuda) * std
@@ -1501,7 +1542,8 @@ def test_wkv6_backward_kernel_matches_plain_and_repeats(cuda, dtype, hd, s):
     w = torch.exp(-torch.exp(rnd(b, s, nh, hd, std=0.5) - 1.0))
     u = rnd(nh, hd, std=0.1).to(dtype)
     state = rnd(b, nh, hd, hd, std=0.1)
-    lengths = torch.tensor([s, 0, 1, s // 2], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([s, 0, 1, s // 2, max(s - 2, 0)],
+                           dtype=torch.int32, device=cuda)
     scale = (1.0 + rnd(nh * hd, std=0.1)).to(dtype)
     ckpt = torch.empty((b, nh, -(-s // 32), hd, hd), dtype=torch.float32,
                        device=cuda)
@@ -1511,13 +1553,17 @@ def test_wkv6_backward_kernel_matches_plain_and_repeats(cuda, dtype, hd, s):
     assert torch.equal(out, wkv_ops.wkv6_cuda(r, k, v, w, u, state.clone(),
                                               lengths, scale))
     dout = rnd(b, s, nh * hd).to(dtype)
+    before = launch_counts()["wkv6_bwd"]
     got, again = (wkv_ops.wkv6_backward_cuda(r, k, v, w, u, lengths, scale,
                                              ckpt, yraw, dout)
                   for _ in range(2))
+    assert launch_counts()["wkv6_bwd"] == before + 2
     want = wkv_ref.wkv6_backward_plain(r, k, v, w, u, state, lengths, scale,
                                        dout)
     _recurrent_bwd_close(got, again, want, dtype,
                          ("dr", "dk", "dv", "dw", "du", "dscale"))
+    assert _device_kernels(lambda: wkv_ops.wkv6_backward_cuda(
+        r, k, v, w, u, lengths, scale, ckpt, yraw, dout)) == 2
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b"])

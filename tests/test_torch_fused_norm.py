@@ -103,6 +103,22 @@ STEPS = [("prefill", [[5, 9, 17, 2, 33, 8], [7, 7, 300, 2, 0, 0],
 B, CAP = 3, 32
 
 
+# ------------------------------------------- the backward kernel's tiling
+@pytest.mark.parametrize("rows,d,warps,blocks", [
+    (4096, 1536, 8, 128),   # (t)'s shape: one block on 128 of the 132 SMs
+    (1, 1536, 8, 1), (70, 64, 8, 3), (33, 2560, 8, 2), (1040, 5376, 6, 33),
+    (4096, 16384, 2, 128)])
+def test_norm_backward_tiling(rows, d, warps, blocks):
+    """The norm backward kernel's tiling (warps a block, rows a block,
+    blocks), which fixes the order of its dscale sums, depends on (rows,
+    d) only; the tiles cover the rows once, and a block's warps' rows of
+    d f32 fit the card's 227 KB of shared memory."""
+    w, tile, n = norm_ops.backward_tiling(rows, d)
+    assert (w, n) == (warps, blocks)
+    assert (n - 1) * tile < rows <= n * tile
+    assert 1 <= w <= 8 and w * d * 4 <= 227 * 1024
+
+
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "rwkv6-3b",
                                   "recurrentgemma-2b"])
 def test_serving_steps_fuse_the_norms_and_match_reference(arch, monkeypatch):
