@@ -293,12 +293,14 @@ Since slice 15 (training the recurrent archs), after (t):
      their plain versions called no time (counts reset just before, read
      just after); step seconds, tokens/s, peak memory, and one profiled
      step's kernels and device-busy ms. The backward kernels timed as a
-     training step runs them, against their bound and plain backwards.
-     deepseek-moe-16b's 2-layer full-width copy trained 2 steps twice from
-     one seed: losses, every state tensor and every gradient of a further
-     batch equal bit for bit. Each arch's copy (recurrentgemma-2b's first
-     period of 3 layers, so that it holds an attention layer; rwkv6-3b's 2
-     layers) preempted after step 2 and resumed: losses and every state
+     training step runs them, against their bound and plain backwards
+     (``rglru_scan_bwd`` with its registers, shared bytes and blocks an SM
+     since slice 17). deepseek-moe-16b's 2-layer full-width copy trained 2
+     steps twice from one seed: losses, every state tensor and every
+     gradient of a further batch equal bit for bit. Each arch's copy
+     (recurrentgemma-2b's first period of 3 layers, so that it holds an
+     attention layer; rwkv6-3b's 2 layers) preempted after step 2 and
+     resumed: losses and every state
      tensor equal bit for bit; recurrentgemma-2b's checkpoint through
      ``launch/quantize.py --from-checkpoint`` (B6) and 8 greedy requests
      served from the artifact (B1, B3, B2 launched; two alone with their
@@ -4997,7 +4999,9 @@ def time_recurrent_backward(dev, per_step):
     (CUDA events, one layer's call times the calls: its graph would hold
     thousands of launches and every state), and the bound (bytes: every
     input read once, every gradient written once; operations: f32 at 67
-    TFLOP/s). No single PyTorch call computes either: library none."""
+    TFLOP/s). No single PyTorch call computes either: library none.
+    ``rglru_scan_bwd`` also reports its kernel's registers a thread, shared
+    bytes a block and blocks an SM (``ops.backward_resources``)."""
     import torch
 
     from repro_torch import configs
@@ -5036,7 +5040,8 @@ def time_recurrent_backward(dev, per_step):
         bytes=calls * nbytes, kernels_a_call=kernels_a_call(
             lambda: scan_ops.rglru_gated_scan_backward_cuda(
                 ya, yx, ba, bx, c, g, lam, ckpt, lengths, dout), 2,
-            "rglru_scan_bwd"))
+            "rglru_scan_bwd"),
+        resources=scan_ops.backward_resources(bf16))
     del args, ya, yx, c, g, dout, ckpt
     gc_free()
     # the WKV: r, k, v, dout and the readout read in bf16, w f32, the
@@ -5195,7 +5200,8 @@ def recurrent_training_phases(gpu, dev):
             f"bf16): kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.1f} ms, "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}; {t['bytes']} "
             f"bytes) -> {t['bound_ms'] / t['ms']:.1%} of bound; "
-            f"{t['kernels_a_call']} kernels a call; library: none")
+            f"{t['kernels_a_call']} kernels a call; library: none"
+            + (f"; {t['resources']}" if "resources" in t else ""))
     moe_determinism(dev, gpu)
     log(f"(u) {time.perf_counter() - t_all:.1f}s in")
     for arch, layers in RECURRENT_RESUME_LAYERS.items():

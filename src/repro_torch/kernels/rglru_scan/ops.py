@@ -17,9 +17,14 @@ one. The backward needs h_{t−1} at every step, which the forward keeps
 only in registers: the forward kernel also writes the state at the start
 of each 32-step tile ((B, ⌈S/32⌉, R) f32, 1.3 MB a layer at 8 × 512 ×
 2560, against 42 MB for every step's), and the backward recomputes each
-tile's chain from it. dba, dbx and dlam are summed in a fixed order with
-no float atomics (each block's f32 partial, then a launch that sums them
-in row order), so a training run is bit-reproducible.
+tile's chain from it. The backward kernel loads each operand once (the
+next tile's copies into shared memory fly through the current tile's
+work) and computes each element's gates once (the forward's bits),
+keeping what the gradients need through the tile's chains, which two
+warps run at once (the recompute forwards, the gradient's carry
+backwards). dba, dbx and dlam are summed in a fixed order with no float
+atomics (each block's f32 partial, then a launch that sums them in row
+order), so a training run is bit-reproducible.
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {"rglru_gated_scan_launch": [_P, _P, _L, _L] + [_P] * 9
                + [_I] * 5 + [_P],
                "rglru_gated_scan_bwd_launch": [_P, _P, _L, _L] + [_P] * 16
-               + [_I] * 5 + [_P]}
+               + [_I] * 5 + [_P],
+               "rglru_gated_scan_bwd_resources": [_I, _P]}
 TILE = 32  # steps between two of the forward's state checkpoints
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -136,8 +142,11 @@ def rglru_gated_scan_backward_cuda(ya, yx, ba, bx, c, g, lam, ckpt, lengths,
     tile's start that its forward wrote, and ``dout`` (B, S, R) the
     output's gradient in c's dtype. Returns (dya, dyx) (n_blocks, B·S, rb)
     contiguous, (dba, dbx) (R,), (dc, dg) (B, S, R) and dlam (R,), all in
-    c's dtype. Two launches: the gradients with each block's f32 partials
-    of dba, dbx and dlam, then their sum over rows in row order."""
+    c's dtype. Two launches: the gradients (32 channels of a row a block,
+    each operand loaded once, each gate computed once) with each block's
+    f32 partials of dba, dbx and dlam, then their sum over rows in row
+    order. The only scratch is those partials, (3, B, R) f32, whatever
+    S; B·S must stay below 2^31."""
     b, s, r, rb = _check(ya, yx, ba, bx, c, g, lam, None, lengths)
     for name, t, shape, dt in (("ckpt", ckpt, _ckpt_shape(b, s, r),
                                 torch.float32),
@@ -166,6 +175,21 @@ def rglru_gated_scan_backward_cuda(ya, yx, ba, bx, c, g, lam, ckpt, lengths,
     _build.check(status, "rglru_gated_scan_bwd_launch")
     _build.count("rglru_scan_bwd")
     return dya, dyx, dba, dbx, dc, dg, dlam
+
+
+def backward_resources(dtype: torch.dtype) -> dict:
+    """The backward kernel's resources for ``dtype`` (f32 or bf16) on the
+    current card: registers a thread, shared bytes a block (static and
+    dynamic), blocks an SM (CUDA's occupancy calculator) and local
+    (spilled) bytes a thread. Launches nothing."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"dtype must be f32 or bf16, got {dtype}")
+    lib = _build.load(_SOURCE, _SIGNATURES)
+    out = (ctypes.c_int * 4)()
+    _build.check(lib.rglru_gated_scan_bwd_resources(
+        int(dtype == torch.bfloat16), out), "rglru_gated_scan_bwd_resources")
+    return dict(zip(("registers", "shared_bytes", "blocks_per_sm",
+                     "local_bytes"), out))
 
 
 class _GatedScan(torch.autograd.Function):

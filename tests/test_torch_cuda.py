@@ -1488,36 +1488,131 @@ def _recurrent_bwd_close(got, again, want, dtype, names):
         assert err <= RECURRENT_BWD_TOL[dtype], (name, err)
 
 
-@pytest.mark.parametrize("s", [7, 70])   # 70: two tiles of 32, a ragged third
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_rglru_backward_kernel_matches_plain_and_repeats(cuda, dtype, s):
-    """``rglru_scan_bwd`` (from the forward kernel's tile checkpoints)
-    against the plain backward written out, ragged and idle rows, a prior
-    state; the same bits at a second call (dba, dbx, dlam summed in row
-    order); the forward with checkpoints equals the forward without."""
+def _rglru_backward_case(cuda, dtype, s, r, nb, extreme=()):
+    """``rglru_scan_bwd`` from the forward kernel's tile checkpoints against
+    the plain backward, 5 rows of lengths s, 0, 1, s // 2 and s - 3 (cut
+    inside a tile) from a prior state; ``extreme``: (row, value) pairs that
+    set that row's first steps of ya and yx to value. The same bits at a
+    second call (dba, dbx, dlam summed in row order); the forward with
+    checkpoints equals the forward without; one count and at most two
+    kernels a call."""
     g = torch.Generator(device=cuda).manual_seed(3)
-    b, r, nb = 4, 96, 3
+    b = 5
 
     def rnd(*shape, std=1.0):
         return (torch.randn(shape, generator=g, device=cuda) * std).to(dtype)
 
     ya, yx = rnd(nb, b * s, r // nb), rnd(nb, b * s, r // nb)
+    for row, value in extreme:
+        ya[:, row * s:row * s + 3] = value
+        yx[:, row * s:row * s + 3] = value
     ba, bx, c, gg = rnd(r, std=0.1), rnd(r, std=0.1), rnd(b, s, r), \
         rnd(b, s, r)
     lam = torch.linspace(-4.3, -0.7, r, device=cuda).to(dtype)
     h = torch.randn((b, r), generator=g, device=cuda)
-    lengths = torch.tensor([s, 0, 1, s // 2], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([s, 0, 1, s // 2, max(s - 3, 0)],
+                           dtype=torch.int32, device=cuda)
     ckpt = torch.empty((b, -(-s // 32), r), dtype=torch.float32, device=cuda)
     args = (ya, yx, ba, bx, c, gg, lam)
     out = scan_ops.rglru_gated_scan_cuda(*args, h.clone(), lengths, ckpt)
     assert torch.equal(out, scan_ops.rglru_gated_scan_cuda(*args, h.clone(),
                                                            lengths))
     dout = rnd(b, s, r)
+    before = launch_counts()["rglru_scan_bwd"]
     got, again = (scan_ops.rglru_gated_scan_backward_cuda(
         *args, ckpt, lengths, dout) for _ in range(2))
+    assert launch_counts()["rglru_scan_bwd"] == before + 2
     want = scan_ref.rglru_gated_scan_backward_plain(*args, h, lengths, dout)
     _recurrent_bwd_close(got, again, want, dtype,
                          ("dya", "dyx", "dba", "dbx", "dc", "dg", "dlam"))
+    assert _device_kernels(lambda: scan_ops.rglru_gated_scan_backward_cuda(
+        *args, ckpt, lengths, dout)) <= 2
+
+
+# 1 step; 31, 32 and 33 about one 32-step tile; 70 two tiles and a ragged
+# third. R 96 in 3 blocks and 160 in 5: three and five blocks of 32
+# channels, the operands copied in 16-byte chunks; 100 in 2 blocks of 50:
+# not whole chunks, so copied a channel pair at a time, and a last block of
+# 4 channels
+@pytest.mark.parametrize("r, nb", [(96, 3), (160, 5), (100, 2)])
+@pytest.mark.parametrize("s", [1, 7, 31, 32, 33, 70])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_backward_kernel_matches_plain_and_repeats(cuda, dtype, s, r,
+                                                         nb):
+    """``rglru_scan_bwd`` against the plain backward written out, ragged
+    and idle rows, a prior state (``_rglru_backward_case``)."""
+    _rglru_backward_case(cuda, dtype, s, r, nb)
+
+
+# compares the backward's fast reciprocal and square root with the
+# intrinsics on every operand of [lo, hi) (bit patterns); compiled from the
+# kernel's own source, so it checks the functions the kernel runs
+_FAST_PATHS_HARNESS = r"""
+#include "SOURCE"
+#include <cstdio>
+namespace {
+__global__ void compare(unsigned lo, unsigned hi, int sqrt_path,
+                        unsigned long long* bad) {
+  for (unsigned long long u = lo + blockIdx.x * (unsigned long long)blockDim.x
+       + threadIdx.x; u < hi; u += (unsigned long long)gridDim.x * blockDim.x) {
+    const float x = __uint_as_float((unsigned)u);
+    const float a = sqrt_path ? sqrt_rn<true>(x) : rcp_rn<true>(x);
+    const float b = sqrt_path ? __fsqrt_rn(x) : __frcp_rn(x);
+    if (__float_as_uint(a) != __float_as_uint(b)) atomicAdd(bad, 1ull);
+  }
+}
+}  // namespace
+int main() {
+  const unsigned ranges[2][3] = {{0x3f800000u, 0x7e800000u, 0},
+                                 {0x2b8cbcccu, 0x3f800001u, 1}};
+  unsigned long long* bad;
+  if (cudaMalloc(&bad, 8) != cudaSuccess) return 2;
+  for (const auto& r : ranges) {
+    unsigned long long n = 0;
+    cudaMemcpy(bad, &n, 8, cudaMemcpyHostToDevice);
+    compare<<<132 * 16, 256>>>(r[0], r[1], r[2], bad);
+    if (cudaMemcpy(&n, bad, 8, cudaMemcpyDeviceToHost) != cudaSuccess) return 2;
+    printf("%s %u %llu\n", r[2] ? "sqrt" : "rcp", r[1] - r[0], n);
+  }
+  return 0;
+}
+"""
+
+
+def test_rglru_fast_paths_equal_the_intrinsics(cuda, tmp_path):
+    """Phase A of ``rglru_scan_bwd`` takes the reciprocals' and square
+    roots' fast paths alone where its operands allow: ``rcp_rn<true>`` on
+    the sigmoid's 1 + e^-z for z > -86, [1, 2^126), and ``sqrt_rn<true>`` on
+    the clamped 1 - e2, [1e-12, 1]. On every operand of those ranges they
+    give ``__frcp_rn``'s and ``__fsqrt_rn``'s bits (the forward's), so the
+    recomputed gates equal the forward's."""
+    import subprocess
+
+    from repro_torch.kernels import _build
+
+    harness = tmp_path / "fast_paths.cu"
+    harness.write_text(_FAST_PATHS_HARNESS.replace(
+        "SOURCE", str(scan_ops._SOURCE)))
+    exe = tmp_path / "fast_paths"
+    flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
+    subprocess.run([_build._nvcc(), *flags, "-o", str(exe), str(harness)],
+                   check=True, capture_output=True, timeout=600)
+    out = subprocess.run([str(exe)], check=True, capture_output=True,
+                         text=True, timeout=300).stdout.split("\n")
+    got = {name: (int(n), int(differ)) for name, n, differ in
+           (line.split() for line in out if line)}
+    assert got == {"rcp": (0x7e800000 - 0x3f800000, 0),
+                   "sqrt": (0x3f800001 - 0x2b8cbccc, 0)}, got
+
+
+@pytest.mark.parametrize("s", [7, 70])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_backward_kernel_exact_gates_out_of_range(cuda, dtype, s):
+    """Gate sums far below -86, where 1 + e^-z overflows: the threads that
+    hold them take the gates' intrinsics (their slow paths), the others the
+    fast paths alone, and the gradients still match the plain backward."""
+    _rglru_backward_case(cuda, dtype, s, 96, 3,
+                         extreme=((0, -100.0), (3, 100.0)))
 
 
 # 1 step; 31 and 33 about one 32-step tile; 70 two tiles and a ragged
