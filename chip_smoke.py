@@ -306,6 +306,24 @@ Since slice 15 (training the recurrent archs), after (t):
      served from the artifact (B1, B3, B2 launched; two alone with their
      fleet tokens).
 
+Since slice 18 (sharding rules and the dry run):
+
+ 36. (v) the one-GPU mesh, after (r): an NCCL process group of one
+     (``HashStore``) and ``launch.mesh.make_mesh((1, 1), ("data",
+     "model"))`` on the card; phase 3's quantized qwen2-1.5b placed leaf by
+     leaf by the port's specs (``sharding.partition.param_specs``) with
+     ``distribute_tensor``, every local shard equal to its tensor byte for
+     byte; ``constrain`` under the train rules on an (8, 512, 1536) bf16
+     hidden ``DTensor``: no collective (``CommDebugMode``) and the same
+     bytes; the main fleet served with the decode rules installed, its
+     streams equal to phase 4's; the process group destroyed; the dry run
+     of qwen2-1.5b ``train_4k`` and quantized ``decode_32k`` on the single
+     mesh in subprocesses (the fake backend on the CPU), their seconds.
+     One card holds only a 1 x 1 mesh: nothing here is a multi-GPU
+     figure. After (u), (t)'s and (u)'s steady step seconds beside
+     ``model_flops`` at the H100 bf16 data-sheet peak, as a share (a line
+     of its own, no gate).
+
 Each phase's engines and graph pools are freed before the next; the run's
 total seconds are printed.
 
@@ -319,6 +337,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -328,10 +347,12 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s
-# and f32 FLOP/s outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
-F32_FLOPS = 67e12
+# and f32 FLOP/s outside the tensor cores, from the port's roofline module
+try:
+    from repro_torch.roofline.analysis import (BF16_FLOPS, F32_FLOPS,
+                                               HBM_BYTES_PER_S)
+except ImportError:  # not a checkout (or no PyTorch): main() says so
+    BF16_FLOPS = F32_FLOPS = HBM_BYTES_PER_S = None
 
 # stated tolerances of kernel vs plain version (both sum in f32, in another
 # order; the bf16 ternary layers on the tensor cores, whose f32 accumulation
@@ -4671,9 +4692,10 @@ def quantize_serve_path(rp, dev, tmp, tag="(t)"):
                 printed=printed.getvalue().count("[quantize] #"))
 
 
-def training_phases(gpu, dev):
+def training_phases(gpu, dev, step_seconds):
     """(t): training on the card (the module docstring). Returns its rows
-    of the ``kernels`` line."""
+    of the ``kernels`` line; its steady step seconds go into
+    ``step_seconds``."""
     import shutil
     import tempfile
 
@@ -4690,6 +4712,7 @@ def training_phases(gpu, dev):
     need(tr["counts"], TRAIN_PATH, "(t) the training path")
     steady = tr["times"][1:]
     step_s = sum(steady) / len(steady)
+    step_seconds["(t) qwen2-1.5b"] = (cfg, step_s)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     log(f"{gpu} | (t) qwen2-1.5b trained at full width and depth "
         f"({tr['n_params']} params, bf16, remat full, B {TRAIN_BATCH} x S "
@@ -5079,13 +5102,14 @@ def time_recurrent_backward(dev, per_step):
     return out
 
 
-def train_recurrent(arch, dev, gpu):
+def train_recurrent(arch, dev, gpu, step_seconds):
     """(u): ``arch`` at full width and depth trained through ``Trainer``
     (``train_full``: bf16, remat full, B 8 × S 512 of the synthetic corpus,
     ``RECURRENT_TRAIN_STEPS`` steps): every loss finite, the loss falls,
     the recurrence's forward and backward kernels and the norm's launched
     (counts reset just before, read just after) and its plain versions,
-    forward and backward, called no time."""
+    forward and backward, called no time. The steady step seconds go
+    into ``step_seconds``."""
     from repro_torch import configs
 
     cfg = configs.get_config(arch)
@@ -5102,6 +5126,7 @@ def train_recurrent(arch, dev, gpu):
                              f"{calls}")
     steady = tr["times"][1:]
     step_s = sum(steady) / len(steady)
+    step_seconds[f"(u) {arch}"] = (cfg, step_s)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     log(f"{gpu} | (u) {arch} trained at full width and depth "
         f"({tr['n_params']} params, bf16, remat full, B {TRAIN_BATCH} x S "
@@ -5173,9 +5198,10 @@ def moe_determinism(dev, gpu):
     gc_free()
 
 
-def recurrent_training_phases(gpu, dev):
+def recurrent_training_phases(gpu, dev, step_seconds):
     """(u): the recurrent archs' training on the card (the module
-    docstring). Returns its rows of the ``kernels`` line."""
+    docstring). Returns its rows of the ``kernels`` line; the steady step
+    seconds go into ``step_seconds``."""
     import shutil
     import tempfile
 
@@ -5188,7 +5214,7 @@ def recurrent_training_phases(gpu, dev):
     bwd_err = check_recurrent_backward(dev)
     log(f"(u) {time.perf_counter() - t_all:.1f}s in")
     gc_free()
-    trained = {arch: train_recurrent(arch, dev, gpu)
+    trained = {arch: train_recurrent(arch, dev, gpu, step_seconds)
                for arch in ("recurrentgemma-2b", "rwkv6-3b")}
     log(f"(u) {time.perf_counter() - t_all:.1f}s in")
     counts = {"rglru_scan_bwd": trained["recurrentgemma-2b"]["counts"],
@@ -5271,6 +5297,157 @@ def recurrent_training_phases(gpu, dev):
              "no single PyTorch call computes it (library null)",
         kernels_a_call=timing[name]["kernels_a_call"],
         **{k: timing[name][k] for k in timed}) for name in work]
+
+
+# ---------------------------------------------------- phase (v): slice 18
+# dry-run cells of (v), each in its own process on the fake backend
+DRYRUN_CELLS = (("train_4k", ()), ("decode_32k", ("--quantized",)))
+# the single-pod production mesh's axes, whose specs (v) places on the card
+PRODUCTION_MESH = {"data": 16, "model": 16}
+
+
+def bytes_of(t):
+    """A tensor's bytes as a flat uint8 view (contiguous copy if needed)."""
+    import torch
+
+    return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def mesh_phase(gpu, cfg, dev, model, mp):
+    """(v): the one-GPU mesh (the module docstring)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import partition as part
+    from repro_torch.sharding.api import activation_sharding, constrain
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        leaves = part.param_leaves(model)
+        # the production plan's specs (on the card's 1 x 1 mesh every rule
+        # would fall back to replication): each Shard lands on an axis of
+        # size 1, so every local shard is the whole tensor
+        spec_of = part.param_specs(model, PRODUCTION_MESH)
+        if set(spec_of) != set(leaves):
+            raise AssertionError(f"(v) specs and leaves differ: "
+                                 f"{sorted(set(spec_of) ^ set(leaves))[:4]}")
+        t0 = time.perf_counter()
+        nbytes = 0
+        for name, t in leaves.items():
+            dt = distribute_tensor(t.detach(), mesh,
+                                   part.placements(spec_of[name], mesh))
+            local = dt.to_local()
+            if (tuple(local.shape) != tuple(t.shape)
+                    or not torch.equal(bytes_of(local), bytes_of(t))):
+                raise AssertionError(f"(v) {name}: the local shard of "
+                                     f"{spec_of[name]} differs from the "
+                                     f"tensor")
+            nbytes += local.numel() * local.element_size()
+            del dt, local
+        place_s = time.perf_counter() - t0
+        sharded = sum(any(a is not None for a in s) for s in spec_of.values())
+        if not sharded:
+            raise AssertionError("(v) no leaf has a sharded spec")
+        rules = part.activation_rules(mesh, mode="train")
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        h = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), generator=gen,
+                        device=dev, dtype=torch.float32).to(torch.bfloat16)
+        x = DTensor.from_local(h, mesh, [Replicate(), Replicate()],
+                               run_check=False)
+        comm = CommDebugMode()
+        with activation_sharding(rules), comm:
+            y = constrain(x, "hidden")
+        torch.cuda.synchronize()
+        if comm.get_total_counts():
+            raise AssertionError(f"(v) constrain on the 1 x 1 mesh ran "
+                                 f"collectives: {comm.get_comm_counts()}")
+        if (tuple(y.placements) != (Shard(0), Replicate())
+                or not torch.equal(bytes_of(y.to_local()), bytes_of(h))):
+            raise AssertionError(f"(v) constrain gave {y.placements} or "
+                                 f"other bytes")
+        del x, y, h
+        with activation_sharding(part.activation_rules(mesh, mode="decode")):
+            res, dec_s, dec_tok, _, eng = serve(model, cfg, mp["prompts"],
+                                                warm=True)
+        del eng
+        for i, (g, w) in enumerate(zip(res, mp["results"])):
+            if g.tokens != w.tokens:
+                raise AssertionError(f"(v) request {i} gave {g.tokens} under "
+                                     f"the decode rules, {w.tokens} in phase 4")
+    finally:
+        dist.destroy_process_group()
+    log(f"{gpu} | (v) 1 x 1 mesh (data, model) on the card, NCCL group of "
+        f"one: {len(leaves)} leaves of the quantized qwen2-1.5b ({nbytes} "
+        f"bytes; {sharded} sharded on the 16 x 16 plan) placed by the "
+        f"port's specs with distribute_tensor in {place_s:.2f}s, every local "
+        f"shard equal "
+        f"to its tensor byte for byte; constrain under the train rules on an "
+        f"({TRAIN_BATCH}, {TRAIN_SEQ}, {cfg.d_model}) bf16 hidden DTensor: "
+        f"no collective, same bytes; the main fleet under the decode rules: "
+        f"phase 4's streams, decode {dec_tok / dec_s:.1f} tok/s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as out:
+        # both cells at once, each in its own process
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             cfg.name, "--shape", shape, "--mesh", "single", "--out", out,
+             *flags], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+            for shape, flags in DRYRUN_CELLS]
+        try:
+            done = [(shape, flags, proc.communicate(timeout=600)[1],
+                     proc.returncode, time.perf_counter() - t0)
+                    for (shape, flags), proc in zip(DRYRUN_CELLS, procs)]
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for shape, flags, err, rc, wall in done:
+            if rc:
+                raise AssertionError(f"(v) the dry run of {shape} failed: "
+                                     f"{err[-2000:]}")
+            tag = f"{cfg.name}__{shape}__single" + ("__q" if flags else "")
+            r = json.loads((Path(out) / f"{tag}.json").read_text())
+            if not (r["n_chips"] == 256 and r["flops_per_chip"] > 0):
+                raise AssertionError(f"(v) dry run {tag}: {r['n_chips']} "
+                                     f"chips, {r['flops_per_chip']} FLOPs")
+            t = r["roofline"]
+            log(f"(v) dry run {tag} (counts on the fake 16 x 16 mesh, CPU; "
+                f"H100 data-sheet peaks): done {wall:.1f}s after the start "
+                f"of both; policy "
+                f"{r['policy']}, {r['flops_per_chip']:.4g} FLOPs, "
+                f"{r['traffic_bytes_per_chip']:.4g} bytes, "
+                f"{r['collective_bytes_per_chip']:.4g} collective bytes a "
+                f"chip; dominant {t['dominant']}, bound "
+                f"{t['step_lower_bound_s']:.4g} s")
+
+
+def log_step_shares(gpu, step_seconds):
+    """(v), after (u): each training phase's steady step seconds
+    (``step_seconds``: {what: (config, s)}) beside ``model_flops`` of its
+    step at the bf16 data-sheet peak (no gate)."""
+    from repro_torch.roofline.analysis import PEAK_FLOPS, model_flops
+
+    info = {"global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+            "kind": "train"}
+    parts = []
+    for what, (cfg, step_s) in step_seconds.items():
+        mf = model_flops(cfg, info, train=True)
+        parts.append(f"{what} {step_s:.3f} s a step, model_flops {mf:.4g} "
+                     f"= {mf / PEAK_FLOPS:.4f} s at the peak -> "
+                     f"{mf / PEAK_FLOPS / step_s:.1%}")
+    log(f"{gpu} | (v) training steps (B {TRAIN_BATCH} x S {TRAIN_SEQ}) "
+        f"against 6·N·D at the H100 bf16 data-sheet peak "
+        f"({PEAK_FLOPS:.4g} FLOP/s): " + "; ".join(parts))
 
 
 # ------------------------------------------------------------------- main
@@ -5458,6 +5635,11 @@ def qwen2_phases(gpu, dev):
     log(f"(r) {time.perf_counter() - t0:.1f}s")
 
     gc_free()
+    t0 = time.perf_counter()
+    mesh_phase(gpu, cfg, dev, model, mp)
+    log(f"(v) {time.perf_counter() - t0:.1f}s")
+
+    gc_free()
     dcounts, dlayers = decode_attention_path(cfg, dev)
     need(dcounts, ("decode_attention",), "the decode-attention op")
 
@@ -5641,9 +5823,11 @@ def main() -> int:
     gc_free()
     kernels += stub_phases(gpu, dev)
     gc_free()
-    kernels += training_phases(gpu, dev)
+    step_seconds = {}
+    kernels += training_phases(gpu, dev, step_seconds)
     gc_free()
-    kernels += recurrent_training_phases(gpu, dev)
+    kernels += recurrent_training_phases(gpu, dev, step_seconds)
+    log_step_shares(gpu, step_seconds)
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu, flush=True)

@@ -13,7 +13,7 @@ from repro_torch.configs import (deepseek_moe_16b, gemma3_27b, grok1_314b,
                                  llama3_405b, musicgen_large,
                                  phi3_vision_4_2b, qwen2_1_5b, qwen15_32b,
                                  recurrentgemma_2b, rwkv6_3b)
-from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, MoEConfig
 
 _MODULES = {
     "qwen1.5-32b": qwen15_32b,
@@ -30,8 +30,8 @@ _MODULES = {
 
 ARCH_IDS = tuple(_MODULES)
 
-__all__ = ["ARCH_IDS", "ModelConfig", "MoEConfig", "get_config",
-           "get_smoke_config"]
+__all__ = ["ARCH_IDS", "SHAPES", "ModelConfig", "MoEConfig", "get_config",
+           "get_smoke_config", "runnable_cells"]
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -40,3 +40,12 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _MODULES[arch].SMOKE
+
+
+def runnable_cells():
+    """All (arch, shape) dry-run cells, honouring the long-context skip:
+    long_500k runs only where ``supports_long_context`` (sub-quadratic
+    mixers, or sliding windows with few global layers)."""
+    return [(arch, shape) for arch in ARCH_IDS
+            for shape in SHAPES
+            if shape != "long_500k" or get_config(arch).supports_long_context]

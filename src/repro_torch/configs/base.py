@@ -1,5 +1,6 @@
-"""Model configuration schema (a copy of the reference package's, minus the
-dry-run bookkeeping the port does not use).
+"""Model configuration schema (a copy of the reference package's): the
+configs, the dry run's input shapes ``SHAPES`` and the analytic parameter
+counts ``ModelConfig.param_counts`` (MODEL_FLOPS = 6·N·D).
 
 A model is a block pattern: an optional prefix, a repeating period and an
 automatic remainder. The port runs ``"attn+mlp"``, ``"local+mlp"``,
@@ -11,6 +12,14 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+#: the dry run's four input shapes (``launch/specs.py``)
+SHAPES = {
+    "train_4k": {"seq_len": 4096, "global_batch": 256, "kind": "train"},
+    "prefill_32k": {"seq_len": 32768, "global_batch": 32, "kind": "prefill"},
+    "decode_32k": {"seq_len": 32768, "global_batch": 128, "kind": "decode"},
+    "long_500k": {"seq_len": 524288, "global_batch": 1, "kind": "decode"},
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,3 +96,43 @@ class ModelConfig:
 
     def scaled(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def param_counts(self):
+        """(total_params, active_params) analytic counts: the reference's
+        arithmetic (a MoE layer's active count takes its top-k experts)."""
+        d, hd = self.d_model, self.head_dim
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
+            + self.n_heads * hd * d
+        mlps = {"swiglu": 3, "geglu": 3, "gelu": 2}[self.mlp_type]
+        mlp = mlps * d * self.d_ff
+        rwkv = 5 * d * d + d * self.d_ff * 2 + d * d  # time (5 proj) + channel
+        rg = self.rglru_width or d
+        nb = self.rglru_blocks or 1
+        rglru = 2 * d * rg + rg * d + 2 * nb * (rg // nb) ** 2 + 4 * rg
+
+        total = active = 0
+        for kind in self.layer_kinds:
+            if kind == "rwkv":
+                total += rwkv
+                active += rwkv
+            elif kind.startswith("rglru"):
+                total += rglru + mlp
+                active += rglru + mlp
+            else:
+                total += attn
+                active += attn
+                if kind.endswith("moe"):
+                    m = self.moe
+                    e_p = 3 * d * m.d_expert
+                    total += m.n_experts * e_p + d * m.n_experts
+                    active += m.top_k * e_p + d * m.n_experts
+                    if m.n_shared:
+                        total += 3 * d * m.n_shared * m.d_expert
+                        active += 3 * d * m.n_shared * m.d_expert
+                else:
+                    total += mlp
+                    active += mlp
+        emb = self.vocab_size * d
+        total += emb * 2  # embed + lm_head
+        active += emb * 2
+        return total, active

@@ -11,7 +11,7 @@ On CUDA tensors it launches the hand-written Hopper kernel B5
 split-KV chunk-attention kernel of
 ``kernels/chunk_attention/csrc/chunk_attention.cu`` over the same parts
 (``split_ranges``) under the decode op's mask rule (no chunk keys, no
-re-mask after exp, no part skipped). On CPU tensors it runs the plain
+re-mask after exp, no part skipped). On other tensors (CPU, meta) it runs the plain
 version of ``ref.py``.
 """
 
@@ -91,7 +91,7 @@ def decode_attention_cuda(q, k8, k_scale, v8, v_scale, pos_buf, pos, *,
 def decode_attention(q, k8, k_scale, v8, v_scale, pos_buf, pos, *,
                      window: Optional[int] = None):
     """(B, KV, G, hd) f32 decode attention over an int8 ring."""
-    if q.device.type == "cpu":
+    if not q.is_cuda:
         return _ref.decode_attention_plain(q, k8, k_scale, v8, v_scale,
                                            pos_buf, pos, window=window)
     return decode_attention_cuda(q, k8, k_scale, v8, v_scale, pos_buf, pos,

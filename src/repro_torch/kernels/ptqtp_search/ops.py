@@ -6,7 +6,7 @@ two (R, G) f32 planes in {-1, 0, 1} (the reference op's contract,
 write (contiguous, (R, G) f32), as the quantizer's row chunks do.
 
 On CUDA tensors it launches the hand-written Hopper kernel of
-``csrc/ptqtp_search.cu`` (replacing ``ptqtp_search_pallas``); on CPU
+``csrc/ptqtp_search.cu`` (replacing ``ptqtp_search_pallas``); on other
 tensors it runs the plain compare-select walk of ``ref.py``.
 """
 
@@ -70,7 +70,7 @@ def ptqtp_search(w: torch.Tensor, alpha: torch.Tensor,
                  out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(t1, t2) f32 planes of group-rows w (R, G) under scales alpha (R, 2)."""
-    if w.device.type == "cpu":
+    if not w.is_cuda:
         t1, t2 = _outputs(w, out)
         _ref.ptqtp_search_plain(w, alpha, t1, t2)
         return t1, t2

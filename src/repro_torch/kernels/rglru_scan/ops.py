@@ -5,7 +5,8 @@ block-diagonal products to ``wo``'s input. On CUDA tensors it launches the
 hand-written Hopper kernel of ``csrc/rglru_scan.cu`` (one launch a layer
 and call, counted as ``rglru_scan``: 32 channels of a row a block, the
 gates in parallel over steps and channels, the chain a warp, a fixed
-order and rounding); on CPU tensors it runs ``ref.rglru_gated_scan_plain``.
+order and rounding); on other tensors (CPU, meta) it runs
+``ref.rglru_gated_scan_plain``.
 It never falls back from a CUDA tensor to its plain version.
 
 It is differentiable (training): where grad mode is on and any of ya, yx,
@@ -194,13 +195,13 @@ def backward_resources(dtype: torch.dtype) -> dict:
 
 class _GatedScan(torch.autograd.Function):
     """``rglru_gated_scan`` with its backward: the kernel's on a CUDA
-    tensor, the plain one on a CPU tensor. h is advanced in place and has
+    tensor, the plain one on any other. h is advanced in place and has
     no gradient (a training forward starts each layer from a zeroed state
     and reads none after it)."""
 
     @staticmethod
     def forward(ctx, ya, yx, ba, bx, c, g, lam, h, lengths):
-        if c.device.type == "cpu":
+        if not c.is_cuda:
             saved = h.clone()  # the plain backward recomputes from h0
             out = _ref.rglru_gated_scan_plain(ya, yx, ba, bx, c, g, lam, h,
                                               lengths)
@@ -217,7 +218,7 @@ class _GatedScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         ya, yx, ba, bx, c, g, lam, saved, lengths = ctx.saved_tensors
-        if c.device.type == "cpu":
+        if not c.is_cuda:
             grads = _ref.rglru_gated_scan_backward_plain(
                 ya, yx, ba, bx, c, g, lam, saved, lengths, dout)
         else:
@@ -234,7 +235,7 @@ def rglru_gated_scan(ya, yx, ba, bx, c, g, lam, h, lengths) -> torch.Tensor:
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (ya, yx, ba, bx, c, g, lam)):
         return _GatedScan.apply(ya, yx, ba, bx, c, g, lam, h, lengths)
-    if c.device.type == "cpu":
+    if not c.is_cuda:
         return _ref.rglru_gated_scan_plain(ya, yx, ba, bx, c, g, lam, h,
                                            lengths)
     return rglru_gated_scan_cuda(ya, yx, ba, bx, c, g, lam, h,

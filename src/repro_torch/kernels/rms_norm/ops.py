@@ -14,7 +14,7 @@ or scale requires grad, they run through ``torch.autograd.Function``s
 whose backward is the kernel's backward (``rms_norm_backward_cuda``:
 dx, and dscale summed in a fixed order, no float atomics, so a training
 run is bit-reproducible) on a CUDA tensor and the plain backward written
-out (``ref.rms_norm_backward_plain``) on a CPU one. ``add_rms_norm``'s
+out (``ref.rms_norm_backward_plain``) on any other (CPU, meta). ``add_rms_norm``'s
 backward takes the gradients of both its outputs (either may be None:
 the last norm's residual stream is unused) and returns one dsum for x
 and delta.
@@ -160,7 +160,7 @@ def rms_norm_backward(scale: torch.Tensor, x: torch.Tensor, dy: torch.Tensor,
     """(dx (+ dres), dscale) of the norm of x (..., d) for its output's
     gradient dy: the kernel on a CUDA tensor, the plain backward on a CPU
     one."""
-    if x.device.type == "cpu":
+    if not x.is_cuda:
         return _ref.rms_norm_backward_plain(scale, x, dy, eps, dres)
     *lead, d = x.shape
     flat = lambda t: t.reshape(-1, d).contiguous()  # noqa: E731
@@ -170,7 +170,7 @@ def rms_norm_backward(scale: torch.Tensor, x: torch.Tensor, dy: torch.Tensor,
 
 
 def _rms_norm_forward(scale, x, eps):
-    if x.device.type == "cpu":
+    if not x.is_cuda:
         return _ref.rms_norm_plain(scale, x, eps)
     *lead, d = x.shape
     return rms_norm_cuda(scale, x.reshape(-1, d).contiguous(), eps).reshape(
@@ -178,7 +178,7 @@ def _rms_norm_forward(scale, x, eps):
 
 
 def _add_rms_norm_forward(scale, x, delta, eps):
-    if x.device.type == "cpu":
+    if not x.is_cuda:
         return _ref.add_rms_norm_plain(scale, x, delta, eps)
     *lead, d = x.shape
     x_new, y = add_rms_norm_cuda(scale, x.reshape(-1, d).contiguous(),

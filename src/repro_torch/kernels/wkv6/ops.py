@@ -6,14 +6,14 @@ On CUDA tensors it launches the hand-written Hopper kernel of
 ``csrc/wkv6.cu`` (one block per row and head, the head's state in
 registers, the chunk staged in shared memory in tiles of 32 steps, every
 sum in a fixed order: no ``bmm``, ``torch.mean`` or ``torch.var`` on the
-card); on CPU tensors it runs the plain loop of ``ref.py``. It never falls
+card); on other tensors (CPU, meta) it runs the plain loop of ``ref.py``. It never falls
 back from a CUDA tensor to it.
 
 It is differentiable (training): where grad mode is on and any of r, k,
 v, w, u or scale requires grad, it runs through a
 ``torch.autograd.Function`` whose backward is the hand-written kernel
 ``wkv6_backward_cuda`` on a CUDA tensor (counted as ``wkv6_bwd``) and
-``ref.wkv6_backward_plain`` on a CPU one. dr_t and dw_t need the state
+``ref.wkv6_backward_plain`` on any other. dr_t and dw_t need the state
 before step t, which the forward keeps only in registers and overwrites;
 running it backwards by dividing by w would be inexact, and unstable
 where w is small. So the forward kernel also writes the state at the
@@ -181,13 +181,13 @@ def wkv6_backward_cuda(r, k, v, w, u, lengths, scale, ckpt, yraw, dout,
 
 class _WKV6(torch.autograd.Function):
     """``wkv6`` with its backward: the kernel's on a CUDA tensor, the plain
-    one on a CPU tensor. The state is advanced in place and has no
+    one on any other. The state is advanced in place and has no
     gradient (a training forward starts each layer from a zeroed state
     and reads none after it)."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, state, lengths, scale, eps):
-        if r.device.type == "cpu":
+        if not r.is_cuda:
             saved = (state.clone(),)  # the plain backward recomputes
             out = _ref.wkv6_plain(r, k, v, w, u, state, lengths, scale, eps)
         else:
@@ -208,7 +208,7 @@ class _WKV6(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         r, k, v, w, u, lengths, scale, *saved = ctx.saved_tensors
-        if r.device.type == "cpu":
+        if not r.is_cuda:
             grads = _ref.wkv6_backward_plain(r, k, v, w, u, saved[0], lengths,
                                              scale, dout, ctx.eps)
         else:
@@ -226,7 +226,7 @@ def wkv6(r, k, v, w, u, state, lengths, scale,
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (r, k, v, w, u, scale)):
         return _WKV6.apply(r, k, v, w, u, state, lengths, scale, eps)
-    if r.device.type == "cpu":
+    if not r.is_cuda:
         return _ref.wkv6_plain(r, k, v, w, u, state, lengths, scale, eps)
     return wkv6_cuda(r.contiguous(), k.contiguous(), v.contiguous(),
                      w.contiguous(), u.contiguous(), state,

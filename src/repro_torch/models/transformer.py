@@ -11,6 +11,7 @@ The reference stacks layers for ``lax.scan``; here they are a
 Model API:
   init_params(cfg, generator=None, device="cuda")  -> Transformer
   forward(model, cfg, tokens)                      -> logits (B, S, V)
+  final_hidden(model, cfg, tokens)                 -> normed (B, S, D)
   loss_fn(model, cfg, batch)                       -> scalar f32 xent
   init_decode_state(cfg, batch, capacity, device, kv_spec=None) -> state
   prefill(model, cfg, tokens, capacity, chunk=None) -> (logits (B, V), state)
@@ -43,6 +44,13 @@ its per-row state (rwkv: ``x_time``, ``wkv``, ``x_chan``; rglru: ``h``,
 ``conv``); a chunk's right padding and a decode step's inactive rows
 (length 0) leave it as it was, as the reference's masks and
 ``_freeze_rows`` do.
+
+The models call the activation hook ``sharding.api.constrain`` where the
+reference does: on the embedding's output and each layer's output
+(``"hidden"``: both halves of the residual stream, x and its pending
+delta) and on the logits of ``forward`` (``"logits"``), ``prefill_chunk``
+and ``decode_step`` (``"decode_logits"``). With no rules installed, or on
+plain tensors, it returns its argument.
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ from repro_torch.models.moe import ExpertDense, MoE, moe_forward
 from repro_torch.models.rglru import RGLRU, rglru_forward
 from repro_torch.models.rwkv6 import (RWKVChannel, RWKVTime,
                                       rwkv_channel_forward, rwkv_time_forward)
+from repro_torch.sharding.api import constrain
 
 SUPPORTED_KINDS = ("attn+mlp", "local+mlp", "attn+moe", "rglru+mlp", "rwkv")
 
@@ -257,11 +266,18 @@ def _recurrent_layer(kind: str, block: Block, cfg, x, delta, lengths):
     return _recurrent_block(kind, block, cfg, cache, x, delta, lengths)
 
 
-def forward(model: Transformer, cfg, tokens) -> torch.Tensor:
-    """Full-sequence forward. tokens (B, S) -> logits (B, S, V).
-    Differentiable; with grad mode on, a parameter that requires grad and
-    ``cfg.remat == "full"``, each layer is recomputed in the backward."""
-    x = _embed(model, cfg, tokens)
+def _hidden(x, delta):
+    """The residual stream x + delta under the ``"hidden"`` rule."""
+    return (constrain(x, "hidden"),
+            None if delta is None else constrain(delta, "hidden"))
+
+
+def final_hidden(model: Transformer, cfg, tokens) -> torch.Tensor:
+    """The full-sequence forward up to the final norm: tokens (B, S) ->
+    (B, S, D), ``lm_head``'s input. Differentiable; with grad mode on, a
+    parameter that requires grad and ``cfg.remat == "full"``, each layer is
+    recomputed in the backward."""
+    x = constrain(_embed(model, cfg, tokens), "hidden")
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
     rope = (rope_tables(positions[None, :], cfg.head_dim, cfg.rope_theta)
@@ -280,8 +296,15 @@ def forward(model: Transformer, cfg, tokens) -> torch.Tensor:
                                   use_reentrant=False)
         else:
             x, delta = layer(kind, block, cfg, x, delta, *args)
-    _, h = _add_norm(model.final_norm, x, delta, cfg.norm_eps)
-    return model.lm_head(h)
+        x, delta = _hidden(x, delta)
+    return _add_norm(model.final_norm, x, delta, cfg.norm_eps)[1]
+
+
+def forward(model: Transformer, cfg, tokens) -> torch.Tensor:
+    """Full-sequence forward. tokens (B, S) -> logits (B, S, V), as
+    ``final_hidden``."""
+    return constrain(model.lm_head(final_hidden(model, cfg, tokens)),
+                     "logits")
 
 
 def loss_fn(model: Transformer, cfg, batch) -> torch.Tensor:
@@ -400,7 +423,7 @@ def prefill_chunk(model: Transformer, cfg, state, tokens, lengths
     (steps past a row's length leave its state as it was); the MoE takes
     ``valid`` itself. Returns (logits at each row's last valid token (B,
     V), state)."""
-    x = _embed(model, cfg, tokens)
+    x = constrain(_embed(model, cfg, tokens), "hidden")
     b, L, _ = x.shape
     lengths = lengths.to(torch.int32)
     pos0 = state["pos"]
@@ -416,17 +439,18 @@ def prefill_chunk(model: Transformer, cfg, state, tokens, lengths
         if is_recurrent(kind):
             x, delta = _recurrent_block(kind, block, cfg, cache, x, delta,
                                         lengths)
-            continue
-        x, h = _add_norm(block.attn_norm, x, delta, cfg.norm_eps)
-        y, _ = attn_mod.attention_prefill_chunk(
-            block.attn, cfg, cache, h, positions, lengths, rope,
-            window=_window(kind, cfg))
-        x, delta = _mlp_block(block, cfg, x, y, valid)
+        else:
+            x, h = _add_norm(block.attn_norm, x, delta, cfg.norm_eps)
+            y, _ = attn_mod.attention_prefill_chunk(
+                block.attn, cfg, cache, h, positions, lengths, rope,
+                window=_window(kind, cfg))
+            x, delta = _mlp_block(block, cfg, x, y, valid)
+        x, delta = _hidden(x, delta)
     _, x = _add_norm(model.final_norm, x, delta, cfg.norm_eps)
     idx = torch.clamp(lengths - 1, min=0).long()
     x_last = x[torch.arange(b, device=x.device), idx]
     pos0.add_(lengths)
-    return model.lm_head(x_last), state
+    return constrain(model.lm_head(x_last), "decode_logits"), state
 
 
 @torch.no_grad()
@@ -463,4 +487,4 @@ def decode_step(model: Transformer, cfg, state, tokens,
         x, delta = _mlp_block(block, cfg, x, y)
     _, x = _add_norm(model.final_norm, x, delta, cfg.norm_eps)
     pos.add_(steps)
-    return model.lm_head(x), state
+    return constrain(model.lm_head(x), "decode_logits"), state

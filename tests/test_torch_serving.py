@@ -327,8 +327,9 @@ def test_draws_are_position_addressed_and_follow_softmax():
 def test_port_imports_neither_jax_nor_the_reference():
     """Importing every module of the port (and chip_smoke.py) loads no
     ``jax`` and no ``repro`` module; the artifact store, the clock, the
-    fault harness, the concurrent frontend and both launchers among
-    them."""
+    fault harness, the concurrent frontend, both launchers, the sharding
+    rules, the dry run and sweep and the roofline among them; importing
+    them sets up no process group."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch.serving.frontend, repro_torch.launch.serve\n"
@@ -348,8 +349,12 @@ def test_port_imports_neither_jax_nor_the_reference():
         "'serving.faults', 'launch.quantize', 'launch.serve', "
         "'serving.frontend', 'serving.frontend.driver', "
         "'serving.frontend.fairness', 'serving.frontend.server', "
-        "'serving.frontend.supervisor'):\n"
+        "'serving.frontend.supervisor', 'sharding.partition', "
+        "'sharding.api', 'launch.mesh', 'launch.specs', 'launch.dryrun', "
+        "'launch.sweep', 'roofline.analysis'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
