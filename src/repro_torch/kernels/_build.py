@@ -119,13 +119,11 @@ def device_us(evt) -> float:
 def graph_kernels(fn) -> int:
     """The kernels one call of ``fn`` launches on the card: after a warm
     call, ``fn`` is captured into a CUDA graph on a side stream and the
-    capture's kernel nodes are counted through the CUDA driver API
-    (``cuStreamGetCaptureInfo_v2``, ``cuGraphGetNodes``,
-    ``cuGraphNodeGetType``). Unlike ``torch.profiler``, whose kernel events
-    thin out late in a long process, the count is exact."""
+    capture's kernel nodes are counted (``capture_kernel_nodes``). Unlike
+    ``torch.profiler``, whose kernel events thin out late in a long
+    process, the count is exact."""
     import torch
 
-    drv = ctypes.CDLL("libcuda.so.1")
     fn()
     torch.cuda.synchronize()
     side = torch.cuda.Stream()
@@ -133,29 +131,39 @@ def graph_kernels(fn) -> int:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
         fn()
-        status, gid = ctypes.c_int(), ctypes.c_uint64()
-        cgraph, deps, ndeps = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_size_t()
-        rc = drv.cuStreamGetCaptureInfo_v2(
-            ctypes.c_void_p(side.cuda_stream), ctypes.byref(status),
-            ctypes.byref(gid), ctypes.byref(cgraph), ctypes.byref(deps),
-            ctypes.byref(ndeps))
-        n = ctypes.c_size_t()
-        if rc == 0:
-            rc = drv.cuGraphGetNodes(cgraph, None, ctypes.byref(n))
-        nodes = (ctypes.c_void_p * n.value)()
-        if rc == 0 and n.value:
-            rc = drv.cuGraphGetNodes(cgraph, nodes, ctypes.byref(n))
-        kinds = []
-        for node in nodes:
-            kind = ctypes.c_int()
-            if rc == 0:
-                rc = drv.cuGraphNodeGetType(ctypes.c_void_p(node),
-                                            ctypes.byref(kind))
-            kinds.append(kind.value)
+        n = capture_kernel_nodes(side)
     del graph
+    return n
+
+
+def capture_kernel_nodes(stream) -> int:
+    """The kernel nodes of the graph being captured on ``stream`` (a
+    ``torch.cuda.Stream``) so far, through ``libcuda``
+    (``cuStreamGetCaptureInfo_v2``, ``cuGraphGetNodes``,
+    ``cuGraphNodeGetType``). Called inside the capture."""
+    drv = ctypes.CDLL("libcuda.so.1")
+    status, gid = ctypes.c_int(), ctypes.c_uint64()
+    cgraph, deps, ndeps = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_size_t()
+    rc = drv.cuStreamGetCaptureInfo_v2(
+        ctypes.c_void_p(stream.cuda_stream), ctypes.byref(status),
+        ctypes.byref(gid), ctypes.byref(cgraph), ctypes.byref(deps),
+        ctypes.byref(ndeps))
+    n = ctypes.c_size_t()
+    if rc == 0:
+        rc = drv.cuGraphGetNodes(cgraph, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    if rc == 0 and n.value:
+        rc = drv.cuGraphGetNodes(cgraph, nodes, ctypes.byref(n))
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        if rc == 0:
+            rc = drv.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                        ctypes.byref(kind))
+        kinds.append(kind.value)
     if rc != 0 or status.value != 1:  # CU_STREAM_CAPTURE_STATUS_ACTIVE
-        raise RuntimeError(f"graph_kernels: CUDA driver error {rc}, capture "
-                           f"status {status.value}")
+        raise RuntimeError(f"capture_kernel_nodes: libcuda error {rc}, "
+                           f"capture status {status.value}")
     return sum(k == 0 for k in kinds)  # CU_GRAPH_NODE_TYPE_KERNEL
 
 

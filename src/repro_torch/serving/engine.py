@@ -59,12 +59,18 @@ timestamp comes from one injectable clock (``runtime.clock``; a
 with a ``serving.faults.FaultInjector`` also NaN-poisons chosen rows on the
 device; one built without runs no poison operation.
 
-Observability (the reference's v1.3): every engine carries an
-``Observability`` bundle (``serving.observability``): the frozen metric
-registry polled from the engine's own counters, one span per engine phase
-(the decode dispatch and its sync apart) and the request lifecycle on the
-trace when tracing is on, all host-side around the dispatches; ``health()``
-reads the registry.
+Observability (the reference's v1.3 and the port's extension): every
+engine carries an ``Observability`` bundle (``serving.observability``): the
+frozen metric registry polled from the engine's own counters, one span per
+engine phase (building a dispatch's input, its launch and its sync apart)
+and the request lifecycle on the trace when tracing is on, all host-side
+around the dispatches; ``health()`` reads the registry. The port adds the
+prefill rows computed, set-up's seconds and compiles, and each dispatch's
+device seconds: read from the dispatch (``device_s()``, timing events
+inside each graph on the card) without a host sync, at the syncs the
+engine makes anyway (``prefill_sync``, ``decode_sync``) and before the
+same dispatch's next call; a span whose work has not run by then is
+dropped, so the ``*_timed_total`` counters say what was counted.
 
 Threads (the concurrent frontend, ``serving.frontend``): the engine is
 single-threaded, and after ``EngineDriver.start()`` the driver's thread is
@@ -356,6 +362,16 @@ class ServingEngine:
         self.steps = 0            # decode steps dispatched
         self.prefill_steps = 0    # prefill_chunk dispatches
         self.admits = 0
+        # ---- the port's counters: rows computed, device seconds of the
+        # timed dispatches (timed prefills, timed decode steps), set-up
+        self.prefill_rows = 0
+        self.prefill_device_s = self.decode_device_s = 0.0
+        self.prefill_timed = self.decode_timed = 0
+        self.warmup_s = self.compile_s = 0.0
+        self.compiles = 0
+        # dispatches called whose device span is not taken yet:
+        # (dispatch, kind, decode steps)
+        self._untimed: List[Tuple[Any, str, int]] = []
         # ---- fault containment / admission control state
         self._injector = injector
         self._abandoned = False   # abandon(): no further device work
@@ -651,6 +667,7 @@ class ServingEngine:
         Stop-set widths over 1 are still captured at first use. Every warm
         call is a no-op on the live state (rows of length 0, inactive
         rows), so warmup may run at any point of the engine's life."""
+        t0 = self._clock()
         with self._on_stream():
             self._warm_prefill()
             nb = len(self.slots)
@@ -666,6 +683,7 @@ class ServingEngine:
                     for draw in (False, True):
                         self._loop_fn(n, masked, 1, use_poison, draw)(idle)
             self._reset_rows(np.zeros((nb,), bool), np.zeros((nb,), np.int32))
+        self.warmup_s += self._clock() - t0
 
     def _warm_prefill(self):
         nb = len(self.slots)
@@ -701,13 +719,15 @@ class ServingEngine:
 
     def graph_stats(self) -> Dict[str, Any]:
         """Per compiled dispatch: its kind and key, the seconds its capture
-        took (0 for an eager body), its replays (calls) and the kernel
-        launches each replay runs."""
+        took (0 for an eager body), its replays (calls), the kernel
+        launches each replay runs and its graph's kernel nodes (counted
+        once at the capture; 0 for an eager body)."""
         rows = [("prefill", k, d) for k, d in sorted(self._prefill_cache.items())]
         rows += [("decode", k, d) for k, d in sorted(self._loop_cache.items())]
         out = [dict(kind=kind, key=key, graph=isinstance(d, GraphDispatch),
                     capture_s=d.capture_s, replays=d.replays,
-                    launches=sum(d.launches.values())) for kind, key, d in rows]
+                    launches=sum(d.launches.values()), kernels=d.kernels)
+               for kind, key, d in rows]
         return {"dispatches": out,
                 "capture_s": sum(r["capture_s"] for r in out)}
 
@@ -770,14 +790,53 @@ class ServingEngine:
                 "kv_resident_bytes":
                     per_page * (self.alloc.used_pages() + 1) + table_bytes}
 
-    def _compile(self, body, idle: np.ndarray, warm=None):
-        """The dispatch of ``body``: a CUDA graph on the card (captured now,
-        after one eager no-op call of ``warm`` or ``body`` on ``idle``), the
-        eager body on the CPU or with capture switched off."""
-        if not self._capture:
-            return EagerDispatch(body, self.device)
-        return GraphDispatch(body, idle, device=self.device,
-                             stream=self._stream, pool=self._pool, warm=warm)
+    def _compile(self, kind: str, key, body, idle: np.ndarray, warm=None):
+        """The dispatch of ``body`` (cache ``key`` of ``kind``): a CUDA graph
+        on the card (captured now, after one eager no-op call of ``warm`` or
+        ``body`` on ``idle``), the eager body on the CPU or with capture
+        switched off. Counted, timed, and a span on the boot track."""
+        t0 = self._clock()
+        if self._capture:
+            d = GraphDispatch(body, idle, device=self.device,
+                              stream=self._stream, pool=self._pool, warm=warm)
+        else:
+            d = EagerDispatch(body, self.device, clock=self._clock)
+        t1 = self._clock()
+        self.compiles += 1
+        self.compile_s += t1 - t0
+        self.obs.capture(kind, key, t0, t1, d.kernels)
+        return d
+
+    def _call(self, d, inp: np.ndarray, kind: str, steps: int = 1):
+        """Call dispatch ``d`` on ``inp``, its last call's device span taken
+        first (or dropped if that has not run yet); this call's is taken at
+        the next sync (``_take_device_spans``)."""
+        self._take_device_spans(d)
+        out = d(inp)
+        self._untimed.append((d, kind, steps))
+        return out
+
+    def _take_device_spans(self, only=None) -> None:
+        """Fold the device spans of the dispatches called since they were
+        last taken (just ``only``'s when given) into the counters: after a
+        host sync all of them have run; before a call, one that has not is
+        dropped. Never waits."""
+        keep = []
+        for u in self._untimed:
+            d, kind, steps = u
+            if only is not None and d is not only:
+                keep.append(u)
+                continue
+            s = d.device_s()
+            if s is None:
+                continue
+            if kind == "prefill":
+                self.prefill_device_s += s
+                self.prefill_timed += 1
+            else:
+                self.decode_device_s += s
+                self.decode_timed += steps
+        self._untimed = keep
 
     def _loop_fn(self, n_steps: int, use_mask: bool, stop_w: int,
                  use_poison: bool = False, draw: bool = False):
@@ -791,7 +850,7 @@ class ServingEngine:
                 self._decode_body, use_mask=use_mask, stop_w=stop_w,
                 use_poison=use_poison, draw=draw)
             self._loop_cache[key] = self._compile(
-                functools.partial(body, n_steps=n_steps), idle,
+                "decode", key, functools.partial(body, n_steps=n_steps), idle,
                 warm=functools.partial(body, n_steps=1))
         return self._loop_cache[key]
 
@@ -799,6 +858,7 @@ class ServingEngine:
         """One dispatch per power-of-two chunk bucket."""
         if length not in self._prefill_cache:
             self._prefill_cache[length] = self._compile(
+                "prefill", length,
                 functools.partial(self._prefill_body, length=length),
                 self._prefill_input(np.zeros((len(self.slots), length),
                                              np.int32),
@@ -853,23 +913,24 @@ class ServingEngine:
         if not dec:
             self._step_end(t_step0, tok0, churn0)
             return done_now
-        remaining = max(self.slots[i].params.max_new_tokens
-                        - len(self.slots[i].output) for i in dec)
-        chunk = self.ecfg.decode_chunk
-        if any(self._prefilling(i) for i in range(len(self.slots))):
-            chunk = min(chunk, self.ecfg.decode_chunk_prefilling)
-        n_steps = min(chunk, _pow2ceil(remaining))
-        if self.paged:
-            # decode writes positions pos..pos+n_steps-1 (worst case); a
-            # wrapping row is about to overwrite its oldest pages, which
-            # may be cache-shared prefix — fork them first (COW)
-            self._fork_writes(
-                [(i, len(self._prompts[i]) + len(self.slots[i].output) - 1,
-                  n_steps) for i in dec])
-            if self._tables_dirty:
-                self._page_maintenance()
-        poison = self._poison_array(n_steps) if self._injector is not None \
-            else None
+        with obs.span("decode_build"):
+            remaining = max(self.slots[i].params.max_new_tokens
+                            - len(self.slots[i].output) for i in dec)
+            chunk = self.ecfg.decode_chunk
+            if any(self._prefilling(i) for i in range(len(self.slots))):
+                chunk = min(chunk, self.ecfg.decode_chunk_prefilling)
+            n_steps = min(chunk, _pow2ceil(remaining))
+            if self.paged:
+                # decode writes positions pos..pos+n_steps-1 (worst case); a
+                # wrapping row is about to overwrite its oldest pages, which
+                # may be cache-shared prefix — fork them first (COW)
+                self._fork_writes(
+                    [(i, len(self._prompts[i]) + len(self.slots[i].output)
+                      - 1, n_steps) for i in dec])
+                if self._tables_dirty:
+                    self._page_maintenance()
+            poison = self._poison_array(n_steps) \
+                if self._injector is not None else None
         try:
             self._guard_dispatch("decode", dec)
             toks, bad = self._decode_loop(n_steps, poison)
@@ -1229,32 +1290,34 @@ class ServingEngine:
         pf = [i for i in range(len(self.slots)) if self._prefilling(i)]
         if not pf:
             return []
-        nb = len(self.slots)
-        take = {i: min(len(self._prompts[i]) - self._cursor[i],
-                       self.ecfg.prefill_chunk) for i in pf}
-        length = _pow2ceil(max(take.values()))
-        tokens = np.zeros((nb, length), np.int32)
-        lengths = np.zeros((nb,), np.int32)
-        for i in pf:
-            c = self._cursor[i]
-            tokens[i, :take[i]] = self._prompts[i][c:c + take[i]]
-            lengths[i] = take[i]
-        if self.paged:
-            # prefill writes only this row's private, unregistered pages
-            # (the skip starts past the shared prefix and registration
-            # trails the cursor), so these are no-ops — kept as the single
-            # COW choke point before every write dispatch
-            self._fork_writes([(i, self._cursor[i], take[i]) for i in pf])
-            if self._tables_dirty:
-                self._page_maintenance()
         obs = self.obs
+        nb = len(self.slots)
+        with obs.span("prefill_build"):
+            take = {i: min(len(self._prompts[i]) - self._cursor[i],
+                           self.ecfg.prefill_chunk) for i in pf}
+            length = _pow2ceil(max(take.values()))
+            tokens = np.zeros((nb, length), np.int32)
+            lengths = np.zeros((nb,), np.int32)
+            for i in pf:
+                c = self._cursor[i]
+                tokens[i, :take[i]] = self._prompts[i][c:c + take[i]]
+                lengths[i] = take[i]
+            if self.paged:
+                # prefill writes only this row's private, unregistered pages
+                # (the skip starts past the shared prefix and registration
+                # trails the cursor), so these are no-ops — kept as the
+                # single COW choke point before every write dispatch
+                self._fork_writes([(i, self._cursor[i], take[i])
+                                   for i in pf])
+                if self._tables_dirty:
+                    self._page_maintenance()
+            inp = self._prefill_input(tokens, lengths)
         t_pf0 = self._clock()
         try:
             self._guard_dispatch("prefill", pf)
             with obs.span("prefill_dispatch",
                           args={"bucket": length, "rows": len(pf)}):
-                logits = self._prefill_fn(length)(
-                    self._prefill_input(tokens, lengths))
+                logits = self._call(self._prefill_fn(length), inp, "prefill")
         except (EngineCrash, GraphFailure) as exc:  # engine death
             self._attribute_crash(exc, pf)
             raise
@@ -1264,6 +1327,7 @@ class ServingEngine:
         obs.h_prefill_chunk.observe(t_pf1 - t_pf0)
         self.prefill_steps += 1
         self.prefill_tokens += int(lengths.sum())
+        self.prefill_rows += nb * length
         finishers = [i for i in pf
                      if self._cursor[i] + take[i] >= len(self._prompts[i])]
         for i in pf:
@@ -1286,6 +1350,7 @@ class ServingEngine:
             toks, row_ok = fetch(torch.stack(
                 [self._sample_first(logits, finishers),
                  row_ok.to(torch.int32)]))
+            self._take_device_spans()
         if self.paged:
             self._register_pages(finishers, row_ok)
         now = self._clock()
@@ -1427,20 +1492,24 @@ class ServingEngine:
         ``poison`` ((B,) int32, -1 = never; given only by an engine with a
         fault injector) selects the loop variant that NaNs a row's logits
         on the device when its generated-token index equals it."""
-        arrays, masked, stop_w, draw = self._fleet_arrays()
-        nb = len(self.slots)
-        gen = np.asarray([len(self.slots[i].output) if self._decoding(i)
-                          else 0 for i in range(nb)], np.int32)
-        inp = self._decode_input(
-            gen, np.full((nb,), -1, np.int32) if poison is None else poison,
-            arrays)
-        with self.obs.span("decode_dispatch",
-                           args={"n_steps": n_steps,
-                                 "rows": int(arrays[1].sum())}):
-            out = self._loop_fn(n_steps, masked, stop_w, poison is not None,
-                                draw)(inp)
-        with self.obs.span("decode_sync"):
+        obs = self.obs
+        with obs.span("decode_build"):
+            arrays, masked, stop_w, draw = self._fleet_arrays()
+            nb = len(self.slots)
+            gen = np.asarray([len(self.slots[i].output) if self._decoding(i)
+                              else 0 for i in range(nb)], np.int32)
+            inp = self._decode_input(
+                gen, np.full((nb,), -1, np.int32) if poison is None
+                else poison, arrays)
+            rows = int(arrays[1].sum())
+        with obs.span("decode_dispatch",
+                      args={"n_steps": n_steps, "rows": rows}):
+            out = self._call(self._loop_fn(n_steps, masked, stop_w,
+                                           poison is not None, draw),
+                             inp, "decode", n_steps)
+        with obs.span("decode_sync"):
             flat = fetch(out)  # the dispatch's one host sync
+            self._take_device_spans()
         return flat[0::2].copy(), flat[1::2].astype(bool)
 
     def _collect(self, toks: np.ndarray,
@@ -1509,6 +1578,7 @@ class SerialAdmitEngine(ServingEngine):
         ``capacity`` at admission, which bounds the cache)."""
         if length not in self._prefill_cache:
             self._prefill_cache[length] = self._compile(
+                "prefill", length,
                 functools.partial(self._serial_body, length=length),
                 np.zeros((length,), np.int32))
         return self._prefill_cache[length]
@@ -1559,13 +1629,15 @@ class SerialAdmitEngine(ServingEngine):
             h.t_admit = self._clock()
             h._slot = slot
             self.obs.request_admitted(h, slot)
+            with self.obs.span("prefill_build"):
+                inp = np.asarray(prompt, np.int32)
             t_pf0 = self._clock()
             try:
                 self._guard_dispatch("prefill", [slot])
                 with self.obs.span("prefill_dispatch",
                                    args={"bucket": len(prompt), "rows": 1}):
-                    logits = self._prefill_len_fn(len(prompt))(
-                        np.asarray(prompt, np.int32))
+                    logits = self._call(self._prefill_len_fn(len(prompt)),
+                                        inp, "prefill")
             except (EngineCrash, GraphFailure) as exc:  # engine death
                 self._attribute_crash(exc, [slot])
                 raise
@@ -1576,6 +1648,7 @@ class SerialAdmitEngine(ServingEngine):
             self._merge(slot)
             self.prefill_steps += 1
             self.prefill_tokens += len(prompt)
+            self.prefill_rows += len(prompt)
             self.obs.h_prefill_chunk.observe(self._clock() - t_pf0)
             self.obs.prefill_chunk(h, slot, t_pf0, self._clock(),
                                    len(prompt), len(prompt))
@@ -1584,6 +1657,7 @@ class SerialAdmitEngine(ServingEngine):
                 logits[0] = float("nan")
             with self.obs.span("prefill_sync"):
                 tok, row_ok = self._first_token(logits, h.params)
+                self._take_device_spans()
             if not row_ok:
                 self._free_slot(slot)
                 self._quarantine(slot)

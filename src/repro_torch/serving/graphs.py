@@ -26,11 +26,20 @@ cache, positions) keeps its storage between calls (``models.transformer``).
     are not the graph's), leave ``kernels._build.LAUNCHES`` at the capture
     and are added back at every replay, so the counts stay "launches
     executed".
+  * two CUDA timing events are the graph's first and last nodes (event
+    record nodes, ``external=True``): each replay records when its first
+    node starts and its last ends on the device, whatever the host's
+    launch cost, and changes nothing the kernels compute. ``device_s()``
+    reads the last replay's span without waiting (a non-blocking query:
+    None if its end has not run yet), once; ``kernels`` counts the
+    graph's kernel nodes at the capture.
 
 ``EagerDispatch`` runs the same body without a graph: on the CPU (where it
-is the only path), and on the card when the engine's capture is switched
-off (the eager-vs-graph comparison). Nothing falls back from one to the
-other: a capture or a replay that fails raises.
+is the only path, and runs to its end inside the call: its ``device_s()``
+is the engine's clock around the call), and on the card when the engine's
+capture is switched off (the eager-vs-graph comparison; not timed).
+Nothing falls back from one to the other: a capture or a replay that fails
+raises.
 
 Captures while other threads run. Behind the HTTP frontend an engine
 captures at first use on its driver thread while client threads are live,
@@ -152,23 +161,53 @@ def fetch(out: torch.Tensor) -> np.ndarray:
     return host.numpy()
 
 
-class EagerDispatch:
+def _timing_events():
+    """A graph's start and end events: recorded inside a capture, each is an
+    event record node of the graph."""
+    return tuple(torch.cuda.Event(enable_timing=True, external=True)
+                 for _ in range(2))
+
+
+class _Timed:
+    """The device span of a dispatch's last call, taken once."""
+
+    _span = None  # (start event, end event) of a graph; seconds on the CPU
+
+    def device_s(self) -> Optional[float]:
+        """The device seconds of the last call, once: None when they were
+        taken already, or when the call's work has not all run yet (a
+        non-blocking query; that span is then dropped). Never waits."""
+        span, self._span = self._span, None
+        if not isinstance(span, tuple):
+            return span
+        start, end = span
+        return start.elapsed_time(end) / 1e3 if end.query() else None
+
+
+class EagerDispatch(_Timed):
     """The body run as it is, on every call."""
 
     capture_s = 0.0
+    kernels = 0
     launches: Dict[str, int] = {}
 
-    def __init__(self, body: Callable[[torch.Tensor], torch.Tensor], device):
+    def __init__(self, body: Callable[[torch.Tensor], torch.Tensor], device,
+                 clock: Callable[[], float] = rtclock.MONOTONIC):
         self.body = body
         self.device = torch.device(device)
+        self.clock = clock
         self.replays = 0
 
     def __call__(self, host: np.ndarray) -> torch.Tensor:
         self.replays += 1
-        return self.body(upload(host, self.device))
+        t0 = self.clock()
+        out = self.body(upload(host, self.device))
+        if self.device.type == "cpu":
+            self._span = self.clock() - t0
+        return out
 
 
-class GraphDispatch:
+class GraphDispatch(_Timed):
     """The body captured once as a CUDA graph over a static input buffer
     (see the module docstring). ``stream`` is the engine's stream, the one
     the capture and every replay run on; ``pool`` its graph memory pool."""
@@ -190,6 +229,11 @@ class GraphDispatch:
             # eager and a no-op: loads every kernel of the body (``warm``,
             # when given, launches the same kernels in fewer steps)
             (warm or body)(upload(idle, dev))
+            # the timing events exist (and have been recorded) before the
+            # capture, which then records each as a node
+            self._events = _timing_events()
+            for ev in self._events:
+                ev.record(stream)
             self.graph = torch.cuda.CUDAGraph()
             with CAPTURE_LOCK:
                 before = _build.thread_launch_counts()
@@ -206,7 +250,10 @@ class GraphDispatch:
                     with torch.cuda.graph(self.graph, pool=pool,
                                           stream=stream,
                                           capture_error_mode="thread_local"):
+                        self._events[0].record(stream)
                         self.out = body(self.static_in)
+                        self._events[1].record(stream)
+                        self.kernels = _build.capture_kernel_nodes(stream)
                 finally:
                     if gc_on:
                         gc.enable()
@@ -223,4 +270,5 @@ class GraphDispatch:
             raise GraphFailure(f"CUDA graph replay failed: {e}") from e
         _build.add_launches(self.launches)
         self.replays += 1
+        self._span = self._events
         return self.out

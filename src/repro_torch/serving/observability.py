@@ -1,6 +1,8 @@
-"""Zero-perturbation serving observability: metrics registry + lifecycle
-trace recorder (a copy of the reference's ``repro.serving.observability``,
-its v1.3 contract: names, kinds, units, phases and trace events alike).
+"""Serving observability: metrics registry + lifecycle trace recorder (a
+copy of the reference's ``repro.serving.observability``, its v1.3 contract:
+names, kinds, units, phases and trace events alike), and the port's own
+extension of it, declared in one place and placed after the reference's
+(``PORT_PHASES``, ``PORT_METRICS``, ``PORT_SPANS``).
 
 Two instruments, one clock:
 
@@ -17,22 +19,33 @@ Two instruments, one clock:
   (oldest dropped first, drops counted) covering per-request lifecycle
   (submitted → queued → admitted → prefill chunks → first token → decode
   → retired, with finish_reason and slot/page annotations) and per-step
-  engine phases (sweep, admit, prefill dispatch/sync, sample-collect,
-  decode dispatch/sync, collect, page maintenance). Exports Chrome/
+  engine phases (sweep, admit, prefill build/dispatch/sync,
+  sample-collect, decode build/dispatch/sync, collect, page maintenance)
+  and, on the boot track, each dispatch's capture. Exports Chrome/
   Perfetto ``trace.json`` (load in ``ui.perfetto.dev`` or
   ``chrome://tracing``).
 
 :class:`Observability` bundles both behind the engine's single injectable
 clock (``repro_torch.runtime.clock``; ``faults.VirtualClock`` substitutes it
 wholesale, making every timestamp — and therefore every span duration and
-histogram observation — deterministic in tests).
+histogram observation — deterministic in tests). While a ``torch.profiler``
+session is active each span also opens a profiler range of its name, so
+the engine's phases sit in the profiler's trace beside the kernels, on its
+clock; without one the check is one flag read.
 
-The zero-perturbation contract: nothing in this module touches the device
-or the engine's graph caches — all instrumentation is host-side
-bookkeeping around (never inside) the captured dispatches, so tokens are
-bit-identical with tracing on, off, or unconfigured, and no new
-compile-cache axis exists. ``chip_smoke.py`` prints the traced and
-untraced tok/s on the card.
+The port's extension: the host phases ``prefill_build`` and
+``decode_build`` (building a dispatch's input, apart from its launch),
+the prefill rows computed (slots × bucket) beside the prompt tokens
+needed, each replay's device seconds, and set-up's seconds and captures.
+
+The zero-perturbation contract: tokens are bit-identical with tracing on,
+off, or unconfigured, and no new compile-cache axis exists. Everything
+here is host-side bookkeeping around the captured dispatches but one
+thing: each captured graph holds two timing events as its first and last
+nodes (``serving.graphs``), which record when the graph's work starts and
+ends on the device and change no kernel, input or output; their spans are
+read without a host sync, at the syncs the engine makes anyway.
+``chip_smoke.py`` prints the traced and untraced tok/s on the card.
 """
 
 from __future__ import annotations
@@ -44,10 +57,13 @@ from collections import OrderedDict, deque
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
+import torch.autograd.profiler as _profiler
+from torch._C import _profiler as _c_profiler
 
 from repro_torch.runtime import clock as rtclock
 
-__all__ = ["MetricSpec", "SERVING_METRICS", "PHASES",
+__all__ = ["MetricSpec", "SERVING_METRICS", "PHASES", "PORT_PHASES",
+           "PORT_METRICS", "PORT_NAMES", "PORT_SPANS", "CAPTURE_SPAN",
            "Counter", "Gauge", "Histogram", "MetricsRegistry",
            "TraceRecorder", "Observability"]
 
@@ -56,13 +72,31 @@ __all__ = ["MetricSpec", "SERVING_METRICS", "PHASES",
 # the frozen metric schema (v1.3)
 # ---------------------------------------------------------------------------
 
+#: the port's own engine-step phases, after the reference's: building a
+#: dispatch's input apart from its launch. ``prefill_build``: the prefill's
+#: tokens and lengths, its copy-on-write and page tables, its one input;
+#: ``decode_build``: the decode chunk, copy-on-write and page tables, the
+#: poison, the fleet's arrays and the one input (two spans a step, either
+#: side of the fault injector's veto).
+PORT_PHASES = ("prefill_build", "decode_build")
+
 #: engine-step phase names (trace span names on the engine track, and the
-#: ``serving_phase_<name>_seconds_total`` counter suffixes). ``page_maint``
-#: nests inside whichever phase triggered the page bookkeeping (admit,
-#: prefill, or decode), so its seconds are also counted by its parent.
+#: ``serving_phase_<name>_seconds_total`` counter suffixes): the
+#: reference's, then ``PORT_PHASES``. ``page_maint`` nests inside whichever
+#: phase triggered the page bookkeeping (admit, prefill_build or
+#: decode_build), so its seconds are also counted by its parent; the
+#: other phases of ``ServingEngine`` are disjoint (``SerialAdmitEngine``
+#: prefills inside ``admit``, as the reference does).
 PHASES = ("sweep", "admit", "prefill_dispatch", "prefill_sync",
           "sample_collect", "decode_dispatch", "decode_sync", "collect",
-          "page_maint")
+          "page_maint") + PORT_PHASES
+_REFERENCE_PHASES = PHASES[:-len(PORT_PHASES)]
+
+#: the boot-track span of one dispatch's compile (a CUDA graph's capture,
+#: its eager warm call included; an eager body's build on the CPU)
+CAPTURE_SPAN = "capture"
+#: span names the port records and the reference does not
+PORT_SPANS = PORT_PHASES + (CAPTURE_SPAN,)
 
 #: default latency histogram bucket upper bounds, seconds
 LATENCY_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
@@ -82,11 +116,42 @@ class MetricSpec:
     paged_only: bool = False     # registered only under kv_layout="paged"
 
 
-def _phase_specs() -> Tuple[MetricSpec, ...]:
+def _phase_specs(phases) -> Tuple[MetricSpec, ...]:
     return tuple(
         MetricSpec(f"serving_phase_{p}_seconds_total", "counter", "seconds",
                    f"cumulative host seconds spent in the '{p}' step phase")
-        for p in PHASES)
+        for p in phases)
+
+
+#: The port's extension of the schema (not in the reference's), which
+#: ``SERVING_METRICS`` ends with: its phases' counters, the prefill rows
+#: computed, each replay's device time, and set-up.
+PORT_METRICS: Tuple[MetricSpec, ...] = (
+    *_phase_specs(PORT_PHASES),
+    MetricSpec("serving_prefill_rows_total", "counter", "tokens",
+               "token rows prefill dispatches computed: slots x bucket "
+               "(bucketed), the prompt (serial); the rows needed are "
+               "serving_prefill_tokens_total"),
+    MetricSpec("serving_prefill_device_seconds_total", "counter", "seconds",
+               "device seconds of the timed prefill dispatches (timing "
+               "events inside each graph)"),
+    MetricSpec("serving_prefill_device_timed_total", "counter", "1",
+               "prefill dispatches whose device seconds were taken"),
+    MetricSpec("serving_decode_device_seconds_total", "counter", "seconds",
+               "device seconds of the timed decode dispatches (timing "
+               "events inside each graph)"),
+    MetricSpec("serving_decode_device_timed_total", "counter", "1",
+               "decode steps of the timed decode dispatches"),
+    MetricSpec("serving_warmup_seconds_total", "counter", "seconds",
+               "host seconds of warmup()"),
+    MetricSpec("serving_graph_captures_total", "counter", "1",
+               "dispatches compiled: CUDA graphs captured on the card, "
+               "eager bodies built on the CPU"),
+    MetricSpec("serving_graph_capture_seconds_total", "counter", "seconds",
+               "host seconds of the compiles, each eager warm call "
+               "included"),
+)
+PORT_NAMES = frozenset(s.name for s in PORT_METRICS)
 
 
 #: The frozen serving metric schema (v1.3 contract). Names and units are
@@ -121,7 +186,7 @@ SERVING_METRICS: Tuple[MetricSpec, ...] = (
                "prompt tokens consumed by prefill dispatches"),
     MetricSpec("serving_trace_dropped_total", "counter", "1",
                "trace events dropped by the bounded ring buffer"),
-    *_phase_specs(),
+    *_phase_specs(_REFERENCE_PHASES),
     # ---- fleet gauges
     MetricSpec("serving_queue_depth", "gauge", "1",
                "requests waiting for a slot"),
@@ -184,6 +249,8 @@ SERVING_METRICS: Tuple[MetricSpec, ...] = (
     MetricSpec("serving_recovery_seconds", "histogram", "seconds",
                "engine death detected -> survivors requeued on the "
                "rebuilt engine", LATENCY_BUCKETS),
+    # ---- the port's extension
+    *PORT_METRICS,
 )
 
 SPEC_BY_NAME: Dict[str, MetricSpec] = {s.name: s for s in SERVING_METRICS}
@@ -432,6 +499,11 @@ class MetricsRegistry:
 # trace recorder
 # ---------------------------------------------------------------------------
 
+#: a profiler range of the host alone (``record_function``'s ranges also
+#: put an annotation on the device's timeline, which a reader of the
+#: device's operations would count as busy)
+_Range = _c_profiler._RecordFunctionFast
+
 # Track = (process_name, thread_id): which timeline row an event lands on.
 TRACK_ENGINE = ("engine", 0)
 TRACK_BOOT = ("boot", 0)
@@ -578,12 +650,20 @@ class Observability:
         """Time a host-side section: accumulates into the phase counter
         (when ``name`` is a known engine phase) and records a trace span
         (when tracing is on). Timestamps come from the bundle clock, so a
-        VirtualClock yields exact, deterministic spans."""
+        VirtualClock yields exact, deterministic spans. Under an active
+        ``torch.profiler`` the section is also a profiler range of the
+        same name (a host range only: unlike ``record_function``'s, it
+        puts no annotation on the device's timeline)."""
+        rng = _Range(name) if _profiler._is_profiler_enabled else None
+        if rng is not None:
+            rng.__enter__()
         t0 = self.clock()
         try:
             yield
         finally:
             t1 = self.clock()
+            if rng is not None:
+                rng.__exit__(None, None, None)
             if name in self.phase_seconds:
                 self.phase_seconds[name] += t1 - t0
             if self.trace is not None:
@@ -593,6 +673,18 @@ class Observability:
                 args: Optional[Dict[str, Any]] = None) -> None:
         if self.trace is not None:
             self.trace.instant(name, track, t, args=args)
+
+    def capture(self, kind: str, key, t0: float, t1: float,
+                kernels: int) -> None:
+        """One dispatch's compile, [t0, t1] on the boot track: its kind
+        ("prefill" | "decode"), its cache key and its graph's kernel
+        nodes (0 for an eager body)."""
+        if self.trace is not None:
+            self.trace.complete(
+                CAPTURE_SPAN, TRACK_BOOT, t0, t1, cat="boot",
+                args={"kind": kind,
+                      "key": list(key) if isinstance(key, tuple) else key,
+                      "kernels": kernels})
 
     # ---- engine wiring ----------------------------------------------------
     def bind_engine(self, engine) -> None:
@@ -622,10 +714,7 @@ class Observability:
         ):
             reg.counter(name, poll=fn, unit=SPEC_BY_NAME[name].unit,
                         help=SPEC_BY_NAME[name].help)
-        for p in PHASES:
-            name = f"serving_phase_{p}_seconds_total"
-            reg.counter(name, poll=(lambda p=p: self.phase_seconds[p]),
-                        unit="seconds", help=SPEC_BY_NAME[name].help)
+        self._phase_counters(_REFERENCE_PHASES)
         for name, fn in (
             ("serving_queue_depth", lambda: len(e.queue)),
             ("serving_resident_slots",
@@ -666,6 +755,29 @@ class Observability:
                 reg.gauge(name, poll=fn, unit=SPEC_BY_NAME[name].unit,
                           help=SPEC_BY_NAME[name].help)
             self.h_page_churn = self._hist(reg, "serving_page_churn_pages")
+        # the port's extension, after every name of the reference's
+        self._phase_counters(PORT_PHASES)
+        for name, fn in (
+            ("serving_prefill_rows_total", lambda: e.prefill_rows),
+            ("serving_prefill_device_seconds_total",
+             lambda: e.prefill_device_s),
+            ("serving_prefill_device_timed_total", lambda: e.prefill_timed),
+            ("serving_decode_device_seconds_total",
+             lambda: e.decode_device_s),
+            ("serving_decode_device_timed_total", lambda: e.decode_timed),
+            ("serving_warmup_seconds_total", lambda: e.warmup_s),
+            ("serving_graph_captures_total", lambda: e.compiles),
+            ("serving_graph_capture_seconds_total", lambda: e.compile_s),
+        ):
+            reg.counter(name, poll=fn, unit=SPEC_BY_NAME[name].unit,
+                        help=SPEC_BY_NAME[name].help)
+
+    def _phase_counters(self, phases) -> None:
+        for p in phases:
+            name = f"serving_phase_{p}_seconds_total"
+            self.registry.counter(
+                name, poll=(lambda p=p: self.phase_seconds[p]),
+                unit="seconds", help=SPEC_BY_NAME[name].help)
 
     @staticmethod
     def _hist(reg: MetricsRegistry, name: str) -> Histogram:

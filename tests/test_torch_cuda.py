@@ -95,8 +95,9 @@ from repro_torch.kernels.ternary_matmul import ref as tm_ref
 from repro_torch.kernels.wkv6 import ops as wkv_ops
 from repro_torch.kernels.wkv6 import ref as wkv_ref
 from repro_torch.models import init_params
-from repro_torch.serving import (EngineConfig, SamplingParams,
-                                 SerialAdmitEngine, ServingEngine)
+from repro_torch.serving import (EngineConfig, Observability,
+                                 SamplingParams, SerialAdmitEngine,
+                                 ServingEngine)
 from repro_torch.serving import graphs
 from repro_torch.serving.graphs import GraphDispatch
 from repro_torch.serving.faults import FaultInjector, FaultPlan, VirtualClock
@@ -863,6 +864,92 @@ def test_one_host_sync_per_decode_dispatch(cuda):
                                        prefill_steps=eng.prefill_steps)
     assert calls and not any(c[3] for c in calls)
     assert {c[1] for c in calls} == {(False, 1), (True, 1)}, calls
+
+
+def test_device_spans_take_no_host_sync(cuda):
+    """After warmup() the replays' device spans (timing events inside each
+    graph) advance the timed counters without a host sync of their own:
+    under torch.cuda's sync-debug mode the run's syncs are exactly its
+    sync spans (one a decode dispatch, one a prefill that finished a
+    prompt); every decode step is timed, and the spans are shorter than
+    the decode dispatches' wall time from launch to sync."""
+    model, cfg = _bf16_smoke(cuda)
+    eng = ServingEngine(model, cfg, EngineConfig(max_slots=2, capacity=128,
+                                                 prefill_chunk=16,
+                                                 decode_chunk=4),
+                        observability=Observability(trace=True))
+    eng.warmup()
+    reg = eng.obs.registry
+    before = reg.counters()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            hs = [eng.submit([1, 2, 3], SamplingParams(max_new_tokens=5)),
+                  eng.submit(list(range(40)),
+                             SamplingParams(max_new_tokens=11)),
+                  eng.submit([4, 5], SamplingParams(max_new_tokens=6,
+                                                    temperature=0.8, seed=1))]
+            eng.run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert all(h.finish_reason == "length" for h in hs)
+    syncs = sum("called a synchronizing" in str(m.message) for m in seen)
+    events = eng.obs.trace.events()
+    assert syncs == sum(e.name in ("prefill_sync", "decode_sync")
+                        for e in events) > 0
+
+    def grew(name):
+        return reg.value(name) - before[name]
+
+    steps = grew("serving_decode_steps_total")
+    assert grew("serving_decode_device_timed_total") == steps > 0
+    assert 0 < grew("serving_prefill_device_timed_total") \
+        <= grew("serving_prefill_dispatches_total")
+    wall = sum(e.dur for e in events
+               if e.name in ("decode_dispatch", "decode_sync"))
+    assert 0 < grew("serving_decode_device_seconds_total") < wall
+    assert grew("serving_prefill_device_seconds_total") > 0
+    assert eng._untimed == []
+
+
+class _NoEvent:
+    """A timing event that records nothing: a graph captured with it holds
+    no event node."""
+
+    def record(self, stream=None):
+        pass
+
+
+def test_event_nodes_change_no_token(cuda, monkeypatch):
+    """The two timing events inside every graph change no token: the fleet
+    served from graphs with them gives, bit for bit, the tokens of graphs
+    captured without them and of the eager bodies, on the same kernel
+    nodes a graph; their spans timed every decode step."""
+    model, cfg = _bf16_smoke(cuda)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (5, 40, 140, 129)]
+    params = [SamplingParams(max_new_tokens=9) for _ in prompts]
+    params[0] = SamplingParams(max_new_tokens=9, temperature=0.8, seed=5)
+    params[3] = SamplingParams(max_new_tokens=9, temperature=0.8, seed=7,
+                               top_k=20, top_p=0.9)
+    timed, eng = _graph_serve(model, cfg, prompts, params)
+    assert eng.decode_timed == eng.steps > 0
+    eager, _ = _graph_serve(model, cfg, prompts, params, capture=False)
+    monkeypatch.setattr(graphs, "_timing_events",
+                        lambda: (_NoEvent(), _NoEvent()))
+    monkeypatch.setattr(graphs._Timed, "device_s", lambda self: None)
+    bare, bare_eng = _graph_serve(model, cfg, prompts, params)
+    assert timed == bare == eager
+    assert bare_eng.decode_timed == bare_eng.prefill_timed == 0
+
+    def nodes(e):
+        return [(d["kind"], d["key"], d["kernels"])
+                for d in e.graph_stats()["dispatches"]]
+    assert nodes(eng) == nodes(bare_eng)
+    assert all(d["kernels"] > 0 for d in eng.graph_stats()["dispatches"])
 
 
 def test_replays_count_the_launches_they_run(cuda):

@@ -11,8 +11,16 @@ kind, time, duration and arguments, in order) must be equal, on both
 schedulers and layouts, with and without a fault plan. The frozen schema is
 the reference's; tokens and the dispatch caches do not depend on tracing;
 no raw wall-clock call hides in the port's serving or model layers.
+
+The port's own extension (``observability.PORT_METRICS``, ``PORT_PHASES``,
+``PORT_SPANS``: the input builds apart from the launches, prefill rows
+computed, device seconds, set-up's compiles) is declared after the
+reference's schema and dropped from the port's side before the comparison,
+so every name, value and event the reference has is still compared
+exactly; its own tests hold it to what it counts.
 """
 
+import bisect
 import dataclasses
 import json
 import re
@@ -102,6 +110,21 @@ def observed(eng):
                 digest=eng.obs.digest())
 
 
+def reference_part(rec):
+    """The port's records without its declared extension (the names of
+    ``observability.PORT_METRICS``, the spans of ``PORT_SPANS``): what the
+    reference's records must equal."""
+    ours = obs.PORT_NAMES
+    return dict(rec,
+                names=[n for n in rec["names"] if n not in ours],
+                scalars={n: v for n, v in rec["scalars"].items()
+                         if n not in ours},
+                hists={n: v for n, v in rec["hists"].items()
+                       if n not in ours},
+                events=[e for e in rec["events"]
+                        if e[0] not in obs.PORT_SPANS])
+
+
 def assert_same(ref, port):
     assert port["names"] == ref["names"]
     assert port["scalars"] == ref["scalars"]
@@ -118,9 +141,10 @@ def assert_same(ref, port):
 
 # ---------------------------------------------------------------- the schema
 def test_frozen_schema_equals_reference():
-    assert obs.SERVING_METRICS == tuple(
+    ours = len(obs.SERVING_METRICS) - len(obs.PORT_METRICS)
+    assert obs.SERVING_METRICS[:ours] == tuple(
         obs.MetricSpec(**dataclasses.asdict(s)) for s in jobs.SERVING_METRICS)
-    assert obs.PHASES == jobs.PHASES
+    assert obs.PHASES[:len(obs.PHASES) - len(obs.PORT_PHASES)] == jobs.PHASES
     assert obs.LATENCY_BUCKETS == jobs.LATENCY_BUCKETS
     assert obs.COUNT_BUCKETS == jobs.COUNT_BUCKETS
     assert monitor.HEARTBEAT_SCHEMA == jmonitor.HEARTBEAT_SCHEMA == 3
@@ -226,8 +250,10 @@ def test_registry_health_and_trace_equal_reference(both, scheduler, layout,
         streams = _workload(ns, eng, clock)
         got[ns.name] = (streams, observed(eng))
     assert got["port"][0] == got["reference"][0]
-    assert_same(got["reference"][1], got["port"][1])
+    assert_same(got["reference"][1], reference_part(got["port"][1]))
     rec = got["port"][1]
+    assert set(obs.PORT_NAMES) <= set(rec["names"])
+    assert {"prefill_build", "capture"} <= {e[0] for e in rec["events"]}
     names = {e[0] for e in rec["events"]}
     assert {"step", "admit", "prefill_dispatch", "prefill_sync",
             "decode_dispatch", "decode_sync", "collect", "request",
@@ -347,3 +373,202 @@ def test_no_raw_wall_clock_in_serving_or_models():
                  for i, line in enumerate(p.read_text().splitlines(), 1)
                  if pat.search(line)]
     assert not offenders, offenders
+
+
+# ------------------------------------------------- the port's extension
+def test_port_extension_is_disjoint_and_after_the_reference(both):
+    """The port's names, phases and span names are none of the reference's
+    and come after all of them: in the schema, in ``PHASES`` and in a
+    bound engine's registry."""
+    ref_names = {s.name for s in jobs.SERVING_METRICS}
+    n = len(obs.PORT_METRICS)
+    assert obs.SERVING_METRICS[-n:] == obs.PORT_METRICS
+    assert obs.PORT_NAMES == {s.name for s in obs.PORT_METRICS}
+    assert not obs.PORT_NAMES & ref_names
+    assert obs.PHASES[-len(obs.PORT_PHASES):] == obs.PORT_PHASES
+    assert not set(obs.PORT_PHASES) & set(jobs.PHASES)
+    assert {f"serving_phase_{p}_seconds_total" for p in obs.PORT_PHASES} \
+        <= obs.PORT_NAMES
+    spans = {}
+    for ns in both:
+        eng, clock = traced(ns, kv_layout="paged", page_size=8)
+        _workload(ns, eng, clock)
+        spans[ns.name] = {e.name for e in eng.obs.trace.events()}
+        if ns.name == "port":
+            names = eng.obs.registry.names()
+            first = min(names.index(n) for n in obs.PORT_NAMES)
+            assert all(n in obs.PORT_NAMES for n in names[first:])
+            assert [n for n in names if n in obs.PORT_NAMES] == \
+                [s.name for s in obs.PORT_METRICS]
+    assert not set(obs.PORT_SPANS) & spans["reference"]
+    assert set(obs.PORT_SPANS) <= spans["port"]
+
+
+class _Ticking(faults.VirtualClock):
+    """A scripted clock: every read advances it 1 ms, so each span of the
+    engine has its own start and end."""
+
+    def __call__(self) -> float:
+        return self.advance(1e-3)
+
+
+def ticking(port, scheduler="bucketed", **ecfg):
+    clock = _Ticking(start=1000.0)
+    kw = dict(dict(max_slots=2, capacity=32, prefill_chunk=16,
+                   decode_chunk=4), **ecfg)
+    eng = port.Engines[scheduler](
+        port.params, port.cfg, EngineConfig(**kw),
+        injector=faults.FaultInjector(faults.FaultPlan(), clock=clock),
+        observability=obs.Observability(trace=True))
+    return eng, clock
+
+
+@pytest.mark.parametrize("scheduler,layout", [
+    ("bucketed", "ring"), ("bucketed", "paged"), ("serial", "ring")])
+def test_prefill_rows_count_slots_times_bucket(both, scheduler, layout):
+    """``serving_prefill_rows_total`` is Σ slots × bucket over the
+    ``prefill_dispatch`` spans (the serial engine: Σ prompt lengths); the
+    rows needed, ``serving_prefill_tokens_total``, are fewer."""
+    _, port = both
+    eng, clock = ticking(port, scheduler, kv_layout=layout, page_size=8)
+    _workload(port, eng, clock)
+    spans = [e for e in eng.obs.trace.events()
+             if e.name == "prefill_dispatch"]
+    reg = eng.obs.registry
+    slots = 1 if scheduler == "serial" else len(eng.slots)
+    assert len(spans) == reg.value("serving_prefill_dispatches_total") >= 3
+    rows = reg.value("serving_prefill_rows_total")
+    assert rows == sum(slots * e.args["bucket"] for e in spans)
+    needed = reg.value("serving_prefill_tokens_total")
+    if scheduler == "serial":
+        assert rows == needed
+    else:
+        assert 0 < needed < rows
+
+
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+def test_phases_are_disjoint_and_chunks_span_their_dispatch(both, layout):
+    """On a scripted clock no two phase spans of a step overlap but
+    ``page_maint`` inside its parent (``host_step_ms`` sums the phase
+    counters), every phase lies inside its step, and each request's
+    ``prefill_chunk`` span holds the start of its ``prefill_dispatch``
+    span (the benchmark pairs them by time)."""
+    _, port = both
+    eng, clock = ticking(port, kv_layout=layout, page_size=8)
+    _workload(port, eng, clock)
+    events = eng.obs.trace.events()
+    phases = sorted((e for e in events if e.name in obs.PHASES),
+                    key=lambda e: e.ts)
+    top = [e for e in phases if e.name != "page_maint"]
+    assert {"prefill_build", "decode_build"} <= {e.name for e in top}
+    for a, b in zip(top, top[1:]):
+        assert a.ts + a.dur <= b.ts, (a, b)
+    maint = [e for e in phases if e.name == "page_maint"]
+    assert maint or layout == "ring"
+    for m in maint:
+        assert any(p.ts <= m.ts and m.ts + m.dur <= p.ts + p.dur
+                   and p.name in ("admit", "prefill_build", "decode_build")
+                   for p in top), m
+    steps = [e for e in events if e.name == "step"]
+    for p in top:
+        assert any(s.ts <= p.ts and p.ts + p.dur <= s.ts + s.dur
+                   for s in steps), p
+    chunks = [e for e in events if e.name == "prefill_chunk"]
+    starts = sorted(e.ts for e in events if e.name == "prefill_dispatch")
+    assert chunks and starts
+    for c in chunks:
+        i = bisect.bisect_left(starts, c.ts)
+        assert i < len(starts) and starts[i] <= c.ts + c.dur, c
+
+
+def test_capture_counters_equal_the_dispatch_caches(both):
+    """After ``warmup()`` the compiles counted equal the dispatch caches, one
+    boot-track span each (its kind, key and kernel nodes: none for an
+    eager body); a workload of stop-set width 1 adds none, a request with
+    two stop ids one (its width-2 decode loop)."""
+    _, port = both
+    eng, clock = ticking(port)
+    eng.warmup()
+    reg = eng.obs.registry
+
+    def compiled():
+        return len(eng._prefill_cache) + len(eng._loop_cache)
+
+    n = reg.value("serving_graph_captures_total")
+    assert n == compiled() > 0
+    spans = [e for e in eng.obs.trace.events() if e.name == obs.CAPTURE_SPAN]
+    assert len(spans) == n
+    assert all(e.track == obs.TRACK_BOOT and e.args["kernels"] == 0
+               for e in spans)
+    assert {tuple(e.args["key"]) for e in spans
+            if e.args["kind"] == "decode"} == set(eng._loop_cache)
+    assert sorted(e.args["key"] for e in spans
+                  if e.args["kind"] == "prefill") == sorted(eng._prefill_cache)
+    capture_s = reg.value("serving_graph_capture_seconds_total")
+    assert capture_s == pytest.approx(sum(e.dur for e in spans))
+    assert 0 < capture_s < reg.value("serving_warmup_seconds_total")
+    assert [d["kernels"] for d in eng.graph_stats()["dispatches"]] == \
+        [0] * n
+    eng.submit([1, 2, 3], SamplingParams(max_new_tokens=5))
+    eng.submit([4, 5], SamplingParams(max_new_tokens=3, temperature=0.8,
+                                      seed=1))
+    eng.run()
+    assert reg.value("serving_graph_captures_total") == n == compiled()
+    eng.submit([6, 7], SamplingParams(max_new_tokens=4, stop={3, 9}))
+    eng.run()
+    assert reg.value("serving_graph_captures_total") == n + 1 == compiled()
+
+
+@pytest.mark.parametrize("scheduler", ["bucketed", "serial"])
+def test_device_spans_of_eager_dispatches_are_the_engine_clock(both,
+                                                              scheduler):
+    """On the CPU a dispatch's device span is the engine's clock around the
+    call (one tick of the scripted clock): every prefill dispatch and
+    every decode step is timed, each span taken once."""
+    _, port = both
+    eng, clock = ticking(port, scheduler)
+    _workload(port, eng, clock)
+    reg = eng.obs.registry
+    dispatches = reg.value("serving_prefill_dispatches_total")
+    assert reg.value("serving_prefill_device_timed_total") == dispatches
+    assert reg.value("serving_prefill_device_seconds_total") == \
+        pytest.approx(1e-3 * dispatches)
+    steps = reg.value("serving_decode_steps_total")
+    assert reg.value("serving_decode_device_timed_total") == steps > 0
+    decodes = sum(e.name == "decode_dispatch"
+                  for e in eng.obs.trace.events())
+    assert reg.value("serving_decode_device_seconds_total") == \
+        pytest.approx(1e-3 * decodes)
+    assert eng._untimed == []
+
+
+def test_spans_are_profiler_ranges_on_one_clock():
+    """Under a CPU ``torch.profiler`` every span is also a profiler range of
+    its name: after the offset of one mark, its start agrees with the
+    recorder's within 100 µs; without a profiler none is opened."""
+    from torch.profiler import ProfilerActivity, profile
+
+    bundle = obs.Observability(trace=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with bundle.span("mark"):
+            pass
+        for _ in range(3):
+            with bundle.span("admit"):
+                sum(range(20000))
+            with bundle.span("prefill_build"):
+                sum(range(5000))
+    with bundle.span("decode_build"):
+        pass
+    ranges = {}
+    for e in prof.profiler.kineto_results.events():
+        ranges.setdefault(e.name(), []).append(e.start_ns() / 1e9)
+    rec = {}
+    for e in bundle.trace.events():
+        rec.setdefault(e.name, []).append(e.ts)
+    assert "decode_build" not in ranges
+    [mark] = ranges["mark"]
+    off = mark - rec["mark"][0]
+    for name in ("admit", "prefill_build"):
+        assert len(ranges[name]) == len(rec[name]) == 3
+        for got, want in zip(sorted(ranges[name]), rec[name]):
+            assert abs(got - off - want) < 100e-6, (name, got - off, want)
