@@ -1021,10 +1021,12 @@ def make_prompts(cfg):
 
 
 def final_buckets(lens):
-    """The prefill bucket (padded chunk length) in which each prompt's last
-    chunk runs, when all are admitted at once: every dispatch advances each
-    mid-prompt row by min(rest, PREFILL_CHUNK) and pads to the next power of
-    two of the longest take (``ServingEngine._prefill_step``)."""
+    """The length bucket of each prompt's last chunk, when all are admitted
+    at once: every dispatch advances each mid-prompt row by min(rest,
+    PREFILL_CHUNK), padded to the next power of two of the longest take
+    (an MoE model's prefill keys; the other models' prefills all run at
+    PREFILL_CHUNK, on a row bucket of the mid-prompt slots). Picks the
+    prompt whose last chunk is short alone and long beside others."""
     rest, out = list(lens), {}
     while any(rest):
         take = [min(r, PREFILL_CHUNK) for r in rest]

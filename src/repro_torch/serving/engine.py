@@ -10,11 +10,18 @@ scheduling and field names), over the ring or the paged KV layout.
   * ``run()`` drives until drained.
 
 The batch has ``max_slots`` fixed rows. Bucketed admission advances every
-mid-prompt row by one power-of-two prefill bucket in a single dispatch
-(rows not prefilling ride along with length 0); a long prompt is consumed
-``prefill_chunk`` tokens per step, interleaved with shortened decode
-chunks. Decode runs ``K`` ``decode_step``s with sampling, stop-freezing and
-``active`` kept on the device, and one host sync per K-step dispatch.
+mid-prompt row by one chunk in a single prefill dispatch, and a long
+prompt is consumed ``prefill_chunk`` tokens per step, interleaved with
+shortened decode chunks. The dispatch computes a compact batch of ``R``
+rows at one length ``L = pow2ceil(prefill_chunk)``: the mid-prompt slots
+and, up to ``R`` (a power of two, at least the rows that keep the ternary
+layers on the tiled matmul), other slots riding along with length 0; it
+gathers those slots' rows of the decode state, prefills them and writes
+them back. At ``R = max_slots`` it prefills the state in place. An MoE
+model keeps every slot in each dispatch (its expert capacity counts every
+row of a dispatch) at a power-of-two length bucket. Decode runs ``K``
+``decode_step``s with sampling, stop-freezing and ``active`` kept on the
+device, and one host sync per K-step dispatch.
 
 The compiled dispatches (the reference's jit caches): on the card every
 dispatch is a CUDA graph (``serving.graphs``), captured at its key's first
@@ -22,8 +29,9 @@ use and replayed on the engine's one stream from then on, all graphs in one
 memory pool. ``_loop_cache`` holds one K-step decode loop per
 ``(n_steps, use_mask, stop_w, use_poison, draw)`` (the reference's key and
 the port's threefry-draw flag), ``_prefill_cache`` one prefill per
-power-of-two bucket; ``warmup()`` captures them all, ``compile_stats()``
-and ``memory_stats()`` report them as the reference does. A decode
+``(R, L)``; ``warmup()`` captures them all, ``compile_stats()`` and
+``memory_stats()`` report them (the decode fields as the reference does,
+the prefill fields by the port's keys). A decode
 dispatch's inputs reach the device in one non-blocking copy from pinned
 memory and its tokens and finite flags come back in one copy: one host
 sync. On the CPU the caches hold the eager bodies under the same keys.
@@ -110,6 +118,7 @@ from repro_torch.core.packing import unpack_trits
 from repro_torch.kernels.chunk_attention.ops import (BACKENDS,
                                                      reserve_workspace,
                                                      resolve_chunk_backend)
+from repro_torch.kernels.ternary_matmul.ops import SMALL_M_THRESHOLD
 from repro_torch.models import (decode_step, init_decode_state, prefill,
                                 prefill_chunk)
 from repro_torch.models.transformer import has_attention, is_recurrent
@@ -331,10 +340,14 @@ class ServingEngine:
                                        device=self.device, kv_spec=kv_spec)
         self.last_tokens = np.zeros((nb,), np.int32)
         # the compiled dispatches: decode loops keyed (n_steps, use_mask,
-        # stop_w, use_poison, draw), prefills keyed by bucket (the serial
-        # baseline: by prompt length)
+        # stop_w, use_poison, draw), prefills keyed (rows, length) (the
+        # serial baseline: by prompt length)
         self._loop_cache: Dict[Tuple[int, bool, int, bool, bool], Any] = {}
-        self._prefill_cache: Dict[int, Any] = {}
+        self._prefill_cache: Dict[Any, Any] = {}
+        # a prefill's length, and its fewest rows: the smallest power of two
+        # whose rows x length keep every ternary layer on the tiled matmul
+        self._prefill_len = _pow2ceil(engine_cfg.prefill_chunk)
+        self._rows_min = _pow2ceil(-(-SMALL_M_THRESHOLD // self._prefill_len))
         # on the card: one stream for every dispatch of this engine (no
         # other live engine's), one memory pool for its graphs, and the
         # attention scratch sized for its largest call before anything is
@@ -365,6 +378,7 @@ class ServingEngine:
         # ---- the port's counters: rows computed, device seconds of the
         # timed dispatches (timed prefills, timed decode steps), set-up
         self.prefill_rows = 0
+        self.prefill_compact = 0  # prefills on fewer rows than max_slots
         self.prefill_device_s = self.decode_device_s = 0.0
         self.prefill_timed = self.decode_timed = 0
         self.warmup_s = self.compile_s = 0.0
@@ -660,8 +674,8 @@ class ServingEngine:
     # ------------------------------------------------ compiled dispatches
     def warmup(self):
         """Capture every dispatch the engine can need (the reference's
-        warmup, which compiles them): the prefill buckets (powers of two up
-        to ``prefill_chunk``) and the decode chunks (powers of two up to
+        warmup, which compiles them): every prefill key
+        (``_prefill_keys``) and the decode chunks (powers of two up to
         ``decode_chunk``, and ``decode_chunk_prefilling``), each unmasked
         and with top-k/top-p, each with and without the threefry draw.
         Stop-set widths over 1 are still captured at first use. Every warm
@@ -686,10 +700,28 @@ class ServingEngine:
         self.warmup_s += self._clock() - t0
 
     def _warm_prefill(self):
+        for rows, length in self._prefill_keys():
+            self._prefill_fn(rows, length)(self._idle_prefill(rows, length))
+
+    def _row_bucket(self, n: int) -> int:
+        """The rows of a prefill dispatch of ``n`` mid-prompt slots: a power
+        of two within [``_rows_min``, ``max_slots``], or every slot for an
+        MoE model (its expert capacity counts every row of a dispatch, so
+        fewer rows would change which tokens drop)."""
         nb = len(self.slots)
-        for length in self._bucket_lengths(self.ecfg.prefill_chunk):
-            self._prefill_fn(length)(self._prefill_input(
-                np.zeros((nb, length), np.int32), np.zeros((nb,), np.int32)))
+        if self.cfg.moe is not None:
+            return nb
+        return min(max(_pow2ceil(n), self._rows_min), nb)
+
+    def _prefill_keys(self) -> List[Tuple[int, int]]:
+        """Every (rows, length) key a prefill dispatch can take: the row
+        buckets at the one length, or for an MoE model every slot at each
+        power-of-two length bucket up to ``prefill_chunk``."""
+        if self.cfg.moe is not None:
+            return [(len(self.slots), n)
+                    for n in self._bucket_lengths(self.ecfg.prefill_chunk)]
+        return sorted({(self._row_bucket(n), self._prefill_len)
+                       for n in self._bucket_lengths(len(self.slots))})
 
     @staticmethod
     def _bucket_lengths(top: int) -> List[int]:
@@ -699,23 +731,29 @@ class ServingEngine:
         return out
 
     def compile_stats(self) -> Dict[str, Any]:
-        """Occupancy of the dispatch caches (the reference's fields). The
-        prefill entries are power-of-two buckets <= prefill_chunk, so
-        ``n_prefill_compiles`` is bounded by ``prefill_bucket_bound`` =
-        log2(next_pow2(prefill_chunk)) + 1; the decode entries are (chunk
-        length, masked sampling, stop-width bucket, poison) keys, plus the
-        port's draw flag. The serial baseline caches one prefill per prompt
-        length instead. On the card each entry is one captured graph."""
-        return {
-            "prefill_bucket_lengths": sorted(self._prefill_cache),
-            "n_prefill_compiles": len(self._prefill_cache),
-            "prefill_bucket_bound":
-                _pow2ceil(self.ecfg.prefill_chunk).bit_length(),
-            "decode_chunk_lengths": sorted({k[0] for k in self._loop_cache}),
-            "n_decode_compiles": len(self._loop_cache),
-            "admits": self.admits,
-            "prefill_steps": self.prefill_steps,
-        }
+        """Occupancy of the dispatch caches (the reference's field names).
+        The decode entries are (chunk length, masked sampling, stop-width
+        bucket, poison) keys, plus the port's draw flag, as the
+        reference's. The prefill entries are the port's (rows, length)
+        keys: ``prefill_bucket_lengths`` their lengths,
+        ``prefill_row_buckets`` their rows, and ``n_prefill_compiles`` is
+        bounded by ``prefill_bucket_bound``, the keys the engine can take
+        (``_prefill_keys``). The serial baseline caches one prefill per
+        prompt length instead. On the card each entry is one captured
+        graph."""
+        return {**self._prefill_stats(),
+                "decode_chunk_lengths": sorted({k[0]
+                                                for k in self._loop_cache}),
+                "n_decode_compiles": len(self._loop_cache),
+                "admits": self.admits,
+                "prefill_steps": self.prefill_steps}
+
+    def _prefill_stats(self) -> Dict[str, Any]:
+        keys = list(self._prefill_cache)
+        return {"prefill_bucket_lengths": sorted({n for _, n in keys}),
+                "prefill_row_buckets": sorted({r for r, _ in keys}),
+                "n_prefill_compiles": len(keys),
+                "prefill_bucket_bound": len(self._prefill_keys())}
 
     def graph_stats(self) -> Dict[str, Any]:
         """Per compiled dispatch: its kind and key, the seconds its capture
@@ -854,34 +892,74 @@ class ServingEngine:
                 warm=functools.partial(body, n_steps=1))
         return self._loop_cache[key]
 
-    def _prefill_fn(self, length: int):
-        """One dispatch per power-of-two chunk bucket."""
-        if length not in self._prefill_cache:
-            self._prefill_cache[length] = self._compile(
-                "prefill", length,
-                functools.partial(self._prefill_body, length=length),
-                self._prefill_input(np.zeros((len(self.slots), length),
-                                             np.int32),
-                                    np.zeros((len(self.slots),), np.int32)))
-        return self._prefill_cache[length]
+    def _prefill_fn(self, rows: int, length: int):
+        """One dispatch per (rows, length) key."""
+        key = (rows, length)
+        if key not in self._prefill_cache:
+            self._prefill_cache[key] = self._compile(
+                "prefill", key, functools.partial(
+                    self._prefill_body, rows=rows, length=length),
+                self._idle_prefill(rows, length))
+        return self._prefill_cache[key]
 
     @staticmethod
-    def _prefill_input(tokens: np.ndarray, lengths: np.ndarray) -> np.ndarray:
-        """A prefill dispatch's one int32 input: lengths (B,), padded to 16
-        bytes (the attention kernel reads them in 16-byte vectors), then
-        the tokens (B, L)."""
-        pad = -len(lengths) % 4
-        return np.concatenate([lengths, np.zeros((pad,), np.int32),
-                               tokens.reshape(-1)])
+    def _idle_prefill(rows: int, length: int) -> np.ndarray:
+        """A no-op input of a (rows, length) key: slots 0..rows-1 at length
+        0."""
+        return ServingEngine._prefill_input(
+            np.zeros((rows, length), np.int32), np.zeros((rows,), np.int32),
+            np.arange(rows, dtype=np.int32))
 
-    def _prefill_body(self, inp: torch.Tensor, *, length: int):
+    @staticmethod
+    def _prefill_input(tokens: np.ndarray, lengths: np.ndarray,
+                       slots: np.ndarray) -> np.ndarray:
+        """A prefill dispatch's one int32 input: lengths (R,), then the
+        rows' slots (R,), each padded to 16 bytes (the attention kernel
+        reads the lengths in 16-byte vectors), then the tokens (R, L)."""
+        pad = np.zeros((-len(lengths) % 4,), np.int32)
+        return np.concatenate([lengths, pad, slots, pad, tokens.reshape(-1)])
+
+    def _prefill_body(self, inp: torch.Tensor, *, rows: int, length: int):
         """``_prefill_input``'s layout in; the logits at each row's last
-        token (B, V) out."""
-        nb = len(self.slots)
-        off = nb + -nb % 4
-        logits, _ = prefill_chunk(self._serve_model, self.cfg, self.state,
-                                  inp[off:].view(nb, length), inp[:nb])
+        token (R, V) out. Fewer rows than slots prefill the gathered rows
+        of their slots, written back after; every slot prefills the state
+        in place."""
+        off = rows + -rows % 4
+        lengths, tokens = inp[:rows], inp[2 * off:].view(rows, length)
+        if rows == len(self.slots):
+            logits, _ = prefill_chunk(self._serve_model, self.cfg,
+                                      self.state, tokens, lengths)
+            return logits
+        slots = inp[off:off + rows].long()
+        part = self._gather_rows(slots)
+        logits, _ = prefill_chunk(self._serve_model, self.cfg, part, tokens,
+                                  lengths)
+        self._scatter_rows(part, slots)
         return logits
+
+    def _gather_rows(self, slots: torch.Tensor) -> Dict[str, Any]:
+        """The decode state of rows ``slots`` (distinct): each leaf whose
+        leading dimension is the slot gathered (positions, ring KV and
+        positions, recurrent states, the page table); a paged attention
+        layer reads the shared pool as it is."""
+        table = None
+        if self.paged:
+            table = self.state["table"].index_select(0, slots)
+        return {"pos": self.state["pos"].index_select(0, slots),
+                "layers": [dict(c, table=table) if "table" in c else
+                           {n: t.index_select(0, slots) for n, t in c.items()}
+                           for c in self.state["layers"]]}
+
+    def _scatter_rows(self, part: Dict[str, Any], slots: torch.Tensor):
+        """Write ``_gather_rows``'s rows back to their slots: every leaf but
+        the page table (a prefill only reads it) and the pool (written in
+        place)."""
+        self.state["pos"].index_copy_(0, slots, part["pos"])
+        for dst, src in zip(self.state["layers"], part["layers"]):
+            if "table" in dst:
+                continue
+            for name, buf in dst.items():
+                buf.index_copy_(0, slots, src[name])
 
     # ----------------------------------------------------------------- step
     def step(self) -> List[RequestHandle]:
@@ -1261,12 +1339,13 @@ class ServingEngine:
                 self._page_maintenance(clear=clear)
             self._slot_arrays = None
 
-    def _sample_first(self, logits, rows: List[int]) -> torch.Tensor:
-        """Token 0 of every row in ``rows`` from its own stream (index 0),
-        (B,) int32 on the device; other rows ride along greedy and are
-        ignored. The rows' parameters go to the device in one copy."""
+    def _sample_first(self, logits, p: Dict[int, SamplingParams]
+                      ) -> torch.Tensor:
+        """Token 0 of every logits row in ``p`` (row -> its request's
+        parameters) from its own stream (index 0), (R,) int32 on the
+        device; other rows ride along greedy and are ignored. The rows'
+        parameters go to the device in one copy."""
         nb = logits.shape[0]
-        p = {i: self.slots[i].params for i in rows}
         temps = np.asarray([p[i].temperature if i in p else 0.0
                             for i in range(nb)], np.float32)
         seeds = np.asarray([p[i].seed & 0xFFFFFFFF if i in p else 0
@@ -1277,7 +1356,7 @@ class ServingEngine:
                             for i in range(nb)], np.float32)
         up = upload(np.stack([temps.view(np.int32), seeds.view(np.int32),
                               top_k, top_p.view(np.int32)]), self.device)
-        masked = any(p[i].needs_mask for i in rows)
+        masked = any(q.needs_mask for q in p.values())
         return sample_tokens_per_request(
             logits, up[1], torch.zeros_like(up[2]),
             up[0].view(torch.float32), top_k=up[2] if masked else None,
@@ -1285,8 +1364,9 @@ class ServingEngine:
             draw=bool((temps > 0.0).any()))
 
     def _prefill_step(self) -> List[RequestHandle]:
-        """Advance every mid-prompt slot by one bucketed chunk; rows whose
-        prompt completes sample their first token here."""
+        """Advance every mid-prompt slot by one chunk, in one dispatch of
+        ``_row_bucket`` rows; rows whose prompt completes sample their
+        first token here."""
         pf = [i for i in range(len(self.slots)) if self._prefilling(i)]
         if not pf:
             return []
@@ -1295,13 +1375,21 @@ class ServingEngine:
         with obs.span("prefill_build"):
             take = {i: min(len(self._prompts[i]) - self._cursor[i],
                            self.ecfg.prefill_chunk) for i in pf}
-            length = _pow2ceil(max(take.values()))
-            tokens = np.zeros((nb, length), np.int32)
-            lengths = np.zeros((nb,), np.int32)
+            rows = self._row_bucket(len(pf))
+            length = (self._prefill_len if self.cfg.moe is None
+                      else _pow2ceil(max(take.values())))
+            # the rows' slots in slot order: the mid-prompt ones and other
+            # distinct slots riding along at length 0 (every slot at
+            # rows == max_slots)
+            ride = [i for i in range(nb) if i not in take][:rows - len(pf)]
+            slots = np.asarray(sorted(pf + ride), np.int32)
+            row = {int(s): r for r, s in enumerate(slots)}
+            tokens = np.zeros((rows, length), np.int32)
+            lengths = np.zeros((rows,), np.int32)
             for i in pf:
                 c = self._cursor[i]
-                tokens[i, :take[i]] = self._prompts[i][c:c + take[i]]
-                lengths[i] = take[i]
+                tokens[row[i], :take[i]] = self._prompts[i][c:c + take[i]]
+                lengths[row[i]] = take[i]
             if self.paged:
                 # prefill writes only this row's private, unregistered pages
                 # (the skip starts past the shared prefix and registration
@@ -1311,13 +1399,15 @@ class ServingEngine:
                                    for i in pf])
                 if self._tables_dirty:
                     self._page_maintenance()
-            inp = self._prefill_input(tokens, lengths)
+            inp = self._prefill_input(tokens, lengths, slots)
         t_pf0 = self._clock()
         try:
             self._guard_dispatch("prefill", pf)
             with obs.span("prefill_dispatch",
-                          args={"bucket": length, "rows": len(pf)}):
-                logits = self._call(self._prefill_fn(length), inp, "prefill")
+                          args={"bucket": length, "rows": len(pf),
+                                "row_bucket": rows}):
+                logits = self._call(self._prefill_fn(rows, length), inp,
+                                    "prefill")
         except (EngineCrash, GraphFailure) as exc:  # engine death
             self._attribute_crash(exc, pf)
             raise
@@ -1327,7 +1417,8 @@ class ServingEngine:
         obs.h_prefill_chunk.observe(t_pf1 - t_pf0)
         self.prefill_steps += 1
         self.prefill_tokens += int(lengths.sum())
-        self.prefill_rows += nb * length
+        self.prefill_rows += rows * length
+        self.prefill_compact += rows < nb
         finishers = [i for i in pf
                      if self._cursor[i] + take[i] >= len(self._prompts[i])]
         for i in pf:
@@ -1342,15 +1433,19 @@ class ServingEngine:
             # their exact logits
             for i in finishers:
                 if self._injector.poison_index(self.slots[i].uid, 0, 1) == 0:
-                    logits[i] = float("nan")
+                    logits[row[i]] = float("nan")
         # non-finite logits are contained before any token is kept: the
         # row's flag rides the first-token sync (one copy back for both)
         with obs.span("prefill_sync"):
             row_ok = torch.isfinite(logits).all(dim=-1)
-            toks, row_ok = fetch(torch.stack(
-                [self._sample_first(logits, finishers),
+            got = fetch(torch.stack(
+                [self._sample_first(logits, {row[i]: self.slots[i].params
+                                             for i in finishers}),
                  row_ok.to(torch.int32)]))
             self._take_device_spans()
+        # by slot from here
+        toks, row_ok = np.zeros((2, nb), got.dtype)
+        toks[slots], row_ok[slots] = got
         if self.paged:
             self._register_pages(finishers, row_ok)
         now = self._clock()
@@ -1375,25 +1470,6 @@ class ServingEngine:
                     self.last_tokens[i] = int(toks[i])
                     self._slot_arrays = None
         return finished
-
-    def _register_pages(self, finishers: List[int], row_ok):
-        """Publish a finished prompt's fully written pages to the prefix
-        cache, at prefill completion (the step that syncs for the first
-        token anyway). A row whose completion logits are not finite never
-        publishes: its pages must not splice into other requests."""
-        ps = self.ecfg.page_size
-        for i in finishers:
-            if not self._cacheable[i]:
-                continue
-            if not row_ok[i]:
-                self._cacheable[i] = False
-                continue
-            prompt = self._prompts[i]
-            upto = min(self._cursor[i], len(prompt)) // ps
-            for j in range(self._registered[i], upto):
-                self.alloc.cache_insert(tuple(prompt[:(j + 1) * ps]),
-                                        int(self._tables[i, j]))
-            self._registered[i] = upto
 
     def _fleet_arrays(self):
         """Per-slot host arrays of the decode dispatch, cached until the
@@ -1572,6 +1648,13 @@ class SerialAdmitEngine(ServingEngine):
             if length > self.ecfg.capacity:
                 break
             self._prefill_len_fn(length)(np.zeros((length,), np.int32))
+
+    def _prefill_stats(self) -> Dict[str, Any]:
+        # the reference's fields: its lengths, and its bucket bound
+        return {"prefill_bucket_lengths": sorted(self._prefill_cache),
+                "n_prefill_compiles": len(self._prefill_cache),
+                "prefill_bucket_bound":
+                    _pow2ceil(self.ecfg.prefill_chunk).bit_length()}
 
     def _prefill_len_fn(self, length: int):
         """One dispatch per distinct prompt length (prompts are clipped to

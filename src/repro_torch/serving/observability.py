@@ -35,8 +35,8 @@ clock; without one the check is one flag read.
 
 The port's extension: the host phases ``prefill_build`` and
 ``decode_build`` (building a dispatch's input, apart from its launch),
-the prefill rows computed (slots × bucket) beside the prompt tokens
-needed, each replay's device seconds, and set-up's seconds and captures.
+the prefill rows computed (rows × length a dispatch) beside the prompt
+tokens needed and the dispatches on fewer rows than slots, each replay's device seconds, and set-up's seconds and captures.
 
 The zero-perturbation contract: tokens are bit-identical with tracing on,
 off, or unconfigured, and no new compile-cache axis exists. Everything
@@ -129,9 +129,11 @@ def _phase_specs(phases) -> Tuple[MetricSpec, ...]:
 PORT_METRICS: Tuple[MetricSpec, ...] = (
     *_phase_specs(PORT_PHASES),
     MetricSpec("serving_prefill_rows_total", "counter", "tokens",
-               "token rows prefill dispatches computed: slots x bucket "
+               "token rows prefill dispatches computed: rows x length "
                "(bucketed), the prompt (serial); the rows needed are "
                "serving_prefill_tokens_total"),
+    MetricSpec("serving_prefill_compact_total", "counter", "1",
+               "prefill dispatches that ran on fewer rows than max_slots"),
     MetricSpec("serving_prefill_device_seconds_total", "counter", "seconds",
                "device seconds of the timed prefill dispatches (timing "
                "events inside each graph)"),
@@ -759,6 +761,7 @@ class Observability:
         self._phase_counters(PORT_PHASES)
         for name, fn in (
             ("serving_prefill_rows_total", lambda: e.prefill_rows),
+            ("serving_prefill_compact_total", lambda: e.prefill_compact),
             ("serving_prefill_device_seconds_total",
              lambda: e.prefill_device_s),
             ("serving_prefill_device_timed_total", lambda: e.prefill_timed),

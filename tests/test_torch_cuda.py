@@ -362,8 +362,8 @@ def test_engine_runs_kernels_and_is_fleet_invariant(cuda, dtype):
     model, _ = quantize_tree(model, PTQTPConfig(group_size=64, t_max=5))
     assert launch_counts()["ptqtp_search"] > 0  # the trit step runs on B6
     rng = np.random.default_rng(0)
-    # 129 tokens: the last prefill chunk holds one token (bucket 1) alone,
-    # and shares a wider bucket with the 140-token prompt in the fleet
+    # 129 tokens: the last prefill chunk holds one token; in the fleet it
+    # runs beside the 140-token prompt on 2 of the 4 slots, alone on one
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in (5, 40, 140, 129)]
 
@@ -800,8 +800,10 @@ def _graph_serve(model, cfg, prompts, params, capture=True,
 @pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
 def test_graph_and_eager_streams_equal(cuda, layout, sampled):
     """Every dispatch replayed from its CUDA graph gives the eager bodies'
-    tokens; a request alone gives its fleet tokens (the 129-token prompt
-    ends in bucket 1 alone, in a wider bucket in the fleet)."""
+    tokens; a request alone gives its fleet tokens. The fleet's later
+    prefills run on 2 of its 4 slots (the rows gathered from the state,
+    prefilled and written back); alone, one slot prefills the state in
+    place."""
     model, cfg = _bf16_smoke(cuda)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
@@ -822,6 +824,9 @@ def test_graph_and_eager_streams_equal(cuda, layout, sampled):
         assert sum(d["replays"] for d in stats if d["kind"] == kind) \
             == eng._dispatch_counts[kind]
     assert not any(d["graph"] for d in eager_eng.graph_stats()["dispatches"])
+    for e in (eng, eager_eng):
+        assert e.compile_stats()["prefill_row_buckets"] == [2, 4]
+        assert e.prefill_compact > 0
     for i in (2, 3):
         assert _graph_serve(model, cfg, prompts[i:i + 1], params[i:i + 1],
                             max_slots=1, **kw)[0][0] == graph[i]

@@ -4,16 +4,23 @@
 On the CPU the engine's dispatch caches hold the eager bodies under the
 keys the card captures CUDA graphs for: one decode loop per (chunk length,
 masked sampling, stop width, poison) — the reference's four-component key
-— plus the port's threefry-draw flag, and one prefill per bucket (per
-prompt length on the serial baseline). For the same workload the keys, with
-the draw flag projected out, and ``compile_stats()`` equal the reference
-engine's; ``warmup()`` changes no token and leaves nothing for a fleet to
-compile; ``memory_stats()`` counts the reference's plane and KV bytes.
+— plus the port's threefry-draw flag, and one prefill per (rows, length)
+(per prompt length on the serial baseline). For the same workload the
+decode keys, with the draw flag projected out, and ``compile_stats()``'s
+decode fields equal the reference engine's; the prefill keys are the
+port's: a power-of-two row bucket of the mid-prompt slots at one length,
+every slot at the reference's length buckets for an MoE model. A fleet
+whose prefills run on 8, 4 and 2 of 8 slots serves the reference engine's
+streams and each request's stream alone. ``warmup()`` changes no token
+and leaves nothing for a fleet to compile; ``memory_stats()`` counts the
+reference's plane and KV bytes.
 ``SerialAdmitEngine`` streams equal the reference's and the bucketed
 engine's. The graphs' precondition: no dispatch, row reset or page
 maintenance rebinds a tensor of the decode state.
 """
 
+import dataclasses
+import functools
 import json
 
 import jax
@@ -34,6 +41,7 @@ from repro_torch.kernels import _build
 from repro_torch.models import decode_step, prefill, prefill_chunk
 from repro_torch.serving import (EngineConfig, SamplingParams,
                                  SerialAdmitEngine, ServingEngine)
+from repro_torch.serving.observability import Observability
 
 torch.set_num_threads(1)
 
@@ -45,15 +53,28 @@ BUDGETS = (5, 4, 6, 3, 5)
 ENGINE = dict(max_slots=3, capacity=32, prefill_chunk=8, decode_chunk=4)
 
 
-@pytest.fixture(scope="module")
-def both():
-    jcfg = jconfigs.get_smoke_config("qwen2-1.5b")
+@functools.lru_cache(maxsize=None)
+def _smoke(arch, capacity_factor=None):
+    """(reference params and config), (port model and config) of ``arch``'s
+    smoke model, quantized by the reference (G 64, t_max 5); an MoE at
+    ``capacity_factor`` when given."""
+    jcfg = jconfigs.get_smoke_config(arch)
     params, _ = jquantize_tree(jinit_params(jcfg, jax.random.PRNGKey(0)),
                                JPTQTPConfig(group_size=64, t_max=5))
-    cfg = configs.get_smoke_config("qwen2-1.5b")
+    cfg = configs.get_smoke_config(arch)
     model = from_jax_params(jax.tree.map(np.asarray, params), cfg,
                             device="cpu")
+    if capacity_factor is not None:
+        jcfg = jcfg.scaled(moe=dataclasses.replace(
+            jcfg.moe, capacity_factor=capacity_factor))
+        cfg = cfg.scaled(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
     return (params, jcfg), (model, cfg)
+
+
+@pytest.fixture(scope="module")
+def both():
+    return _smoke("qwen2-1.5b")
 
 
 def _prompts():
@@ -88,8 +109,16 @@ def test_dispatch_keys_and_compile_stats_equal_reference(both, layout):
     assert _serve(eng, SamplingParams) == want
     assert {k[:4] for k in eng._loop_cache} == set(ref._loop_cache)
     assert any(k[4] for k in eng._loop_cache)          # the draw variant ran
-    assert sorted(eng._prefill_cache) == sorted(ref._prefill_cache)
-    assert eng.compile_stats() == ref.compile_stats()
+    # every slot (the fewest rows, 16 at length 8, exceed 3 slots) at the
+    # one length
+    assert sorted(eng._prefill_cache) == [(3, 8)]
+    got, want = eng.compile_stats(), ref.compile_stats()
+    for field in ("decode_chunk_lengths", "n_decode_compiles", "admits",
+                  "prefill_steps"):
+        assert got[field] == want[field], field
+    assert got["prefill_bucket_lengths"] == [8]
+    assert got["prefill_row_buckets"] == [3]
+    assert got["n_prefill_compiles"] == got["prefill_bucket_bound"] == 1
     stats = eng.graph_stats()
     assert stats["capture_s"] == 0.0                    # eager bodies here
     assert all(not d["graph"] and d["replays"] > 0
@@ -106,17 +135,99 @@ def test_warmup_covers_every_dispatch_and_changes_no_token(both):
     eng.warmup()
     before = eng.compile_stats()
     assert {k[:4] for k in eng._loop_cache} == set(ref._loop_cache)
-    for field in ("prefill_bucket_lengths", "n_prefill_compiles",
-                  "decode_chunk_lengths"):
-        assert before[field] == ref.compile_stats()[field]
-    assert before["prefill_bucket_lengths"] == [1, 2, 4, 8]
+    assert before["decode_chunk_lengths"] == \
+        ref.compile_stats()["decode_chunk_lengths"]
+    assert sorted(eng._prefill_cache) == eng._prefill_keys() == [(3, 8)]
+    assert before["prefill_bucket_lengths"] == [8]
+    assert before["prefill_row_buckets"] == [3]
+    assert before["n_prefill_compiles"] == before["prefill_bucket_bound"]
     keys = sorted(eng._loop_cache)
     assert _serve(eng, SamplingParams, sampled=False) == want
     after = eng.compile_stats()
     assert sorted(eng._loop_cache) == keys
-    for field in ("prefill_bucket_lengths", "n_prefill_compiles",
-                  "decode_chunk_lengths", "n_decode_compiles"):
+    for field in ("prefill_bucket_lengths", "prefill_row_buckets",
+                  "n_prefill_compiles", "decode_chunk_lengths",
+                  "n_decode_compiles"):
         assert after[field] == before[field]
+
+
+# eight slots, chunks of 64: the fewest rows are 2 (2 x 64 = 128 rows keep
+# the ternary layers on the tiled matmul). All eight prompts prefill in the
+# first dispatch (8 rows), three in the second (4 rows), one in the third
+# (2 rows: it and one slot riding along)
+COMPACT = dict(max_slots=8, capacity=256, prefill_chunk=64, decode_chunk=4)
+COMPACT_LENS = (5, 64, 30, 100, 128, 1, 190, 17)
+
+
+def _compact_requests(SP):
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, 500, size=k).tolist() for k in COMPACT_LENS]
+    params = [SP(max_new_tokens=4) for _ in prompts]
+    params[3] = SP(max_new_tokens=4, temperature=0.8, seed=11, top_p=0.9)
+    return list(zip(prompts, params))
+
+
+def _compact_fleet(SP, engine):
+    hs = [engine.submit(p, sp) for p, sp in _compact_requests(SP)]
+    engine.run()
+    return [(list(h.output), h.finish_reason) for h in hs]
+
+
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "rwkv6-3b"])
+def test_compact_prefill_streams_equal_reference_and_alone(arch, layout):
+    """Prefills on 8, 4 and 2 of 8 slots (the mid-prompt slots gathered
+    from the state, prefilled and written back) give the reference
+    engine's streams, and each request alone (one slot, every prefill on
+    the whole state) its fleet stream. The rows computed are Σ rows ×
+    length over the dispatches, each at the one length 64."""
+    (params, jcfg), (model, cfg) = _smoke(arch)
+    kw = dict(COMPACT, kv_layout=layout, page_size=16)
+    want = _compact_fleet(jserving.SamplingParams, jserving.ServingEngine(
+        params, jcfg, jserving.EngineConfig(**kw)))
+    eng = ServingEngine(model, cfg, EngineConfig(**kw),
+                        observability=Observability(trace=True))
+    assert _compact_fleet(SamplingParams, eng) == want
+    spans = [e.args for e in eng.obs.trace.events()
+             if e.name == "prefill_dispatch"]
+    assert [(a["rows"], a["row_bucket"]) for a in spans] == \
+        [(8, 8), (3, 4), (1, 2)]
+    assert {a["bucket"] for a in spans} == {64}
+    assert sorted(eng._prefill_cache) == [(2, 64), (4, 64), (8, 64)]
+    assert eng._prefill_keys() == [(2, 64), (4, 64), (8, 64)]
+    reg = eng.obs.registry
+    assert reg.value("serving_prefill_rows_total") == \
+        sum(a["row_bucket"] * a["bucket"] for a in spans) == 14 * 64
+    assert reg.value("serving_prefill_compact_total") == 2
+    for i, (prompt, sp) in enumerate(_compact_requests(SamplingParams)):
+        alone = ServingEngine(model, cfg, EngineConfig(**dict(kw,
+                                                              max_slots=1)))
+        h = alone.submit(prompt, sp)
+        alone.run()
+        assert (list(h.output), h.finish_reason) == want[i], i
+        assert alone.prefill_compact == 0
+
+
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+def test_moe_prefill_keeps_every_slot_and_the_reference_buckets(layout):
+    """An MoE model's expert capacity counts every row of a dispatch, so
+    its prefills keep every slot at the reference's length buckets: at the
+    published capacity factor (tokens drop) the streams equal the
+    reference engine's, and the keys are (slots, the reference's
+    bucket)."""
+    (params, jcfg), (model, cfg) = _smoke("deepseek-moe-16b", 1.25)
+    kw = dict(COMPACT, kv_layout=layout, page_size=16)
+    ref = jserving.ServingEngine(params, jcfg, jserving.EngineConfig(**kw))
+    want = _compact_fleet(jserving.SamplingParams, ref)
+    eng = ServingEngine(model, cfg, EngineConfig(**kw))
+    assert _compact_fleet(SamplingParams, eng) == want
+    assert sorted(eng._prefill_cache) == [(8, n) for n in
+                                          sorted(ref._prefill_cache)]
+    got = eng.compile_stats()
+    assert got["prefill_row_buckets"] == [8]
+    assert {k: v for k, v in got.items() if k != "prefill_row_buckets"} == \
+        ref.compile_stats()
+    assert eng.prefill_compact == 0
 
 
 @pytest.mark.parametrize("preunpack", [None, False, True])

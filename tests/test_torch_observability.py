@@ -17,7 +17,10 @@ The port's own extension (``observability.PORT_METRICS``, ``PORT_PHASES``,
 computed, device seconds, set-up's compiles) is declared after the
 reference's schema and dropped from the port's side before the comparison,
 so every name, value and event the reference has is still compared
-exactly; its own tests hold it to what it counts.
+exactly, but a prefill dispatch's shape (its ``bucket``, and the port's
+``row_bucket``): the port's prefill keys are its own (a row bucket of the
+mid-prompt slots at one length), and each side's shape is checked on its
+own. The extension's own tests hold it to what it counts.
 """
 
 import bisect
@@ -125,6 +128,18 @@ def reference_part(rec):
                         if e[0] not in obs.PORT_SPANS])
 
 
+#: a prefill dispatch's shape: the port's (rows, length) keys are its own
+#: (a power-of-two row bucket at one length), the reference's a length
+#: bucket over every slot. What the dispatch served (its ``rows``, the
+#: mid-prompt slots) is compared; each side's shape has its own tests.
+SHAPE_ARGS = ("bucket", "row_bucket")
+
+
+def _without_shape(events):
+    return [e[:6] + ({k: v for k, v in e[6].items() if k not in SHAPE_ARGS},)
+            if e[0] == "prefill_dispatch" else e for e in events]
+
+
 def assert_same(ref, port):
     assert port["names"] == ref["names"]
     assert port["scalars"] == ref["scalars"]
@@ -132,11 +147,13 @@ def assert_same(ref, port):
     assert port["health"] == ref["health"]
     assert port["digest"] == ref["digest"]
     # the trace's events per track, in the same order, at the same times
-    tracks = {e[3] for e in ref["events"]} | {e[3] for e in port["events"]}
+    ref_events = _without_shape(ref["events"])
+    port_events = _without_shape(port["events"])
+    tracks = {e[3] for e in ref_events} | {e[3] for e in port_events}
     for track in sorted(tracks):
-        assert [e for e in port["events"] if e[3] == track] == \
-            [e for e in ref["events"] if e[3] == track], track
-    assert port["events"] == ref["events"]
+        assert [e for e in port_events if e[3] == track] == \
+            [e for e in ref_events if e[3] == track], track
+    assert port_events == ref_events
 
 
 # ---------------------------------------------------------------- the schema
@@ -252,6 +269,14 @@ def test_registry_health_and_trace_equal_reference(both, scheduler, layout,
     assert got["port"][0] == got["reference"][0]
     assert_same(got["reference"][1], reference_part(got["port"][1]))
     rec = got["port"][1]
+    if scheduler == "bucketed":
+        # both slots (the fewest rows, 8 at length 16, exceed 2) at the one
+        # length; the reference's buckets are powers of two up to 16
+        shapes = [e[6] for e in rec["events"] if e[0] == "prefill_dispatch"]
+        assert shapes and all(a["bucket"] == 16 and a["row_bucket"] == 2
+                              for a in shapes)
+        assert {e[6]["bucket"] for e in got["reference"][1]["events"]
+                if e[0] == "prefill_dispatch"} <= {1, 2, 4, 8, 16}
     assert set(obs.PORT_NAMES) <= set(rec["names"])
     assert {"prefill_build", "capture"} <= {e[0] for e in rec["events"]}
     names = {e[0] for e in rec["events"]}
@@ -426,19 +451,24 @@ def ticking(port, scheduler="bucketed", **ecfg):
 @pytest.mark.parametrize("scheduler,layout", [
     ("bucketed", "ring"), ("bucketed", "paged"), ("serial", "ring")])
 def test_prefill_rows_count_slots_times_bucket(both, scheduler, layout):
-    """``serving_prefill_rows_total`` is Σ slots × bucket over the
-    ``prefill_dispatch`` spans (the serial engine: Σ prompt lengths); the
-    rows needed, ``serving_prefill_tokens_total``, are fewer."""
+    """``serving_prefill_rows_total`` is Σ rows × length (the spans'
+    ``row_bucket`` × ``bucket``) over the ``prefill_dispatch`` spans (the
+    serial engine: Σ prompt lengths); the rows needed,
+    ``serving_prefill_tokens_total``, are fewer."""
     _, port = both
     eng, clock = ticking(port, scheduler, kv_layout=layout, page_size=8)
     _workload(port, eng, clock)
     spans = [e for e in eng.obs.trace.events()
              if e.name == "prefill_dispatch"]
     reg = eng.obs.registry
-    slots = 1 if scheduler == "serial" else len(eng.slots)
     assert len(spans) == reg.value("serving_prefill_dispatches_total") >= 3
     rows = reg.value("serving_prefill_rows_total")
-    assert rows == sum(slots * e.args["bucket"] for e in spans)
+    assert rows == sum(e.args.get("row_bucket", 1) * e.args["bucket"]
+                       for e in spans)
+    # two slots are fewer than the fewest compact rows (8 at length 16)
+    assert reg.value("serving_prefill_compact_total") == 0
+    if scheduler == "bucketed":
+        assert all(e.args["row_bucket"] == len(eng.slots) for e in spans)
     needed = reg.value("serving_prefill_tokens_total")
     if scheduler == "serial":
         assert rows == needed
@@ -502,7 +532,7 @@ def test_capture_counters_equal_the_dispatch_caches(both):
                for e in spans)
     assert {tuple(e.args["key"]) for e in spans
             if e.args["kind"] == "decode"} == set(eng._loop_cache)
-    assert sorted(e.args["key"] for e in spans
+    assert sorted(tuple(e.args["key"]) for e in spans
                   if e.args["kind"] == "prefill") == sorted(eng._prefill_cache)
     capture_s = reg.value("serving_graph_capture_seconds_total")
     assert capture_s == pytest.approx(sum(e.dur for e in spans))
